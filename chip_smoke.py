@@ -2,26 +2,37 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the Schaefer-Turek 2D-2 projection step on
-the committed 1,014,414-DoF bench mesh (``.bench_mesh.npz``), fp32 — and
-checks it:
+Drives the port's main paths — the Schaefer-Turek 2D-2 step on the
+committed 1,014,414-DoF bench mesh (``.bench_mesh.npz``), fp32, in the
+projection scheme and in the monolithic scheme — and checks them:
 
 1. device: the card's name and power limit, the toolchain (torch CUDA,
    nvcc, triton);
 2. build of the CUDA kernels from ``navierstokes_tpu_torch/csrc``;
-3. setup at the bench point; the blocked-ELL SpMV kernel against its
-   plain PyTorch version at the five shapes the step gives it (F, mass,
-   P1 Laplacian, B, G^T), with times from CUDA events;
+3. setup at the bench point (projection); the fp32 blocked-ELL SpMV
+   kernel against its plain PyTorch version at the five shapes the step
+   gives it (F, mass, P1 Laplacian, B, G^T), with times from CUDA events;
 4. a small fixture (h=0.1 cylinder channel): 5 BDF2 projection steps on
    the card against the same steps on the CPU, both fp32;
-5. 20 bench-point steps (10 warm-up + 10 timed) through
-   ``NavierStokes.solve_time_step``, with the kernel's launch count.
+5. 20 bench-point projection steps (10 warm-up + 10 timed) through
+   ``NavierStokes.solve_time_step``, with the kernel's launch count;
+6. the bf16-values and fp64 kernel variants against their plain versions
+   at the bench-point F shape;
+7. the small fixture under ``scheme="monolithic"``: 5 steps on the card
+   against the CPU, fp32, with ``cc``, ``asimple``, ``cc`` + ``inner_bf16``
+   (the bf16 variant's path) and ``cc`` + ``refine=2`` (the fp64
+   variant's path);
+8. the monolithic bench point (FGMRES + Cahouet-Chabard, BDF1): 5 warm-up
+   and 5 timed steps, after the projection model is freed.
 
-Any failed check raises, so the exit code is not 0.  The last two lines
-of standard output are the kernel record and the result, each one JSON
-object.  Imports no jax and nothing of the JAX package that does.
+Each path is driven with the launch counts set to 0 just before it and
+read just after.  Any failed check raises, so the exit code is not 0.
+The last two lines of standard output are the kernel record and the
+result, each one JSON object.  Imports no jax and nothing of the JAX
+package that does.
 """
 
+import gc
 import json
 import os
 import statistics
@@ -36,7 +47,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "build", "chip_smoke")
 EXPECTED_DOFS = 1_014_414
 KERNEL_SOURCE = "navierstokes_tpu_torch/csrc/bsr_spmv.cu"
-REPLACES = "navierstokes_tpu/ops/pallas_matvec.py:65"   # fused_reduce
+# the Pallas kernel body's fp32 and bf16 branches (fused_reduce's _kernel)
+REPLACES = "navierstokes_tpu/ops/pallas_matvec.py:59"
+REPLACES_BF16 = "navierstokes_tpu/ops/pallas_matvec.py:53"
 # The bench configuration (bench.py) with one change: the Poisson CG budget
 # is 100, not the default 50.  At 50 the start-up steps 1, 2 and 4 stop at
 # the budget (3+50, 6+50, 4+50 BiCGStab+CG iterations; the JAX run on the
@@ -92,7 +105,7 @@ def phase_build():
         f"{regs[0] if regs else 'no ptxas report'}")
 
 
-def bench_model(device):
+def bench_model(device, **overrides):
     # the port first: its package init lets navierstokes_tpu.mesh load on
     # a host without matplotlib
     from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
@@ -107,6 +120,8 @@ def bench_model(device):
                        nu=1.0e-3, ref_length=0.1, force_formula="st",
                        scheme="projection", proj_bdf2=True,
                        outer_maxiter=128, proj_p_maxiter=CG_BUDGET)
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
     ns = NavierStokes(mesh, 2, 1, deltat=0.00125, T=1.0, step=10,
                       inlet=inlet, config=cfg, device=device)
     ns.set_re_number(100)
@@ -186,7 +201,7 @@ def phase_kernel_vs_plain(ns):
     return uses
 
 
-def small_model(device, tmp, dtype="float32"):
+def small_model(device, tmp, dtype="float32", **overrides):
     from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
     from navierstokes_tpu.config import InletConfig, SolverConfig
     from navierstokes_tpu.mesh import channel_with_cylinder_2d
@@ -195,6 +210,8 @@ def small_model(device, tmp, dtype="float32"):
                        cache_dir=os.path.join(tmp, "cache"),
                        csv_path=os.path.join(tmp, "forces.csv"),
                        scheme="projection", proj_bdf2=True)
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
     ns = NavierStokes(channel_with_cylinder_2d(h=0.1, h_near=0.04), 2, 1,
                       deltat=0.01, T=0.05, step=5, inlet=inlet, config=cfg,
                       device=device)
@@ -279,7 +296,7 @@ def phase_bench(ns, card):
         f"CUDA calls {plain_cuda}")
     tol = max(cfg.proj_tol, 3.0e-6)
     for m in ms_all:
-        check(m.f_converged and m.p_converged, f"converged at t={m.time}")
+        check(m.converged, f"converged at t={m.time}")
         check(m.f_iterations < cfg.proj_f_maxiter
               and m.p_iterations < cfg.proj_p_maxiter,
               f"iteration budget at t={m.time}")
@@ -291,6 +308,189 @@ def phase_bench(ns, card):
     check(plain_cuda == 0, "no plain-version calls on CUDA tensors")
     log(f"[5] all {len(ms_all)} solves converged (rel tol {tol:g})")
     return dict(launches=launches, steps_per_s=sps, peak_bytes=peak)
+
+
+def phase_variants(ns):
+    """The bf16-values and fp64 kernels against their plain versions at the
+    bench-point F shape: A0 cast to bf16 (x fp32) and to float64."""
+    from navierstokes_tpu_torch.kernels.bsr_spmv import (bsr_spmv,
+                                                         bsr_spmv_plain)
+    e, dev = ns.ell, ns.device
+    rng = np.random.default_rng(4321)
+    x = rng.standard_normal((e.n_vb * e.bu, 2))
+    out = {}
+    for name, vdt, xdt, limit in (("bsr_spmv_bf16", torch.bfloat16,
+                                   torch.float32, 1e-5),
+                                  ("bsr_spmv_f64", torch.float64,
+                                   torch.float64, 1e-12)):
+        args = (ns.a0_cell.to(vdt), e.f_cols,
+                torch.as_tensor(x, dtype=xdt, device=dev), e.bu, e.f_spill,
+                e.n_vb)
+        yk = bsr_spmv(*args)
+        yp = bsr_spmv_plain(*args)
+        torch.cuda.synchronize()
+        check(yk.dtype == yp.dtype == xdt, f"{name} output dtype")
+        abs_err = float((yk - yp).abs().max())
+        rel = abs_err / max(float(yp.abs().max()), 1e-30)
+        ms = _median_ms(lambda: bsr_spmv(*args))
+        plain_ms = _median_ms(lambda: bsr_spmv_plain(*args))
+        vals = args[0]
+        gbs = vals.numel() * vals.element_size() / ms / 1e6
+        log(f"[6] {name}: vals {tuple(vals.shape)} {vals.dtype}, max rel "
+            f"err {rel:.3e} (limit {limit:g}), kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms ({gbs:.0f} GB/s of values)")
+        check(rel <= limit, f"{name} kernel vs plain rel err {rel:.3e}")
+        out[name] = dict(rel_err=rel, max_abs_err=abs_err, ms=ms,
+                         plain_ms=plain_ms, gb_per_s=gbs)
+    return out
+
+
+# the small-fixture monolithic configurations of phase 7, and the launch
+# count each must show
+MONO_SMALL = (("cc", {}, "launches"),
+              ("asimple", dict(preconditioner="asimple"), "launches"),
+              ("cc+inner_bf16", dict(inner_bf16=True), "launches_bf16"),
+              ("cc+refine=2", dict(refine=2, refine_tol=1e-3),
+               "launches_f64"))
+
+
+def phase_monolithic_small():
+    """CUDA fp32 against CPU fp32 (the gate: phase 4's limits) and both
+    against CPU float64 (printed), 5 monolithic steps per configuration;
+    every kernel the configuration's path runs must launch."""
+    from navierstokes_tpu_torch.kernels.bsr_spmv import COUNTS
+    launches = {}
+
+    def rel_u(a, b):
+        a, b = a.cpu().double(), b.cpu().double()
+        return float((a - b).abs().max() / b.abs().max())
+
+    for tag, kw, field in MONO_SMALL:
+        kw = dict(scheme="monolithic", **kw)
+        d = os.path.join(WORK, "mono_" + tag.replace("+", "_")
+                         .replace("=", ""))
+        gpu = small_model("cuda", d + "_gpu", **kw)
+        cpu = small_model("cpu", d + "_cpu", **kw)
+        ref = small_model("cpu", d + "_f64", "float64", **kw)
+        worst = dict(cd=0.0, cl=0.0, u=0.0, its=0, u64=0.0)
+        counts = dict(launches=0, launches_bf16=0, launches_f64=0)
+        for k in range(5):
+            torch.cuda.synchronize()
+            COUNTS.reset()
+            mg = gpu.solve_time_step()
+            torch.cuda.synchronize()
+            check(COUNTS.plain_cuda_calls == 0,
+                  f"[7] {tag}: no plain-version calls on CUDA tensors")
+            for f in counts:
+                counts[f] += getattr(COUNTS, f)
+            mc = cpu.solve_time_step()
+            mr = ref.solve_time_step()
+            scale = max(abs(mc.cd), abs(mc.cl), 1e-30)
+            dcd = abs(mg.cd - mc.cd) / scale
+            dcl = abs(mg.cl - mc.cl) / scale
+            du = rel_u(gpu._u, cpu._u)
+            du64 = min(rel_u(gpu._u, ref._u), rel_u(cpu._u, ref._u))
+            dits = abs(mg.iterations - mc.iterations)
+            check(mg.converged and mc.converged,
+                  f"[7] {tag}: FGMRES converged at step {k + 1}")
+            log(f"[7] {tag} step {k + 1}: FGMRES its cuda {mg.iterations} "
+                f"cpu {mc.iterations} (float64 {mr.iterations}); Cd "
+                f"{mg.cd:.6f} vs {mc.cd:.6f} (diff / max(|Cd|,|Cl|): Cd "
+                f"{dcd:.2e}, Cl {dcl:.2e}), u rel {du:.2e}; against CPU "
+                f"float64: u rel cuda {rel_u(gpu._u, ref._u):.2e}, cpu "
+                f"{rel_u(cpu._u, ref._u):.2e}; residual cuda "
+                f"{mg.residual:.2e}")
+            for key, v in (("cd", dcd), ("cl", dcl), ("u", du),
+                           ("its", dits), ("u64", du64)):
+                worst[key] = max(worst[key], v)
+        # phase 4's gate, 1e-4; 1e-3 only where the CUDA-CPU gap is fp32
+        # noise of the solves: below both fp32 runs' distance to float64
+        gate = 1e-4
+        gap = max(worst["cd"], worst["cl"], worst["u"])
+        if 1e-4 < gap <= 1e-3 and gap <= worst["u64"]:
+            gate = 1e-3
+        log(f"[7] {tag} worst: Cd {worst['cd']:.2e}, Cl {worst['cl']:.2e}, "
+            f"u {worst['u']:.2e} (gate {gate:g}; fp32 runs to float64 up "
+            f"to {worst['u64']:.2e}), iteration diff {worst['its']} (limit "
+            f"1); launches over 5 steps: fp32 {counts['launches']}, bf16 "
+            f"{counts['launches_bf16']}, fp64 {counts['launches_f64']}")
+        check(worst["cd"] <= gate and worst["cl"] <= gate, f"{tag} Cd/Cl")
+        check(worst["u"] <= gate, f"{tag} u")
+        check(worst["its"] <= 1, f"{tag} iteration counts")
+        check(counts[field] > 0, f"{tag}: {field} > 0 on its path")
+        check(counts["launches"] > 0, f"{tag}: fp32 launches > 0")
+        launches[tag] = counts
+    return launches
+
+
+def phase_monolithic_bench(card):
+    """The bench configuration under scheme="monolithic" (FGMRES with the
+    Cahouet-Chabard preconditioner, BDF1): 5 warm-up + 5 timed steps, or
+    3 + 3 when a warm-up step takes more than 10 s."""
+    from navierstokes_tpu_torch.kernels.bsr_spmv import COUNTS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ns = bench_model("cuda", scheme="monolithic", preconditioner="cc")
+    ns.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = ns.config
+    check(ns.space.n_dofs == EXPECTED_DOFS, "monolithic DoF count")
+    log(f"[8] monolithic bench point: {ns.space.n_dofs} DoF, setup "
+        f"{setup_s:.1f} s, G/B whole rows: {ns.ell.g_spill is None}")
+    COUNTS.reset()
+    ms_all, step_s = [], []
+    n_warm = n_meas = 5
+    k = 0
+    while k < n_warm:
+        t1 = time.perf_counter()
+        ms_all.append(ns.solve_time_step())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        k += 1
+        if step_s[-1] > 10.0 and n_warm == 5:
+            n_warm = n_meas = 3
+            log(f"[8] a warm-up step took {step_s[-1]:.1f} s: running 3 "
+                "warm-up + 3 timed steps instead of 5 + 5")
+    t0 = time.perf_counter()
+    for _ in range(n_meas):
+        ms_all.append(ns.solve_time_step())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_cuda = COUNTS.launches, COUNTS.plain_cuda_calls
+    peak = torch.cuda.max_memory_allocated()
+    sps = n_meas / wall
+    log(f"[8] FGMRES iterations per step: "
+        + " ".join(str(m.iterations) for m in ms_all))
+    log(f"[8] residual per step: "
+        + " ".join(f"{m.residual:.2e}" for m in ms_all))
+    log(f"[8] tile rebuild ms per step: "
+        + " ".join(f"{m.prec_seconds * 1e3:.2f}" for m in ms_all))
+    log(f"[8] warm-up step s: " + " ".join(f"{t:.3f}" for t in step_s))
+    last = ms_all[-1]
+    log(f"[8] Cd {last.cd:.6f}, Cl {last.cl:.6f}, t {last.time:.5f}; "
+        f"measured CFL {ns.measured_cfl():.3f}")
+    log(f"[8] steps/s {sps:.4f} ({n_meas} steps in {wall:.3f} s), setup "
+        f"{setup_s:.1f} s, on {card}")
+    log(f"[8] peak device memory {peak} bytes ({peak / 2**30:.2f} GiB) on "
+        f"{card}")
+    log(f"[8] kernel launches over {n_warm + n_meas} steps: {launches}; "
+        f"plain-version CUDA calls {plain_cuda}")
+    tol = max(cfg.outer_tol, 3.0e-6)
+    for m in ms_all:
+        check(m.converged, f"[8] FGMRES converged (rel tol {tol:g}) at "
+              f"t={m.time}")
+        check(m.iterations < cfg.outer_maxiter, f"[8] budget at t={m.time}")
+        check(all(np.isfinite([m.cd, m.cl, m.residual])),
+              f"[8] finite forces at t={m.time}")
+    check(bool(torch.isfinite(ns._u).all() and torch.isfinite(ns._p).all()),
+          "[8] finite u, p")
+    check(launches > 0, "[8] kernel launched on the monolithic path")
+    check(plain_cuda == 0, "[8] no plain-version calls on CUDA tensors")
+    log(f"[8] all {len(ms_all)} FGMRES solves converged (rel tol {tol:g})")
+    return dict(launches=launches, steps_per_s=sps, peak_bytes=peak,
+                setup_s=setup_s)
 
 
 def main():
@@ -312,12 +512,32 @@ def main():
     uses = phase_kernel_vs_plain(ns)
     phase_small_fixture()
     bench = phase_bench(ns, card)
+    variants = phase_variants(ns)
+    del ns
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = phase_monolithic_small()
+    mono = phase_monolithic_bench(card)
     f_use = uses[0]
-    record = {"kernels": [{
-        "name": "bsr_spmv", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": bench["launches"],
-        "max_abs_err": max(u["max_abs_err"] for u in uses),
-        "ms": f_use["ms"], "plain_ms": f_use["plain_ms"], "uses": uses}]}
+    bf16, f64 = variants["bsr_spmv_bf16"], variants["bsr_spmv_f64"]
+    record = {"kernels": [
+        {"name": "bsr_spmv", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES,
+         "launches": bench["launches"] + mono["launches"],
+         "max_abs_err": max(u["max_abs_err"] for u in uses),
+         "ms": f_use["ms"], "plain_ms": f_use["plain_ms"], "uses": uses,
+         "launches_by_path": {"projection bench (phase 5)": bench["launches"],
+                              "monolithic bench (phase 8)": mono["launches"]}},
+        {"name": "bsr_spmv_bf16", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES_BF16,
+         "launches": small["cc+inner_bf16"]["launches_bf16"],
+         "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
+         "plain_ms": bf16["plain_ms"]},
+        {"name": "bsr_spmv_f64", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": None,
+         "launches": small["cc+refine=2"]["launches_f64"],
+         "max_abs_err": f64["max_abs_err"], "ms": f64["ms"],
+         "plain_ms": f64["plain_ms"]}]}
     log(card)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,13 +2,16 @@
 
 A second package beside the JAX reference ``navierstokes_tpu``: the same
 Taylor-Hood P2/P1 solver, written as plain PyTorch tensor code with the
-hot blocked-ELL SpMV as a hand-written CUDA kernel for Hopper
-(``csrc/bsr_spmv.cu``, bound through ``kernels/``).  It reuses the JAX
+hot blocked-ELL SpMV as a hand-written CUDA kernel for Hopper in fp32,
+bf16-values and fp64 variants (``csrc/bsr_spmv.cu``, bound through
+``kernels/``).  It reuses the JAX
 package's JAX-free host modules (config, mesh, fem spaces, native, utils)
 and never imports jax.
 
-This slice covers the 2D projection scheme on the BSR operator; see
-``models/navier_stokes.py`` for what raises ``NotImplementedError``.
+The port covers 2D P2/P1 on the BSR operator in both time schemes
+(monolithic FGMRES with its five block preconditioners, and projection);
+see ``models/navier_stokes.py`` ``check_config`` for what raises
+``NotImplementedError``.
 """
 
 import torch

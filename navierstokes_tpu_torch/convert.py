@@ -16,16 +16,18 @@ import numpy as np
 import torch
 
 from navierstokes_tpu_torch.ops.bsr import BsrData, BsrHost, spill_from_ovf
+from navierstokes_tpu_torch.ops.operators import SegmentPlan
 from navierstokes_tpu_torch.ops.p1ell import BlockJacobiPlan, EllBlocked
 
 
 @dataclasses.dataclass
 class State:
-    """Time-stepping state of the projection scheme."""
+    """Time-stepping state of either scheme."""
     u: torch.Tensor          # (n_p2, dim)
     p: torch.Tensor          # (n_p1,)
     u_prev: torch.Tensor     # (n_p2, dim) velocity at the previous step
-    phi: torch.Tensor        # (n_p1,) last pressure increment
+    phi: torch.Tensor        # (n_p1,) last pressure increment (projection;
+    #                          the monolithic step passes it through)
     time: float
 
 
@@ -39,7 +41,10 @@ def state_from_jax_numpy(u, p, u_prev, phi, t, device, dtype) -> State:
 
 def bsr_from_jax_numpy(fields: Mapping, device, dtype) -> BsrData:
     """BsrData from the JAX ``BsrData`` fields (numpy or array-likes;
-    ``host_m_blk`` / ``host_k_blk`` / ``host_g_cols`` optional)."""
+    ``host_m_blk`` / ``host_k_blk`` / ``host_g_cols`` optional).  The PCD
+    tables come from ``pp_cols``, ``tp_hat`` and the ``pp_slot_scatter``
+    plan (its ``order``, ``sorted_ids`` and ``num_segments``); whole-row
+    G/B tables (no ``g_spill`` / ``b_spill``) pass through as they are."""
     a = lambda k: None if fields.get(k) is None else np.asarray(fields[k])
     f = lambda x: None if x is None else torch.as_tensor(
         np.array(x, np.float64), dtype=dtype, device=device)
@@ -60,6 +65,11 @@ def bsr_from_jax_numpy(fields: Mapping, device, dtype) -> BsrData:
                     for (i0, i1, s0, s1) in splits)
     f_spill = spill_from_ovf(ovf, f_cols, n_vb) if len(ovf) else None
     m_blk = a("m_blk")
+    sc = fields.get("pp_slot_scatter")
+    pp_plan = None if sc is None else SegmentPlan(
+        order=i64(sc.order), num_segments=int(sc.num_segments),
+        lengths=i64(np.bincount(np.asarray(sc.sorted_ids),
+                                minlength=int(sc.num_segments))))
     return BsrData(
         cell_p2=i64(a("cell_p2")), detj=f(a("detj")), jinv=f(a("jinv")),
         t_hat=f(a("t_hat")), con_row=i64(a("con_row")),
@@ -76,7 +86,8 @@ def bsr_from_jax_numpy(fields: Mapping, device, dtype) -> BsrData:
                      g_cols_full=a("host_g_cols"),
                      m_blk=a("host_m_blk"), k_blk=a("host_k_blk")),
         curv_ids=i64(a("curv_ids")), curv_nodes=i64(a("curv_nodes")),
-        curv_phi=f(a("curv_phi")), curv_dphys=f(a("curv_dphys")))
+        curv_phi=f(a("curv_phi")), curv_dphys=f(a("curv_dphys")),
+        pp_cols=i32(a("pp_cols")), pp_plan=pp_plan, tp_hat=f(a("tp_hat")))
 
 
 def ell_from_jax_numpy(cols, vals, diag, n: int, b: int, device,

@@ -55,8 +55,11 @@ def build_info() -> dict:
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.nst_bsr_spmv_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
-    lib.nst_bsr_spmv_f32.restype = i
+    for entry in ("nst_bsr_spmv_f32", "nst_bsr_spmv_bf16",
+                  "nst_bsr_spmv_f64"):
+        fn = getattr(lib, entry)
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.restype = i
     lib.nst_cuda_error_string.argtypes = [i]
     lib.nst_cuda_error_string.restype = ctypes.c_char_p
     return {"lib": lib, "path": str(lib_path), "seconds": seconds,

@@ -1,18 +1,27 @@
-"""Incompressible Navier-Stokes solver: the projection scheme in PyTorch.
+"""Incompressible Navier-Stokes solver in PyTorch.
 
-Port of ``navierstokes_tpu/models/navier_stokes.py`` restricted to the
-configuration of the 1M-DoF bench point: P2/P1 in 2D on the BSR
-operator, ``scheme="projection"`` (BDF1 or BDF2) with the consistent P1
-Laplacian Poisson solve, the "blocked" block-Jacobi F preconditioner and
-the blocked mass.  The public surface follows the reference's class
+Port of ``navierstokes_tpu/models/navier_stokes.py`` for P2/P1 in 2D on
+the BSR operator with the "blocked" block-Jacobi F preconditioner and the
+blocked mass, in both time schemes:
+
+* ``scheme="monolithic"`` (the reference's scheme, cpp:344-397): the
+  saddle-point system per step by FGMRES with the ``cc``, ``pcd``,
+  ``asimple``, ``ayosida`` or ``identity`` block preconditioner, optional
+  float64-residual refinement (``refine``) and bf16 inner F values
+  (``inner_bf16`` / ``bj_bf16``);
+* ``scheme="projection"`` (BDF1 or BDF2) with the consistent P1 Laplacian
+  Poisson solve.
+
+The public surface follows the reference's class
 (src/NavierStokes.hpp:173-189): ``set_re_number``, ``setup``,
 ``solve_time_step``, ``solve(time_step=N)`` with restart, ``output``,
 ``export_data`` / ``import_data``, ``measured_cfl`` and ``.cd`` / ``.cl``.
 
-Every other ``SolverConfig`` option raises ``NotImplementedError`` naming
-the option.  Tensors live on the explicit ``device``; the compute dtype is
-``SolverConfig.dtype``.  One step is plain tensor code plus the
-blocked-ELL SpMV kernel; the time loop is a Python loop over steps.
+Options outside this port raise ``NotImplementedError`` naming the
+option (``check_config``).  Tensors live on the explicit ``device``; the
+compute dtype is ``SolverConfig.dtype``.  One step is plain tensor code
+plus the blocked-ELL SpMV kernel; the time loop is a Python loop over
+steps.
 """
 
 from __future__ import annotations
@@ -37,16 +46,25 @@ from navierstokes_tpu_torch.ops.assembly import (build_face_arrays,
                                                  cell_arrays_numpy,
                                                  geometric_factors)
 from navierstokes_tpu_torch.ops.boundary import build_dirichlet
-from navierstokes_tpu_torch.ops.bsr import BsrOps, build_bsr
+from navierstokes_tpu_torch.ops.bsr import (BsrOps, apply_pp, build_bsr,
+                                            pressure_convection_blk)
 from navierstokes_tpu_torch.ops.forces import drag_lift, force_coefficients
-from navierstokes_tpu_torch.ops.p1ell import (assemble_p1_stiffness,
+from navierstokes_tpu_torch.ops.p1ell import (assemble_ap,
+                                              assemble_p1_stiffness,
                                               block_jacobi_apply,
                                               block_jacobi_inverse,
                                               block_jacobi_invert,
                                               build_block_jacobi_plan,
                                               coarse_from_ell, ell_matvec)
-from navierstokes_tpu_torch.solvers.krylov import bicgstab, cg
+from navierstokes_tpu_torch.solvers.krylov import bicgstab, cg, fgmres
+from navierstokes_tpu_torch.solvers.preconditioners import (
+    InnerSolve, make_asimple, make_ayosida, make_cahouet_chabard,
+    make_identity, make_pcd)
+from navierstokes_tpu_torch.solvers.refine import (float64_tables,
+                                                   refine_saddle, rhs_f64)
 from navierstokes_tpu_torch.solvers.schur import (build_coarse_plan,
+                                                  coarse_inverse,
+                                                  coarse_matrix,
                                                   estimate_lam_max,
                                                   make_vcycle_solver)
 
@@ -57,20 +75,19 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 class StepMetrics:
     """Per-step scalars (host values)."""
     time: float
-    f_iterations: int        # BiCGStab iterations of the u* solve
-    p_iterations: int        # CG iterations of the Poisson solve
-    residual: float          # max of the two final residual norms
-    f_converged: bool
-    p_converged: bool
+    iterations: int          # JAX's StepMetrics.iterations: outer FGMRES
+    #                          (monolithic) or BiCGStab + CG (projection)
+    residual: float          # final residual norm (monolithic: the true
+    #                          residual after refinement; projection: the
+    #                          larger of the two solves')
+    converged: bool          # every solve of the step reached its tolerance
     drag: float
     lift: float
     cd: float
     cl: float
     prec_seconds: float      # block-Jacobi tile rebuild of the step
-
-    @property
-    def iterations(self) -> int:
-        return self.f_iterations + self.p_iterations
+    f_iterations: int = 0    # projection: BiCGStab iterations of u*
+    p_iterations: int = 0    # projection: CG iterations of the Poisson
 
 
 def _resolve_device(device) -> torch.device:
@@ -84,16 +101,16 @@ def _resolve_device(device) -> torch.device:
 
 
 def check_config(cfg: SolverConfig):
-    """Raise NotImplementedError for every option outside this slice."""
+    """Raise NotImplementedError for every option outside this port."""
     unsupported = [
-        ("scheme", cfg.scheme != "projection"),
+        ("scheme", cfg.scheme not in ("projection", "monolithic")),
         ("operator", cfg.operator != "bsr"),
         ("proj_poisson", cfg.proj_poisson != "laplacian"),
         ("f_precond", cfg.f_precond != "bj"),
+        ("f_solver", cfg.scheme == "monolithic"
+         and cfg.f_solver == "richardson"),
         ("bj_tiles", cfg.bj_tiles not in ("auto", "blocked")),
         ("mass_format", cfg.mass_format not in ("auto", "blocked")),
-        ("inner_bf16", bool(cfg.inner_bf16)),
-        ("bj_bf16", bool(cfg.bj_bf16)),
         ("proj_p_extrap", cfg.proj_p_extrap != 0.0),
         ("n_devices", cfg.n_devices > 1),
         ("p_out", cfg.p_out != 0.0),
@@ -197,14 +214,27 @@ class NavierStokes:
         self._lumped_host = lm
 
         blk = cfg.bsr_block or None
-        gb_kmax = -1 if cfg.bsr_gb_kmax == -2 else cfg.bsr_gb_kmax
+        gb_kmax = cfg.bsr_gb_kmax
+        if gb_kmax == -2:
+            # auto: split G/B tables under projection, whole rows under
+            # monolithic (the Schur coarse assembly contracts G block
+            # pairs within rows, solvers/schur.coarse_matrix)
+            gb_kmax = -1 if cfg.scheme == "projection" else 0
         self.ell = build_bsr(sp, cells_host, self.dtype, dev, bu=blk, bp=blk,
                              row_multiple=128, f_kmax=cfg.bsr_f_kmax,
                              gb_kmax=gb_kmax)
         self._ops = BsrOps()
         self._agg_blocks = cfg.schur_agg_blocks or max(1, 64 // self.ell.bp)
-        self._coarse_plan = build_coarse_plan(sp.n_p1, self.ell.bp,
-                                              self._agg_blocks)
+        schur_coarse = (cfg.scheme == "monolithic"
+                        and cfg.preconditioner in ("asimple", "ayosida"))
+        self._coarse_plan = build_coarse_plan(
+            sp.n_p1, self.ell.bp, self._agg_blocks,
+            g_cols=self.ell.host.g_cols_full if schur_coarse else None,
+            device=dev)
+        # refinement's float64 copies of the static values (fp32 only)
+        self._ell64 = (float64_tables(self.ell)
+                       if cfg.scheme == "monolithic" and cfg.refine > 0
+                       and self.dtype == torch.float32 else None)
         self._build_cc_statics()
 
         tags = set(self.mesh.boundary_tags.tolist())
@@ -220,7 +250,7 @@ class NavierStokes:
                                               dtype=self.dtype, device=dev)
         self._cell_p2 = torch.as_tensor(np.asarray(sp.cell_p2, np.int64),
                                         device=dev)
-        if cfg.proj_bdf2:
+        if cfg.scheme == "projection" and cfg.proj_bdf2:
             cfl = self._static_cfl_estimate(h_c)
             if cfl > 2.0:
                 print(f"WARNING: estimated advective CFL ~{cfl:.1f} > 2 "
@@ -257,16 +287,37 @@ class NavierStokes:
         return float((speed[self._cell_p2].max(dim=1).values
                       * self._cfl_dt_over_h).max())
 
+    def _coarse_statics(self, op):
+        """(dense coarse inverse, lambda_max) of an assembled P1 operator
+        for its V-cycle."""
+        sc = coarse_from_ell(op, self._agg_blocks)
+        scale = np.abs(np.diag(sc)).mean() + 1e-30
+        sc_inv = torch.as_tensor(
+            np.linalg.inv(sc + 1e-8 * scale * np.eye(sc.shape[0])),
+            dtype=self.dtype, device=self.device)
+        sdinv = torch.where(op.diag != 0, 1.0 / op.diag,
+                            torch.ones_like(op.diag))
+        lam = estimate_lam_max(lambda v: ell_matvec(op, v), sdinv,
+                               self.space.n_p1, self.dtype)
+        return sc_inv, lam
+
     def _build_cc_statics(self):
-        """Static data of the projection step: the masked velocity-
-        correction weights, the block-Jacobi plan, the outlet-pinned P1
-        Laplacian with its coarse inverse and lambda_max, and the lumped
-        pressure mass."""
+        """Static pressure-side data: the masked velocity-correction
+        weights, the block-Jacobi plan, the outlet-pinned P1 Laplacian
+        with its coarse inverse and lambda_max, the lumped pressure mass
+        and, under monolithic, the Cahouet-Chabard operator
+        Ap = B diag(mask/M_lumped) B^T with its coarse inverse and
+        lambda_max."""
         sp, dev, dt_ = self.space, self.device, self.dtype
         cfg = self.config
         mask_flat = self.bc.host_mask[:, 0]
         self._ap_w = torch.as_tensor(mask_flat / self._lumped_host,
                                      dtype=dt_, device=dev)
+        if cfg.scheme == "monolithic":
+            self._ap = assemble_ap(sp, self._cells_host,
+                                   mask_flat / self._lumped_host, dt_, dev,
+                                   b=self.ell.bp)
+            self._ap_sc_inv, self._ap_lam = self._coarse_statics(self._ap)
         h = self.ell.host
         self._bj_plan = build_block_jacobi_plan(
             h.f_cols, h.ovf_rows, self.ell.n_vb, self.ell.bu, sp.n_p2,
@@ -282,15 +333,8 @@ class NavierStokes:
         self._ap_dir = assemble_p1_stiffness(sp, self._cells_host, dt_, dev,
                                              b=self.ell.bp,
                                              dirichlet_nodes=out_nodes)
-        scd = coarse_from_ell(self._ap_dir, self._agg_blocks)
-        scale = np.abs(np.diag(scd)).mean() + 1e-30
-        self._ap_dir_sc_inv = torch.as_tensor(
-            np.linalg.inv(scd + 1e-8 * scale * np.eye(scd.shape[0])),
-            dtype=dt_, device=dev)
-        dd = self._ap_dir.diag
-        sdinv = torch.where(dd != 0, 1.0 / dd, torch.ones_like(dd))
-        self._ap_dir_lam = estimate_lam_max(
-            lambda v: ell_matvec(self._ap_dir, v), sdinv, sp.n_p1, dt_)
+        self._ap_dir_sc_inv, self._ap_dir_lam = self._coarse_statics(
+            self._ap_dir)
         detj, _ = geometric_factors(sp)
         mp_rows = np.repeat((detj * (0.5 / 3.0))[:, None],
                             sp.cell_p1.shape[1], axis=1)
@@ -303,14 +347,18 @@ class NavierStokes:
         self._mp_lumped = torch.as_tensor(mp, dtype=dt_, device=dev)
 
     def _build_static(self):
-        """A0 = c_t M/dt + nu K (c_t = 3/2 for BDF2), combined on the host;
+        """A0 = c_t M/dt + nu K (c_t = 3/2 for the BDF2 projection),
+        combined on the host, and the dt / lumped-mass vector of aYosida;
         the Newton seed follows A0 (``_bj_seed``)."""
         cfg = self.config
-        ct = 1.5 if cfg.proj_bdf2 else 1.0
+        ct = 1.5 if cfg.scheme == "projection" and cfg.proj_bdf2 else 1.0
         h = self.ell.host
         self.a0_cell = torch.as_tensor(
             (ct / cfg.deltat) * h.m_blk + self.nu * h.k_blk,
             dtype=self.dtype, device=self.device)
+        self.dt_mlump_inv = torch.as_tensor(
+            (cfg.deltat / self._lumped_host)[:, None], dtype=self.dtype,
+            device=self.device)
         self._nu_t = torch.tensor(self.nu, dtype=self.dtype,
                                   device=self.device)
         self._bj_x0 = None
@@ -343,6 +391,43 @@ class NavierStokes:
     # one time step
     # ------------------------------------------------------------------
 
+    def _bf16_inner(self) -> bool:
+        """``inner_bf16`` applies in fp32 runs only, as in the JAX model."""
+        return bool(self.config.inner_bf16) and self.dtype == torch.float32
+
+    def _tiles(self, f_cell, mflat, sigma):
+        """The per-step block-Jacobi tile inverses, in bf16 under
+        ``inner_bf16`` / ``bj_bf16`` (fp32 runs), and the seconds of the
+        rebuild (timed between synchronisations: time_prec_init)."""
+        cfg = self.config
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t0 = _walltime.perf_counter()
+        inv_tiles = block_jacobi_invert(self._bj_plan, f_cell, mflat, sigma,
+                                        x0=self._bj_seed(),
+                                        iters=cfg.bj_newton)
+        if self.dtype == torch.float32 and (cfg.inner_bf16 or cfg.bj_bf16):
+            inv_tiles = inv_tiles.to(torch.bfloat16)
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        return inv_tiles, _walltime.perf_counter() - t0
+
+    def _forces(self, u_new, p_new, factor):
+        """(drag, lift, Cd, Cl) on the obstacle (cpp:831-929)."""
+        if self.faces_obst is None:
+            zero = torch.zeros((), dtype=self.dtype)
+            return zero, zero, zero, zero
+        cfg = self.config
+        drag, lift = drag_lift(self.faces_obst, u_new, p_new, self._nu_t,
+                               formula=cfg.force_formula)
+        u_mean0 = torch.tensor(self.inlet.steady_mean_velocity(),
+                               dtype=self.dtype, device=self.device)
+        u_norm = u_mean0 * factor if self.inlet.pulsating else u_mean0
+        cd, cl = force_coefficients(drag, lift, u_norm, cfg.ref_length,
+                                    self.dim, cfg.span_3d)
+        return drag, lift, cd, cl
+
     def _step_projection(self, u, p, t_prev, u_prev, phi_prev):
         """Rotational incremental pressure-correction step (Guermond,
         Minev & Shen 2006); BDF2 with C(2u^n - u^{n-1}) and
@@ -374,12 +459,15 @@ class NavierStokes:
         sigma = torch.sum(d * mflat) / torch.clamp(torch.sum(mflat), min=1.0)
         zero_p = torch.zeros(self.space.n_p1, dtype=self.dtype,
                              device=self.device)
+        # bf16 F values inside the u* solve (vectors and sums stay fp32)
+        f_inner = (f_cell.to(torch.bfloat16) if self._bf16_inner()
+                   else f_cell)
 
         def apply_F(xu):
             xum = xu * mask
-            yu, _ = ops.apply_blocks(ell, f_cell, xum, zero_p,
+            yu, _ = ops.apply_blocks(ell, f_inner, xum, zero_p,
                                      with_g=False, with_gt=False)
-            return yu * mask + sigma * (xu - xum)
+            return (yu * mask + sigma * (xu - xum)).to(self.dtype)
 
         def apply_Bt_raw(xp):
             yu, _ = ops.apply_blocks(ell, f_cell, torch.zeros_like(u), xp,
@@ -391,17 +479,7 @@ class NavierStokes:
                                      with_f=False, with_g=False)
             return yp
 
-        # per-step block-Jacobi tile rebuild (timed: time_prec_init)
-        cuda = self.device.type == "cuda"
-        if cuda:
-            torch.cuda.synchronize(self.device)
-        t0 = _walltime.perf_counter()
-        inv_tiles = block_jacobi_invert(self._bj_plan, f_cell, mflat, sigma,
-                                        x0=self._bj_seed(),
-                                        iters=cfg.bj_newton)
-        if cuda:
-            torch.cuda.synchronize(self.device)
-        prec_seconds = _walltime.perf_counter() - t0
+        inv_tiles, prec_seconds = self._tiles(f_cell, mflat, sigma)
         pre_f = lambda r: block_jacobi_apply(self._bj_plan, inv_tiles, r)
 
         # ---- u* momentum solve ----
@@ -449,32 +527,168 @@ class NavierStokes:
         if cfg.proj_rotational:
             p_new = p_new + self._nu_t * (div_star / self._mp_lumped)
 
-        # ---- forces (cpp:831-929) ----
-        if self.faces_obst is not None:
-            drag, lift = drag_lift(self.faces_obst, u_new, p_new, self._nu_t,
-                                   formula=cfg.force_formula)
-            u_mean0 = torch.tensor(self.inlet.steady_mean_velocity(),
-                                   dtype=self.dtype, device=self.device)
-            u_norm = u_mean0 * factor if self.inlet.pulsating else u_mean0
-            cd, cl = force_coefficients(drag, lift, u_norm, cfg.ref_length,
-                                        self.dim, cfg.span_3d)
-        else:
-            drag = lift = cd = cl = torch.zeros((), dtype=self.dtype)
+        drag, lift, cd, cl = self._forces(u_new, p_new, factor)
         metrics = StepMetrics(
-            time=float(t_new), f_iterations=res_f.iterations,
-            p_iterations=res_p.iterations,
+            time=float(t_new), iterations=res_f.iterations + res_p.iterations,
             residual=float(torch.maximum(res_f.residual, res_p.residual)),
-            f_converged=res_f.converged, p_converged=res_p.converged,
+            converged=res_f.converged and res_p.converged,
+            drag=float(drag), lift=float(lift), cd=float(cd), cl=float(cl),
+            prec_seconds=prec_seconds, f_iterations=res_f.iterations,
+            p_iterations=res_p.iterations)
+        return u_new, p_new, t_new, phi, metrics
+
+    def _step_monolithic(self, u, p, t_prev, u_prev, phi_prev):
+        """One semi-implicit step of the reference's saddle-point system
+        (cpp:344-397) with the Dirichlet rows masked:
+
+            [ M/dt + nu K + C(u^n)   G ] [u^{n+1}]   [ M u^n / dt ]
+            [ B                      0 ] [p^{n+1}] = [ 0          ]
+
+        solved by FGMRES from (2u^n - u^{n-1}, p^n) with the configured
+        block preconditioner, then ``refine`` passes of float64-residual
+        refinement (fp32 runs).  ``phi_prev`` passes through unchanged.
+        Returns (u_new, p_new, t_new, phi_prev, StepMetrics)."""
+        cfg = self.config
+        ops, ell, bc = self._ops, self.ell, self.bc
+        mask = bc.mask
+        dt = cfg.deltat
+        t_new = t_prev + dt
+        f_cell = self.a0_cell + ops.convection(ell, u)
+        d = ops.f_diag(ell, f_cell)
+        mflat = mask[:, 0]
+        sigma = torch.sum(d * mflat) / torch.clamp(torch.sum(mflat), min=1.0)
+        dinv = (1.0 / (d * mflat + sigma * (1.0 - mflat)))[:, None]
+        zero_p = torch.zeros(self.space.n_p1, dtype=self.dtype,
+                             device=self.device)
+        # bf16 F values for the preconditioner's inner solves
+        f_inner = (f_cell.to(torch.bfloat16) if self._bf16_inner()
+                   else f_cell)
+
+        def apply_A(x):
+            xu, xp = x
+            xum = xu * mask
+            yu, yp = ops.apply_blocks(ell, f_cell, xum, xp)
+            return yu * mask + sigma * (xu - xum), yp
+
+        def apply_F(xu):
+            xum = xu * mask
+            yu, _ = ops.apply_blocks(ell, f_inner, xum, zero_p,
+                                     with_g=False, with_gt=False)
+            return (yu * mask + sigma * (xu - xum)).to(self.dtype)
+
+        def apply_Bt(xp):
+            yu, _ = ops.apply_blocks(ell, f_cell, u, xp, with_f=False,
+                                     with_gt=False)
+            return yu * mask
+
+        def apply_B(xu):
+            _, yp = ops.apply_blocks(ell, f_cell, xu * mask, zero_p,
+                                     with_f=False, with_g=False)
+            return yp
+
+        # ---- RHS (cpp:240-278): M u^n / dt, lifted ----
+        factor = self._time_factor(t_new)
+        g = bc.lift(factor)
+        ag_u, ag_p = ops.apply_blocks(ell, f_cell, g, zero_p)
+        b_u = (ops.mass_apply(ell, u) / dt - ag_u) * mask + sigma * g
+        b_p = -ag_p
+
+        # ---- block preconditioner ----
+        inv_tiles, prec_seconds = self._tiles(f_cell, mflat, sigma)
+        pre_f = lambda r: block_jacobi_apply(self._bj_plan, inv_tiles, r)
+        _inner_f = InnerSolve(cfg.inner_tol, cfg.inner_maxiter_f,
+                              method=cfg.f_solver)
+        # the F solves take the block-Jacobi tiles whatever preconditioner
+        # the block preconditioner hands them, as the JAX model's inner_f
+        inner_f = lambda op, rhs, pre=None: _inner_f(op, rhs, pre_f)
+        inner_s = InnerSolve(cfg.inner_tol, cfg.inner_maxiter_s)
+        vcycles = dict(n_cycles=cfg.schur_vcycles,
+                       smooth_k=cfg.schur_smooth_k)
+
+        def vcycle_s(node_weights, diag_s):
+            """Two-level V-cycle on S = B diag(w) B^T: per-step coarse
+            matrix (inverted in fp32) and lambda_max estimate."""
+            sc_inv = coarse_inverse(coarse_matrix(ell, self._coarse_plan,
+                                                  node_weights))
+
+            def apply_s(v):
+                return apply_B(apply_Bt(v) * node_weights[:, None])
+
+            sdinv = torch.where(diag_s != 0, 1.0 / diag_s,
+                                torch.ones_like(diag_s))
+            lam = estimate_lam_max(apply_s, sdinv, self.space.n_p1,
+                                   self.dtype)
+            return make_vcycle_solver(apply_s, diag_s, self._coarse_plan,
+                                      sc_inv, lam_max=lam, **vcycles)
+
+        pc = cfg.preconditioner
+        if pc in ("cc", "pcd"):
+            apply_ap = lambda v: ell_matvec(self._ap, v)
+            solve_ap = make_vcycle_solver(apply_ap, self._ap.diag,
+                                          self._coarse_plan, self._ap_sc_inv,
+                                          lam_max=self._ap_lam, **vcycles)
+            if pc == "pcd":
+                np_flat = pressure_convection_blk(ell, u)
+                M = make_pcd(apply_F, apply_Bt, solve_ap, apply_ap,
+                             lambda v: apply_pp(ell, np_flat, v),
+                             self._mp_lumped, dinv, dt, self._nu_t, inner_f)
+            else:
+                M = make_cahouet_chabard(apply_F, apply_Bt, solve_ap,
+                                         self._mp_lumped, dinv, dt,
+                                         self._nu_t, inner_f)
+        elif pc in ("asimple", "ayosida"):
+            w = (dinv if pc == "asimple" else self.dt_mlump_inv)[:, 0] * mflat
+            diag_s = ops.schur_diag(ell, w)
+            if pc == "asimple":
+                M = make_asimple(apply_F, apply_B, apply_Bt, dinv, diag_s,
+                                 cfg.alpha, inner_f, inner_s,
+                                 solve_s=vcycle_s(w, diag_s))
+            else:
+                M = make_ayosida(apply_F, apply_B, apply_Bt, dinv,
+                                 self.dt_mlump_inv, diag_s, inner_f, inner_s,
+                                 solve_s=vcycle_s(w, diag_s))
+        else:
+            M = make_identity()
+
+        # ---- outer FGMRES, warm-started by extrapolation ----
+        tol = cfg.outer_tol
+        if self.dtype == torch.float32:
+            tol = max(tol, 3.0e-6)      # the fp32 attainable-residual floor
+        x0 = ((2.0 * u - u_prev) * mask + g, p)
+        res = fgmres(apply_A, (b_u, b_p), x0=x0, tol=tol,
+                     restart=cfg.outer_restart, maxiter=cfg.outer_maxiter,
+                     precond=M)
+        (u_new, p_new), true_res = res.x, res.residual
+        if self._ell64 is not None:
+            f64, m64, s64 = f_cell.double(), mask.double(), sigma.double()
+            b64 = rhs_f64(self._ell64, f64, m64, s64, u, g, dt)
+
+            def correction(r):
+                return fgmres(apply_A, r, tol=cfg.refine_tol,
+                              restart=cfg.outer_restart,
+                              maxiter=cfg.refine_maxiter, precond=M).x
+
+            (u_new, p_new), true_res = refine_saddle(
+                self._ell64, f64, m64, s64, b64, (u_new, p_new), correction,
+                cfg.refine)
+        u_new = u_new * mask + g       # exact boundary values
+
+        drag, lift, cd, cl = self._forces(u_new, p_new, factor)
+        metrics = StepMetrics(
+            time=float(t_new), iterations=res.iterations,
+            residual=float(true_res), converged=res.converged,
             drag=float(drag), lift=float(lift), cd=float(cd), cl=float(cl),
             prec_seconds=prec_seconds)
-        return u_new, p_new, t_new, phi, metrics
+        return u_new, p_new, t_new, phi_prev, metrics
 
     # ------------------------------------------------------------------
     # reference-parity public API
     # ------------------------------------------------------------------
 
     def _advance(self) -> StepMetrics:
-        u_new, p_new, t_new, phi, m = self._step_projection(
+        step = (self._step_monolithic if self.config.scheme == "monolithic"
+                else self._step_projection)
+        u_new, p_new, t_new, phi, m = step(
             self._u, self._p, self._t, self._u_prev, self._phi)
         self._u_prev, self._u, self._p, self._phi = self._u, u_new, p_new, phi
         self._t = t_new
@@ -546,8 +760,10 @@ class NavierStokes:
                         max(wall - m.prec_seconds, 0.0), m.drag, m.lift,
                         m.cd, m.cl)
                 cfl = self.measured_cfl()
-                print(f"n = {ts:4d}, t = {self.time:.4f}: "
-                      f"{m.f_iterations}+{m.p_iterations} BiCGStab+CG its "
+                its = (f"{m.iterations} FGMRES its"
+                       if cfg.scheme == "monolithic" else
+                       f"{m.f_iterations}+{m.p_iterations} BiCGStab+CG its")
+                print(f"n = {ts:4d}, t = {self.time:.4f}: {its} "
                       f"(res {m.residual:.1e}), Cd = {self.cd:.5f}, "
                       f"Cl = {self.cl:.5f} (CFL {cfl:.2f}, "
                       f"{wall * 1e3:.1f} ms/step)")

@@ -9,10 +9,11 @@ table is new: ``f_spill``, the per-physical-row list of F overflow rows
 (shaped like ``g_spill``), which replaces the JAX scatter-add fold
 ``y[:n_vb].at[ovf_rows].add(...)`` by a fixed-order gather-sum.
 
-The per-step part applies F, the mass, G (``apply_bt``) and B
-(``apply_b``) through the one blocked-ELL SpMV
-(``kernels/bsr_spmv.py``), and rebuilds the convection part of the F
-values with a deterministic presorted segment sum.
+The per-step part applies F, the mass, G (``apply_bt``), B
+(``apply_b``), the Schur diagonal and the PCD pressure convection
+(``apply_pp``) through the one blocked-ELL SpMV (``kernels/bsr_spmv.py``),
+and rebuilds the convection parts of the F and pressure-convection values
+with deterministic presorted segment sums.
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ from navierstokes_tpu.fem.spaces import TaylorHoodSpace
 from navierstokes_tpu_torch.kernels.bsr_spmv import bsr_spmv
 from navierstokes_tpu_torch.ops.assembly import (CellArrays,
                                                  curved_conv_inputs)
-from navierstokes_tpu_torch.ops.operators import convection_matrices
+from navierstokes_tpu_torch.ops.operators import (SegmentPlan,
+                                                  convection_matrices,
+                                                  segment_plan)
 
 
 @dataclasses.dataclass
@@ -82,6 +85,12 @@ class BsrData:
     curv_nodes: object = None    # (k, n_v) int64
     curv_phi: object = None      # (n_cq, n_v)
     curv_dphys: object = None    # (k, n_cq, n_v, dim), w*detJ folded
+    # pressure-pressure graph of the PCD convection operator: block
+    # columns, and the plan reducing the (cell, i, j) element entries into
+    # the JAX package's (n_pb, KPP, bp, bp) block slots
+    pp_cols: object = None       # (n_pb, KPP) int32
+    pp_plan: SegmentPlan = None
+    tp_hat: object = None        # (n_p, n_p, dim, n_v) P1 convection tensor
 
 
 def segsum_splits(seg_host, width: int, n_seg_total: int,
@@ -413,6 +422,20 @@ def build_bsr(space: TaylorHoodSpace, cells: CellArrays, dtype, device,
                                     device=device)
     i64 = lambda a: torch.as_tensor(np.asarray(a).astype(np.int64),
                                     device=device)
+    # ---- P1-P1 pressure graph (PCD convection), per-step values ----------
+    p_rows = np.repeat(cp1, npp, axis=1).reshape(-1)
+    p_cols_flat = np.tile(cp1, (1, npp)).reshape(-1)
+    pp_cols, KPP, pkeys, _, pk_of, pstride = _block_pairs(
+        p_rows, p_cols_flat, bp, bp, n_pb)
+    pwant = (p_rows // bp).astype(np.int64) * pstride + (p_cols_flat // bp)
+    pkb = pk_of[np.searchsorted(pkeys, pwant)]
+    pp_slot = (((p_rows // bp) * KPP + pkb) * bp + p_rows % bp) * bp \
+        + (p_cols_flat % bp)
+    n_pp_slots = n_pb * KPP * bp * bp
+    if nc_pad:
+        pp_slot = np.concatenate(
+            [pp_slot, np.full(nc_pad * npp * npp, n_pp_slots - 1, np.int64)])
+
     f_spill = spill_from_ovf(ovf_rows_host, f_cols, n_vb) if n_or else None
     ci, cn, cphi, cdphys = curved_conv_inputs(space)
     return BsrData(
@@ -435,7 +458,10 @@ def build_bsr(space: TaylorHoodSpace, cells: CellArrays, dtype, device,
         curv_ids=None if ci is None else i64(ci),
         curv_nodes=None if ci is None else i64(cn),
         curv_phi=None if ci is None else f(cphi),
-        curv_dphys=None if ci is None else f(cdphys))
+        curv_dphys=None if ci is None else f(cdphys),
+        pp_cols=i32(pp_cols),
+        pp_plan=segment_plan(pp_slot, n_pp_slots, device),
+        tp_hat=f(space.rs.Tp_hat))
 
 
 # ---------------------------------------------------------------------------
@@ -450,7 +476,8 @@ def _ublocks(bsr: BsrData, xu):
 
 def apply_f(bsr: BsrData, f_blk, xu):
     """F xu for flat row-major values f_blk (n_vb_ext, bu, K*bu); xu
-    (n_p2, d).  One SpMV for all d components, overflow rows folded."""
+    (n_p2, d).  One SpMV for all d components, overflow rows folded.
+    bf16 values (``inner_bf16``) take the bf16-values SpMV with fp32 x."""
     d = xu.shape[1]
     y = bsr_spmv(f_blk, bsr.f_cols, _ublocks(bsr, xu), bsr.bu,
                  bsr.f_spill, bsr.n_vb)                   # (n_vb, bu, d)
@@ -498,6 +525,51 @@ def convection_blk(bsr: BsrData, u):
     return vals.reshape(n_vb_ext, bsr.bu, Cw)
 
 
+def schur_diag(bsr: BsrData, node_weights):
+    """diag(B diag(w) B^T) for node weights w (n_p2,): the SpMV of the
+    squared B values against w repeated over the velocity components."""
+    dim = bsr.b_blk.shape[2] // (bsr.b_cols.shape[1] * bsr.bu)
+    wu = _ublocks(bsr, node_weights[:, None].expand(-1, dim)).reshape(-1, 1)
+    z = bsr_spmv(bsr.b_blk * bsr.b_blk, bsr.b_cols, wu, bsr.bu * dim,
+                 bsr.b_spill, bsr.n_pb)                   # (n_pb, bp, 1)
+    return z.reshape(-1)[:bsr.n_p1]
+
+
+def g_blocks(bsr: BsrData):
+    """The flat G values as (n_vb, KG, dim, bu, bp) blocks (the Schur
+    coarse assembly); needs whole-row G tables (build with gb_kmax=0)."""
+    if bsr.g_spill is not None:
+        raise ValueError("g_blocks needs whole-row G tables; build with "
+                         "gb_kmax=0 (the Schur coarse plan contracts G "
+                         "pairs within rows)")
+    n_vb, KG = bsr.g_cols.shape
+    dim = bsr.g_blk.shape[1]
+    return bsr.g_blk.reshape(n_vb, dim, bsr.bu, KG, bsr.bp).permute(
+        0, 3, 1, 2, 4)
+
+
+def pressure_convection_blk(bsr: BsrData, u):
+    """Per-step pressure-space convection N_p(u), np_ij = int psi_i (u .
+    grad psi_j), the moving part of the PCD preconditioner's Fp.  Reduced
+    into the JAX package's (n_pb, KPP, bp, bp) blocks, returned in the
+    flat row-major layout (n_pb, bp, KPP*bp) that ``apply_pp`` reads."""
+    u_c = u[bsr.cell_p2]                                  # (nc, n_v, dim)
+    w = torch.einsum("cxd,ced->cxe", bsr.jinv, u_c) * bsr.detj[:, None, None]
+    np_elem = torch.einsum("ijxe,cxe->cij", bsr.tp_hat, w)
+    n_pb, KPP = bsr.pp_cols.shape
+    bp = bsr.bp
+    vals = bsr.pp_plan(np_elem.reshape(-1)).reshape(n_pb, KPP, bp, bp)
+    return vals.transpose(1, 2).reshape(n_pb, bp, KPP * bp)
+
+
+def apply_pp(bsr: BsrData, pp_flat, xp):
+    """Pressure-graph matvec (n_p1,) -> (n_p1,) with the flat values of
+    ``pressure_convection_blk``."""
+    n_pb = bsr.pp_cols.shape[0]
+    pb = Fn.pad(xp, (0, n_pb * bsr.bp - bsr.n_p1))[:, None]
+    return bsr_spmv(pp_flat, bsr.pp_cols, pb, bsr.bp).reshape(-1)[:bsr.n_p1]
+
+
 class BsrOps:
     """Operator interface of the model over BsrData (one F SpMV)."""
 
@@ -521,3 +593,6 @@ class BsrOps:
 
     def mass_apply(self, bsr: BsrData, u):
         return mass_apply(bsr, u)
+
+    def schur_diag(self, bsr: BsrData, node_weights):
+        return schur_diag(bsr, node_weights)

@@ -1,15 +1,42 @@
-"""Per-cell convection element matrices.
+"""Per-cell convection element matrices and the presorted segment sum.
 
-Port of ``navierstokes_tpu/ops/operators.py`` ``convection_matrices`` and
-``curved_convection_fix``: c_ab = int phi_a ((u_old . grad) phi_b), the
-reference's T1 form (src/NavierStokes.cpp:204-208), as a contraction of
-the reference tensor T_hat with per-cell J^-1 u values; snapped (curved)
-cells get the quadratic-geometry quadrature version.
+Port of ``navierstokes_tpu/ops/operators.py`` ``convection_matrices``,
+``curved_convection_fix`` and ``Scatter``: c_ab = int phi_a ((u_old .
+grad) phi_b), the reference's T1 form (src/NavierStokes.cpp:204-208), as a
+contraction of the reference tensor T_hat with per-cell J^-1 u values;
+snapped (curved) cells get the quadratic-geometry quadrature version.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
+
+
+@dataclasses.dataclass
+class SegmentPlan:
+    """Presorted segment sum (n_flat,) -> (num_segments,), the JAX
+    ``Scatter``: the values are permuted by the stable argsort of their
+    target ids and reduced by ``torch.segment_reduce`` over the per-target
+    counts.  A fixed-order sum, no atomics, so a run is bit-reproducible."""
+    order: torch.Tensor      # (n_flat,) int64 stable argsort of the ids
+    lengths: torch.Tensor    # (num_segments,) int64 entries per target
+    num_segments: int
+
+    def __call__(self, flat_values: torch.Tensor) -> torch.Tensor:
+        return torch.segment_reduce(flat_values[self.order], "sum",
+                                    lengths=self.lengths, axis=0)
+
+
+def segment_plan(ids, num_segments: int, device) -> SegmentPlan:
+    flat = np.asarray(ids, np.int64).reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    lengths = np.bincount(flat, minlength=num_segments)
+    return SegmentPlan(order=torch.as_tensor(order, device=device),
+                       lengths=torch.as_tensor(lengths, device=device),
+                       num_segments=int(num_segments))
 
 
 def convection_matrices(cells, t_hat: torch.Tensor,

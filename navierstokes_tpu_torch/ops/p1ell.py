@@ -1,10 +1,12 @@
 """P1 blocked-ELL operators and the block-Jacobi velocity preconditioner.
 
-Port of ``navierstokes_tpu/ops/p1ell.py`` (the projection subset):
+Port of ``navierstokes_tpu/ops/p1ell.py`` (the 2D blocked subset):
 
 * ``assemble_p1_stiffness`` — the consistent P1 Laplacian of the pressure
   Poisson solve, host-assembled into a blocked ELL, applied through the
   blocked-ELL SpMV kernel (``ell_matvec``).
+* ``assemble_ap`` — the Cahouet-Chabard / PCD pressure operator
+  Ap = B diag(w) B^T, host-assembled the same way.
 * Block-Jacobi — the 256x256 tile diagonals of the BC-masked F, gathered
   per step as whole (bu, bu) blocks ("blocked" layout), inverted by
   Newton-Schulz from the static-operator seed with an exact-inverse
@@ -75,6 +77,30 @@ def ell_matvec(m: EllBlocked, x):
     n_b = m.cols.shape[0]
     xb = Fn.pad(x, (0, n_b * m.b - m.n))[:, None]
     return bsr_spmv(m.vals, m.cols, xb, m.b).reshape(-1)[:m.n]
+
+
+def assemble_ap(space, cells_host, w, dtype, device, b=16):
+    """Ap = sum_d B_d diag(w) B_d^T on the P1-P1 graph (host assembly);
+    ``w`` (n_p2,) are the node weights (BC mask / lumped mass) and B_d the
+    per-cell gradient couplings of the reference
+    (src/NavierStokes.cpp:222-229)."""
+    import scipy.sparse as sp
+
+    cp2 = np.asarray(space.cell_p2, np.int64)
+    cp1 = np.asarray(space.cell_p1, np.int64)
+    npp = cp1.shape[1]
+    grad = np.asarray(cells_host.grad, np.float64)       # (nc, nv, dim, npp)
+    rows = np.repeat(cp1, cp2.shape[1], axis=1).ravel()  # p index
+    cols = np.tile(cp2, (1, npp)).ravel()                # u node index
+    ap = None
+    for d in range(grad.shape[2]):
+        v = grad[:, :, d, :].transpose(0, 2, 1).reshape(-1)
+        B = sp.csr_matrix((v, (rows, cols)), shape=(space.n_p1, space.n_p2))
+        t = (B.multiply(np.asarray(w)[None, :])) @ B.T
+        ap = t if ap is None else ap + t
+    ap = ap.tocoo()
+    return _to_blocked_ell(ap.row.astype(np.int64), ap.col.astype(np.int64),
+                           ap.data, space.n_p1, b, dtype, device)
 
 
 def assemble_p1_stiffness(space, cells_host, dtype, device, b=16,
@@ -207,11 +233,22 @@ def block_jacobi_tiles(plan: BlockJacobiPlan, f_blk, mask_flat, sigma):
 
 
 def _inv(a):
-    """Batched inverse.  On the CPU the tiles are inverted one at a time:
-    the batched LAPACK path of the CPU build hangs with more than one
+    """(Batched) inverse by LU with partial pivoting.  On the card:
+    ``torch.linalg.inv``.  On the CPU a single matrix (the Schur coarse
+    inverse) goes through SciPy's LAPACK getrf and getrs, the routines the
+    JAX package's CPU inverse calls, so the two give the same bits: its
+    fp32 rounding otherwise reaches 5e-9 of p in the float64 aYosida step.
+    A batch (the block-Jacobi tiles) is inverted one matrix at a time: the
+    batched LAPACK path of torch's CPU build hangs with more than one
     thread (oneMKL rejects its ?LASWP call)."""
     if a.is_cuda:
         return torch.linalg.inv(a)
+    if a.dim() == 2:
+        import scipy.linalg
+        m = a.numpy()
+        lu = scipy.linalg.lu_factor(m, check_finite=False)
+        return torch.as_tensor(scipy.linalg.lu_solve(
+            lu, np.eye(m.shape[0], dtype=m.dtype), check_finite=False))
     return torch.stack([torch.linalg.inv(t) for t in a])
 
 
@@ -246,7 +283,9 @@ def block_jacobi_invert(plan: BlockJacobiPlan, f_blk, mask_flat, sigma,
 
 
 def block_jacobi_apply(plan: BlockJacobiPlan, inv_tiles, r):
-    """x = blockdiag(F_t)^-1 r for r (n_p2, d): batched matmuls."""
+    """x = blockdiag(F_t)^-1 r for r (n_p2, d): batched matmuls in the
+    tiles' dtype (bf16 tiles under ``inner_bf16`` / ``bj_bf16``: r is
+    rounded to bf16 and the product is bf16), cast back to r's dtype."""
     n = plan.n_tiles * plan.S * plan.bu
     rb = Fn.pad(r, (0, 0, 0, n - plan.n_p2)).reshape(
         plan.n_tiles, plan.S * plan.bu, -1)

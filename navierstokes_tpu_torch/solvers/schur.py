@@ -1,18 +1,26 @@
-"""Two-level aggregation V-cycle for the pressure Poisson operator.
+"""Two-level aggregation V-cycle for pressure operators.
 
-Port of ``navierstokes_tpu/solvers/schur.py`` (the projection subset).
-Aggregates are contiguous runs of ``agg`` pressure nodes (compact patches,
-because the node numbering follows a space-filling curve), so restriction
-is a reshape + sum; the coarse matrix is inverted densely once at setup;
-Chebyshev polynomials smooth the upper spectrum of D^-1 S.
+Port of ``navierstokes_tpu/solvers/schur.py``.  Aggregates are contiguous
+runs of ``agg`` pressure nodes (compact patches, because the node
+numbering follows a space-filling curve), so restriction is a reshape +
+sum; Chebyshev polynomials smooth the upper spectrum of D^-1 S.  The
+coarse matrix of an assembled operator (the P1 Laplacian, Ap) is inverted
+once at setup; the Schur complement S = B W B^T of aSIMPLE/aYosida gets
+its Galerkin coarse matrix assembled every step from G block pairs
+(``coarse_matrix``) and inverted in fp32 (``coarse_inverse``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as Fn
+
+from navierstokes_tpu_torch.ops.bsr import g_blocks
+from navierstokes_tpu_torch.ops.operators import SegmentPlan, segment_plan
+from navierstokes_tpu_torch.ops.p1ell import _inv
 
 
 @dataclasses.dataclass
@@ -20,13 +28,47 @@ class CoarsePlan:
     n_agg: int
     agg: int      # pressure nodes per aggregate
     n_p1: int
+    # (n_vb*KG*KG,) G block pairs -> n_agg*n_agg coarse slots, or None
+    pair_plan: SegmentPlan | None = None
 
 
-def build_coarse_plan(n_p1: int, bp: int, agg_blocks: int) -> CoarsePlan:
-    """``agg_blocks`` pressure blocks (of ``bp`` nodes) per aggregate."""
+def build_coarse_plan(n_p1: int, bp: int, agg_blocks: int, g_cols=None,
+                      device=None) -> CoarsePlan:
+    """``agg_blocks`` pressure blocks (of ``bp`` nodes) per aggregate.
+    ``g_cols``, the physical (unsplit) host G block table (n_vb, KG), adds
+    the G-pair slot plan that ``coarse_matrix`` needs."""
     n_pb = -(-n_p1 // bp)
-    return CoarsePlan(n_agg=-(-n_pb // agg_blocks), agg=agg_blocks * bp,
-                      n_p1=n_p1)
+    n_agg = -(-n_pb // agg_blocks)
+    pair = None
+    if g_cols is not None:
+        a_cols = np.asarray(g_cols, np.int64) // agg_blocks
+        slots = (a_cols[:, :, None] * n_agg + a_cols[:, None, :]).reshape(-1)
+        pair = segment_plan(slots, n_agg * n_agg, device)
+    return CoarsePlan(n_agg=n_agg, agg=agg_blocks * bp, n_p1=n_p1,
+                      pair_plan=pair)
+
+
+def coarse_matrix(bsr, plan: CoarsePlan, dinv_masked):
+    """S_c[a, b] = sum_u (B^T R)[u, a] dinv[u] (B^T R)[u, b], assembled from
+    whole-row G block pairs; ``dinv_masked`` (n_p2,) the node weights."""
+    n_vb = bsr.g_cols.shape[0]
+    d_blk = Fn.pad(dinv_masked, (0, n_vb * bsr.bu - bsr.n_p2)).reshape(
+        n_vb, bsr.bu)
+    # w[n,k,d,a] = sum_b g[n,k,d,a,b]: aggregates hold whole pressure blocks
+    w = g_blocks(bsr).sum(dim=4)                          # (n_vb, KG, dim, bu)
+    vals = torch.einsum("nkda,na,nlda->nkl", w, d_blk, w)
+    return plan.pair_plan(vals.reshape(-1)).reshape(plan.n_agg, plan.n_agg)
+
+
+def coarse_inverse(s_c, reg: float = 1e-8):
+    """Dense inverse with a tiny diagonal shift (aggregates touching only
+    Dirichlet-masked velocity nodes could otherwise be singular), taken in
+    float32 whatever the dtype of ``s_c``, as the JAX package does."""
+    n = s_c.shape[0]
+    scale = s_c.diagonal().abs().mean() + 1e-30
+    a = s_c + (reg * scale) * torch.eye(n, dtype=s_c.dtype,
+                                        device=s_c.device)
+    return _inv(a.to(torch.float32)).to(s_c.dtype)
 
 
 def restrict(plan: CoarsePlan, r):

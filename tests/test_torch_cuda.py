@@ -1,4 +1,7 @@
-"""Tests of the port that need an NVIDIA GPU, plus its host shims.
+"""Tests of the port that need an NVIDIA GPU, plus its host shims: the
+fp32, bf16-values and fp64 SpMV kernels against their plain versions, the
+wrapper's refusals, and model steps (projection; monolithic with bf16 and
+refinement) that launch the kernels.
 
 This file imports no jax, so that it also runs where only the port's
 dependencies are installed:
@@ -87,10 +90,38 @@ def test_kernel_matches_plain_on_cuda(cuda, space, use):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("use", ["F", "mass", "laplacian", "B", "GT"])
+@pytest.mark.parametrize("variant", ["bf16", "f64"])
+def test_variants_match_plain_on_cuda(cuda, space, use, variant):
+    """The bf16-values and fp64 kernels against the plain version on the
+    card.  bf16: both round x and each product to bf16 identically, so
+    only the fp32 summation order differs (1e-5 of the result's max).
+    fp64: only the float64 summation order differs (1e-12)."""
+    vals, cols, x, cb, *fold = dict(_uses(space, cuda))[use]
+    if variant == "bf16":
+        vals, tol, field = vals.to(torch.bfloat16), 1e-5, "launches_bf16"
+    else:
+        vals, x, tol, field = vals.double(), x.double(), 1e-12, "launches_f64"
+    K.COUNTS.reset()
+    y_k = K.bsr_spmv(vals, cols, x, cb, *fold)
+    y_k2 = K.bsr_spmv(vals, cols, x, cb, *fold)
+    y_p = K.bsr_spmv_plain(vals, cols, x, cb, *fold)
+    torch.cuda.synchronize()
+    assert getattr(K.COUNTS, field) == 2 and K.COUNTS.launches == 0
+    assert y_k.dtype == y_p.dtype == x.dtype
+    err = ((y_k - y_p).abs().max() / y_p.abs().max()).item()
+    assert err <= tol
+    assert torch.equal(y_k, y_k2)
+
+
+@pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, space):
     vals, cols, x, cb, spill, n_phys = dict(_uses(space, cuda))["F"]
-    with pytest.raises(TypeError, match="fp32"):
-        K.bsr_spmv(vals.to(torch.bfloat16), cols, x, cb, spill, n_phys)
+    with pytest.raises(TypeError, match="no other variant"):
+        K.bsr_spmv(vals.to(torch.float16), cols, x, cb, spill, n_phys)
+    with pytest.raises(TypeError, match="x must be torch.float32"):
+        K.bsr_spmv(vals.to(torch.bfloat16), cols, x.double(), cb, spill,
+                   n_phys)
     with pytest.raises(TypeError):
         K.bsr_spmv(vals, cols.long(), x, cb, spill, n_phys)
     with pytest.raises(ValueError, match="contiguous"):
@@ -115,6 +146,30 @@ def test_model_steps_on_cuda_launch_the_kernel(cuda, tmp_path):
     K.COUNTS.reset()
     ns.solve()
     assert K.COUNTS.launches > 0
+    assert K.COUNTS.plain_cuda_calls == 0
+    assert ns._u.is_cuda and bool(torch.isfinite(ns._u).all())
+    assert np.isfinite([ns.cd, ns.cl]).all()
+
+
+@pytest.mark.cuda
+def test_monolithic_steps_on_cuda_launch_the_variants(cuda, tmp_path):
+    """fp32 monolithic steps with bf16 inner F values and refinement run
+    through all three kernel variants and no plain version."""
+    from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
+    cfg = SolverConfig(dtype="float32", scheme="monolithic", inner_bf16=True,
+                       refine=1, output_dir=str(tmp_path / "out"),
+                       cache_dir=str(tmp_path / "cache"),
+                       csv_path=str(tmp_path / "forces.csv"))
+    ns = NavierStokes(channel_with_cylinder_2d(h=0.12), 2, 1, deltat=0.01,
+                      T=0.02, step=2, device="cuda", config=cfg,
+                      inlet=InletConfig(kind="parabolic", u_m=0.3,
+                                        height=0.41))
+    ns.set_re_number(20)
+    ns.setup()
+    K.COUNTS.reset()
+    ns.solve()
+    assert K.COUNTS.launches > 0
+    assert K.COUNTS.launches_bf16 > 0 and K.COUNTS.launches_f64 > 0
     assert K.COUNTS.plain_cuda_calls == 0
     assert ns._u.is_cuda and bool(torch.isfinite(ns._u).all())
     assert np.isfinite([ns.cd, ns.cl]).all()

@@ -2,8 +2,9 @@
 float64 on the tests/test_e2e.py cylinder channel (h=0.1, h_near=0.04):
 per-step iteration counts equal, u, p, Cd, Cl to 1e-9 relative; the csv
 schema and checkpoints; restart equivalence within the port; a JAX
-checkpoint restarted in the port; the options outside the slice raise;
-and chip_smoke.py refuses to run without a card.
+checkpoint restarted in the port; the options outside the port raise;
+and chip_smoke.py refuses to run without a card.  The monolithic scheme
+is in tests/test_torch_monolithic*.py.
 """
 
 import json
@@ -59,7 +60,7 @@ def test_steps_match_jax(mesh, tmp_path, bdf2):
         jm = jns.solve_time_step()
         tm = tns.solve_time_step()
         assert tm.iterations == int(jm.iterations)
-        assert tm.f_converged and tm.p_converged
+        assert tm.converged
         assert _rel(tns._u.numpy(), jns._u) < 1e-9
         assert _rel(tns._p.numpy(), jns._p) < 1e-9
         # Cd and Cl relative to the force coefficient's magnitude: both
@@ -139,14 +140,16 @@ def test_jax_checkpoint_restarts_port(mesh, tmp_path):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("scheme", "monolithic"), ("operator", "cells"),
+    ("f_solver", "richardson"), ("operator", "cells"), ("operator", "ell"),
     ("proj_poisson", "schur"), ("f_precond", "jacobi"),
-    ("bj_tiles", "scatter"), ("mass_format", "node"),
-    ("inner_bf16", True), ("bj_bf16", True), ("proj_p_extrap", 1.0),
-    ("n_devices", 4), ("p_out", 1.0)])
+    ("bj_tiles", "scatter"), ("bj_tiles", "rows"), ("mass_format", "node"),
+    ("proj_p_extrap", 1.0), ("n_devices", 4), ("p_out", 1.0)])
 def test_unported_options_raise(mesh, tmp_path, option, value):
+    # Richardson inner F solves are a monolithic-scheme option
+    scheme = "monolithic" if option == "f_solver" else "projection"
     with pytest.raises(NotImplementedError, match=option):
-        _make(TNS, mesh, str(tmp_path), device="cpu", **{option: value})
+        _make(TNS, mesh, str(tmp_path), device="cpu", scheme=scheme,
+              **{option: value})
 
 
 def test_unported_model_features_raise(mesh, tmp_path):

@@ -241,15 +241,23 @@ def test_convert_bsr_from_jax(built):
     fields.update(host_m_blk=jb.host_m_blk, host_k_blk=jb.host_k_blk,
                   host_g_cols=jb.host_g_cols)
     cb = convert.bsr_from_jax_numpy(fields, CPU, F64)
-    for name in ("f_cols", "f_spill", "g_spill", "b_spill", "con_cpos"):
+    for name in ("f_cols", "f_spill", "g_spill", "b_spill", "con_cpos",
+                 "pp_cols"):
         a, b = getattr(cb, name), getattr(tb, name)
         assert (a is None) == (b is None)
         if a is not None:
             assert torch.equal(a, b), name
-    u = torch.as_tensor(np.random.default_rng(5).standard_normal(
-        (sp.n_p2, 2)))
+    assert torch.equal(cb.pp_plan.order, tb.pp_plan.order)
+    assert torch.equal(cb.pp_plan.lengths, tb.pp_plan.lengths)
+    rng = np.random.default_rng(5)
+    u = torch.as_tensor(rng.standard_normal((sp.n_p2, 2)))
+    p = torch.as_tensor(rng.standard_normal(sp.n_p1))
     _close(TB.mass_apply(cb, u), TB.mass_apply(tb, u))
     _close(TB.convection_blk(cb, u), TB.convection_blk(tb, u))
+    _close(TB.apply_bt(cb, p), TB.apply_bt(tb, p))
+    npc = TB.pressure_convection_blk(cb, u)
+    _close(npc, TB.pressure_convection_blk(tb, u))
+    _close(TB.apply_pp(cb, npc, p), TB.apply_pp(tb, npc, p))
 
 
 def test_convert_ell_plan_and_state(space, ell_pair, built):

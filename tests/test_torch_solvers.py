@@ -53,6 +53,20 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
 
 
+def test_projection_keeps_split_gb_tables(pair):
+    """bsr_gb_kmax=-2 (auto) splits the G/B tables under projection, as
+    the JAX model does (whole rows under monolithic:
+    tests/test_torch_preconditioners.py)."""
+    jns, tns = pair
+    for name in ("g_cols", "b_cols", "g_spill", "b_spill"):
+        t, j = getattr(tns.ell, name), getattr(jns.ell, name)
+        assert (t is None) == (j is None), name
+        if t is not None:
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    # the split's slot count is a multiple of 128 / bp (here no row spills)
+    assert tns.ell.g_cols.shape[1] % (128 // tns.ell.bp) == 0
+
+
 def test_lam_max_matches(pair):
     jns, tns = pair
     assert _rel(float(tns._ap_dir_lam), float(jns._ap_dir_lam)) < 1e-12
