@@ -9,15 +9,23 @@ projection scheme and in the monolithic scheme — and checks them:
 1. device: the card's name and power limit, the toolchain (torch CUDA,
    nvcc, triton);
 2. build of the CUDA kernels from ``navierstokes_tpu_torch/csrc``;
-3. setup at the bench point (projection); the fp32 blocked-ELL SpMV
-   kernel against its plain PyTorch version at the five shapes the step
-   gives it (F, mass, P1 Laplacian, B, G^T), with times from CUDA events;
+3. setup at the bench point (projection); the fp32 SELL SpMV kernel
+   against its plain PyTorch version in every use the two schemes give it
+   (F, mass, P1 Laplacian, Ap, G, B, PCD convection), bit-identical on
+   repeat, with times from CUDA events: per call in bursts, L2-cold
+   (cycling through copies of the operator that exceed the L2) and warm,
+   and one call alone; beside them the plain version, the bound (bytes
+   over 3.35 TB/s) and a PyTorch CSR product of the same matrix
+   (``library_ms``, a yardstick the port never calls, timed like the
+   kernel); the F rebuild (A0 + convection) per step;
 4. a small fixture (h=0.1 cylinder channel): 5 BDF2 projection steps on
-   the card against the same steps on the CPU, both fp32;
+   the card against the same steps on the CPU, both fp32, with a second
+   CPU fp32 run in another thread count as the measure of fp32 noise;
 5. 20 bench-point projection steps (10 warm-up + 10 timed) through
-   ``NavierStokes.solve_time_step``, with the kernel's launch count;
+   ``NavierStokes.solve_time_step``, with the kernel's launch count per
+   operator;
 6. the bf16-values and fp64 kernel variants against their plain versions
-   at the bench-point F shape;
+   in every use, timed as in phase 3;
 7. the small fixture under ``scheme="monolithic"``: 5 steps on the card
    against the CPU, fp32, with ``cc``, ``asimple``, ``cc`` + ``inner_bf16``
    (the bf16 variant's path) and ``cc`` + ``refine=2`` (the fp64
@@ -29,9 +37,11 @@ Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
 The last two lines of standard output are the kernel record and the
 result, each one JSON object.  Imports no jax and nothing of the JAX
-package that does.
+package.
 """
 
+import dataclasses
+import functools
 import gc
 import json
 import os
@@ -46,7 +56,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "build", "chip_smoke")
 EXPECTED_DOFS = 1_014_414
-KERNEL_SOURCE = "navierstokes_tpu_torch/csrc/bsr_spmv.cu"
+KERNEL_SOURCE = "navierstokes_tpu_torch/csrc/sell_spmv.cu"
 # the Pallas kernel body's fp32 and bf16 branches (fused_reduce's _kernel)
 REPLACES = "navierstokes_tpu/ops/pallas_matvec.py:59"
 REPLACES_BF16 = "navierstokes_tpu/ops/pallas_matvec.py:53"
@@ -56,6 +66,10 @@ REPLACES_BF16 = "navierstokes_tpu/ops/pallas_matvec.py:53"
 # TPU shows the same totals), and this script requires every solve of the
 # 20 steps to converge.
 CG_BUDGET = 100
+HBM_BYTES_PER_S = 3.35e12     # published H100 SXM device-memory rate
+FLUSH_BYTES = 128 << 20       # read between calls timed L2-cold
+L2_BYTES = 50 << 20           # H100 L2
+BURST = 40                    # calls per timed burst of the kernel
 
 
 def log(*a):
@@ -106,11 +120,9 @@ def phase_build():
 
 
 def bench_model(device, **overrides):
-    # the port first: its package init lets navierstokes_tpu.mesh load on
-    # a host without matplotlib
+    from navierstokes_tpu_torch.config import InletConfig, SolverConfig
+    from navierstokes_tpu_torch.mesh.geometry import Mesh
     from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
-    from navierstokes_tpu.config import InletConfig, SolverConfig
-    from navierstokes_tpu.mesh.geometry import Mesh
     z = np.load(os.path.join(HERE, ".bench_mesh.npz"))
     mesh = Mesh(2, z["points"], z["cells"], z["bfaces"], z["btags"])
     inlet = InletConfig(kind="parabolic", u_m=1.5, height=0.41, ramp=0.05)
@@ -128,83 +140,231 @@ def bench_model(device, **overrides):
     return ns
 
 
-def _median_ms(fn, n=20, burst=10):
-    """Median over ``n`` samples of the device time per call, each sample
-    a burst of back-to-back calls between two CUDA events (so the host's
-    launch cost hides behind the device work, as on the main path)."""
+@functools.lru_cache(maxsize=1)
+def _flush_buffer():
+    return torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+
+def per_step_launches(n_steps):
+    """Kernel launches per step by operator and value dtype (the launch
+    counts of the path just driven)."""
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    return {f"{name} {str(dt).replace('torch.', '')}": v / n_steps
+            for (name, dt), v in COUNTS.by_pattern.items()}
+
+
+def _time_ms(fn, cold, n=30):
+    """Median device time of one call of ``fn`` over ``n`` calls, each
+    between two CUDA events.  A spin on the stream before each call keeps
+    the host's launch cost out of the interval; ``cold`` first reads a
+    FLUSH_BYTES buffer (a read, so L2 holds no dirty lines to write back),
+    so the call finds its inputs outside the 50 MB L2, as on the main path,
+    where the 461 MB tile apply runs between products."""
+    flush = _flush_buffer()
     fn()
     times = []
     for _ in range(n):
+        if cold:
+            flush.sum()
+        torch.cuda._sleep(200_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(burst):
-            fn()
+        fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / burst)
+        times.append(a.elapsed_time(b))
     return statistics.median(times)
 
 
+def _burst_ms(fns, reps=10):
+    """Median device time per call of bursts of BURST calls cycling through
+    ``fns``, between two CUDA events.  A spin on the stream holds the card
+    while the host queues the burst, so the calls run back to back and
+    neither the host's launch cost nor the events' own latency enter the
+    time; a burst whose spin ended before the host finished queuing is run
+    again with a longer spin."""
+    calls = [fns[i % len(fns)] for i in range(max(BURST, len(fns)))]
+    for f in fns:
+        f()
+    spin = len(calls) * 200_000          # cycles, about 0.1 ms per call
+    times = []
+    while len(times) < reps:
+        torch.cuda._sleep(spin)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for f in calls:
+            f()
+        b.record()
+        if a.query():                    # the card waited for the host
+            b.synchronize()
+            spin *= 2
+            check(spin < 2 ** 31, "burst timing: the host cannot keep up")
+            continue
+        b.synchronize()
+        times.append(a.elapsed_time(b) / len(calls))
+    return statistics.median(times)
+
+
+def _copies(mat, vals):
+    """Copies of a pattern and its values that together exceed twice the
+    L2, so that a burst cycling through them finds each one in HBM, as on
+    the main path, where the 461 MB tile apply runs between products."""
+    size = (vals.numel() * vals.element_size()
+            + 4 * (mat.cols.numel() + mat.slice_ptr.numel()
+                   + mat.rows.numel()))
+    k = max(2, -(-2 * L2_BYTES // size))
+    return [(dataclasses.replace(mat, cols=mat.cols.clone(),
+                                 slice_ptr=mat.slice_ptr.clone(),
+                                 rows=mat.rows.clone()), vals.clone())
+            for _ in range(k)]
+
+
+# value dtype -> (x dtype, kernel-vs-plain limit, record name)
+VARIANTS = {torch.float32: (torch.float32, 1e-5, "sell_spmv"),
+            torch.bfloat16: (torch.float32, 1e-5, "sell_spmv_bf16"),
+            torch.float64: (torch.float64, 1e-12, "sell_spmv_f64")}
+
+
 def spmv_uses(ns, rng):
-    """(name, args) of the five SpMV uses at the bench-point shapes, with
-    the setup's values and numpy-seeded x."""
-    e, dev = ns.ell, ns.device
-    x = lambda n, d: torch.as_tensor(rng.standard_normal((n, d)),
-                                     dtype=torch.float32, device=dev)
-    nu = e.n_vb * e.bu
-    ap = ns._ap_dir
-    n_ext, dim, bu, cw = e.g_blk.shape
+    """(use, pattern, fp32 values, fp32 x) of every SpMV use of the two
+    schemes at the bench-point shapes: the projection setup's operators,
+    Ap (the monolithic Cahouet-Chabard operator) assembled on the same
+    mesh, F and the PCD convection at a numpy-seeded velocity.  The Schur
+    diagonal is B's pattern with squared values, the same product as B."""
+    from navierstokes_tpu_torch.ops.bsr import (convection_blk,
+                                                pressure_convection_blk)
+    from navierstokes_tpu_torch.ops.p1ell import assemble_ap
+    e, dev, sp = ns.ell, ns.device, ns.space
+    x = lambda *shape: torch.as_tensor(rng.standard_normal(shape),
+                                       dtype=torch.float32, device=dev)
+    u = 0.5 * x(sp.n_p2, 2)
+    ap = assemble_ap(sp, ns._cells_host,
+                     ns.bc.host_mask[:, 0] / ns._lumped_host, torch.float32,
+                     dev, b=e.bp)
+    lap = ns._ap_dir
     return [
-        ("F (a0, d=2)", (ns.a0_cell, e.f_cols, x(nu, 2), e.bu, e.f_spill,
-                         e.n_vb)),
-        ("mass (d=2)", (e.m_blk, e.f_cols, x(nu, 2), e.bu, e.f_spill,
-                        e.n_vb)),
-        ("P1 Laplacian (d=1)", (ap.vals, ap.cols,
-                                x(ap.cols.shape[0] * ap.b, 1), ap.b)),
-        ("B (cb=bu*dim, d=1)", (e.b_blk, e.b_cols, x(nu * dim, 1),
-                                e.bu * dim, e.b_spill, e.n_pb)),
-        ("G^T (R=dim*bu, d=1)", (e.g_blk.view(n_ext, dim * bu, cw),
-                                 e.g_cols, x(e.n_pb * e.bp, 1), e.bp,
-                                 e.g_spill, e.n_vb)),
+        ("F", e.f, ns.a0_cell + convection_blk(e, u), x(sp.n_p2, 2)),
+        ("mass", e.f, e.m_vals, x(sp.n_p2, 2)),
+        ("P1 Laplacian", lap.mat, lap.vals, x(sp.n_p1)),
+        ("Ap", ap.mat, ap.vals, x(sp.n_p1)),
+        ("G", e.g, e.g_vals, x(sp.n_p1)),
+        ("B", e.b, e.b_vals, x(sp.n_p2 * 2)),
+        ("PCD convection", e.pp, pressure_convection_blk(e, u),
+         x(sp.n_p1)),
     ]
 
 
-def phase_kernel_vs_plain(ns):
-    from navierstokes_tpu_torch.kernels.bsr_spmv import (bsr_spmv,
-                                                         bsr_spmv_plain)
+def _library_fn(mat, vals, x):
+    """One PyTorch call computing the same product: torch.sparse.mm on a
+    CSR tensor of the same nonzeros (the port never calls it)."""
+    idx = torch.as_tensor(mat.nz_slot, device=vals.device)
+    crow = np.zeros(mat.n_rows + 1, np.int64)
+    np.cumsum(np.bincount(mat.nz_row, minlength=mat.n_rows), out=crow[1:])
+    a = torch.sparse_csr_tensor(
+        torch.as_tensor(crow, device=vals.device),
+        torch.as_tensor(mat.nz_col, device=vals.device), vals[idx],
+        size=(mat.n_rows, mat.n_cols), check_invariants=False)
+    x2 = x[:, None] if x.dim() == 1 else x
+    return lambda: torch.sparse.mm(a, x2)
+
+
+def check_and_time(use, mat, vals, x, tag):
+    """The kernel against its plain version on one use, bit-identical
+    repeats, and its times beside the bound and the library call."""
+    from navierstokes_tpu_torch.kernels.sell_spmv import (sell_spmv,
+                                                          sell_spmv_plain)
+    xdt, limit, _ = VARIANTS[vals.dtype]
+    x = x.to(xdt)
+    yk = sell_spmv(mat, vals, x)
+    yk2 = sell_spmv(mat, vals, x)
+    yp = sell_spmv_plain(mat, vals, x)
+    torch.cuda.synchronize()
+    check(tuple(yk.shape) == tuple(yp.shape) and yk.dtype == yp.dtype == xdt,
+          f"{use} {vals.dtype}: shape/dtype")
+    check(torch.equal(yk, yk2), f"{use} {vals.dtype}: bit-identical repeat")
+    abs_err = float((yk - yp).abs().max())
+    rel = abs_err / max(float(yp.abs().max()), 1e-30)
+    check(rel <= limit, f"{use} {vals.dtype}: kernel vs plain rel err "
+          f"{rel:.3e} (limit {limit:g})")
+    D = 1 if x.dim() == 1 else x.shape[1]
+    nbytes = (mat.nnz * (vals.element_size() + 4)
+              + (mat.n_cols + mat.n_rows) * D * x.element_size())
+    copies = _copies(mat, vals)
+    kernel = lambda m, v: (lambda: sell_spmv(m, v, x))
+    out = dict(use=use, rel_err=rel, max_abs_err=abs_err, nnz=mat.nnz,
+               slots=mat.n_slots,
+               ms=_burst_ms([kernel(m, v) for m, v in copies]),
+               warm_ms=_burst_ms([kernel(mat, vals)]),
+               single_ms=_time_ms(kernel(mat, vals), cold=True),
+               plain_ms=_time_ms(lambda: sell_spmv_plain(mat, vals, x),
+                                 cold=True),
+               bound_bytes=nbytes,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               library_ms=None)
+    if vals.dtype != torch.bfloat16:   # no library call rounds like it
+        out["library_ms"] = _burst_ms([_library_fn(m, v, x)
+                                       for m, v in copies])
+    del copies
+    lib = ("n/a" if out["library_ms"] is None
+           else f"{out['library_ms']:.4f}")
+    log(f"[{tag}] {use} {vals.dtype}: {mat.n_rows}x{mat.n_cols}, nnz "
+        f"{mat.nnz}, slots {mat.n_slots}; rel err {rel:.3e} (limit "
+        f"{limit:g}); ms cold {out['ms']:.4f} warm {out['warm_ms']:.4f} "
+        f"(one call between events, cold {out['single_ms']:.4f}) plain "
+        f"{out['plain_ms']:.4f} library {lib}; bound "
+        f"{out['bound_ms']:.4f} ({nbytes} B, "
+        f"{nbytes / out['ms'] / 1e6:.0f} GB/s cold)")
+    return out
+
+
+def phase_kernel_vs_plain(ns, dtypes, tag):
+    """Every use in each value dtype of ``dtypes`` (fp32 values: the
+    setup's; bf16 and fp64: the fp32 values cast)."""
     from navierstokes_tpu_torch.ops.bsr import convection_blk
     rng = np.random.default_rng(1234)
-    uses = []
-    for name, args in spmv_uses(ns, rng):
-        yk = bsr_spmv(*args)
-        yp = bsr_spmv_plain(*args)
-        torch.cuda.synchronize()
-        check(tuple(yk.shape) == tuple(yp.shape), f"{name} shape")
-        abs_err = float((yk - yp).abs().max())
-        rel = abs_err / max(float(yp.abs().max()), 1e-30)
-        ms = _median_ms(lambda: bsr_spmv(*args))
-        plain_ms = _median_ms(lambda: bsr_spmv_plain(*args))
-        vals = args[0]
-        log(f"[3] {name}: vals {tuple(vals.shape)}, max rel err {rel:.3e}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"({vals.numel() * 4 / ms / 1e6:.0f} GB/s of values)")
-        check(rel <= 1e-5, f"{name} kernel vs plain rel err {rel:.3e}")
-        uses.append(dict(use=name, rel_err=rel, max_abs_err=abs_err, ms=ms,
-                         plain_ms=plain_ms))
-    # the convection rebuild is a fixed-order reduction: bit-identical
-    u = torch.as_tensor(rng.standard_normal((ns.space.n_p2, 2)),
-                        dtype=torch.float32, device=ns.device)
-    check(torch.equal(convection_blk(ns.ell, u), convection_blk(ns.ell, u)),
-          "convection_blk bit-identical on repeat")
-    log("[3] convection rebuild bit-identical on repeat")
-    return uses
+    uses = spmv_uses(ns, rng)
+    out = {dt: [check_and_time(use, mat, vals.to(dt), x, tag)
+                for use, mat, vals, x in uses] for dt in dtypes}
+    if torch.float32 in dtypes:
+        # the launch floor: the kernel on a one-slice pattern, in a burst
+        # and alone between two events
+        from navierstokes_tpu_torch.kernels.sell_spmv import sell_spmv
+        from navierstokes_tpu_torch.ops.sell import build_sell
+        tiny = build_sell(np.arange(32), np.arange(32), 32, 32, ns.device)
+        ones = torch.ones(32, device=ns.device)
+        one = lambda: sell_spmv(tiny, ones, ones)
+        out["floor_ms"] = _burst_ms([one])
+        single = _time_ms(one, cold=False)
+        log(f"[{tag}] launch floor (one 32-row slice): {out['floor_ms']:.4f}"
+            f" ms per call in a burst, {single:.4f} ms alone between two "
+            "events")
+        # the per-step F rebuild: fixed-order reductions, bit-identical
+        e = ns.ell
+        u = torch.as_tensor(rng.standard_normal((ns.space.n_p2, 2)),
+                            dtype=torch.float32, device=ns.device)
+        check(torch.equal(convection_blk(e, u), convection_blk(e, u)),
+              "convection rebuild bit-identical on repeat")
+        from navierstokes_tpu_torch.ops.operators import convection_matrices
+        ms = _time_ms(lambda: ns.a0_cell + convection_blk(e, u), cold=True)
+        c_elem = convection_matrices(e, e.t_hat, u).reshape(-1)
+        elem_ms = _time_ms(lambda: convection_matrices(e, e.t_hat, u),
+                           cold=True)
+        plan_ms = _time_ms(lambda: e.conv_plan(c_elem), cold=True)
+        log(f"[{tag}] F rebuild (A0 + convection into the compact slots) "
+            f"{ms:.4f} ms: element matrices {elem_ms:.4f}, reduction into "
+            f"the slots ({len(e.conv_plan.passes)} passes) {plan_ms:.4f}; "
+            "bit-identical on repeat")
+        out["rebuild_ms"] = ms
+    return out
 
 
 def small_model(device, tmp, dtype="float32", **overrides):
+    from navierstokes_tpu_torch.config import InletConfig, SolverConfig
+    from navierstokes_tpu_torch.mesh.generators import (
+        channel_with_cylinder_2d)
     from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
-    from navierstokes_tpu.config import InletConfig, SolverConfig
-    from navierstokes_tpu.mesh import channel_with_cylinder_2d
     inlet = InletConfig(kind="parabolic", u_m=0.3, height=0.41)
     cfg = SolverConfig(dtype=dtype, output_dir=os.path.join(tmp, "out"),
                        cache_dir=os.path.join(tmp, "cache"),
@@ -224,44 +384,70 @@ def phase_small_fixture():
     (printed only).  Cd and Cl are compared relative to the force
     coefficient's magnitude max(|Cd|, |Cl|): both are components of one
     force vector, and Cl is up to ~400x smaller than Cd here, so its own
-    relative error would measure fp32 noise in Cd's units."""
+    relative error would measure fp32 noise in Cd's units.
+
+    The gate is 1e-4, and 1e-3 only where the CUDA-CPU gap is fp32 noise:
+    at most three times the gap between two CPU fp32 runs that differ only
+    in their summation order (the default thread count and one other).
+    Two such CPU runs alone differ by about 1e-4 of the force scale from
+    step 2 on, where the tile inverses take the Newton-Schulz matmuls:
+    1.27e-4 on an H100 host, 1.29e-4 with the blocked-ELL SpMV the port
+    had before its SELL layout, and still 6e-5 with both solves at a
+    relative tolerance of 1e-6 (tools/fp32_noise.py), so it is the fp32
+    arithmetic of the step, not the solves' stopping point."""
     gpu = small_model("cuda", os.path.join(WORK, "small_gpu"))
     cpu = small_model("cpu", os.path.join(WORK, "small_cpu"))
+    alt = small_model("cpu", os.path.join(WORK, "small_cpu_alt"))
     ref = small_model("cpu", os.path.join(WORK, "small_f64"), "float64")
+    n_threads = torch.get_num_threads()
+    alt_threads = 1 if n_threads > 1 else 4
 
     def rel_u(a, b):
         a, b = a.cpu().double(), b.cpu().double()
         return float((a - b).abs().max() / b.abs().max())
 
-    worst = dict(cd=0.0, cl=0.0, u=0.0, its=0)
+    def gaps(ma, mb, a, b):
+        scale = max(abs(mb.cd), abs(mb.cl), 1e-30)
+        return (abs(ma.cd - mb.cd) / scale, abs(ma.cl - mb.cl) / scale,
+                rel_u(a._u, b._u))
+
+    worst = dict(cd=0.0, cl=0.0, u=0.0, its=0, noise=0.0)
     for k in range(5):
         mg = gpu.solve_time_step()
         mc = cpu.solve_time_step()
+        torch.set_num_threads(alt_threads)
+        ma = alt.solve_time_step()
+        torch.set_num_threads(n_threads)
         mr = ref.solve_time_step()
-        scale = max(abs(mc.cd), abs(mc.cl), 1e-30)
-        dcd = abs(mg.cd - mc.cd) / scale
-        dcl = abs(mg.cl - mc.cl) / scale
-        du = rel_u(gpu._u, cpu._u)
+        dcd, dcl, du = gaps(mg, mc, gpu, cpu)
+        noise = max(gaps(ma, mc, alt, cpu))
         dits = max(abs(mg.f_iterations - mc.f_iterations),
                    abs(mg.p_iterations - mc.p_iterations))
         log(f"[4] step {k + 1}: its cuda {mg.f_iterations}+{mg.p_iterations}"
             f" cpu {mc.f_iterations}+{mc.p_iterations}; Cd {mg.cd:.6f} vs "
             f"{mc.cd:.6f}, Cl {mg.cl:.6f} vs {mc.cl:.6f} (diff / max(|Cd|,"
-            f"|Cl|): Cd {dcd:.2e}, Cl {dcl:.2e}), u rel {du:.2e}; against "
-            f"CPU float64 ({mr.f_iterations}+{mr.p_iterations} its): u rel "
-            f"cuda {rel_u(gpu._u, ref._u):.2e}, cpu {rel_u(cpu._u, ref._u):.2e}")
-        for key, v in (("cd", dcd), ("cl", dcl), ("u", du), ("its", dits)):
+            f"|Cl|): Cd {dcd:.2e}, Cl {dcl:.2e}), u rel {du:.2e}; CPU "
+            f"{n_threads} vs {alt_threads} threads: worst of Cd, Cl, u "
+            f"{noise:.2e}; against CPU float64 ({mr.f_iterations}+"
+            f"{mr.p_iterations} its): u rel cuda {rel_u(gpu._u, ref._u):.2e},"
+            f" cpu {rel_u(cpu._u, ref._u):.2e}")
+        for key, v in (("cd", dcd), ("cl", dcl), ("u", du), ("its", dits),
+                       ("noise", noise)):
             worst[key] = max(worst[key], v)
+    gate = 1e-4
+    gap = max(worst["cd"], worst["cl"], worst["u"])
+    if 1e-4 < gap <= 1e-3 and gap <= 3 * worst["noise"]:
+        gate = 1e-3
     log(f"[4] worst: Cd {worst['cd']:.2e}, Cl {worst['cl']:.2e}, u "
-        f"{worst['u']:.2e} (limits 1e-4), iteration diff {worst['its']} "
-        "(limit 1)")
-    check(worst["cd"] <= 1e-4 and worst["cl"] <= 1e-4, "small Cd/Cl")
-    check(worst["u"] <= 1e-4, "small u")
+        f"{worst['u']:.2e} (gate {gate:g}; two CPU fp32 runs differ by up "
+        f"to {worst['noise']:.2e}), iteration diff {worst['its']} (limit 1)")
+    check(worst["cd"] <= gate and worst["cl"] <= gate, "small Cd/Cl")
+    check(worst["u"] <= gate, "small u")
     check(worst["its"] <= 1, "small iteration counts")
 
 
 def phase_bench(ns, card):
-    from navierstokes_tpu_torch.kernels.bsr_spmv import COUNTS
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     cfg = ns.config
     n_warm, n_meas = 10, 10
     torch.cuda.synchronize()
@@ -278,6 +464,7 @@ def phase_bench(ns, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_cuda = COUNTS.launches, COUNTS.plain_cuda_calls
+    per_step = per_step_launches(n_warm + n_meas)
     peak = torch.cuda.max_memory_allocated()
     sps = n_meas / wall
     log(f"[5] iterations BiCGStab+CG per step: "
@@ -293,7 +480,7 @@ def phase_bench(ns, card):
         f"{card}")
     log(f"[5] kernel launches: {launches} over {n_warm + n_meas} steps, "
         f"{launches - launches_warm} in the timed window; plain-version "
-        f"CUDA calls {plain_cuda}")
+        f"CUDA calls {plain_cuda}; per step by operator {per_step}")
     tol = max(cfg.proj_tol, 3.0e-6)
     for m in ms_all:
         check(m.converged, f"converged at t={m.time}")
@@ -307,42 +494,8 @@ def phase_bench(ns, card):
     check(launches > 0, "kernel launched on the main path")
     check(plain_cuda == 0, "no plain-version calls on CUDA tensors")
     log(f"[5] all {len(ms_all)} solves converged (rel tol {tol:g})")
-    return dict(launches=launches, steps_per_s=sps, peak_bytes=peak)
-
-
-def phase_variants(ns):
-    """The bf16-values and fp64 kernels against their plain versions at the
-    bench-point F shape: A0 cast to bf16 (x fp32) and to float64."""
-    from navierstokes_tpu_torch.kernels.bsr_spmv import (bsr_spmv,
-                                                         bsr_spmv_plain)
-    e, dev = ns.ell, ns.device
-    rng = np.random.default_rng(4321)
-    x = rng.standard_normal((e.n_vb * e.bu, 2))
-    out = {}
-    for name, vdt, xdt, limit in (("bsr_spmv_bf16", torch.bfloat16,
-                                   torch.float32, 1e-5),
-                                  ("bsr_spmv_f64", torch.float64,
-                                   torch.float64, 1e-12)):
-        args = (ns.a0_cell.to(vdt), e.f_cols,
-                torch.as_tensor(x, dtype=xdt, device=dev), e.bu, e.f_spill,
-                e.n_vb)
-        yk = bsr_spmv(*args)
-        yp = bsr_spmv_plain(*args)
-        torch.cuda.synchronize()
-        check(yk.dtype == yp.dtype == xdt, f"{name} output dtype")
-        abs_err = float((yk - yp).abs().max())
-        rel = abs_err / max(float(yp.abs().max()), 1e-30)
-        ms = _median_ms(lambda: bsr_spmv(*args))
-        plain_ms = _median_ms(lambda: bsr_spmv_plain(*args))
-        vals = args[0]
-        gbs = vals.numel() * vals.element_size() / ms / 1e6
-        log(f"[6] {name}: vals {tuple(vals.shape)} {vals.dtype}, max rel "
-            f"err {rel:.3e} (limit {limit:g}), kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms ({gbs:.0f} GB/s of values)")
-        check(rel <= limit, f"{name} kernel vs plain rel err {rel:.3e}")
-        out[name] = dict(rel_err=rel, max_abs_err=abs_err, ms=ms,
-                         plain_ms=plain_ms, gb_per_s=gbs)
-    return out
+    return dict(launches=launches, steps_per_s=sps, peak_bytes=peak,
+                per_step=per_step)
 
 
 # the small-fixture monolithic configurations of phase 7, and the launch
@@ -358,7 +511,7 @@ def phase_monolithic_small():
     """CUDA fp32 against CPU fp32 (the gate: phase 4's limits) and both
     against CPU float64 (printed), 5 monolithic steps per configuration;
     every kernel the configuration's path runs must launch."""
-    from navierstokes_tpu_torch.kernels.bsr_spmv import COUNTS
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     launches = {}
 
     def rel_u(a, b):
@@ -427,7 +580,7 @@ def phase_monolithic_bench(card):
     """The bench configuration under scheme="monolithic" (FGMRES with the
     Cahouet-Chabard preconditioner, BDF1): 5 warm-up + 5 timed steps, or
     3 + 3 when a warm-up step takes more than 10 s."""
-    from navierstokes_tpu_torch.kernels.bsr_spmv import COUNTS
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -438,7 +591,7 @@ def phase_monolithic_bench(card):
     cfg = ns.config
     check(ns.space.n_dofs == EXPECTED_DOFS, "monolithic DoF count")
     log(f"[8] monolithic bench point: {ns.space.n_dofs} DoF, setup "
-        f"{setup_s:.1f} s, G/B whole rows: {ns.ell.g_spill is None}")
+        f"{setup_s:.1f} s")
     COUNTS.reset()
     ms_all, step_s = [], []
     n_warm = n_meas = 5
@@ -459,6 +612,7 @@ def phase_monolithic_bench(card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_cuda = COUNTS.launches, COUNTS.plain_cuda_calls
+    per_step = per_step_launches(n_warm + n_meas)
     peak = torch.cuda.max_memory_allocated()
     sps = n_meas / wall
     log(f"[8] FGMRES iterations per step: "
@@ -476,7 +630,8 @@ def phase_monolithic_bench(card):
     log(f"[8] peak device memory {peak} bytes ({peak / 2**30:.2f} GiB) on "
         f"{card}")
     log(f"[8] kernel launches over {n_warm + n_meas} steps: {launches}; "
-        f"plain-version CUDA calls {plain_cuda}")
+        f"plain-version CUDA calls {plain_cuda}; per step by operator "
+        f"{per_step}")
     tol = max(cfg.outer_tol, 3.0e-6)
     for m in ms_all:
         check(m.converged, f"[8] FGMRES converged (rel tol {tol:g}) at "
@@ -490,7 +645,7 @@ def phase_monolithic_bench(card):
     check(plain_cuda == 0, "[8] no plain-version calls on CUDA tensors")
     log(f"[8] all {len(ms_all)} FGMRES solves converged (rel tol {tol:g})")
     return dict(launches=launches, steps_per_s=sps, peak_bytes=peak,
-                setup_s=setup_s)
+                setup_s=setup_s, per_step=per_step)
 
 
 def main():
@@ -509,35 +664,47 @@ def main():
     n_dofs = ns.space.n_dofs
     log(f"[3] bench point: {n_dofs} DoF, setup {setup_s:.1f} s")
     check(n_dofs == EXPECTED_DOFS, f"DoF count {n_dofs}")
-    uses = phase_kernel_vs_plain(ns)
+    fp32 = phase_kernel_vs_plain(ns, (torch.float32,), "3")
     phase_small_fixture()
     bench = phase_bench(ns, card)
-    variants = phase_variants(ns)
+    variants = phase_kernel_vs_plain(ns, (torch.bfloat16, torch.float64),
+                                     "6")
     del ns
     gc.collect()
     torch.cuda.empty_cache()
     small = phase_monolithic_small()
     mono = phase_monolithic_bench(card)
-    f_use = uses[0]
-    bf16, f64 = variants["bsr_spmv_bf16"], variants["bsr_spmv_f64"]
-    record = {"kernels": [
-        {"name": "bsr_spmv", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES,
-         "launches": bench["launches"] + mono["launches"],
-         "max_abs_err": max(u["max_abs_err"] for u in uses),
-         "ms": f_use["ms"], "plain_ms": f_use["plain_ms"], "uses": uses,
-         "launches_by_path": {"projection bench (phase 5)": bench["launches"],
-                              "monolithic bench (phase 8)": mono["launches"]}},
-        {"name": "bsr_spmv_bf16", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES_BF16,
-         "launches": small["cc+inner_bf16"]["launches_bf16"],
-         "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
-         "plain_ms": bf16["plain_ms"]},
-        {"name": "bsr_spmv_f64", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": None,
-         "launches": small["cc+refine=2"]["launches_f64"],
-         "max_abs_err": f64["max_abs_err"], "ms": f64["ms"],
-         "plain_ms": f64["plain_ms"]}]}
+    paths = {"projection": bench["per_step"], "monolithic": mono["per_step"]}
+    # F and the mass share the F pattern, so one count covers both
+    pattern_of = {"F": "F", "mass": "F", "P1 Laplacian": "P1 Laplacian",
+                  "Ap": "Ap", "G": "G", "B": "B", "PCD convection": "PP"}
+
+    def entry(dt, uses, launches, replaces):
+        f_use = uses[0]
+        for u in uses:
+            key = f"{pattern_of[u['use']]} {str(dt).replace('torch.', '')}"
+            u["launches_per_step"] = {p: c.get(key, 0.0)
+                                      for p, c in paths.items()}
+        return {"name": VARIANTS[dt][2], "route": "cuda",
+                "source": KERNEL_SOURCE, "replaces": replaces,
+                "launches": launches,
+                "max_abs_err": max(u["max_abs_err"] for u in uses),
+                **{k: f_use[k] for k in ("ms", "warm_ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "bound_bytes", "library_ms")},
+                "uses": uses}
+
+    kernels = []
+    for dt, launches, replaces in (
+            (torch.float32, bench["launches"] + mono["launches"], REPLACES),
+            (torch.bfloat16, small["cc+inner_bf16"]["launches_bf16"],
+             REPLACES_BF16),
+            (torch.float64, small["cc+refine=2"]["launches_f64"], None)):
+        uses = (fp32 if dt == torch.float32 else variants)[dt]
+        kernels.append(entry(dt, uses, launches, replaces))
+    kernels[0]["rebuild_ms"] = fp32["rebuild_ms"]
+    kernels[0]["floor_ms"] = fp32["floor_ms"]
+    record = {"kernels": kernels}
     log(card)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,11 @@
 
 A second package beside the JAX reference ``navierstokes_tpu``: the same
 Taylor-Hood P2/P1 solver, written as plain PyTorch tensor code with the
-hot blocked-ELL SpMV as a hand-written CUDA kernel for Hopper in fp32,
-bf16-values and fp64 variants (``csrc/bsr_spmv.cu``, bound through
-``kernels/``).  It reuses the JAX
-package's JAX-free host modules (config, mesh, fem spaces, native, utils)
-and never imports jax.
+hot sparse matrix-vector product as a hand-written CUDA kernel for Hopper
+in fp32, bf16-values and fp64 variants (``csrc/sell_spmv.cu``, bound
+through ``kernels/``).  It keeps its own copies of the host modules it
+needs (``config``, ``mesh``, ``fem``, ``utils``) and imports neither jax
+nor the JAX package.
 
 The port covers 2D P2/P1 on the BSR operator in both time schemes
 (monolithic FGMRES with its five block preconditioners, and projection);
@@ -16,11 +16,7 @@ see ``models/navier_stokes.py`` ``check_config`` for what raises
 
 import torch
 
-from navierstokes_tpu_torch import _host_compat
-
-_host_compat.install()
-
-from navierstokes_tpu.config import InletConfig, SolverConfig  # noqa: E402,F401
+from navierstokes_tpu_torch.config import InletConfig, SolverConfig  # noqa: F401
 
 # fp32 products in full fp32: the Newton-Schulz tile inverse
 # (ops/p1ell.block_jacobi_invert) and the coarse solve lose accuracy in TF32

@@ -55,10 +55,10 @@ def build_info() -> dict:
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    for entry in ("nst_bsr_spmv_f32", "nst_bsr_spmv_bf16",
-                  "nst_bsr_spmv_f64"):
+    for entry in ("nst_sell_spmv_f32", "nst_sell_spmv_bf16",
+                  "nst_sell_spmv_f64"):
         fn = getattr(lib, entry)
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, p]
         fn.restype = i
     lib.nst_cuda_error_string.argtypes = [i]
     lib.nst_cuda_error_string.restype = ctypes.c_char_p

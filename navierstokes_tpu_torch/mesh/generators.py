@@ -1,0 +1,255 @@
+"""The Schaefer-Turek cylinder channel, generated natively.
+
+The port's copy of ``channel_with_cylinder_2d`` from
+``navierstokes_tpu/mesh/generators.py`` (with the helpers it calls): the
+2.2 x 0.41 channel with an r=0.05 circle at (0.2, 0.2)
+(mesh/domain2D.geo:1-10), Delaunay-triangulated with graded rings around
+the circle and optional wake refinement.  Point-in-polygon tests use
+even-odd ray casting (``_Polygon``) where the JAX package uses
+``matplotlib.path.Path``; both give the same mesh.
+
+Boundary tags follow the reference convention: 0=bottom wall, 1=outlet,
+2=top wall, 3=inlet, 4=obstacle (mesh/domain2D.geo:39-44).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+from scipy.spatial import Delaunay, cKDTree
+
+from navierstokes_tpu_torch.mesh.geometry import Mesh
+
+
+class _Polygon:
+    """Closed polygon; ``contains_points`` by even-odd ray casting, which
+    agrees with ``matplotlib.path.Path.contains_points`` for points off
+    the boundary (the generator never tests points on it)."""
+
+    def __init__(self, vertices):
+        self.vertices = np.asarray(vertices, dtype=float)
+
+    def contains_points(self, points):
+        p = np.asarray(points, dtype=float)
+        x, y = p[:, 0], p[:, 1]
+        v = self.vertices
+        x0, y0 = v[:, 0], v[:, 1]
+        x1, y1 = np.roll(x0, -1), np.roll(y0, -1)
+        inside = np.zeros(len(p), dtype=bool)
+        for a, b, c, d in zip(x0, y0, x1, y1):
+            crosses = (b > y) != (d > y)
+            if not crosses.any() or d == b:
+                continue
+            x_at = a + (y - b) * (c - a) / (d - b)
+            inside ^= crosses & (x < x_at)
+        return inside
+
+
+def _segment_points(p0, p1, h, include_end=False):
+    """Points along segment [p0, p1] with spacing <= h (excluding p1 unless
+    include_end)."""
+    p0, p1 = np.asarray(p0, float), np.asarray(p1, float)
+    length = np.linalg.norm(p1 - p0)
+    n = max(1, int(np.ceil(length / h)))
+    ts = np.linspace(0.0, 1.0, n + 1)
+    if not include_end:
+        ts = ts[:-1]
+    return p0[None, :] + ts[:, None] * (p1 - p0)[None, :]
+
+
+def _box_boundary_points_2d(lx, ly, h):
+    """Counter-clockwise boundary loop of [0,lx]x[0,ly], corners included."""
+    bottom = _segment_points((0, 0), (lx, 0), h)
+    right = _segment_points((lx, 0), (lx, ly), h)
+    top = _segment_points((lx, ly), (0, ly), h)
+    left = _segment_points((0, ly), (0, 0), h)
+    return np.concatenate([bottom, right, top, left], axis=0)
+
+
+def _graded_interior_grid_2d(lx, ly, h, dist_fn, h_near, near_band,
+                             clearance_pts):
+    """Interior lattice points with geometric grading toward dist_fn()==0.
+
+    Level-k lattice spacing h/2^k is active where dist < near_band / 2^(k-1);
+    levels continue until spacing <= h_near.  Points too close to
+    ``clearance_pts`` (boundary/obstacle points) are dropped.
+    """
+    n_levels = 0
+    while h / (2.0 ** n_levels) > h_near * 1.0001:
+        n_levels += 1
+
+    all_pts = []
+    for k in range(n_levels + 1):
+        s = h / (2.0 ** k)
+        xs = np.arange(s, lx - 0.25 * s, s)
+        ys = np.arange(s, ly - 0.25 * s, s)
+        X, Y = np.meshgrid(xs, ys, indexing="ij")
+        pts = np.stack([X.ravel(), Y.ravel()], axis=1)
+        d = dist_fn(pts)
+        if k == 0:
+            # coarse lattice only far away (everywhere if no finer levels)
+            keep = (d >= near_band if n_levels > 0
+                    else np.ones(len(pts), dtype=bool))
+        else:
+            lo = near_band / (2.0 ** k) if k < n_levels else -np.inf
+            hi = near_band / (2.0 ** (k - 1))
+            keep = (d >= lo) & (d < hi)
+        # keep clear of the domain boundary
+        keep &= (pts[:, 0] > 0.45 * s) & (pts[:, 0] < lx - 0.45 * s)
+        keep &= (pts[:, 1] > 0.45 * s) & (pts[:, 1] < ly - 0.45 * s)
+        all_pts.append(pts[keep])
+    pts = np.concatenate(all_pts, axis=0)
+
+    # Drop lattice points crowding fixed points (boundary loops).
+    if len(clearance_pts):
+        tree = cKDTree(clearance_pts)
+        # local spacing at each lattice point
+        d = dist_fn(pts)
+        lvl = np.zeros(len(pts), dtype=int)
+        for k in range(1, n_levels + 1):
+            lvl[d < near_band / (2.0 ** (k - 1))] = k
+        local_h = h / (2.0 ** lvl)
+        nearest, _ = tree.query(pts, k=1)
+        pts = pts[nearest > 0.55 * local_h]
+    return pts
+
+
+def _delaunay_mesh_2d(lx, ly, h, hole_loops, hole_paths, extra_pts,
+                      dist_fn, h_near, near_band, smooth_iters=4):
+    """Delaunay triangulation of the box minus polygon holes.
+
+    hole_loops: list of (n_i, 2) closed point loops lying ON the hole
+    boundary (these become tagged obstacle boundary points).
+    hole_paths: ``_Polygon``s for point-in-hole tests.
+    """
+    box_pts = _box_boundary_points_2d(lx, ly, h if h_near >= h else
+                                      max(h_near, h / 2.0))
+    fixed = [box_pts] + list(hole_loops) + (
+        [extra_pts] if extra_pts is not None and len(extra_pts) else [])
+    fixed_pts = np.concatenate(fixed, axis=0)
+    interior = _graded_interior_grid_2d(lx, ly, h, dist_fn, h_near, near_band,
+                                        fixed_pts)
+    # remove interior points inside holes
+    keep = np.ones(len(interior), dtype=bool)
+    for path in hole_paths:
+        keep &= ~path.contains_points(interior)
+    interior = interior[keep]
+
+    pts = np.concatenate([fixed_pts, interior], axis=0)
+    n_fixed = len(fixed_pts)
+
+    def triangulate(p):
+        tri = Delaunay(p)
+        cells = tri.simplices.astype(np.int64)
+        cent = p[cells].mean(axis=1)
+        keep = np.ones(len(cells), dtype=bool)
+        for path in hole_paths:
+            keep &= ~path.contains_points(cent)
+        # drop degenerate slivers
+        e1 = p[cells[:, 1]] - p[cells[:, 0]]
+        e2 = p[cells[:, 2]] - p[cells[:, 0]]
+        area = 0.5 * np.abs(e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0])
+        keep &= area > 1e-14
+        return cells[keep]
+
+    cells = triangulate(pts)
+
+    # Laplacian smoothing of movable (non-fixed) points, then re-triangulate.
+    for _ in range(smooth_iters):
+        neigh_sum = np.zeros_like(pts)
+        neigh_cnt = np.zeros(len(pts))
+        for a in range(3):
+            for b in range(3):
+                if a == b:
+                    continue
+                np.add.at(neigh_sum, cells[:, a], pts[cells[:, b]])
+                np.add.at(neigh_cnt, cells[:, a], 1.0)
+        target = neigh_sum / np.maximum(neigh_cnt, 1.0)[:, None]
+        movable = np.arange(len(pts)) >= n_fixed
+        pts[movable] = pts[movable] + 0.6 * (target[movable] - pts[movable])
+        cells = triangulate(pts)
+
+    mesh = Mesh(2, pts, cells.astype(np.int32),
+                np.zeros((0, 2), np.int32), np.zeros((0,), np.int32))
+    mesh.ensure_positive_orientation()
+    return mesh, n_fixed
+
+
+def _classify_box_boundary(mesh: Mesh, lx, ly, tol=1e-9):
+    """Extract boundary facets, classify against the box; return leftovers
+    (= obstacle) marked with tag 4."""
+    faces, _, _ = mesh.compute_boundary_faces()
+    fp = mesh.points[faces]  # (n, dim, dim)
+    tags = np.full(len(faces), 4, dtype=np.int32)
+
+    def on_plane(axis, value):
+        return np.all(np.abs(fp[:, :, axis] - value) < tol, axis=1)
+
+    tags[on_plane(1, 0.0)] = 0
+    tags[on_plane(1, ly)] = 2
+    tags[on_plane(0, lx)] = 1
+    tags[on_plane(0, 0.0)] = 3
+    mesh.boundary_faces = faces
+    mesh.boundary_tags = tags
+    return mesh
+
+
+def _circle_projector(cx, cy, r):
+    """Radial projection onto the circle |p - c| = r."""
+    c = np.array([cx, cy])
+
+    def proj(p):
+        v = np.asarray(p, float)[:, :2] - c
+        n = np.linalg.norm(v, axis=1, keepdims=True)
+        return c + r * v / np.maximum(n, 1e-300)
+
+    return proj
+
+
+def channel_with_cylinder_2d(h=0.02, h_near=None, lx=2.2, ly=0.41,
+                             cx=0.2, cy=0.2, r=0.05, near_band=None,
+                             n_rings=3, wake_levels=0, wake_len=1.2,
+                             wake_halfwidth=0.12):
+    """Schaefer-Turek 2D cylinder channel (mesh/domain2D.geo geometry).
+
+    ``wake_levels`` > 0 additionally refines a band of halfwidth
+    ``wake_halfwidth`` around the wake centerline (length ``wake_len``
+    behind the cylinder) to spacing h / 2**wake_levels — the vortex
+    street resolution that Cl_max convergence needs (ST 2D-2)."""
+    h_near = h_near if h_near is not None else h / 2.0
+    near_band = near_band if near_band is not None else 6.0 * r
+
+    # circle boundary + graded offset rings
+    n_theta = max(24, int(np.ceil(2 * np.pi * r / h_near)))
+    ring_pts = []
+    growth = 1.35
+    rad = r
+    for k in range(n_rings + 1):
+        stagger = 0.5 * (k % 2)
+        theta = (np.arange(n_theta) + stagger) * (2 * np.pi / n_theta)
+        ring = np.stack([cx + rad * np.cos(theta), cy + rad * np.sin(theta)],
+                        axis=1)
+        if k == 0:
+            circle = ring
+        else:
+            ring_pts.append(ring)
+        rad += (2 * np.pi * r / n_theta) * (growth ** k)
+
+    hole_path = _Polygon(circle)
+    extra = np.concatenate(ring_pts, axis=0) if ring_pts else None
+
+    def dist_fn(p):
+        d = np.abs(np.hypot(p[:, 0] - cx, p[:, 1] - cy) - r)
+        if wake_levels > 0:
+            dx = p[:, 0] - np.clip(p[:, 0], cx, cx + wake_len)
+            dw = np.hypot(dx, p[:, 1] - cy)
+            base = near_band / (2.0 ** wake_levels)
+            scale = (near_band - base) / wake_halfwidth
+            d = np.minimum(d, base + dw * scale)
+        return d
+
+    mesh, _ = _delaunay_mesh_2d(lx, ly, h, [circle], [hole_path], extra,
+                                dist_fn, h_near, near_band)
+    mesh = _classify_box_boundary(mesh, lx, ly).validate()
+    # exact circle for superparametric P2 boundary cells (fem/spaces.py)
+    mesh.snap_projectors = {4: _circle_projector(cx, cy, r)}
+    return mesh

@@ -1,8 +1,8 @@
 """Incompressible Navier-Stokes solver in PyTorch.
 
-Port of ``navierstokes_tpu/models/navier_stokes.py`` for P2/P1 in 2D on
-the BSR operator with the "blocked" block-Jacobi F preconditioner and the
-blocked mass, in both time schemes:
+Port of ``navierstokes_tpu/models/navier_stokes.py`` for P2/P1 in 2D
+(``operator="bsr"``, whose operators the port keeps in a compact layout)
+with the block-Jacobi tile F preconditioner, in both time schemes:
 
 * ``scheme="monolithic"`` (the reference's scheme, cpp:344-397): the
   saddle-point system per step by FGMRES with the ``cc``, ``pcd``,
@@ -20,28 +20,31 @@ The public surface follows the reference's class
 Options outside this port raise ``NotImplementedError`` naming the
 option (``check_config``).  Tensors live on the explicit ``device``; the
 compute dtype is ``SolverConfig.dtype``.  One step is plain tensor code
-plus the blocked-ELL SpMV kernel; the time loop is a Python loop over
-steps.
+plus the SELL SpMV kernel on compact operator values (``ops/sell.py``);
+the time loop is a Python loop over steps.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time as _walltime
 
 import numpy as np
 import torch
 
-from navierstokes_tpu.config import InletConfig, SolverConfig
-from navierstokes_tpu.fem.spaces import TaylorHoodSpace
-from navierstokes_tpu.mesh.geometry import (Mesh, TAG_OBSTACLE, TAG_OUTLET,
-                                            TAG_WALL_BOTTOM, TAG_WALL_TOP)
-from navierstokes_tpu.mesh.msh_io import read_msh
-from navierstokes_tpu.utils.checkpoint import (checkpoint_path,
-                                               export_state, import_state)
-from navierstokes_tpu.utils.csv_logger import ForcesCsv
-from navierstokes_tpu.utils.vtu import write_vtu_pvtu
+from navierstokes_tpu_torch.config import InletConfig, SolverConfig
+from navierstokes_tpu_torch.fem.spaces import TaylorHoodSpace
+from navierstokes_tpu_torch.mesh.geometry import (Mesh, TAG_OBSTACLE,
+                                                  TAG_OUTLET, TAG_WALL_BOTTOM,
+                                                  TAG_WALL_TOP)
+from navierstokes_tpu_torch.mesh.msh_io import read_msh
+from navierstokes_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                     export_state,
+                                                     import_state)
+from navierstokes_tpu_torch.utils.csv_logger import ForcesCsv
+from navierstokes_tpu_torch.utils.vtu import write_vtu_pvtu
 from navierstokes_tpu_torch.ops.assembly import (build_face_arrays,
                                                  cell_arrays_numpy,
                                                  geometric_factors)
@@ -176,10 +179,16 @@ class NavierStokes:
         check_config(cfg)
         self.dtype = _DTYPES[cfg.dtype]
         dev = self.device
-        if isinstance(self._mesh_source, Mesh):
-            self.mesh = self._mesh_source
+        src = self._mesh_source
+        if isinstance(src, (str, os.PathLike)):
+            self.mesh = read_msh(str(src))
+        elif isinstance(src, Mesh):
+            self.mesh = src
         else:
-            self.mesh = read_msh(str(self._mesh_source))
+            # any object with the Mesh fields (e.g. the JAX package's mesh)
+            self.mesh = Mesh(src.dim, src.points, src.cells,
+                             src.boundary_faces, src.boundary_tags,
+                             getattr(src, "snap_projectors", None))
         if self.mesh.dim != 2:
             raise NotImplementedError("3D is not ported")
         self.mesh.reorder_spatial()
@@ -214,22 +223,16 @@ class NavierStokes:
         self._lumped_host = lm
 
         blk = cfg.bsr_block or None
-        gb_kmax = cfg.bsr_gb_kmax
-        if gb_kmax == -2:
-            # auto: split G/B tables under projection, whole rows under
-            # monolithic (the Schur coarse assembly contracts G block
-            # pairs within rows, solvers/schur.coarse_matrix)
-            gb_kmax = -1 if cfg.scheme == "projection" else 0
-        self.ell = build_bsr(sp, cells_host, self.dtype, dev, bu=blk, bp=blk,
-                             row_multiple=128, f_kmax=cfg.bsr_f_kmax,
-                             gb_kmax=gb_kmax)
+        self.ell = build_bsr(sp, cells_host, self.dtype, dev, bu=blk, bp=blk)
         self._ops = BsrOps()
         self._agg_blocks = cfg.schur_agg_blocks or max(1, 64 // self.ell.bp)
         schur_coarse = (cfg.scheme == "monolithic"
                         and cfg.preconditioner in ("asimple", "ayosida"))
+        h = self.ell.host
         self._coarse_plan = build_coarse_plan(
             sp.n_p1, self.ell.bp, self._agg_blocks,
-            g_cols=self.ell.host.g_cols_full if schur_coarse else None,
+            g_cols=h.g_cols_full if schur_coarse else None,
+            g_agg=h.g_agg if schur_coarse else None, dtype=self.dtype,
             device=dev)
         # refinement's float64 copies of the static values (fp32 only)
         self._ell64 = (float64_tables(self.ell)
@@ -318,9 +321,8 @@ class NavierStokes:
                                    mask_flat / self._lumped_host, dt_, dev,
                                    b=self.ell.bp)
             self._ap_sc_inv, self._ap_lam = self._coarse_statics(self._ap)
-        h = self.ell.host
         self._bj_plan = build_block_jacobi_plan(
-            h.f_cols, h.ovf_rows, self.ell.n_vb, self.ell.bu, sp.n_p2,
+            self.ell.f, self.ell.bu, sp.n_p2,
             S=cfg.bj_tile_blocks or max(1, 256 // self.ell.bu), device=dev)
         out_sel = self.mesh.boundary_tags == TAG_OUTLET
         out_nodes = (np.unique(self.mesh.boundary_faces[out_sel])
@@ -353,9 +355,8 @@ class NavierStokes:
         cfg = self.config
         ct = 1.5 if cfg.scheme == "projection" and cfg.proj_bdf2 else 1.0
         h = self.ell.host
-        self.a0_cell = torch.as_tensor(
-            (ct / cfg.deltat) * h.m_blk + self.nu * h.k_blk,
-            dtype=self.dtype, device=self.device)
+        self.a0_cell = self.ell.f.values(
+            (ct / cfg.deltat) * h.m_nz + self.nu * h.k_nz, self.dtype)
         self.dt_mlump_inv = torch.as_tensor(
             (cfg.deltat / self._lumped_host)[:, None], dtype=self.dtype,
             device=self.device)

@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from navierstokes_tpu.fem.spaces import FaceData, TaylorHoodSpace
+from navierstokes_tpu_torch.fem.spaces import FaceData, TaylorHoodSpace
 
 
 @dataclasses.dataclass

@@ -16,10 +16,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from navierstokes_tpu.config import InletConfig
-from navierstokes_tpu.fem.spaces import TaylorHoodSpace
-from navierstokes_tpu.mesh.geometry import (TAG_INLET, TAG_OBSTACLE,
-                                            TAG_WALL_BOTTOM, TAG_WALL_TOP)
+from navierstokes_tpu_torch.config import InletConfig
+from navierstokes_tpu_torch.fem.spaces import TaylorHoodSpace
+from navierstokes_tpu_torch.mesh.geometry import (TAG_INLET, TAG_OBSTACLE,
+                                                  TAG_WALL_BOTTOM,
+                                                  TAG_WALL_TOP)
 
 
 @dataclasses.dataclass

@@ -15,28 +15,65 @@ import numpy as np
 import torch
 
 
+# Plans whose targets have at most this many entries take the gather-add
+# passes, the others torch.segment_reduce.  At the bench point on an H100
+# (tools/segment_plan_timing.py): the convection plan (at most 9 entries
+# per F slot) 0.35 ms in passes against 6.20 ms, the PCD plan 0.18 against
+# 0.85 ms; the Schur coarse plan, whose largest target collects the
+# padding pairs of all G block rows (378,517 entries), 2.09 ms against
+# 14.9 s in passes.
+MAX_PASSES = 32
+
+
 @dataclasses.dataclass
 class SegmentPlan:
     """Presorted segment sum (n_flat,) -> (num_segments,), the JAX
-    ``Scatter``: the values are permuted by the stable argsort of their
-    target ids and reduced by ``torch.segment_reduce`` over the per-target
-    counts.  A fixed-order sum, no atomics, so a run is bit-reproducible."""
-    order: torch.Tensor      # (n_flat,) int64 stable argsort of the ids
-    lengths: torch.Tensor    # (num_segments,) int64 entries per target
+    ``Scatter``: a fixed order with no atomics.
+
+    Where every target has few entries (the element-to-operator plans: at
+    most ~12 cells share a node pair) the sum runs as one pass per rank:
+    pass k gathers every target's k-th entry and adds it in place, each
+    target at most once per pass (``passes``: sequential sums in input
+    order from zero, the same bits on the CPU and the card).  Plans with
+    longer targets (the Schur coarse pairs) take ``torch.segment_reduce``
+    (``order``/``lengths``), which sums in input order on the CPU and in
+    its own fixed order on the card (bit-identical on repeat there)."""
     num_segments: int
+    passes: tuple = ()       # ((src, dst), ...) int64, one pair per rank
+    order: torch.Tensor | None = None     # stable argsort of the ids
+    lengths: torch.Tensor | None = None   # entries per target
 
     def __call__(self, flat_values: torch.Tensor) -> torch.Tensor:
-        return torch.segment_reduce(flat_values[self.order], "sum",
-                                    lengths=self.lengths, axis=0)
+        if self.order is not None:
+            return torch.segment_reduce(flat_values[self.order], "sum",
+                                        lengths=self.lengths, axis=0)
+        out = flat_values.new_zeros(self.num_segments)
+        for k, (src, dst) in enumerate(self.passes):
+            if k == 0:
+                out[dst] = flat_values[src]
+            else:
+                out[dst] += flat_values[src]
+        return out
 
 
 def segment_plan(ids, num_segments: int, device) -> SegmentPlan:
     flat = np.asarray(ids, np.int64).reshape(-1)
     order = np.argsort(flat, kind="stable")
     lengths = np.bincount(flat, minlength=num_segments)
-    return SegmentPlan(order=torch.as_tensor(order, device=device),
-                       lengths=torch.as_tensor(lengths, device=device),
-                       num_segments=int(num_segments))
+    t = lambda a: torch.as_tensor(a, device=device)
+    if lengths.max(initial=0) > MAX_PASSES:
+        return SegmentPlan(num_segments=int(num_segments), order=t(order),
+                           lengths=t(lengths))
+    start = np.zeros(num_segments + 1, np.int64)
+    np.cumsum(lengths, out=start[1:])
+    seg = flat[order]
+    rank = np.arange(len(flat)) - start[seg]
+    # pass k: the entries of rank k, in input order
+    by_rank = np.argsort(rank, kind="stable")
+    groups = (np.split(by_rank, np.cumsum(np.bincount(rank))[:-1])
+              if len(rank) else [])
+    passes = tuple((t(order[g]), t(seg[g])) for g in groups)
+    return SegmentPlan(num_segments=int(num_segments), passes=passes)
 
 
 def convection_matrices(cells, t_hat: torch.Tensor,

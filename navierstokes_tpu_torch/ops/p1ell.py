@@ -1,14 +1,15 @@
-"""P1 blocked-ELL operators and the block-Jacobi velocity preconditioner.
+"""P1 operators and the block-Jacobi velocity preconditioner.
 
-Port of ``navierstokes_tpu/ops/p1ell.py`` (the 2D blocked subset):
+Port of ``navierstokes_tpu/ops/p1ell.py`` (the 2D subset), in the compact
+SELL layout of ``ops/sell.py`` where the JAX package keeps blocked ELLs:
 
 * ``assemble_p1_stiffness`` — the consistent P1 Laplacian of the pressure
-  Poisson solve, host-assembled into a blocked ELL, applied through the
-  blocked-ELL SpMV kernel (``ell_matvec``).
+  Poisson solve, host-assembled, applied through the SELL SpMV kernel
+  (``ell_matvec``, the JAX function's name).
 * ``assemble_ap`` — the Cahouet-Chabard / PCD pressure operator
   Ap = B diag(w) B^T, host-assembled the same way.
-* Block-Jacobi — the 256x256 tile diagonals of the BC-masked F, gathered
-  per step as whole (bu, bu) blocks ("blocked" layout), inverted by
+* Block-Jacobi — the 256x256 tile diagonals of the BC-masked F, scattered
+  per step from the compact F values by a static plan, inverted by
   Newton-Schulz from the static-operator seed with an exact-inverse
   fallback, applied as batched matmuls (the reference's ILU(0) stand-in,
   src/NavierStokes.cpp:958).
@@ -22,61 +23,35 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-from navierstokes_tpu_torch.kernels.bsr_spmv import bsr_spmv
+from navierstokes_tpu_torch.kernels.sell_spmv import sell_spmv
+from navierstokes_tpu_torch.ops.sell import SellMatrix, sell_from_coo
 
 
 @dataclasses.dataclass
-class EllBlocked:
-    """Square blocked-ELL matrix over one scalar field (P1 pressure);
-    values in the flat row-major layout (n_b, b, K*b), K*b a multiple
-    of 128."""
-    cols: torch.Tensor       # (n_b, K) int32 block columns
-    vals: torch.Tensor       # (n_b, b, K*b)
+class P1Matrix:
+    """Square compact matrix over one scalar field (P1 pressure)."""
+    mat: SellMatrix
+    vals: torch.Tensor       # (n_slots,)
     diag: torch.Tensor       # (n,) assembled diagonal
     n: int
-    b: int
-    host_vals: np.ndarray    # (n_b, K, b, b) float64 block layout
-    host_cols: np.ndarray    # (n_b, K) int64
+    b: int                   # node-block size of the coarse aggregates
+    host_vals: np.ndarray    # (nnz,) float64, in mat's (row, col) order
 
 
-def _to_blocked_ell(rows, cols, vals, n, b, dtype, device):
-    """COO (with duplicates) -> blocked ELL, summing duplicates."""
-    n_b = -(-n // b)
-    RI = rows // b
-    CJ = cols // b
-    stride = np.int64(n_b + 1)
-    key = RI.astype(np.int64) * stride + CJ
-    uk = np.unique(key)
-    ru = (uk // stride).astype(np.int64)
-    counts = np.bincount(ru, minlength=n_b)
-    K = max(1, int(counts.max()))
-    lane_k = max(1, 128 // b)
-    K = -(-K // lane_k) * lane_k
-    row_start = np.zeros(n_b + 1, np.int64)
-    np.cumsum(counts, out=row_start[1:])
-    k_of = np.arange(len(uk)) - row_start[ru]
-    table = np.zeros((n_b, K), np.int64)
-    table[ru, k_of] = uk % stride
-    pos = np.searchsorted(uk, key)
-    kb = k_of[pos]
-    out = np.zeros((n_b, K, b, b))
-    np.add.at(out, (RI, kb, rows % b, cols % b), vals)
+def _to_p1_matrix(rows, cols, vals, n, b, dtype, device, name):
+    """COO (with duplicates, summed) -> compact matrix ``name``."""
+    mat, nz = sell_from_coo(rows, cols, vals, n, n, device, name)
     diag = np.zeros(n)
-    d = rows == cols
-    np.add.at(diag, rows[d], vals[d])
-    flat = out.transpose(0, 2, 1, 3).reshape(n_b, b, K * b)
-    return EllBlocked(
-        cols=torch.as_tensor(table.astype(np.int32), device=device),
-        vals=torch.as_tensor(flat, dtype=dtype, device=device),
-        diag=torch.as_tensor(diag, dtype=dtype, device=device),
-        n=n, b=b, host_vals=out, host_cols=table)
+    d = mat.nz_row == mat.nz_col
+    diag[mat.nz_row[d]] = nz[d]
+    return P1Matrix(mat=mat, vals=mat.values(nz, dtype),
+                    diag=torch.as_tensor(diag, dtype=dtype, device=device),
+                    n=n, b=b, host_vals=nz)
 
 
-def ell_matvec(m: EllBlocked, x):
+def ell_matvec(m: P1Matrix, x):
     """y = M x for x (n,)."""
-    n_b = m.cols.shape[0]
-    xb = Fn.pad(x, (0, n_b * m.b - m.n))[:, None]
-    return bsr_spmv(m.vals, m.cols, xb, m.b).reshape(-1)[:m.n]
+    return sell_spmv(m.mat, m.vals, x.contiguous())
 
 
 def assemble_ap(space, cells_host, w, dtype, device, b=16):
@@ -99,8 +74,8 @@ def assemble_ap(space, cells_host, w, dtype, device, b=16):
         t = (B.multiply(np.asarray(w)[None, :])) @ B.T
         ap = t if ap is None else ap + t
     ap = ap.tocoo()
-    return _to_blocked_ell(ap.row.astype(np.int64), ap.col.astype(np.int64),
-                           ap.data, space.n_p1, b, dtype, device)
+    return _to_p1_matrix(ap.row.astype(np.int64), ap.col.astype(np.int64),
+                         ap.data, space.n_p1, b, dtype, device, "Ap")
 
 
 def assemble_p1_stiffness(space, cells_host, dtype, device, b=16,
@@ -140,20 +115,19 @@ def assemble_p1_stiffness(space, cells_host, dtype, device, b=16,
         L[dirichlet_nodes, dirichlet_nodes] = scale
         L = L.tocsr()
     L = L.tocoo()
-    return _to_blocked_ell(L.row.astype(np.int64), L.col.astype(np.int64),
-                           L.data, space.n_p1, b, dtype, device)
+    return _to_p1_matrix(L.row.astype(np.int64), L.col.astype(np.int64),
+                         L.data, space.n_p1, b, dtype, device,
+                         "P1 Laplacian")
 
 
-def coarse_from_ell(m: EllBlocked, agg_blocks: int) -> np.ndarray:
+def coarse_from_ell(m: P1Matrix, agg_blocks: int) -> np.ndarray:
     """Galerkin coarse matrix over aggregates of ``agg_blocks`` consecutive
-    blocks: S_c[a, b] = sum of entries between the aggregates (host)."""
-    n_b, K = m.host_cols.shape
-    n_agg = -(-n_b // agg_blocks)
-    ra = np.repeat(np.arange(n_b) // agg_blocks, K)
-    ca = (m.host_cols // agg_blocks).reshape(-1)
-    s = m.host_vals.sum(axis=(2, 3)).reshape(-1)
+    node blocks: S_c[a, b] = sum of entries between the aggregates
+    (host)."""
+    agg = agg_blocks * m.b
+    n_agg = -(-m.n // agg)
     sc = np.zeros((n_agg, n_agg))
-    np.add.at(sc, (ra, ca), s)
+    np.add.at(sc, (m.mat.nz_row // agg, m.mat.nz_col // agg), m.host_vals)
     return sc
 
 
@@ -164,66 +138,41 @@ def coarse_from_ell(m: EllBlocked, agg_blocks: int) -> np.ndarray:
 
 @dataclasses.dataclass
 class BlockJacobiPlan:
-    """Static gather plan: F value blocks -> (n_tiles, S*bu, S*bu) tile
-    diagonals.  ``bidx[t, s, s']`` is the (v*KB + k) index of the (bu, bu)
-    value block holding tile t's (s, s') block, or n_vb_ext*KB for a
-    missing pair (a zero block the tile build appends).  ``idx`` keeps the
-    JAX package's flat base indices (v*bu*KB + k)*bu."""
-    idx: np.ndarray          # (n_tiles, S, S) int64, host
-    bidx: torch.Tensor       # (n_tiles, S, S) int64, clamped on the host
+    """Static scatter plan: compact F values -> (n_tiles, S*bu, S*bu) tile
+    diagonals.  Tile t covers the nodes [t*S*bu, (t+1)*S*bu); ``src`` lists
+    the F slots of the nonzeros whose row and column share a tile and
+    ``pos`` their flat positions in the tile stack (each position once)."""
+    pos: torch.Tensor        # (n_on,) int64
+    src: torch.Tensor        # (n_on,) int64
     n_tiles: int
     S: int
     bu: int
     n_p2: int
 
 
-def build_block_jacobi_plan(f_cols, ovf_rows, n_vb: int, bu: int, n_p2: int,
-                            S: int, device) -> BlockJacobiPlan:
-    """Tile plan from the host F tables (ops/bsr.BsrHost f_cols/ovf_rows);
-    virtual overflow rows belong to their physical row's tile diagonal."""
-    f_cols = np.asarray(f_cols, np.int64)
-    n_vb_ext, KB = f_cols.shape
-    row_phys = np.arange(n_vb_ext)
-    if n_vb_ext > n_vb:
-        row_phys[n_vb:] = np.asarray(ovf_rows, np.int64)
-    n_tiles = -(-n_vb // S)
-    C = KB * bu
-    zero_base = n_vb_ext * bu * C
-    if zero_base + bu * C >= 2 ** 31:
-        raise ValueError("block-Jacobi flat indices exceed int32 range "
-                         f"(n_vb_ext={n_vb_ext}, C={C})")
-    idx = np.full((n_tiles, S, S), zero_base, np.int64)
-    r = np.repeat(row_phys, KB)
-    v = np.repeat(np.arange(n_vb_ext), KB)
-    k = np.tile(np.arange(KB), n_vb_ext)
-    c = f_cols.reshape(-1)
-    on_tile = (r // S) == (c // S)
-    r, v, k, c = r[on_tile], v[on_tile], k[on_tile], c[on_tile]
-    # ELL padding slots carry block-column 0 with zero values; write
-    # k-descending, virtual rows first, so a real physical (r, 0) pair
-    # (low k) overwrites any padding collision
-    order = np.lexsort((-k, -v))
-    r, v, k, c = r[order], v[order], k[order], c[order]
-    idx[r // S, r % S, c % S] = (v * bu * KB + k) * bu
-    base = idx // bu
-    vv = base // (bu * KB)
-    bidx = np.minimum(vv * KB + (base - vv * (bu * KB)), n_vb_ext * KB)
-    return BlockJacobiPlan(idx=idx,
-                           bidx=torch.as_tensor(bidx, device=device),
+def build_block_jacobi_plan(f: SellMatrix, bu: int, n_p2: int, S: int,
+                            device) -> BlockJacobiPlan:
+    """Tile plan of the F pattern ``f`` (ops/bsr.BsrData.f): S node blocks
+    of ``bu`` nodes per tile."""
+    SB = S * bu
+    n_tiles = -(-n_p2 // SB)
+    if n_tiles * SB * SB >= 2 ** 31:
+        raise ValueError(f"block-Jacobi tiles of {n_tiles * SB * SB} "
+                         "values exceed int32 range")
+    r, c = f.nz_row, f.nz_col
+    on = (r // SB) == (c // SB)
+    pos = (r[on] // SB) * (SB * SB) + (r[on] % SB) * SB + c[on] % SB
+    return BlockJacobiPlan(pos=torch.as_tensor(pos, device=device),
+                           src=torch.as_tensor(f.nz_slot[on], device=device),
                            n_tiles=n_tiles, S=S, bu=bu, n_p2=n_p2)
 
 
-def block_jacobi_tiles(plan: BlockJacobiPlan, f_blk, mask_flat, sigma):
+def block_jacobi_tiles(plan: BlockJacobiPlan, f_vals, mask_flat, sigma):
     """fp32 tile diagonals of the BC-masked F: M F M + sigma (I - M)."""
-    bu = plan.bu
-    SB = plan.S * bu
-    n_vb, _, C = f_blk.shape
-    KB = C // bu
-    blocks = f_blk.reshape(n_vb, bu, KB, bu).transpose(1, 2)
-    flat = torch.cat([blocks.reshape(n_vb * KB, bu, bu),
-                      f_blk.new_zeros((1, bu, bu))], dim=0)
-    tiles = flat[plan.bidx]                               # (t, S, S, bu, bu)
-    t = tiles.permute(0, 1, 3, 2, 4).reshape(plan.n_tiles, SB, SB)
+    SB = plan.S * plan.bu
+    t = f_vals.new_zeros(plan.n_tiles * SB * SB)
+    t[plan.pos] = f_vals[plan.src]
+    t = t.view(plan.n_tiles, SB, SB)
     n = plan.n_tiles * SB
     m = Fn.pad(mask_flat, (0, n - plan.n_p2)).reshape(plan.n_tiles, SB)
     t = t * m[:, :, None] * m[:, None, :]
@@ -252,21 +201,21 @@ def _inv(a):
     return torch.stack([torch.linalg.inv(t) for t in a])
 
 
-def block_jacobi_inverse(plan: BlockJacobiPlan, f_blk, mask_flat, sigma):
+def block_jacobi_inverse(plan: BlockJacobiPlan, f_vals, mask_flat, sigma):
     """Exact tile inverses (the Newton seed of block_jacobi_invert)."""
-    a = block_jacobi_tiles(plan, f_blk, mask_flat, sigma)
-    return _inv(a).to(f_blk.dtype)
+    a = block_jacobi_tiles(plan, f_vals, mask_flat, sigma)
+    return _inv(a).to(f_vals.dtype)
 
 
-def block_jacobi_invert(plan: BlockJacobiPlan, f_blk, mask_flat, sigma,
+def block_jacobi_invert(plan: BlockJacobiPlan, f_vals, mask_flat, sigma,
                         x0=None, iters: int = 3):
     """Per-step tile inverses: ``iters`` Newton-Schulz steps
     X <- X (2I - A X) from the static seed ``x0``, in fp32, with an exact
     inverse when the seed is outside the contraction region
     (max row-sum norm of I - A X0 >= 0.9).  A deterministic function of
     the step state, so restarts reproduce the continuous run."""
-    a = block_jacobi_tiles(plan, f_blk, mask_flat, sigma)
-    out_dtype = f_blk.dtype
+    a = block_jacobi_tiles(plan, f_vals, mask_flat, sigma)
+    out_dtype = f_vals.dtype
     if x0 is None or iters <= 0:
         return _inv(a).to(out_dtype)
     x = x0.to(torch.float32)

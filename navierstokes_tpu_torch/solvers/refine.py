@@ -25,9 +25,9 @@ from navierstokes_tpu_torch.ops.bsr import (BsrData, apply_b, apply_bt,
 def float64_tables(bsr: BsrData) -> BsrData:
     """``bsr`` with exact float64 copies of the static values the residual
     reads (the mass, G and B); made once, when refinement is on."""
-    return dataclasses.replace(bsr, m_blk=bsr.m_blk.double(),
-                               g_blk=bsr.g_blk.double(),
-                               b_blk=bsr.b_blk.double())
+    return dataclasses.replace(bsr, m_vals=bsr.m_vals.double(),
+                               g_vals=bsr.g_vals.double(),
+                               b_vals=bsr.b_vals.double())
 
 
 def apply_saddle_f64(bsr64: BsrData, f64, mask, sigma, xu, xp):
@@ -43,7 +43,7 @@ def rhs_f64(bsr64: BsrData, f64, mask, sigma, u, g, dt: float):
     """The step RHS in float64: b_u = (M u / dt - F g) * mask + sigma g,
     b_p = -(B g), with the fp32 system's dt."""
     u, g = u.double(), g.double()
-    b_u = apply_f(bsr64, bsr64.m_blk, u) / float(np.float32(dt))
+    b_u = apply_f(bsr64, bsr64.m_vals, u) / float(np.float32(dt))
     b_u = (b_u - apply_f(bsr64, f64, g)) * mask + sigma * g
     return b_u, -apply_b(bsr64, g)
 

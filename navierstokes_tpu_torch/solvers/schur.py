@@ -7,7 +7,8 @@ sum; Chebyshev polynomials smooth the upper spectrum of D^-1 S.  The
 coarse matrix of an assembled operator (the P1 Laplacian, Ap) is inverted
 once at setup; the Schur complement S = B W B^T of aSIMPLE/aYosida gets
 its Galerkin coarse matrix assembled every step from G block pairs
-(``coarse_matrix``) and inverted in fp32 (``coarse_inverse``).
+(``coarse_matrix``, on G's static block sums over the pressure nodes) and
+inverted in fp32 (``coarse_inverse``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-from navierstokes_tpu_torch.ops.bsr import g_blocks
 from navierstokes_tpu_torch.ops.operators import SegmentPlan, segment_plan
 from navierstokes_tpu_torch.ops.p1ell import _inv
 
@@ -30,32 +30,37 @@ class CoarsePlan:
     n_p1: int
     # (n_vb*KG*KG,) G block pairs -> n_agg*n_agg coarse slots, or None
     pair_plan: SegmentPlan | None = None
+    # (n_vb, KG, dim, bu) G summed over each block's pressure nodes
+    g_agg: torch.Tensor | None = None
 
 
 def build_coarse_plan(n_p1: int, bp: int, agg_blocks: int, g_cols=None,
-                      device=None) -> CoarsePlan:
+                      g_agg=None, dtype=None, device=None) -> CoarsePlan:
     """``agg_blocks`` pressure blocks (of ``bp`` nodes) per aggregate.
-    ``g_cols``, the physical (unsplit) host G block table (n_vb, KG), adds
-    the G-pair slot plan that ``coarse_matrix`` needs."""
+    ``g_cols``, the whole-row host G block table (n_vb, KG), and ``g_agg``,
+    G's host block sums (ops/bsr.BsrHost), add what ``coarse_matrix``
+    needs: the G-pair slot plan and the block sums in ``dtype``."""
     n_pb = -(-n_p1 // bp)
     n_agg = -(-n_pb // agg_blocks)
-    pair = None
+    pair = agg = None
     if g_cols is not None:
         a_cols = np.asarray(g_cols, np.int64) // agg_blocks
         slots = (a_cols[:, :, None] * n_agg + a_cols[:, None, :]).reshape(-1)
         pair = segment_plan(slots, n_agg * n_agg, device)
+        agg = torch.as_tensor(g_agg, dtype=dtype, device=device)
     return CoarsePlan(n_agg=n_agg, agg=agg_blocks * bp, n_p1=n_p1,
-                      pair_plan=pair)
+                      pair_plan=pair, g_agg=agg)
 
 
 def coarse_matrix(bsr, plan: CoarsePlan, dinv_masked):
     """S_c[a, b] = sum_u (B^T R)[u, a] dinv[u] (B^T R)[u, b], assembled from
-    whole-row G block pairs; ``dinv_masked`` (n_p2,) the node weights."""
-    n_vb = bsr.g_cols.shape[0]
+    whole-row G block pairs; ``dinv_masked`` (n_p2,) the node weights.
+    Aggregates hold whole pressure blocks, so G enters only through its
+    block sums w[n,k,d,a] = sum_b g[n,k,d,a,b] (``plan.g_agg``)."""
+    w = plan.g_agg                                        # (n_vb, KG, dim, bu)
+    n_vb = w.shape[0]
     d_blk = Fn.pad(dinv_masked, (0, n_vb * bsr.bu - bsr.n_p2)).reshape(
         n_vb, bsr.bu)
-    # w[n,k,d,a] = sum_b g[n,k,d,a,b]: aggregates hold whole pressure blocks
-    w = g_blocks(bsr).sum(dim=4)                          # (n_vb, KG, dim, bu)
     vals = torch.einsum("nkda,na,nlda->nkl", w, d_blk, w)
     return plan.pair_plan(vals.reshape(-1)).reshape(plan.n_agg, plan.n_agg)
 

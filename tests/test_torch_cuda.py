@@ -1,10 +1,11 @@
 """Tests of the port that need an NVIDIA GPU, plus its host shims: the
-fp32, bf16-values and fp64 SpMV kernels against their plain versions, the
-wrapper's refusals, and model steps (projection; monolithic with bf16 and
-refinement) that launch the kernels.
+fp32, bf16-values and fp64 SELL SpMV kernels against their plain versions
+in every use of the step, bit-identical repeats, the wrapper's refusals,
+model steps (projection; monolithic with bf16 and refinement) that launch
+the kernels, and the port's own mesh generator where matplotlib is absent.
 
-This file imports no jax, so that it also runs where only the port's
-dependencies are installed:
+This file imports no jax and nothing of the JAX package at module level,
+so that it also runs where only the port's dependencies are installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -13,6 +14,7 @@ cases carry the ``cuda`` marker and skip where there is no card.
 Fixture: the h=0.12 cylinder channel of tests/test_pallas_matvec.py.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -22,17 +24,23 @@ import numpy as np
 import pytest
 import torch
 
-from navierstokes_tpu_torch.kernels import bsr_spmv as K
+from navierstokes_tpu_torch.config import InletConfig, SolverConfig
+from navierstokes_tpu_torch.fem.spaces import TaylorHoodSpace
+from navierstokes_tpu_torch.kernels import sell_spmv as K
+from navierstokes_tpu_torch.mesh.generators import channel_with_cylinder_2d
 from navierstokes_tpu_torch.ops import assembly as TA
 from navierstokes_tpu_torch.ops import bsr as TB
 from navierstokes_tpu_torch.ops import p1ell as TP
-from navierstokes_tpu.config import InletConfig, SolverConfig
-from navierstokes_tpu.fem.spaces import TaylorHoodSpace
-from navierstokes_tpu.mesh import channel_with_cylinder_2d
 
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
-BENCH_KW = dict(row_multiple=128, f_kmax=-1, gb_kmax=-1)
+USES = ["F", "mass", "laplacian", "Ap", "B", "GT", "PCD"]
+# value dtype -> (x dtype, kernel-vs-plain limit of max|y|, COUNTS field):
+# only the summation order differs (bf16: both round x and each product
+# to bf16 identically, then sum in fp32)
+VARIANTS = {"f32": (torch.float32, torch.float32, 1e-5, "launches"),
+            "bf16": (torch.bfloat16, torch.float32, 1e-5, "launches_bf16"),
+            "f64": (torch.float64, torch.float64, 1e-12, "launches_f64")}
 
 
 @pytest.fixture
@@ -48,86 +56,145 @@ def space():
 
 
 def _uses(space, dev):
-    """(name, args) of the five blocked-ELL SpMV uses of the step."""
+    """use -> (pattern, fp32 values, fp32 x) of the SpMV uses of the step:
+    F (with convection) and the mass (D=2), the P1 Laplacian, Ap, B, Gᵀ
+    and the PCD pressure convection (D=1)."""
     cells = TA.cell_arrays_numpy(space)
-    b = TB.build_bsr(space, cells, torch.float32, dev, **BENCH_KW)
-    ap = TP.assemble_p1_stiffness(space, cells, torch.float32, dev)
+    b = TB.build_bsr(space, cells, torch.float32, dev)
+    lap = TP.assemble_p1_stiffness(space, cells, torch.float32, dev)
     rng = np.random.default_rng(4)
-    x = lambda n, d: torch.as_tensor(rng.standard_normal((n, d)),
-                                     dtype=torch.float32, device=dev)
-    nu = b.n_vb * b.bu
-    n_ext, dim, bu, cw = b.g_blk.shape
-    f = b.m_blk * 3.0 + torch.as_tensor(
-        rng.standard_normal(b.m_blk.shape), dtype=torch.float32, device=dev)
-    return [
-        ("F", (f, b.f_cols, x(nu, 2), b.bu, b.f_spill, b.n_vb)),
-        ("mass", (b.m_blk, b.f_cols, x(nu, 2), b.bu, b.f_spill, b.n_vb)),
-        ("laplacian", (ap.vals, ap.cols, x(ap.cols.shape[0] * ap.b, 1),
-                       ap.b)),
-        ("B", (b.b_blk, b.b_cols, x(nu * dim, 1), b.bu * dim, b.b_spill,
-               b.n_pb)),
-        ("GT", (b.g_blk.view(n_ext, dim * bu, cw), b.g_cols,
-                x(b.n_pb * b.bp, 1), b.bp, b.g_spill, b.n_vb)),
-    ]
+    ap = TP.assemble_ap(space, cells, rng.uniform(0.5, 2.0, space.n_p2),
+                        torch.float32, dev)
+    x = lambda *shape: torch.as_tensor(rng.standard_normal(shape),
+                                       dtype=torch.float32, device=dev)
+    u = 0.3 * x(space.n_p2, 2)
+    f = 3.0 * b.m_vals + TB.convection_blk(b, u)
+    return {
+        "F": (b.f, f, x(space.n_p2, 2)),
+        "mass": (b.f, b.m_vals, x(space.n_p2, 2)),
+        "laplacian": (lap.mat, lap.vals, x(space.n_p1)),
+        "Ap": (ap.mat, ap.vals, x(space.n_p1)),
+        "B": (b.b, b.b_vals, x(space.n_p2 * 2)),
+        "GT": (b.g, b.g_vals, x(space.n_p1)),
+        "PCD": (b.pp, TB.pressure_convection_blk(b, u), x(space.n_p1)),
+    }
+
+
+def _variant(space, dev, use, variant):
+    vdt, xdt, tol, field = VARIANTS[variant]
+    mat, vals, x = _uses(space, dev)[use]
+    return mat, vals.to(vdt), x.to(xdt), tol, field
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("use", ["F", "mass", "laplacian", "B", "GT"])
+@pytest.mark.parametrize("use", USES)
 def test_kernel_matches_plain_on_cuda(cuda, space, use):
     """fp32 kernel against the plain version on the card: only the
-    summation order differs, so 1e-5 of the result's max; repeated
-    launches are bit-identical (fixed-order reduction, no atomics)."""
-    args = dict(_uses(space, cuda))[use]
+    summation order differs, so 1e-5 of the result's max."""
+    mat, vals, x, tol, _ = _variant(space, cuda, use, "f32")
     K.COUNTS.reset()
-    y_k = K.bsr_spmv(*args)
-    y_k2 = K.bsr_spmv(*args)
-    y_p = K.bsr_spmv_plain(*args)
+    y_k = K.sell_spmv(mat, vals, x)
+    y_p = K.sell_spmv_plain(mat, vals, x)
     torch.cuda.synchronize()
-    assert K.COUNTS.launches == 2
+    assert K.COUNTS.launches == 1 and K.COUNTS.plain_cuda_calls == 1
+    assert y_k.shape == y_p.shape and y_k.dtype == y_p.dtype
     err = ((y_k - y_p).abs().max() / y_p.abs().max()).item()
-    assert err <= 1e-5
-    assert torch.equal(y_k, y_k2)
+    assert err <= tol
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("use", ["F", "mass", "laplacian", "B", "GT"])
+@pytest.mark.parametrize("use", USES)
 @pytest.mark.parametrize("variant", ["bf16", "f64"])
 def test_variants_match_plain_on_cuda(cuda, space, use, variant):
     """The bf16-values and fp64 kernels against the plain version on the
-    card.  bf16: both round x and each product to bf16 identically, so
-    only the fp32 summation order differs (1e-5 of the result's max).
-    fp64: only the float64 summation order differs (1e-12)."""
-    vals, cols, x, cb, *fold = dict(_uses(space, cuda))[use]
-    if variant == "bf16":
-        vals, tol, field = vals.to(torch.bfloat16), 1e-5, "launches_bf16"
-    else:
-        vals, x, tol, field = vals.double(), x.double(), 1e-12, "launches_f64"
+    card (fp32 sums of bf16-rounded products: 1e-5; fp64: 1e-12)."""
+    mat, vals, x, tol, field = _variant(space, cuda, use, variant)
     K.COUNTS.reset()
-    y_k = K.bsr_spmv(vals, cols, x, cb, *fold)
-    y_k2 = K.bsr_spmv(vals, cols, x, cb, *fold)
-    y_p = K.bsr_spmv_plain(vals, cols, x, cb, *fold)
+    y_k = K.sell_spmv(mat, vals, x)
+    y_p = K.sell_spmv_plain(mat, vals, x)
     torch.cuda.synchronize()
-    assert getattr(K.COUNTS, field) == 2 and K.COUNTS.launches == 0
+    assert getattr(K.COUNTS, field) == 1 and K.COUNTS.launches == 0
     assert y_k.dtype == y_p.dtype == x.dtype
     err = ((y_k - y_p).abs().max() / y_p.abs().max()).item()
     assert err <= tol
-    assert torch.equal(y_k, y_k2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use", USES)
+@pytest.mark.parametrize("variant", ["f32", "bf16", "f64"])
+def test_repeat_is_bit_identical_on_cuda(cuda, space, use, variant):
+    """One thread per row sums its slots in a fixed order (no atomics, no
+    shuffles), so repeated launches give the same bits."""
+    mat, vals, x, _, field = _variant(space, cuda, use, variant)
+    K.COUNTS.reset()
+    ys = [K.sell_spmv(mat, vals, x) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert getattr(K.COUNTS, field) == 3
+    assert K.COUNTS.by_pattern == {(mat.name, vals.dtype): 3}
+    assert torch.equal(ys[0], ys[1]) and torch.equal(ys[0], ys[2])
 
 
 @pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, space):
-    vals, cols, x, cb, spill, n_phys = dict(_uses(space, cuda))["F"]
+    mat, vals, x = _uses(space, cuda)["F"]
     with pytest.raises(TypeError, match="no other variant"):
-        K.bsr_spmv(vals.to(torch.float16), cols, x, cb, spill, n_phys)
+        K.sell_spmv(mat, vals.to(torch.float16), x)
     with pytest.raises(TypeError, match="x must be torch.float32"):
-        K.bsr_spmv(vals.to(torch.bfloat16), cols, x.double(), cb, spill,
-                   n_phys)
-    with pytest.raises(TypeError):
-        K.bsr_spmv(vals, cols.long(), x, cb, spill, n_phys)
+        K.sell_spmv(mat, vals.to(torch.bfloat16), x.double())
+    with pytest.raises(TypeError, match="cols must be torch.int32"):
+        K.sell_spmv(dataclasses.replace(mat, cols=mat.cols.long()), vals, x)
     with pytest.raises(ValueError, match="contiguous"):
-        K.bsr_spmv(vals, cols, x.t().contiguous().t(), cb, spill, n_phys)
+        K.sell_spmv(mat, vals, x.t().contiguous().t())
     with pytest.raises(ValueError, match="vals on"):
-        K.bsr_spmv(vals, cols, x.cpu(), cb, spill, n_phys)
+        K.sell_spmv(mat, vals, x.cpu())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.sell_spmv(mat, vals[1:1 + mat.n_slots - 1], x)
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        K.sell_spmv(mat, vals, x[:-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use", ["laplacian", "GT", "F"])
+def test_x_needs_only_its_element_alignment(cuda, space, use):
+    """x is gathered one element (D=1) or one node pair (D=2) at a time, so
+    a view that starts one such unit past a 16-byte boundary (the pressure
+    part of a monolithic Krylov vector when n_p2 is odd) is taken."""
+    mat, vals, x = _uses(space, cuda)[use]
+    unit = x.shape[1] if x.dim() == 2 else 1
+    buf = torch.empty(x.numel() + unit, dtype=x.dtype, device=cuda)
+    x_off = buf[unit:].view(x.shape)
+    x_off.copy_(x)
+    assert x_off.data_ptr() % 16 != 0
+    y_k = K.sell_spmv(mat, vals, x_off)
+    torch.cuda.synchronize()
+    assert torch.equal(y_k, K.sell_spmv_plain(mat, vals, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preconditioner", ["cc", "pcd"])
+def test_monolithic_steps_with_odd_velocity_node_count(cuda, tmp_path,
+                                                       preconditioner):
+    """With an odd n_p2 the pressure part of every FGMRES vector starts 8
+    bytes past a 16-byte boundary; G p, B u and the PCD product take it."""
+    from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
+    cfg = SolverConfig(dtype="float32", scheme="monolithic",
+                       preconditioner=preconditioner,
+                       output_dir=str(tmp_path / "out"),
+                       cache_dir=str(tmp_path / "cache"),
+                       csv_path=str(tmp_path / "forces.csv"))
+    # 25 points on the cylinder: an odd boundary count, so odd n_p2
+    ns = NavierStokes(channel_with_cylinder_2d(h=0.15, h_near=0.0126), 2, 1,
+                      deltat=0.01, T=0.02, step=2, device="cuda", config=cfg,
+                      inlet=InletConfig(kind="parabolic", u_m=0.3,
+                                        height=0.41))
+    ns.set_re_number(20)
+    ns.setup()
+    assert ns.space.n_p2 % 2 == 1
+    K.COUNTS.reset()
+    ns.solve()
+    assert K.COUNTS.launches > 0 and K.COUNTS.plain_cuda_calls == 0
+    assert bool(torch.isfinite(ns._u).all()) and np.isfinite([ns.cd,
+                                                              ns.cl]).all()
 
 
 @pytest.mark.cuda
@@ -176,9 +243,11 @@ def test_monolithic_steps_on_cuda_launch_the_variants(cuda, tmp_path):
 
 
 def test_mesh_without_matplotlib_is_identical(tmp_path):
-    """Where matplotlib is absent, the port's stand-in for
-    ``matplotlib.path.Path`` lets the mesh generators run, and they make
-    the same mesh."""
+    """The port's own mesh generators run where matplotlib is absent (its
+    ray-casting point-in-polygon stands in for ``matplotlib.path.Path``)
+    and make the JAX package's meshes for the test fixtures."""
+    pytest.importorskip("matplotlib")
+    fixtures = {"h012": dict(h=0.12), "h01": dict(h=0.1, h_near=0.04)}
     code = (
         "import importlib.util, sys\n"
         "import numpy as np\n"
@@ -187,20 +256,23 @@ def test_mesh_without_matplotlib_is_identical(tmp_path):
         "        if name.split('.')[0] == 'matplotlib':\n"
         "            raise ImportError(name)\n"
         "sys.meta_path.insert(0, Block())\n"
-        "find = importlib.util.find_spec\n"
-        "importlib.util.find_spec = lambda n, *a: (\n"
-        "    None if n.split('.')[0] == 'matplotlib' else find(n, *a))\n"
-        "import navierstokes_tpu_torch\n"
-        "from navierstokes_tpu.mesh import channel_with_cylinder_2d\n"
-        "m = channel_with_cylinder_2d(h=0.1, h_near=0.04)\n"
-        "assert sys.modules['matplotlib.path'].Path.__module__ == "
-        "'navierstokes_tpu_torch._host_compat'\n"
-        f"np.savez({str(tmp_path / 'm.npz')!r}, p=m.points, c=m.cells)\n")
+        "from navierstokes_tpu_torch.mesh.generators import "
+        "channel_with_cylinder_2d\n"
+        f"for tag, kw in {fixtures!r}.items():\n"
+        "    m = channel_with_cylinder_2d(**kw)\n"
+        f"    np.savez({str(tmp_path)!r} + '/' + tag + '.npz', p=m.points, "
+        "c=m.cells, f=m.boundary_faces, t=m.boundary_tags)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        "('matplotlib', 'navierstokes_tpu')]\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
-    ref = channel_with_cylinder_2d(h=0.1, h_near=0.04)
-    with np.load(tmp_path / "m.npz") as z:
-        np.testing.assert_array_equal(z["p"], ref.points)
-        np.testing.assert_array_equal(z["c"], ref.cells)
+    from navierstokes_tpu.mesh import channel_with_cylinder_2d as jax_mesh
+    for tag, kw in fixtures.items():
+        ref = jax_mesh(**kw)
+        with np.load(tmp_path / f"{tag}.npz") as z:
+            np.testing.assert_array_equal(z["p"], ref.points)
+            np.testing.assert_array_equal(z["c"], ref.cells)
+            np.testing.assert_array_equal(z["f"], ref.boundary_faces)
+            np.testing.assert_array_equal(z["t"], ref.boundary_tags)

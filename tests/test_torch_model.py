@@ -1,6 +1,7 @@
 """The port's NavierStokes (projection scheme) against the JAX model, in
 float64 on the tests/test_e2e.py cylinder channel (h=0.1, h_near=0.04):
-per-step iteration counts equal, u, p, Cd, Cl to 1e-9 relative; the csv
+per-step iteration counts equal, p to 1e-9 relative, u, Cd and Cl to 1e-8
+(the limits' derivation is at ``U_TOL``); the csv
 schema and checkpoints; restart equivalence within the port; a JAX
 checkpoint restarted in the port; the options outside the port raise;
 and chip_smoke.py refuses to run without a card.  The monolithic scheme
@@ -51,6 +52,21 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
 
 
+# Limits of the projection parity, derived from the fp32 tile-inverse noise
+# (tools/tile_noise_sensitivity.py measures each number below).  The u*
+# BiCGStab and the Poisson CG stop at proj_tol = 1e-4, so their iterates
+# depend to first order on the preconditioner.  Each package builds the
+# per-step block-Jacobi tile inverses in fp32, by an LU at step 1 and by
+# Newton-Schulz matmuls after it, in its own summation order: on this
+# fixture the two packages' inverses differ by up to 3.1e-7 relative at
+# steps 1-3 (giving both the same LU would remove only step 1's share,
+# 1.2e-10 of u).  Perturbing the port's own tile inverses by +-3.1e-7 moves,
+# within 3 steps of either scheme, u by up to 3.6e-9, p by 2.4e-10 and Cd
+# by 2.1e-9 of the force scale; the limits are about three times that.
+# Measured port against JAX: u 1.5e-9 (BDF1, step 3) and 4.1e-10 (BDF2).
+U_TOL, P_TOL, FORCE_TOL = 1e-8, 1e-9, 1e-8
+
+
 @pytest.mark.parametrize("bdf2", [True, False], ids=["bdf2", "bdf1"])
 def test_steps_match_jax(mesh, tmp_path, bdf2):
     jns = _make(JaxNS, mesh, str(tmp_path / "j"), proj_bdf2=bdf2).setup()
@@ -61,16 +77,13 @@ def test_steps_match_jax(mesh, tmp_path, bdf2):
         tm = tns.solve_time_step()
         assert tm.iterations == int(jm.iterations)
         assert tm.converged
-        assert _rel(tns._u.numpy(), jns._u) < 1e-9
-        assert _rel(tns._p.numpy(), jns._p) < 1e-9
-        # Cd and Cl relative to the force coefficient's magnitude: both
-        # solves stop at proj_tol with fp32 block-Jacobi tiles whose
-        # inverses differ in the last fp32 bits between the two libraries,
-        # so the states agree to ~1e-10 of their scale; Cl is the small
-        # (here ~300x smaller) component of the same force vector
+        assert _rel(tns._u.numpy(), jns._u) < U_TOL
+        assert _rel(tns._p.numpy(), jns._p) < P_TOL
+        # Cd and Cl relative to the force coefficient's magnitude: Cl is
+        # the small (here ~300x smaller) component of the same force vector
         scale = max(abs(float(jm.cd)), abs(float(jm.cl)))
-        assert abs(tm.cd - float(jm.cd)) <= 1e-9 * scale
-        assert abs(tm.cl - float(jm.cl)) <= 1e-9 * scale
+        assert abs(tm.cd - float(jm.cd)) <= FORCE_TOL * scale
+        assert abs(tm.cl - float(jm.cl)) <= FORCE_TOL * scale
         assert tns.time == pytest.approx(jns.time, abs=1e-15)
 
 

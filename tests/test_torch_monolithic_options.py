@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-import navierstokes_tpu_torch.kernels.bsr_spmv as K
+import navierstokes_tpu_torch.kernels.sell_spmv as K
 import navierstokes_tpu_torch.models.navier_stokes as TM
 from navierstokes_tpu.config import InletConfig, SolverConfig
 from navierstokes_tpu.mesh import channel_with_cylinder_2d
@@ -65,17 +65,17 @@ def rel(a, b):
 def test_bf16_options_match_jax_fp32(mesh, tmp_path, monkeypatch, scheme,
                                      option):
     seen = set()
-    plain, apply_bj = K.bsr_spmv_plain, TM.block_jacobi_apply
+    plain, apply_bj = K.sell_spmv_plain, TM.block_jacobi_apply
 
-    def spy_spmv(vals, *a, **k):
+    def spy_spmv(mat, vals, *a, **k):
         seen.add(("spmv", vals.dtype))
-        return plain(vals, *a, **k)
+        return plain(mat, vals, *a, **k)
 
     def spy_bj(plan, tiles, r):
         seen.add(("tiles", tiles.dtype))
         return apply_bj(plan, tiles, r)
 
-    monkeypatch.setattr(K, "bsr_spmv_plain", spy_spmv)
+    monkeypatch.setattr(K, "sell_spmv_plain", spy_spmv)
     monkeypatch.setattr(TM, "block_jacobi_apply", spy_bj)
     kw = dict(scheme=scheme, dtype="float32", **{option: True})
     jns = make(JaxNS, mesh, str(tmp_path / "j"), **kw).setup()
@@ -122,7 +122,7 @@ def test_refined_fp32_matches_jax_f64(mesh, tmp_path):
     assert err_ref < err_raw / 5, (err_ref, err_raw)
     assert m_ref[-1].residual < 0.1 * m_raw[-1].residual
     assert ref._u.dtype == torch.float32
-    assert ref._ell64.g_blk.dtype == torch.float64
+    assert ref._ell64.g_vals.dtype == torch.float64
     assert raw._ell64 is None
 
 

@@ -2,10 +2,14 @@
 
 The same mesh (the h=0.12 cylinder channel, reordered and with the
 obstacle snapped, so curved cells are present) goes through the JAX
-builders and the port's; integer tables must be identical and values and
-operator applies agree to 1e-12 in float64.  Random inputs come from a
-seeded numpy generator.  ``bench`` builds the tables with the main
-path's parameters (128-row padding, F and G/B overflow splits).
+builders and the port's.  The JAX package keeps its operators in blocked
+ELLs, the port in compact SELL patterns (ops/sell.py): JAX values are
+carried into the port's slots (tests/torch_jax_ops.py, through
+navierstokes_tpu_torch/convert.py), the tables both keep must be
+identical, and values and operator applies agree to 1e-12 in float64.
+Random inputs come from a seeded numpy generator.  ``bench`` builds the
+JAX tables with the main path's parameters (128-row padding, F and G/B
+overflow splits).
 """
 
 import dataclasses
@@ -19,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_ops as TJ
 from navierstokes_tpu.fem.spaces import TaylorHoodSpace
 from navierstokes_tpu.mesh import channel_with_cylinder_2d
 from navierstokes_tpu.ops import assembly as JA
@@ -55,7 +60,7 @@ def built(request, space):
     jcells = JA.cell_arrays_numpy(space)
     tcells = TA.cell_arrays_numpy(space)
     jb = JB.build_bsr(space, jcells, dtype=jnp.float64, **kw)
-    tb = TB.build_bsr(space, tcells, F64, CPU, **kw)
+    tb = TB.build_bsr(space, tcells, F64, CPU)
     return space, jcells, tcells, jb, tb
 
 
@@ -78,55 +83,33 @@ def test_cell_arrays_match(built):
 
 
 def test_bsr_integer_tables_identical(built):
+    """The tables the port keeps from the JAX layout: the cell map and the
+    whole-row G block table of the Schur coarse assembly (JAX pads its
+    node blocks to 128 rows with empty ones); the block sizes."""
     _, _, _, jb, tb = built
-    for name in ("f_cols", "diag_idx", "g_cols", "b_cols", "con_row",
-                 "con_seg", "cell_p2"):
-        np.testing.assert_array_equal(_np(getattr(tb, name)),
-                                      _np(getattr(jb, name)), err_msg=name)
-    # int8 in JAX when C <= 128: compare widened
-    np.testing.assert_array_equal(_np(tb.con_cpos),
-                                  _np(jb.con_cpos).astype(np.int64))
-    for name in ("g_spill", "b_spill"):
-        j, t = getattr(jb, name), getattr(tb, name)
-        assert (j is None) == (t is None), name
-        if j is not None:
-            np.testing.assert_array_equal(_np(t), _np(j), err_msg=name)
-    np.testing.assert_array_equal(tb.host.ovf_rows, jb.host_ovf_rows)
-    np.testing.assert_array_equal(tb.host.g_cols_full, jb.host_g_cols)
-    assert tb.con_splits == (jb.con_splits or tb.con_splits)
-    assert (tb.n_vb, tb.n_pb, tb.bu, tb.bp) == (jb.n_vb or tb.n_vb,
-                                                jb.n_pb or tb.n_pb,
-                                                jb.bu, jb.bp)
+    np.testing.assert_array_equal(_np(tb.cell_p2),
+                                  _np(jb.cell_p2)[:tb.cell_p2.shape[0]])
+    jg = np.asarray(jb.host_g_cols)
+    n_vb = tb.host.g_cols_full.shape[0]
+    np.testing.assert_array_equal(tb.host.g_cols_full, jg[:n_vb])
+    assert not jg[n_vb:].any()
+    assert (tb.bu, tb.bp) == (jb.bu, jb.bp)
+    assert tb.n_vb == -(-tb.n_p2 // tb.bu) <= (jb.n_vb or tb.n_vb)
 
 
 def test_bsr_values_match(built):
     _, _, _, jb, tb = built
-    _close(tb.m_blk, jb.m_blk)
-    _close(tb.host.k_blk, jb.host_k_blk)
-    _close(tb.g_blk, jb.g_blk)
-    _close(tb.b_blk, jb.b_blk)
-    for name in ("detj", "jinv", "curv_phi", "curv_dphys"):
+    _close(tb.m_vals, TJ.on(tb.f, TJ.f_coo(jb, jb.m_blk), F64))
+    _close(tb.f.values(tb.host.k_nz, F64),
+           TJ.on(tb.f, TJ.f_coo(jb, jb.host_k_blk), F64))
+    _close(tb.g_vals, TJ.on(tb.g, TJ.g_coo(jb), F64))
+    _close(tb.b_vals, TJ.on(tb.b, TJ.b_coo(jb), F64))
+    nc = tb.cell_p2.shape[0]
+    for name in ("detj", "jinv"):
+        _close(getattr(tb, name), _np(getattr(jb, name))[:nc])
+    for name in ("curv_phi", "curv_dphys"):
         _close(getattr(tb, name), getattr(jb, name))
     np.testing.assert_array_equal(_np(tb.curv_ids), _np(jb.curv_ids))
-
-
-def test_f_spill_lists_every_real_overflow_row_once(built):
-    """The per-physical-row spill table replaces the JAX scatter-add fold:
-    each non-padding virtual row appears exactly once, in the row of its
-    ovf_rows entry; padding rows carry zero values and are left out."""
-    _, _, _, jb, tb = built
-    n_vb, n_ext = tb.n_vb, tb.f_cols.shape[0]
-    if tb.f_spill is None:
-        assert jb.ovf_rows is None or not np.any(_np(jb.m_blk)[n_vb:])
-        return
-    spill = _np(tb.f_spill)
-    live = spill[spill < n_ext]
-    assert len(live) == len(np.unique(live))
-    ovf = tb.host.ovf_rows
-    rows = np.nonzero(spill < n_ext)[0]
-    np.testing.assert_array_equal(ovf[live - n_vb], rows)
-    dead = np.setdiff1d(np.arange(n_vb, n_ext), live)
-    assert not np.any(_np(jb.m_blk)[dead])
 
 
 def test_applies_match_jax(built):
@@ -136,7 +119,7 @@ def test_applies_match_jax(built):
     p = rng.standard_normal(sp.n_p1)
     f_np = _np(jb.m_blk) * 3.0 + 0.01 * rng.standard_normal(
         _np(jb.m_blk).shape) * (_np(jb.m_blk) != 0)
-    jf, tf = jnp.asarray(f_np), torch.as_tensor(f_np)
+    jf, tf = jnp.asarray(f_np), TJ.on(tb.f, TJ.f_coo(jb, f_np), F64)
     tu, tp = torch.as_tensor(u), torch.as_tensor(p)
     ju, jp = jnp.asarray(u), jnp.asarray(p)
     _close(TB.apply_f(tb, tf, tu), JB.apply_f(jb, jf, ju))
@@ -155,10 +138,14 @@ def test_convection_matches_jax(built):
     assert tb.curv_ids is not None and len(tb.curv_ids) > 0
     rng = np.random.default_rng(1)
     u = rng.standard_normal((sp.n_p2, 2))
-    _close(TO.convection_matrices(tb, tb.t_hat, torch.as_tensor(u)),
-           JO.convection_matrices(jb, jb.t_hat, jnp.asarray(u)))
+    c_t = TO.convection_matrices(tb, tb.t_hat, torch.as_tensor(u))
+    c_j = _np(JO.convection_matrices(jb, jb.t_hat, jnp.asarray(u)))
+    # JAX pads the cells to 128 rows with empty ones
+    _close(c_t, c_j[:c_t.shape[0]])
+    assert not c_j[c_t.shape[0]:].any()
     _close(TB.convection_blk(tb, torch.as_tensor(u)),
-           JB.convection_blk(jb, jnp.asarray(u)))
+           TJ.on(tb.f, TJ.f_coo(jb, JB.convection_blk(jb, jnp.asarray(u))),
+                 F64))
 
 
 @pytest.fixture(scope="module")
@@ -174,8 +161,7 @@ def ell_pair(space):
 
 def test_p1_stiffness_and_ell_matvec(space, ell_pair):
     je, te = ell_pair
-    np.testing.assert_array_equal(_np(te.cols), _np(je.cols))
-    _close(te.vals, je.vals)
+    _close(te.vals, TJ.on(te.mat, TJ.p1_coo(je), F64))
     _close(te.diag, je.diag)
     x = np.random.default_rng(2).standard_normal(space.n_p1)
     _close(TP.ell_matvec(te, torch.as_tensor(x)),
@@ -184,33 +170,38 @@ def test_p1_stiffness_and_ell_matvec(space, ell_pair):
 
 
 def test_block_jacobi_matches_jax(built):
+    """The tile diagonals scattered from the compact F values equal JAX's
+    gathered from its blocked F (JAX's extra tiles cover its padding
+    rows)."""
     sp, _, _, jb, tb = built
     S = 256 // tb.bu
     jplan = JP.build_block_jacobi_plan(jb, S=S, layout="blocked")
-    tplan = TP.build_block_jacobi_plan(tb.host.f_cols, tb.host.ovf_rows,
-                                       tb.n_vb, tb.bu, sp.n_p2, S, CPU)
-    np.testing.assert_array_equal(tplan.idx, _np(jplan.idx))
-    assert tplan.n_tiles == jplan.n_tiles
+    tplan = TP.build_block_jacobi_plan(tb.f, tb.bu, sp.n_p2, S, CPU)
+    n_t = tplan.n_tiles
+    assert n_t == -(-sp.n_p2 // (S * tb.bu)) <= jplan.n_tiles
     rng = np.random.default_rng(3)
     f0 = 400.0 * _np(jb.m_blk) + 1e-3 * _np(jb.host_k_blk)
     f1 = f0 + 0.05 * rng.standard_normal(f0.shape) * (f0 != 0)
+    t0, t1 = (TJ.on(tb.f, TJ.f_coo(jb, f), F64) for f in (f0, f1))
     mask = (rng.uniform(size=sp.n_p2) > 0.1).astype(np.float64)
     jm, tm = jnp.asarray(mask), torch.as_tensor(mask)
     sigma = 7.5
-    _close(TP.block_jacobi_tiles(tplan, torch.as_tensor(f1), tm, sigma),
-           JP.block_jacobi_tiles(jplan, jnp.asarray(f1), jm, sigma),
-           rtol=1e-12)        # the same float64 values rounded to fp32
+    tiles_j = np.asarray(JP.block_jacobi_tiles(jplan, jnp.asarray(f1), jm,
+                                               sigma))
+    tiles_t = TP.block_jacobi_tiles(tplan, t1, tm, sigma)
+    assert torch.equal(tiles_t, torch.from_numpy(np.array(tiles_j[:n_t])))
     jx0 = JP.block_jacobi_inverse(jplan, jnp.asarray(f0), jm, sigma)
-    tx0 = TP.block_jacobi_inverse(tplan, torch.as_tensor(f0), tm, sigma)
-    _close(tx0, jx0, rtol=1e-4)          # fp32 LU of two libraries
+    tx0 = TP.block_jacobi_inverse(tplan, t0, tm, sigma)
+    _close(tx0, np.asarray(jx0)[:n_t], rtol=1e-4)  # fp32 LU of two libraries
     jinv = JP.block_jacobi_invert(jplan, jnp.asarray(f1), jm, sigma,
                                   x0=jx0, iters=3)
-    tinv = TP.block_jacobi_invert(tplan, torch.as_tensor(f1), tm, sigma,
-                                  x0=torch.as_tensor(np.array(jx0)), iters=3)
-    _close(tinv, jinv, rtol=1e-5)        # fp32 Newton-Schulz products
+    tinv = TP.block_jacobi_invert(
+        tplan, t1, tm, sigma, x0=torch.as_tensor(np.array(jx0)[:n_t]),
+        iters=3)
+    _close(tinv, np.asarray(jinv)[:n_t], rtol=1e-5)  # fp32 Newton-Schulz
     r = rng.standard_normal((sp.n_p2, 2))
-    _close(TP.block_jacobi_apply(tplan, torch.as_tensor(np.array(jinv)),
-                                 torch.as_tensor(r)),
+    _close(TP.block_jacobi_apply(tplan, torch.as_tensor(
+        np.array(jinv)[:n_t]), torch.as_tensor(r)),
            JP.block_jacobi_apply(jplan, jinv, jnp.asarray(r)))
 
 
@@ -236,43 +227,51 @@ def test_forces_match_jax(space, formula):
 
 
 def test_convert_bsr_from_jax(built):
+    """convert.py carries the JAX operator values into the port's compact
+    slots: the convection, G, B and the PCD pressure convection give the
+    port's own products; an entry outside the pattern must be zero."""
     sp, _, _, jb, tb = built
-    fields = {f.name: getattr(jb, f.name) for f in dataclasses.fields(jb)}
-    fields.update(host_m_blk=jb.host_m_blk, host_k_blk=jb.host_k_blk,
-                  host_g_cols=jb.host_g_cols)
-    cb = convert.bsr_from_jax_numpy(fields, CPU, F64)
-    for name in ("f_cols", "f_spill", "g_spill", "b_spill", "con_cpos",
-                 "pp_cols"):
-        a, b = getattr(cb, name), getattr(tb, name)
-        assert (a is None) == (b is None)
-        if a is not None:
-            assert torch.equal(a, b), name
-    assert torch.equal(cb.pp_plan.order, tb.pp_plan.order)
-    assert torch.equal(cb.pp_plan.lengths, tb.pp_plan.lengths)
     rng = np.random.default_rng(5)
-    u = torch.as_tensor(rng.standard_normal((sp.n_p2, 2)))
+    u = rng.standard_normal((sp.n_p2, 2))
     p = torch.as_tensor(rng.standard_normal(sp.n_p1))
-    _close(TB.mass_apply(cb, u), TB.mass_apply(tb, u))
-    _close(TB.convection_blk(cb, u), TB.convection_blk(tb, u))
-    _close(TB.apply_bt(cb, p), TB.apply_bt(tb, p))
-    npc = TB.pressure_convection_blk(cb, u)
-    _close(npc, TB.pressure_convection_blk(tb, u))
-    _close(TB.apply_pp(cb, npc, p), TB.apply_pp(tb, npc, p))
+    tu = torch.as_tensor(u)
+    conv = TJ.on(tb.f, TJ.f_coo(jb, JB.convection_blk(jb, jnp.asarray(u))),
+                 F64)
+    _close(TB.apply_f(tb, conv, tu),
+           TB.apply_f(tb, TB.convection_blk(tb, tu), tu))
+    gb = dataclasses.replace(tb, g_vals=TJ.on(tb.g, TJ.g_coo(jb), F64),
+                             b_vals=TJ.on(tb.b, TJ.b_coo(jb), F64))
+    _close(TB.apply_bt(gb, p), TB.apply_bt(tb, p))
+    _close(TB.apply_b(gb, tu), TB.apply_b(tb, tu))
+    npc = TJ.on(tb.pp, TJ.pp_coo(
+        jb, JB.pressure_convection_blk(jb, jnp.asarray(u))), F64)
+    _close(npc, TB.pressure_convection_blk(tb, tu))
+    _close(TB.apply_pp(tb, npc, p),
+           TB.apply_pp(tb, TB.pressure_convection_blk(tb, tu), p))
+    r, c, v = TJ.f_coo(jb, jb.m_blk)
+    far = int(np.setdiff1d(np.arange(sp.n_p2), tb.f.nz_col[
+        tb.f.nz_row == 0])[-1])
+    with pytest.raises(ValueError, match="outside the compact pattern"):
+        convert.sell_values_from_coo(tb.f, np.r_[r, 0], np.r_[c, far],
+                                     np.r_[v, 1.0], F64)
 
 
 def test_convert_ell_plan_and_state(space, ell_pair, built):
+    """P1 values through convert.py keep the port's pattern; the coarse
+    matrices agree; the block-Jacobi tiles of the same F values agree; the
+    state crosses unchanged."""
     je, te = ell_pair
-    ce = convert.ell_from_jax_numpy(je.cols, je.vals, je.diag, je.n, je.b,
-                                    CPU, F64)
-    np.testing.assert_array_equal(ce.host_vals, te.host_vals)
-    np.testing.assert_array_equal(ce.host_cols, te.host_cols)
+    ce = TJ.on(te.mat, TJ.p1_coo(je), F64)
+    assert torch.equal(ce != 0, te.vals != 0)
+    _close(TP.coarse_from_ell(te, 4), JP.coarse_from_ell(je, 4))
     _, _, _, jb, tb = built
     jplan = JP.build_block_jacobi_plan(jb, S=16, layout="blocked")
-    cp = convert.bj_plan_from_jax_numpy(jplan.idx, jplan.n_tiles, 16, jb.bu,
-                                        jb.n_p2, jb.f_cols.shape, CPU)
-    tp = TP.build_block_jacobi_plan(tb.host.f_cols, tb.host.ovf_rows,
-                                    tb.n_vb, tb.bu, space.n_p2, 16, CPU)
-    assert torch.equal(cp.bidx, tp.bidx)
+    tp = TP.build_block_jacobi_plan(tb.f, tb.bu, space.n_p2, 16, CPU)
+    ones = np.ones(space.n_p2)
+    _close(TP.block_jacobi_tiles(tp, tb.m_vals, torch.as_tensor(ones), 1.0),
+           np.asarray(JP.block_jacobi_tiles(jplan, jb.m_blk,
+                                            jnp.asarray(ones), 1.0)
+                      )[:tp.n_tiles])
     rng = np.random.default_rng(6)
     arrs = [rng.standard_normal((space.n_p2, 2)),
             rng.standard_normal(space.n_p1),
@@ -286,18 +285,21 @@ def test_convert_ell_plan_and_state(space, ell_pair, built):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without pulling in jax (a fresh
-    interpreter: this test process has jax loaded by conftest)."""
+    """Every module of the port, and chip_smoke.py with every module it
+    imports, load without pulling in jax or any module of the JAX package
+    (a fresh interpreter: this test process has both loaded)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import navierstokes_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "'navierstokes_tpu_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
-        "assert len(mods) >= 12, mods\n"
-        "bad = [m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.')]\n"
+        "assert len(mods) >= 24, mods\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'navierstokes_tpu')]\n"
         "assert not bad, bad\n"
+        "assert 'navierstokes_tpu_torch._host_compat' not in mods\n"
         "print('ok', len(mods))\n")
     root = Path(__file__).resolve().parents[1]
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -11,9 +11,10 @@ float64:
   inverses: the two libraries' fp32 LU differ in the last bits (held to
   1e-4 in tests/test_torch_ops.py), which the 1e-2 inner solves pass on
   to the vmult at 4e-9;
-* the Schur coarse assembly (pair-plan tables identical, coarse_matrix
-  1e-12, its fp32 inverse 1e-6), schur_diag, g_blocks, the PCD pressure
-  convection and apply_pp (1e-12, PP tables identical), assemble_ap
+* the Schur coarse assembly (pair-plan order and lengths identical up to
+  JAX's padding blocks, coarse_matrix 1e-12, its fp32 inverse 1e-6),
+  schur_diag, G's block sums, the PCD pressure convection and apply_pp
+  (1e-12, JAX's values carried into the port's compact slots), assemble_ap
   (1e-12), and the whole-row G/B tables the monolithic scheme builds.
 """
 
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_ops as TJ
 from navierstokes_tpu.config import InletConfig, SolverConfig
 from navierstokes_tpu.mesh import channel_with_cylinder_2d
 from navierstokes_tpu.models.navier_stokes import NavierStokes as JaxNS
@@ -207,7 +209,8 @@ def _preconditioner(ns, lib, name, u_np, inv_np):
         + sigma * (x - x * mask)
     apply_Bt = lambda p: B.apply_bt(ell, p) * mask
     apply_B = lambda x: B.apply_b(ell, x * mask)
-    inv = arr(np.array(inv_np))
+    # JAX pads its node blocks to 128 rows, so it has more (padding) tiles
+    inv = arr(np.array(inv_np)[:ns._bj_plan.n_tiles])
     pre_f = lambda r: P.block_jacobi_apply(ns._bj_plan, inv, r)
     inner = PC.InnerSolve(cfg.inner_tol, cfg.inner_maxiter_f)
     inner_f = lambda op, rhs, pre=None: inner(op, rhs, pre_f)
@@ -267,31 +270,43 @@ def test_preconditioner_vmults_match_jax(pair, u_adv, tile_inverses, name):
 
 
 def test_whole_row_gb_tables_under_monolithic(pair):
-    """bsr_gb_kmax=-2 (auto) builds whole-row G/B tables under monolithic,
-    as the JAX model does (the projection tables: tests/test_torch_solvers
-    .py)."""
+    """The JAX model builds whole-row G/B tables under monolithic
+    (bsr_gb_kmax=-2, auto; the projection split: tests/test_torch_solvers
+    .py).  Their entries lie in the port's compact G and B with the same
+    values; the whole-row G block table and G's sums over each block's
+    pressure nodes, the Schur coarse assembly's inputs, equal JAX's (which
+    pads its node blocks to 128 rows with empty ones)."""
     jns, tns = pair
-    assert jns.ell.g_spill is None and tns.ell.g_spill is None
-    assert jns.ell.b_spill is None and tns.ell.b_spill is None
-    for name in ("g_cols", "b_cols", "f_cols"):
-        np.testing.assert_array_equal(getattr(tns.ell, name).numpy(),
-                                      np.asarray(getattr(jns.ell, name)))
-    assert _rel(tns.ell.g_blk.numpy(), jns.ell.g_blk) < 1e-12
-    assert _rel(tns.ell.b_blk.numpy(), jns.ell.b_blk) < 1e-12
-    g_t = TB.g_blocks(tns.ell).numpy()
-    g_j = np.asarray(JB.g_blocks(jns.ell))
-    assert g_t.shape == g_j.shape and _rel(g_t, g_j) < 1e-12
+    je, te = jns.ell, tns.ell
+    assert je.g_spill is None and je.b_spill is None
+    for mat, vals, coo in ((te.g, te.g_vals, TJ.g_coo(je)),
+                           (te.b, te.b_vals, TJ.b_coo(je))):
+        assert _rel(vals.numpy(), TJ.on(mat, coo, torch.float64).numpy()) \
+            < 1e-12
+    n_vb = te.host.g_cols_full.shape[0]
+    g_cols_j = np.asarray(je.host_g_cols)
+    np.testing.assert_array_equal(te.host.g_cols_full, g_cols_j[:n_vb])
+    assert not g_cols_j[n_vb:].any()
+    g_t = tns._coarse_plan.g_agg.numpy()
+    g_j = np.asarray(JB.g_blocks(je)).sum(axis=4)
+    assert g_t.shape == g_j[:n_vb].shape and _rel(g_t, g_j[:n_vb]) < 1e-12
+    assert not g_j[n_vb:].any()
 
 
 def test_schur_coarse_matches_jax(pair):
+    """The G-pair plan is JAX's without the pairs of its padding blocks
+    (which come last in the stable order and add zeros)."""
     jns, tns = pair
     jplan, tplan = jns._coarse_plan, tns._coarse_plan
     assert (tplan.n_agg, tplan.agg) == (jplan.n_agg, jplan.agg)
+    n_pairs = tplan.g_agg.shape[0] * tplan.g_agg.shape[1] ** 2
+    order_j = np.asarray(jplan.pair_scatter.order)
+    kept = order_j < n_pairs
     np.testing.assert_array_equal(tplan.pair_plan.order.numpy(),
-                                  np.asarray(jplan.pair_scatter.order))
+                                  order_j[kept])
     np.testing.assert_array_equal(
         tplan.pair_plan.lengths.numpy(),
-        np.bincount(np.asarray(jplan.pair_scatter.sorted_ids),
+        np.bincount(np.asarray(jplan.pair_scatter.sorted_ids)[kept],
                     minlength=tplan.n_agg ** 2))
     w = np.random.default_rng(12).uniform(0.5, 2.0, tns.space.n_p2) \
         * tns.bc.host_mask[:, 0]
@@ -307,32 +322,27 @@ def test_schur_coarse_matches_jax(pair):
 
 
 def test_pressure_convection_and_ap_match_jax(pair, u_adv):
+    """JAX's PCD pressure convection and Ap, carried into the port's
+    compact slots (every nonzero inside the port's patterns), equal the
+    port's own; the products agree."""
     jns, tns = pair
     je, te = jns.ell, tns.ell
-    np.testing.assert_array_equal(te.pp_cols.numpy(), np.asarray(je.pp_cols))
-    sc = je.pp_slot_scatter
-    np.testing.assert_array_equal(te.pp_plan.order.numpy(),
-                                  np.asarray(sc.order))
-    np.testing.assert_array_equal(
-        te.pp_plan.lengths.numpy(),
-        np.bincount(np.asarray(sc.sorted_ids), minlength=sc.num_segments))
+    F64 = torch.float64
     assert _rel(te.tp_hat.numpy(), je.tp_hat) < 1e-15
-    np_j = np.asarray(JB.pressure_convection_blk(je, jnp.asarray(u_adv)))
-    np_t = TB.pressure_convection_blk(te, torch.as_tensor(u_adv)).numpy()
-    n_pb, kpp, bp, _ = np_j.shape
-    assert _rel(np_t, np_j.transpose(0, 2, 1, 3).reshape(n_pb, bp, kpp * bp)) \
+    np_j = JB.pressure_convection_blk(je, jnp.asarray(u_adv))
+    np_t = TB.pressure_convection_blk(te, torch.as_tensor(u_adv))
+    assert _rel(np_t.numpy(), TJ.on(te.pp, TJ.pp_coo(je, np_j), F64).numpy()) \
         < 1e-12
     x = np.random.default_rng(13).standard_normal(tns.space.n_p1)
-    assert _rel(TB.apply_pp(te, torch.as_tensor(np_t), torch.as_tensor(x))
-                .numpy(), JB.apply_pp(je, jnp.asarray(np_j), jnp.asarray(x))) \
-        < 1e-12
+    assert _rel(TB.apply_pp(te, np_t, torch.as_tensor(x)).numpy(),
+                JB.apply_pp(je, np_j, jnp.asarray(x))) < 1e-12
     # the Cahouet-Chabard operator Ap = B diag(mask / M_lumped) B^T
-    np.testing.assert_array_equal(tns._ap.cols.numpy(),
-                                  np.asarray(jns._ap.cols))
-    assert _rel(tns._ap.vals.numpy(), jns._ap.vals) < 1e-12
-    assert _rel(tns._ap.diag.numpy(), jns._ap.diag) < 1e-12
+    ap_t, ap_j = tns._ap, jns._ap
+    assert _rel(ap_t.vals.numpy(),
+                TJ.on(ap_t.mat, TJ.p1_coo(ap_j), F64).numpy()) < 1e-12
+    assert _rel(ap_t.diag.numpy(), ap_j.diag) < 1e-12
     assert _rel(tns._ap_sc_inv.numpy(), jns._ap_sc_inv) < 1e-12
     assert float(tns._ap_lam) == pytest.approx(float(jns._ap_lam), rel=1e-12)
-    assert _rel(TP.ell_matvec(tns._ap, torch.as_tensor(x)).numpy(),
-                JP.ell_matvec(jns._ap, jnp.asarray(x))) < 1e-12
+    assert _rel(TP.ell_matvec(ap_t, torch.as_tensor(x)).numpy(),
+                JP.ell_matvec(ap_j, jnp.asarray(x))) < 1e-12
     assert _rel(tns.dt_mlump_inv.numpy(), jns.dt_mlump_inv) < 1e-15

@@ -1,0 +1,184 @@
+"""Per-step profile of the PyTorch port at the bench point, on one GPU.
+
+    python3 tools/torch_step_profile.py [--tree DIR] [--scheme S] ...
+
+Builds the ``chip_smoke.py`` bench configuration (Schaefer-Turek 2D-2,
+``.bench_mesh.npz``, 1,014,414 DoF, fp32, Poisson CG budget 100) with the
+``navierstokes_tpu_torch`` package found under ``--tree`` (default: this
+checkout), so that two versions of the port can be measured in one run
+on the same card.  It uses only the port's public surface (the package's
+``InletConfig``/``SolverConfig``, ``NavierStokes``, ``a0_cell``, ``ell``
+and ``_ops.convection``), which every version of the port has.
+
+It prints, for the scheme:
+* steps/s over ``--steps`` timed steps after ``--warm`` warm-up steps
+  (host clock between two synchronisations), iterations per step and the
+  peak device memory;
+* the per-step F rebuild (``a0_cell + convection``) in ms, from CUDA
+  events, median of 30 calls, L2-cold (a 128 MB read before each call)
+  and warm;
+* a ``torch.profiler`` trace of ``--profile-steps`` further steps: the
+  device time per step (kernels, copies and memsets), its share of the
+  unprofiled step time, the SpMV kernels' part of it, and the kernels with
+  the most time (name, calls, ms).
+
+The last line is one JSON object with these numbers.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def card_line():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "?"
+
+
+def bench_model(scheme, work):
+    import navierstokes_tpu_torch as pkg
+    from navierstokes_tpu_torch.models import navier_stokes as M
+    z = np.load(os.path.join(ROOT, ".bench_mesh.npz"))
+    mesh = M.Mesh(2, z["points"], z["cells"], z["bfaces"], z["btags"])
+    cfg = pkg.SolverConfig(
+        dtype="float32", output_dir=os.path.join(work, "out"),
+        cache_dir=os.path.join(work, "cache"),
+        csv_path=os.path.join(work, "forces.csv"), nu=1.0e-3, ref_length=0.1,
+        force_formula="st", scheme="projection", proj_bdf2=True,
+        outer_maxiter=128, proj_p_maxiter=100)
+    if scheme == "monolithic":
+        cfg.scheme, cfg.preconditioner = "monolithic", "cc"
+    inlet = pkg.InletConfig(kind="parabolic", u_m=1.5, height=0.41,
+                            ramp=0.05)
+    ns = M.NavierStokes(mesh, 2, 1, deltat=0.00125, T=1.0, step=10,
+                        inlet=inlet, config=cfg, device="cuda")
+    ns.set_re_number(100)
+    return ns.setup()
+
+
+def time_ms(fn, cold, n=30):
+    flush = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    times = []
+    for _ in range(n):
+        if cold:
+            flush.sum()
+        torch.cuda._sleep(200_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def its(m):
+    if getattr(m, "f_iterations", None) is not None and \
+            getattr(m, "p_iterations", None) is not None and \
+            m.p_iterations > 0:
+        return f"{m.f_iterations}+{m.p_iterations}"
+    return str(m.iterations)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=ROOT,
+                    help="checkout whose navierstokes_tpu_torch is measured")
+    ap.add_argument("--scheme", default="monolithic",
+                    choices=["monolithic", "projection"])
+    ap.add_argument("--warm", type=int, default=5)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--profile-steps", type=int, default=2)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_step_profile: no CUDA device", file=sys.stderr)
+        return 2
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    card = card_line()
+    tag = f"[{os.path.basename(tree)} {args.scheme}]"
+    work = os.path.join(tree, "build", "step_profile")
+    t0 = time.perf_counter()
+    ns = bench_model(args.scheme, work)
+    torch.cuda.synchronize()
+    print(f"{tag} setup {time.perf_counter() - t0:.1f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = [ns.solve_time_step() for _ in range(args.warm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms += [ns.solve_time_step() for _ in range(args.steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = wall / args.steps * 1e3
+
+    u = torch.as_tensor(np.random.default_rng(1234).standard_normal(
+        (ns.space.n_p2, 2)), dtype=torch.float32, device="cuda")
+    rebuild = lambda: ns.a0_cell + ns._ops.convection(ns.ell, u)
+    rebuild_cold, rebuild_warm = time_ms(rebuild, True), time_ms(rebuild,
+                                                                 False)
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ms += [ns.solve_time_step() for _ in range(args.profile_steps)]
+        torch.cuda.synchronize()
+    # device-side events only (kernels, copies, memsets): the operator
+    # events above them carry the same device time again
+    from torch.autograd import DeviceType
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    per_step = lambda us: us / 1e3 / max(args.profile_steps, 1)
+    kernel_ms = per_step(sum(r[0] for r in rows))
+    spmv_ms = per_step(sum(r[0] for r in rows if "spmv" in r[2]))
+
+    print(f"{tag} iterations per step: " + " ".join(its(m) for m in ms),
+          flush=True)
+    print(f"{tag} steps/s {args.steps / wall:.4f} ({args.steps} steps in "
+          f"{wall:.3f} s, {step_ms:.1f} ms/step), peak {peak} bytes "
+          f"({peak / 2**30:.2f} GiB) on {card}", flush=True)
+    print(f"{tag} F rebuild (a0 + convection) ms: cold {rebuild_cold:.4f}, "
+          f"warm {rebuild_warm:.4f}", flush=True)
+    if rows:
+        print(f"{tag} device time {kernel_ms:.1f} ms per step over "
+              f"{args.profile_steps} profiled steps, "
+              f"{100 * kernel_ms / step_ms:.0f}% of an unprofiled step; "
+              f"SpMV kernels {spmv_ms:.1f} ms per step", flush=True)
+        for dev_us, n, key in rows[:args.top]:
+            print(f"{tag}   {dev_us / 1e3:9.3f} ms {n:6d} calls  "
+                  f"{key[:90]}", flush=True)
+    else:
+        print(f"{tag} torch.profiler recorded no device time: kernel time "
+              "not measured", flush=True)
+    print(json.dumps({
+        "tree": os.path.basename(tree), "scheme": args.scheme, "card": card,
+        "steps_per_s": args.steps / wall, "step_ms": step_ms,
+        "peak_bytes": peak, "iterations": [its(m) for m in ms],
+        "rebuild_ms_cold": rebuild_cold, "rebuild_ms_warm": rebuild_warm,
+        "kernel_ms_per_step": kernel_ms if rows else None,
+        "spmv_ms_per_step": spmv_ms if rows else None,
+        "top": [[k, n, us / 1e3] for us, n, k in rows[:args.top]]}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
