@@ -4,7 +4,9 @@
 
 Drives the port's main paths — the Schaefer-Turek 2D-2 step on the
 committed 1,014,414-DoF bench mesh (``.bench_mesh.npz``), fp32, in the
-projection scheme and in the monolithic scheme — and checks them:
+projection scheme and in the monolithic scheme; the Schaefer-Turek 3D-1Z
+step at 3,393,382 DoF through the scenario registry; the CLI on the card —
+and checks them:
 
 1. device: the card's name and power limit, the toolchain (torch CUDA,
    nvcc, triton);
@@ -31,7 +33,22 @@ projection scheme and in the monolithic scheme — and checks them:
    (the bf16 variant's path) and ``cc`` + ``refine=2`` (the fp64
    variant's path);
 8. the monolithic bench point (FGMRES + Cahouet-Chabard, BDF1): 5 warm-up
-   and 5 timed steps, after the projection model is freed.
+   and 5 timed steps, after the projection model is freed;
+9. a 3D small fixture (the h=0.15 square-column duct, 6,954 DoF): 5 steps
+   on the card against the CPU, fp32, under phase 4's rule, for projection
+   with ``bj`` and with ``jacobi``, monolithic ``cc``, ``cc`` +
+   ``inner_bf16`` and ``cc`` + ``refine=2`` (the D=3 bf16 and fp64 paths);
+10. 3D-1Z at full width (``scenarios.registry.build_solver("3d-test1")``
+   on ``duct_with_box_obstacle_3d(h=0.023, h_near=0.007)``, the run of
+   ``scripts/validate_st.py 3d1 --projection --f-precond diag``): 3
+   warm-up and 5 timed steps; setup seconds, steps/s, peak memory, the
+   per-step iteration totals and Cd beside the TPU log's
+   (``logs/st_3d1_34M_diagp1.log``, for information only);
+11. the SpMV kernel in every 3D use on the 3D-1Z operators (F and the mass
+   with D=3; the P1 Laplacian, G and B with D=1), all three variants,
+   timed as in phase 3;
+12. the CLI on the card: ``run 3d-test1`` for two steps at the scenario's
+   default h with the default device.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
@@ -56,6 +73,12 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "build", "chip_smoke")
 EXPECTED_DOFS = 1_014_414
+EXPECTED_DOFS_3D1 = 3_393_382
+# The TPU run of 3D-1Z at the same configuration (logs/st_3d1_34M_diagp1.log,
+# steps 1-10): BiCGStab + CG iteration totals and Cd, for information only.
+TPU_3D1_ITERATIONS = (50, 53, 53, 53, 50, 49, 45, 47, 42, 46)
+TPU_3D1_CD = (359.26416, 63.56329, -106.23231, -31.44829, 44.90467,
+              32.63485, 2.34678, 0.40246, 10.37975, 12.54377)
 KERNEL_SOURCE = "navierstokes_tpu_torch/csrc/sell_spmv.cu"
 # the Pallas kernel body's fp32 and bf16 branches (fused_reduce's _kernel)
 REPLACES = "navierstokes_tpu/ops/pallas_matvec.py:59"
@@ -648,6 +671,245 @@ def phase_monolithic_bench(card):
                 setup_s=setup_s, per_step=per_step)
 
 
+def duct_model(device, tmp, dtype="float32", **overrides):
+    """The 3D small fixture: the h=0.15 square-column duct (6,954 DoF),
+    biparabolic inlet, Re=20, dt=0.01."""
+    from navierstokes_tpu_torch.scenarios.registry import build_solver
+    cfg = _config(tmp, dtype, ref_length=0.1, force_formula="st",
+                  **overrides)
+    return build_solver("3d-test1", h=0.15, config=cfg, device=device,
+                        t_final=0.05, output_step=5).setup()
+
+
+def _config(tmp, dtype, **fields):
+    from navierstokes_tpu_torch.config import SolverConfig
+    return SolverConfig(dtype=dtype, output_dir=os.path.join(tmp, "out"),
+                        cache_dir=os.path.join(tmp, "cache"),
+                        csv_path=os.path.join(tmp, "forces.csv"), **fields)
+
+
+# the 3D small-fixture configurations of phase 9 and the kernel
+# instantiations (value dtype, D) each path must launch
+SMALL_3D = (
+    ("projection bj", dict(scheme="projection"), (torch.float32,)),
+    ("projection jacobi", dict(scheme="projection", f_precond="jacobi"),
+     (torch.float32,)),
+    ("monolithic cc", dict(scheme="monolithic"), (torch.float32,)),
+    ("cc+inner_bf16", dict(scheme="monolithic", inner_bf16=True),
+     (torch.float32, torch.bfloat16)),
+    ("cc+refine=2", dict(scheme="monolithic", refine=2, refine_tol=1e-3),
+     (torch.float32, torch.float64)))
+
+
+def phase_small_3d():
+    """CUDA fp32 against CPU fp32 on the 3D small fixture, 5 steps per
+    configuration, under phase 4's rule: 1e-4 of the force scale and of
+    |u|, 1e-3 only where the gap is at most three times the gap between
+    two CPU fp32 runs that differ only in their thread count; iteration
+    totals within 1.  Returns the launches by (value dtype, D) of each
+    configuration's card run."""
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    n_threads = torch.get_num_threads()
+    alt_threads = 1 if n_threads > 1 else 4
+    launches = {}
+
+    def rel_u(a, b):
+        a, b = a.cpu().double(), b.cpu().double()
+        return float((a - b).abs().max() / b.abs().max())
+
+    for tag, kw, want in SMALL_3D:
+        d = os.path.join(WORK, "duct_" + tag.replace(" ", "_")
+                         .replace("+", "_").replace("=", ""))
+        gpu = duct_model("cuda", d + "_gpu", **kw)
+        cpu = duct_model("cpu", d + "_cpu", **kw)
+        alt = duct_model("cpu", d + "_alt", **kw)
+        worst = dict(cd=0.0, cl=0.0, u=0.0, its=0, noise=0.0)
+        counts = {}
+        for k in range(5):
+            torch.cuda.synchronize()
+            COUNTS.reset()
+            mg = gpu.solve_time_step()
+            torch.cuda.synchronize()
+            check(COUNTS.plain_cuda_calls == 0,
+                  f"[9] {tag}: no plain-version calls on CUDA tensors")
+            for key, v in COUNTS.by_variant.items():
+                counts[key] = counts.get(key, 0) + v
+            mc = cpu.solve_time_step()
+            torch.set_num_threads(alt_threads)
+            ma = alt.solve_time_step()
+            torch.set_num_threads(n_threads)
+            check(mg.converged and mc.converged,
+                  f"[9] {tag}: converged at step {k + 1}")
+            scale = max(abs(mc.cd), abs(mc.cl), 1e-30)
+            gap = dict(cd=abs(mg.cd - mc.cd) / scale,
+                       cl=abs(mg.cl - mc.cl) / scale, u=rel_u(gpu._u, cpu._u),
+                       its=abs(mg.iterations - mc.iterations),
+                       noise=max(abs(ma.cd - mc.cd) / scale,
+                                 abs(ma.cl - mc.cl) / scale,
+                                 rel_u(alt._u, cpu._u)))
+            log(f"[9] {tag} step {k + 1}: its cuda {mg.iterations} cpu "
+                f"{mc.iterations}; Cd {mg.cd:.6f} vs {mc.cd:.6f} (diff / "
+                f"max(|Cd|,|Cl|): Cd {gap['cd']:.2e}, Cl {gap['cl']:.2e}), "
+                f"u rel {gap['u']:.2e}; CPU {n_threads} vs {alt_threads} "
+                f"threads: {gap['noise']:.2e}")
+            for key, v in gap.items():
+                worst[key] = max(worst[key], v)
+        gate = 1e-4
+        gap = max(worst["cd"], worst["cl"], worst["u"])
+        if 1e-4 < gap <= 1e-3 and gap <= 3 * worst["noise"]:
+            gate = 1e-3
+        log(f"[9] {tag} worst: Cd {worst['cd']:.2e}, Cl {worst['cl']:.2e}, "
+            f"u {worst['u']:.2e} (gate {gate:g}; CPU-CPU noise "
+            f"{worst['noise']:.2e}), iteration diff {worst['its']} (limit "
+            f"1); launches over 5 steps by (dtype, D): "
+            + ", ".join(f"{str(dt).replace('torch.', '')} D={D}: {n}"
+                        for (dt, D), n in sorted(counts.items(), key=str)))
+        check(worst["cd"] <= gate and worst["cl"] <= gate, f"[9] {tag} Cd/Cl")
+        check(worst["u"] <= gate, f"[9] {tag} u")
+        check(worst["its"] <= 1, f"[9] {tag} iteration counts")
+        for dt in want:
+            check(counts.get((dt, 3), 0) > 0,
+                  f"[9] {tag}: the D=3 {dt} kernel launched on its path")
+        launches[tag] = counts
+    return launches
+
+
+def model_3d1():
+    """3D-1Z at full width through the scenario registry: the run of
+    scripts/validate_st.py 3d1 --projection --f-precond diag --h 0.023
+    --hnear 0.007 (biparabolic U_m=0.45, Re=20 so nu=1e-3, ref_length 0.1,
+    the Schaefer-Turek force formula, BDF2 projection, budgets 100
+    BiCGStab / 50 CG, dt=0.01, fp32)."""
+    from navierstokes_tpu_torch.scenarios.registry import build_solver
+    cfg = _config(os.path.join(WORK, "st3d1"), "float32", ref_length=0.1,
+                  force_formula="st", scheme="projection", f_precond="diag",
+                  proj_f_maxiter=100, proj_p_maxiter=50, inner_maxiter_f=10)
+    return build_solver("3d-test1", h=0.023, config=cfg,
+                        mesh_kwargs=dict(h_near=0.007), device="cuda",
+                        t_final=3.0, output_step=400)
+
+
+def phase_3d1(card):
+    """3 warm-up and 5 timed steps of 3D-1Z; every solve converged within
+    its budget, finite values, the D=3 kernel launched.  Returns the model
+    and the numbers of the run."""
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ns = model_3d1().setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = ns.config
+    check(ns.space.n_dofs == EXPECTED_DOFS_3D1,
+          f"[10] 3D-1Z DoF count {ns.space.n_dofs}")
+    log(f"[10] 3D-1Z: {ns.space.n_dofs} DoF ({ns.mesh.n_cells} tets, "
+        f"{ns.ell.f.nnz} F nonzeros), setup {setup_s:.1f} s")
+    n_warm, n_meas = 3, 5
+    COUNTS.reset()
+    ms_all = [ns.solve_time_step() for _ in range(n_warm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms_all += [ns.solve_time_step() for _ in range(n_meas)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d3 = COUNTS.by_variant.get((torch.float32, 3), 0)
+    launches, plain_cuda = COUNTS.launches, COUNTS.plain_cuda_calls
+    per_step = per_step_launches(n_warm + n_meas)
+    peak = torch.cuda.max_memory_allocated()
+    sps = n_meas / wall
+    n = len(ms_all)
+    log(f"[10] iterations BiCGStab+CG per step: "
+        + " ".join(f"{m.f_iterations}+{m.p_iterations}" for m in ms_all))
+    log(f"[10] totals per step: "
+        + " ".join(str(m.iterations) for m in ms_all)
+        + f" (TPU log: {' '.join(map(str, TPU_3D1_ITERATIONS[:n]))})")
+    log(f"[10] Cd per step: " + " ".join(f"{m.cd:.5f}" for m in ms_all)
+        + f" (TPU log: {' '.join(f'{c:.5f}' for c in TPU_3D1_CD[:n])})")
+    log(f"[10] Cl {ms_all[-1].cl:.5f}, t {ms_all[-1].time:.4f}, measured "
+        f"CFL {ns.measured_cfl():.3f}")
+    log(f"[10] steps/s {sps:.4f} ({n_meas} steps in {wall:.3f} s), setup "
+        f"{setup_s:.1f} s, on {card}")
+    log(f"[10] peak device memory {peak} bytes ({peak / 2**30:.2f} GiB) on "
+        f"{card}")
+    log(f"[10] kernel launches over {n} steps: {launches} (D=3: {d3}); "
+        f"plain-version CUDA calls {plain_cuda}; per step by operator "
+        f"{per_step}")
+    for m in ms_all:
+        check(m.converged, f"[10] converged at t={m.time}")
+        check(m.f_iterations < cfg.proj_f_maxiter
+              and m.p_iterations < cfg.proj_p_maxiter,
+              f"[10] iteration budget at t={m.time}")
+        check(all(np.isfinite([m.cd, m.cl, m.residual])),
+              f"[10] finite forces at t={m.time}")
+    check(bool(torch.isfinite(ns._u).all() and torch.isfinite(ns._p).all()),
+          "[10] finite u, p")
+    check(d3 > 0, "[10] the D=3 kernel launched on the 3D-1Z path")
+    check(plain_cuda == 0, "[10] no plain-version calls on CUDA tensors")
+    log(f"[10] all {n} steps' solves converged within their budgets")
+    return ns, dict(launches=d3, steps_per_s=sps, peak_bytes=peak,
+                    setup_s=setup_s, per_step=per_step)
+
+
+def spmv_uses_3d(ns, rng):
+    """(use, pattern, fp32 values, fp32 x) of every SpMV use of the 3D
+    projection step at the 3D-1Z shapes: F (A0 + convection at a
+    numpy-seeded velocity) and the mass with D=3, the P1 Laplacian, G and
+    B with D=1."""
+    from navierstokes_tpu_torch.ops.bsr import convection_blk
+    e, dev, sp = ns.ell, ns.device, ns.space
+    x = lambda *shape: torch.as_tensor(rng.standard_normal(shape),
+                                       dtype=torch.float32, device=dev)
+    u = 0.2 * x(sp.n_p2, 3)
+    lap = ns._ap_dir
+    return [
+        ("F (D=3)", e.f, ns.a0_cell + convection_blk(e, u), x(sp.n_p2, 3)),
+        ("mass (D=3)", e.f, e.m_vals, x(sp.n_p2, 3)),
+        ("P1 Laplacian", lap.mat, lap.vals, x(sp.n_p1)),
+        ("G", e.g, e.g_vals, x(sp.n_p1)),
+        ("B", e.b, e.b_vals, x(sp.n_p2 * 3)),
+    ]
+
+
+def phase_kernel_3d(ns):
+    rng = np.random.default_rng(4321)
+    uses = spmv_uses_3d(ns, rng)
+    return {dt: [check_and_time(use, mat, vals.to(dt), x, "11")
+                 for use, mat, vals, x in uses]
+            for dt in (torch.float32, torch.bfloat16, torch.float64)}
+
+
+def phase_cli():
+    """``run 3d-test1`` through the CLI's main with the default device for
+    two steps at the scenario's default h; the kernel must launch and the
+    csv hold two finite rows."""
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    from navierstokes_tpu_torch.scenarios.cli import main as cli_main
+    d = os.path.join(WORK, "cli")
+    csv = os.path.join(d, "forces.csv")
+    torch.cuda.synchronize()
+    COUNTS.reset()
+    t0 = time.perf_counter()
+    rc = cli_main(["run", "3d-test1", "--T", "0.02", "--output-dir",
+                   os.path.join(d, "out"), "--cache-dir",
+                   os.path.join(d, "cache"), "--csv", csv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, "[12] CLI run exit code")
+    rows = np.atleast_2d(np.genfromtxt(csv, delimiter=",", skip_header=1))
+    log(f"[12] CLI run 3d-test1 (default device, h, scheme): {wall:.1f} s "
+        f"with setup; csv rows {rows.shape[0]}, GMRES_iters "
+        f"{rows[:, 2].tolist()}, Cd {rows[:, 7].tolist()}; kernel launches "
+        f"{COUNTS.launches} (D=3: "
+        f"{COUNTS.by_variant.get((torch.float32, 3), 0)}), plain-version "
+        f"CUDA calls {COUNTS.plain_cuda_calls}")
+    check(rows.shape == (2, 9) and np.isfinite(rows).all(), "[12] csv rows")
+    check(COUNTS.by_variant.get((torch.float32, 3), 0) > 0,
+          "[12] the D=3 kernel launched from the CLI")
+    check(COUNTS.plain_cuda_calls == 0,
+          "[12] no plain-version calls on CUDA tensors")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -674,6 +936,15 @@ def main():
     torch.cuda.empty_cache()
     small = phase_monolithic_small()
     mono = phase_monolithic_bench(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    small3d = phase_small_3d()
+    ns3, st3d1 = phase_3d1(card)
+    uses3d = phase_kernel_3d(ns3)
+    del ns3
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_cli()
     paths = {"projection": bench["per_step"], "monolithic": mono["per_step"]}
     # F and the mass share the F pattern, so one count covers both
     pattern_of = {"F": "F", "mass": "F", "P1 Laplacian": "P1 Laplacian",
@@ -704,6 +975,32 @@ def main():
         kernels.append(entry(dt, uses, launches, replaces))
     kernels[0]["rebuild_ms"] = fp32["rebuild_ms"]
     kernels[0]["floor_ms"] = fp32["floor_ms"]
+    # D=3: launches on 3D-1Z (fp32) and on the 3D small fixture's bf16 and
+    # refinement paths; the uses are the 3D-1Z operators (phase 11)
+    d3_pattern = {"F (D=3)": "F", "mass (D=3)": "F", "P1 Laplacian":
+                  "P1 Laplacian", "G": "G", "B": "B"}
+    for dt, launches, replaces in (
+            (torch.float32, st3d1["launches"], REPLACES),
+            (torch.bfloat16, small3d["cc+inner_bf16"][(torch.bfloat16, 3)],
+             REPLACES_BF16),
+            (torch.float64, small3d["cc+refine=2"][(torch.float64, 3)],
+             None)):
+        uses = uses3d[dt]
+        for u in uses:
+            key = f"{d3_pattern[u['use']]} {str(dt).replace('torch.', '')}"
+            u["launches_per_step"] = {"3d1": st3d1["per_step"].get(key, 0.0)}
+        kernels.append({
+            "name": VARIANTS[dt][2] + "_d3", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(u["max_abs_err"] for u in uses),
+            **{k: uses[0][k] for k in ("ms", "warm_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "bound_bytes",
+                                       "library_ms")},
+            "uses": uses})
+    kernels[3]["steps_per_s_3d1"] = st3d1["steps_per_s"]
+    kernels[3]["setup_s_3d1"] = st3d1["setup_s"]
+    kernels[3]["peak_bytes_3d1"] = st3d1["peak_bytes"]
     record = {"kernels": kernels}
     log(card)
     print(json.dumps(record), flush=True)

@@ -8,9 +8,12 @@ through ``kernels/``).  It keeps its own copies of the host modules it
 needs (``config``, ``mesh``, ``fem``, ``utils``) and imports neither jax
 nor the JAX package.
 
-The port covers 2D P2/P1 on the BSR operator in both time schemes
-(monolithic FGMRES with its five block preconditioners, and projection);
-see ``models/navier_stokes.py`` ``check_config`` for what raises
+The port covers P2/P1 on triangles (2D) and tetrahedra (3D) on the BSR
+operator in both time schemes (monolithic FGMRES with its five block
+preconditioners, and projection), with the block-Jacobi or the diagonal F
+preconditioner, and the scenario registry with its CLI
+(``python -m navierstokes_tpu_torch list|run``); see
+``models/navier_stokes.py`` ``check_config`` for what raises
 ``NotImplementedError``.
 """
 

@@ -193,7 +193,9 @@ class SolverConfig:
     inner_maxiter_s: int = 20
     # F-block preconditioner of the inner velocity solve: "bj" (dense
     # inverses of the 256-node tile diagonals, rebuilt per step, the
-    # ILU(0) stand-in; ops/p1ell.py) is the one ported.
+    # ILU(0) stand-in; ops/p1ell.py) or "jacobi" / "diag" (diagonal
+    # scaling, no tiles: the JAX package's choice for 3D-1Z, where F is
+    # mass-dominated).
     f_precond: str = "bj"
     # F solve: "bicgstab" or "gmres"; "richardson" is not ported.
     f_solver: str = "bicgstab"

@@ -33,7 +33,10 @@
 //   stays in the 50 MB L2.  The group loop is unrolled twice, which keeps
 //   eight slots of loads in flight per thread.
 // * x is read as float2 / double2 for D = 2 (both velocity components of a
-//   node in one load); the output row is written once.
+//   node in one load).  For D = 3 a row of x is 12 (24) bytes and starts
+//   only 4 (8) bytes aligned, so it is read as three scalar loads; they
+//   touch one or two 32-byte sectors, as one vector load would.  The output
+//   row is written once.
 //
 // Three value types, one template:
 //   fp32  values, x, sums and y in fp32 (the Pallas kernel's fp32 branch);
@@ -145,6 +148,20 @@ struct Vec<double, 2> {
   }
 };
 
+// D = 3 (the 3D velocity): rows of x and y are three scalars apart, with no
+// vector type of that width or alignment
+template <typename T>
+struct Vec<T, 3> {
+  __device__ static void load(const T* x, int c, T out[3]) {
+    const T* p = x + 3 * static_cast<long long>(c);
+    out[0] = __ldg(p); out[1] = __ldg(p + 1); out[2] = __ldg(p + 2);
+  }
+  __device__ static void store(T* y, int r, const T v[3]) {
+    T* p = y + 3 * static_cast<long long>(r);
+    p[0] = v[0]; p[1] = v[1]; p[2] = v[2];
+  }
+};
+
 template <typename V, int D>
 __global__ void __launch_bounds__(kThreads)
 sell_spmv_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
@@ -212,6 +229,9 @@ int dispatch(const void* vals, const int* cols, const int* slice_ptr,
                                                         rows, xx, yy, n_slices);
   } else if (D == 2) {
     sell_spmv_kernel<V, 2><<<blocks, kThreads, 0, st>>>(v, cols, slice_ptr,
+                                                        rows, xx, yy, n_slices);
+  } else if (D == 3) {
+    sell_spmv_kernel<V, 3><<<blocks, kThreads, 0, st>>>(v, cols, slice_ptr,
                                                         rows, xx, yy, n_slices);
   } else {
     return -1;

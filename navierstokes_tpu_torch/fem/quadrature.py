@@ -1,15 +1,17 @@
 """Gauss quadrature on the reference simplex (conical-product construction).
 
-The port's copy of ``navierstokes_tpu/fem/quadrature.py`` for the 2D
-solver (cells are triangles, facets segments).  The reference uses deal.II
-``QGaussSimplex<dim>(degree + 1)`` (src/NavierStokes.cpp:50-56), a
-conical-product Gauss rule with ``n = fe_degree + 1`` points per
-direction, exact for polynomials of degree ``2n - 1`` on the simplex,
-built here from 1D Gauss-Legendre/Gauss-Jacobi rules (scipy).
+The port's copy of ``navierstokes_tpu/fem/quadrature.py`` (cells are
+triangles or tetrahedra, facets segments or triangles).  The reference
+uses deal.II ``QGaussSimplex<dim>(degree + 1)``
+(src/NavierStokes.cpp:50-56), a conical-product Gauss rule with
+``n = fe_degree + 1`` points per direction, exact for polynomials of
+degree ``2n - 1`` on the simplex, built here from 1D
+Gauss-Legendre/Gauss-Jacobi rules (scipy).
 
 Reference simplex conventions:
   * 1D: the segment [0, 1]                        (measure 1)
   * 2D: triangle (0,0), (1,0), (0,1)              (measure 1/2)
+  * 3D: tetrahedron (0,0,0),(1,0,0),(0,1,0),(0,0,1)  (measure 1/6)
 
 Weights sum to the reference measure, so physical integrals use
 ``sum_q w_q f(x_q) * |det J|`` with the affine map Jacobian J.
@@ -66,4 +68,20 @@ def gauss_simplex(dim: int, n_points_1d: int):
                 wts.append(wxi * wsi)
         return np.array(pts), np.array(wts)
 
-    raise ValueError(f"unsupported dim {dim} (the port is 2D)")
+    if dim == 3:
+        # int_T f = int_0^1 (1-x)^2 int_0^1 (1-s) int_0^1
+        #           f(x, (1-x) s, (1-x)(1-s) r) dr ds dx
+        xx, wx = _gauss_jacobi01(n, 2)
+        ss, ws = _gauss_jacobi01(n, 1)
+        rr, wr = _gauss01(n)
+        pts, wts = [], []
+        for xi, wxi in zip(xx, wx):
+            for si, wsi in zip(ss, ws):
+                for ri, wri in zip(rr, wr):
+                    y = (1.0 - xi) * si
+                    z = (1.0 - xi) * (1.0 - si) * ri
+                    pts.append((xi, y, z))
+                    wts.append(wxi * wsi * wri)
+        return np.array(pts), np.array(wts)
+
+    raise ValueError(f"unsupported dim {dim}")

@@ -1,7 +1,7 @@
-"""Reference-element tables for the P2/P1 Taylor-Hood pair on triangles.
+"""Reference-element tables for the P2/P1 Taylor-Hood pair on simplices.
 
 The port's copy of ``navierstokes_tpu/fem/reference_elements.py``,
-restricted to what the 2D P2/P1 solver reads: explicit barycentric shape
+restricted to what the P2/P1 solver reads: explicit barycentric shape
 functions of degrees 1 and 2 evaluated into small static numpy tables
 (deal.II's ``FE_SimplexP`` / ``FESystem``, src/NavierStokes.cpp:31-57),
 which ops/assembly.py contracts against per-cell geometric factors.
@@ -9,7 +9,10 @@ which ops/assembly.py contracts against per-cell geometric factors.
 Conventions (the same as the JAX package's, so DoF numbering and
 checkpoints agree): triangle vertices V0=(0,0), V1=(1,0), V2=(0,1);
 barycentric l0=1-x-y, l1=x, l2=y; edges EDGES_2D = [(0,1), (0,2), (1,2)];
-P2 nodes = 3 vertices + 3 midpoints.  Facets are identified by sorted
+P2 nodes = 3 vertices + 3 midpoints.  Tetrahedron vertices V0..V3 =
+origin + unit axes; l0=1-x-y-z, l1=x, l2=y, l3=z; edges EDGES_3D =
+[(0,1),(0,2),(0,3),(1,2),(1,3),(2,3)]; P2 nodes = 4 vertices + 6
+midpoints.  Facets are identified by sorted
 vertex tuples; the outward normal is fixed against the owning cell's
 centroid (fem/spaces.py), so local facet orientation never matters.
 """
@@ -22,9 +25,11 @@ from navierstokes_tpu_torch.fem.quadrature import gauss_simplex
 
 EDGES_1D = ((0, 1),)
 EDGES_2D = ((0, 1), (0, 2), (1, 2))
+EDGES_3D = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
 
 # Facets as local vertex index tuples (orientation-free).
 FACETS_2D = ((0, 1), (1, 2), (2, 0))
+FACETS_3D = ((1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2))
 
 
 def _bary(dim: int, pts: np.ndarray) -> np.ndarray:
@@ -43,13 +48,15 @@ def _grad_bary(dim: int) -> np.ndarray:
 
 
 def edges_of(dim: int):
-    return EDGES_1D if dim == 1 else EDGES_2D
+    if dim == 1:
+        return EDGES_1D
+    return EDGES_2D if dim == 2 else EDGES_3D
 
 
 def facets_of(dim: int):
-    if dim != 2:
-        raise ValueError(f"unsupported dim {dim} (the port is 2D)")
-    return FACETS_2D
+    if dim not in (2, 3):
+        raise ValueError(f"unsupported dim {dim}")
+    return FACETS_2D if dim == 2 else FACETS_3D
 
 
 def shape_values(dim: int, degree: int, pts: np.ndarray) -> np.ndarray:
@@ -84,7 +91,7 @@ def shape_grads(dim: int, degree: int, pts: np.ndarray) -> np.ndarray:
 
 class ReferenceSimplex:
     """Bundled quadrature + shape tables for the P2/P1 Taylor-Hood pair on
-    the reference triangle.
+    the reference triangle or tetrahedron.
 
     ``n_points_1d`` = 3 matches deal.II ``QGaussSimplex(fe->degree + 1)``
     (src/NavierStokes.cpp:50-56): exact for total degree 5, which covers
@@ -92,8 +99,8 @@ class ReferenceSimplex:
     """
 
     def __init__(self, dim: int = 2, n_points_1d: int = 3):
-        if dim != 2:
-            raise NotImplementedError("3D is not ported")
+        if dim not in (2, 3):
+            raise ValueError(f"unsupported dim {dim}")
         self.dim = dim
         self.degree_velocity, self.degree_pressure = 2, 1
 
@@ -104,8 +111,8 @@ class ReferenceSimplex:
         self.dphi_v = shape_grads(dim, 2, self.qp)        # (n_q, n_v, dim)
         self.phi_p = shape_values(dim, 1, self.qp)        # (n_q, n_p)
         self.dphi_p = shape_grads(dim, 1, self.qp)
-        self.n_v = self.phi_v.shape[1]                    # 6
-        self.n_p = self.phi_p.shape[1]                    # 3
+        self.n_v = self.phi_v.shape[1]                    # 6 (2D) / 10 (3D)
+        self.n_p = self.phi_p.shape[1]                    # 3 (2D) / 4 (3D)
 
         # Facet quadrature on the (dim-1) reference simplex.
         self.fqp, self.fqw = gauss_simplex(dim - 1, n_points_1d)

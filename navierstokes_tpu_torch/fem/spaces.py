@@ -1,4 +1,4 @@
-"""Taylor-Hood P2/P1 function space on a triangle mesh.
+"""Taylor-Hood P2/P1 function space on a triangle or tetrahedron mesh.
 
 The port's copy of the P2/P1 path of ``navierstokes_tpu/fem/spaces.py``
 (deal.II's FESystem/DoFHandler, src/NavierStokes.cpp:31-92).  The DoF
@@ -75,14 +75,14 @@ class CurvedData:
 
 
 class TaylorHoodSpace:
-    """P2 velocity / P1 pressure on a triangle mesh; the P2 nodes are
+    """P2 velocity / P1 pressure on a simplex mesh; the P2 nodes are
     Hilbert-ordered by coordinates (``_reorder_p2``), which keeps the
     sparse operators' column gathers local."""
 
     def __init__(self, mesh: Mesh, degree_velocity: int = 2,
                  degree_pressure: int = 1):
-        if (degree_velocity, degree_pressure) != (2, 1) or mesh.dim != 2:
-            raise NotImplementedError("the port's space is 2D P2/P1")
+        if (degree_velocity, degree_pressure) != (2, 1):
+            raise NotImplementedError("the port's space is P2/P1")
         mesh.ensure_positive_orientation()
         self.mesh = mesh
         self.dim = mesh.dim
@@ -143,10 +143,11 @@ class TaylorHoodSpace:
 
     def snap_boundaries(self, projectors: dict) -> list[int]:
         """Snap the P2 midside nodes on tagged boundary facets onto analytic
-        curves: ``projectors[tag]((m, dim) pts) -> (m, dim)``.  Vertices
-        stay put; the touched cells then integrate with the quadratic map
-        (``curved_data``) and ``face_data`` of a snapped tag returns
-        per-point normals/JxW.  Returns the tags that had faces to snap."""
+        curves or surfaces: ``projectors[tag]((m, dim) pts) -> (m, dim)``.
+        Vertices stay put; the touched cells then integrate with the
+        quadratic map (``curved_data``) and ``face_data`` of a snapped tag
+        returns per-point normals/JxW.  Returns the tags that had faces to
+        snap."""
         snapped = []
         new_nodes = []
         for tag, proj in projectors.items():
@@ -276,9 +277,14 @@ class TaylorHoodSpace:
         # canonical local facet order used by rs.facet_phi_* tables)
         qp_phys = np.einsum("qk,fkd->fqd", rs.fq_bary, fpts)
 
-        t = fpts[:, 1] - fpts[:, 0]
-        detj = np.linalg.norm(t, axis=1)
-        nrm = np.stack([t[:, 1], -t[:, 0]], axis=1) / detj[:, None]
+        if dim == 2:
+            t = fpts[:, 1] - fpts[:, 0]
+            detj = np.linalg.norm(t, axis=1)
+            nrm = np.stack([t[:, 1], -t[:, 0]], axis=1) / detj[:, None]
+        else:
+            cr = np.cross(fpts[:, 1] - fpts[:, 0], fpts[:, 2] - fpts[:, 0])
+            detj = np.linalg.norm(cr, axis=1)      # twice the facet area
+            nrm = cr / detj[:, None]
 
         # orient outward: away from the owning cell's centroid
         cell_cent = mesh.points[mesh.cells[cells_of]].mean(axis=1)
@@ -308,10 +314,15 @@ class TaylorHoodSpace:
             dN = shape_grads(fdim, 2, rs.fqp)              # (n_fq,n_geo,fdim)
             qp_phys = np.einsum("qa,fad->fqd", N, FX)
             T = np.einsum("fad,qax->fqdx", FX, dN)         # tangent vectors
-            tq = T[..., 0]
-            detj_q = np.linalg.norm(tq, axis=-1)
-            nrm_q = (np.stack([tq[..., 1], -tq[..., 0]], axis=-1)
-                     / detj_q[..., None])
+            if dim == 2:
+                tq = T[..., 0]
+                detj_q = np.linalg.norm(tq, axis=-1)
+                nrm_q = (np.stack([tq[..., 1], -tq[..., 0]], axis=-1)
+                         / detj_q[..., None])
+            else:
+                cr = np.cross(T[..., 0], T[..., 1])
+                detj_q = np.linalg.norm(cr, axis=-1)
+                nrm_q = cr / detj_q[..., None]
             flip = np.einsum("fd,fd->f", nrm_q.mean(axis=1),
                              face_cent - cell_cent) < 0
             nrm_q[flip] *= -1.0

@@ -6,10 +6,10 @@ One product serves every sparse operator of the step
     y[rows[l], d] = sum over j < width(l) of vals[s] * x[cols[s], d]
 
 for every lane l of a pattern (``ops/sell.SellMatrix``; s is slot j of
-lane l), with x of shape (n_cols, D) or (n_cols,), D = 1 or 2; y has x's
-rank.  Uses: F and the mass (D=2), G p (rows = velocity DoFs), B u
-(columns = velocity DoFs), the P1 Laplacian, Ap, the Schur diagonal and
-the PCD pressure convection (D=1).
+lane l), with x of shape (n_cols, D) or (n_cols,), D = 1, 2 or 3; y has
+x's rank.  Uses: F and the mass (D = the dimension, 2 or 3), G p (rows =
+velocity DoFs), B u (columns = velocity DoFs), the P1 Laplacian, Ap, the
+Schur diagonal and the PCD pressure convection (D=1).
 
 Three variants of one CUDA kernel (csrc/sell_spmv.cu), chosen by the dtype
 of ``vals``:
@@ -46,11 +46,14 @@ class Counts:
     plain_cuda_calls: int = 0    # sell_spmv_plain calls on CUDA tensors
     # launches by (operator, value dtype): (SellMatrix.name, vals.dtype)
     by_pattern: dict = dataclasses.field(default_factory=dict)
+    # launches by instantiation: (vals.dtype, D)
+    by_variant: dict = dataclasses.field(default_factory=dict)
 
     def reset(self):
         self.launches = self.launches_bf16 = self.launches_f64 = 0
         self.plain_cuda_calls = 0
         self.by_pattern.clear()
+        self.by_variant.clear()
 
 
 COUNTS = Counts()
@@ -102,13 +105,14 @@ def sell_spmv(mat: SellMatrix, vals, x):
     dev = vals.device
     D = 1 if x.dim() == 1 else x.shape[1]
     # the alignment of each pointer's widest load: four values (two
-    # 16-byte loads in fp64), four int32 columns, one int32, D x values
+    # 16-byte loads in fp64), four int32 columns, one int32, and a row of
+    # x (D = 1, 2: one D-wide load; D = 3: three scalar loads)
     for name, t, dtype, align in (
             ("vals", vals, vals.dtype, min(16, 4 * vals.element_size())),
             ("cols", mat.cols, torch.int32, 16),
             ("slice_ptr", mat.slice_ptr, torch.int32, 4),
             ("rows", mat.rows, torch.int32, 4),
-            ("x", x, xdt, D * x.element_size())):
+            ("x", x, xdt, (1 if D == 3 else D) * x.element_size())):
         if t.dtype != dtype:
             raise TypeError(f"sell_spmv: {name} must be {dtype} on CUDA "
                             f"with {vals.dtype} values (got {t.dtype})")
@@ -140,6 +144,7 @@ def sell_spmv(mat: SellMatrix, vals, x):
                f"no instantiation for D={D} in csrc/sell_spmv.cu")
         raise RuntimeError(f"sell_spmv ({entry}) launch failed ({rc}): {msg}")
     setattr(COUNTS, counter, getattr(COUNTS, counter) + 1)
-    key = (mat.name, vals.dtype)
-    COUNTS.by_pattern[key] = COUNTS.by_pattern.get(key, 0) + 1
+    for table, key in ((COUNTS.by_pattern, (mat.name, vals.dtype)),
+                       (COUNTS.by_variant, (vals.dtype, D))):
+        table[key] = table.get(key, 0) + 1
     return y

@@ -1,15 +1,23 @@
-"""The Schaefer-Turek cylinder channel, generated natively.
+"""The reference geometries, generated natively.
 
-The port's copy of ``channel_with_cylinder_2d`` from
-``navierstokes_tpu/mesh/generators.py`` (with the helpers it calls): the
-2.2 x 0.41 channel with an r=0.05 circle at (0.2, 0.2)
-(mesh/domain2D.geo:1-10), Delaunay-triangulated with graded rings around
-the circle and optional wake refinement.  Point-in-polygon tests use
-even-odd ray casting (``_Polygon``) where the JAX package uses
-``matplotlib.path.Path``; both give the same mesh.
+The port's copy of the 2D channel and the 3D generators of
+``navierstokes_tpu/mesh/generators.py`` (with the helpers they call):
 
-Boundary tags follow the reference convention: 0=bottom wall, 1=outlet,
-2=top wall, 3=inlet, 4=obstacle (mesh/domain2D.geo:39-44).
+* ``channel_with_cylinder_2d`` — the 2.2 x 0.41 channel with an r=0.05
+  circle at (0.2, 0.2) (mesh/domain2D.geo:1-10), Delaunay-triangulated
+  with graded rings around the circle and optional wake refinement.
+  Point-in-polygon tests use even-odd ray casting (``_Polygon``) where the
+  JAX package uses ``matplotlib.path.Path``; both give the same mesh.
+* ``duct_with_box_obstacle_3d`` — the 2.5 x 0.41 x 0.41 duct with an
+  S=0.1 square column at (0.45, 0.15) (mesh/domain3D.geo:1-9): a graded
+  tensor grid, each hexahedron split into six Kuhn tetrahedra.
+* ``duct_with_cylinder_3d`` — the same duct with an r=0.05 cylinder at
+  (0.45, 0.2) (mesh/domain3D2.geo:1-9): the 2D cross-section extruded
+  along z, each prism split into three tetrahedra.
+* ``box_3d`` — a plain box for tests.
+
+Boundary tags follow the reference convention: 0=bottom/lateral walls,
+1=outlet, 2=top walls, 3=inlet, 4=obstacle (mesh/domain2D.geo:39-44).
 """
 
 from __future__ import annotations
@@ -174,9 +182,10 @@ def _delaunay_mesh_2d(lx, ly, h, hole_loops, hole_paths, extra_pts,
     return mesh, n_fixed
 
 
-def _classify_box_boundary(mesh: Mesh, lx, ly, tol=1e-9):
-    """Extract boundary facets, classify against the box; return leftovers
-    (= obstacle) marked with tag 4."""
+def _classify_box_boundary(mesh: Mesh, lx, ly, lz=None, tol=1e-9):
+    """Extract boundary facets, classify against the box (the z planes
+    too when ``lz`` is given); return leftovers (= obstacle) marked with
+    tag 4."""
     faces, _, _ = mesh.compute_boundary_faces()
     fp = mesh.points[faces]  # (n, dim, dim)
     tags = np.full(len(faces), 4, dtype=np.int32)
@@ -186,6 +195,9 @@ def _classify_box_boundary(mesh: Mesh, lx, ly, tol=1e-9):
 
     tags[on_plane(1, 0.0)] = 0
     tags[on_plane(1, ly)] = 2
+    if lz is not None:
+        tags[on_plane(2, 0.0)] = 0
+        tags[on_plane(2, lz)] = 2
     tags[on_plane(0, lx)] = 1
     tags[on_plane(0, 0.0)] = 3
     mesh.boundary_faces = faces
@@ -193,14 +205,21 @@ def _classify_box_boundary(mesh: Mesh, lx, ly, tol=1e-9):
     return mesh
 
 
-def _circle_projector(cx, cy, r):
-    """Radial projection onto the circle |p - c| = r."""
+def _circle_projector(cx, cy, r, keep_z=False):
+    """Radial projection onto the circle |p - c| = r (x/y components; with
+    ``keep_z`` a 3D point keeps its z)."""
     c = np.array([cx, cy])
 
     def proj(p):
-        v = np.asarray(p, float)[:, :2] - c
+        p = np.asarray(p, float)
+        v = p[:, :2] - c
         n = np.linalg.norm(v, axis=1, keepdims=True)
-        return c + r * v / np.maximum(n, 1e-300)
+        xy = c + r * v / np.maximum(n, 1e-300)
+        if keep_z:
+            out = p.copy()
+            out[:, :2] = xy
+            return out
+        return xy
 
     return proj
 
@@ -252,4 +271,167 @@ def channel_with_cylinder_2d(h=0.02, h_near=None, lx=2.2, ly=0.41,
     mesh = _classify_box_boundary(mesh, lx, ly).validate()
     # exact circle for superparametric P2 boundary cells (fem/spaces.py)
     mesh.snap_projectors = {4: _circle_projector(cx, cy, r)}
+    return mesh
+
+
+# ---------------------------------------------------------------------------
+# 3D structured / extruded
+# ---------------------------------------------------------------------------
+
+# the six tetrahedra of a hexahedron along its 000-111 diagonal; a corner
+# is the bit triple (di, dj, dk)
+_KUHN_TETS = (
+    (0b000, 0b100, 0b110, 0b111),
+    (0b000, 0b100, 0b101, 0b111),
+    (0b000, 0b010, 0b110, 0b111),
+    (0b000, 0b010, 0b011, 0b111),
+    (0b000, 0b001, 0b101, 0b111),
+    (0b000, 0b001, 0b011, 0b111),
+)
+
+
+def _tets_from_grid(xs, ys, zs, keep_cube=None):
+    """Kuhn tetrahedra of the tensor grid xs x ys x zs, over the
+    hexahedra whose centres pass ``keep_cube(cx, cy, cz)``; unused grid
+    points are dropped.  Returns (points, cells)."""
+    nx, ny, nz = len(xs) - 1, len(ys) - 1, len(zs) - 1
+    X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
+    pts = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+
+    def vid(i, j, k):
+        return (i * (ny + 1) + j) * (nz + 1) + k
+
+    I, J, K = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
+                          indexing="ij")
+    I, J, K = I.ravel(), J.ravel(), K.ravel()
+    if keep_cube is not None:
+        cx = (xs[I] + xs[I + 1]) / 2
+        cy = (ys[J] + ys[J + 1]) / 2
+        cz = (zs[K] + zs[K + 1]) / 2
+        m = keep_cube(cx, cy, cz)
+        I, J, K = I[m], J[m], K[m]
+
+    corner = {}
+    for b in range(8):
+        di, dj, dk = (b >> 2) & 1, (b >> 1) & 1, b & 1
+        corner[b] = vid(I + di, J + dj, K + dk)
+
+    cells = np.concatenate(
+        [np.stack([corner[t[0]], corner[t[1]], corner[t[2]], corner[t[3]]],
+                  axis=1) for t in _KUHN_TETS], axis=0)
+
+    # compact unused points
+    used = np.unique(cells)
+    remap = -np.ones(len(pts), dtype=np.int64)
+    remap[used] = np.arange(len(used))
+    return pts[used], remap[cells]
+
+
+def _coords_with(h, length, must_include=()):
+    """1D coordinates covering [0, length] with spacing <= h, containing the
+    given internal coordinates exactly."""
+    knots = np.unique(np.concatenate([[0.0, length],
+                                      np.asarray(must_include, float)]))
+    segs = []
+    for a, b in zip(knots[:-1], knots[1:]):
+        n = max(1, int(np.ceil((b - a) / h)))
+        segs.append(np.linspace(a, b, n + 1)[:-1])
+    segs.append([length])
+    return np.concatenate(segs)
+
+
+def _graded_coords(h, h_near, length, must_include=(), fine=(), growth=0.15):
+    """1D coordinates on [0, length] with spacing ~h_near inside the
+    ``fine`` intervals, growing geometrically (ratio ~1+growth per cell) to
+    ~h away from them, containing ``must_include`` exactly: the density
+    1/h(x) is equidistributed on each knot segment, so the grid is smooth
+    and the endpoints land exactly."""
+    if h_near is None or h_near >= h or not len(fine):
+        return _coords_with(h, length, must_include)
+    fine = [(float(lo), float(hi)) for lo, hi in fine]
+
+    def hx(x):
+        d = min(max(lo - x, x - hi, 0.0) for lo, hi in fine)
+        return np.minimum(h, h_near + growth * d)
+
+    knots = np.unique(np.concatenate([[0.0, length],
+                                      np.asarray(must_include, float)]))
+    segs = []
+    for a, b in zip(knots[:-1], knots[1:]):
+        xs = np.linspace(a, b, 2049)
+        dens = 1.0 / np.array([hx(x) for x in xs])
+        cum = np.concatenate(
+            [[0.0], np.cumsum((dens[1:] + dens[:-1]) / 2 * np.diff(xs))])
+        n = max(1, int(np.ceil(cum[-1])))
+        nodes = np.interp(np.linspace(0.0, cum[-1], n + 1), cum, xs)
+        segs.append(nodes[:-1])
+    segs.append([length])
+    return np.concatenate(segs)
+
+
+def _tet_mesh(pts, cells, lx, ly, lz):
+    mesh = Mesh(3, pts, cells.astype(np.int32),
+                np.zeros((0, 3), np.int32), np.zeros((0,), np.int32))
+    mesh.ensure_positive_orientation()
+    return _classify_box_boundary(mesh, lx, ly, lz).validate()
+
+
+def box_3d(lx=1.0, ly=1.0, lz=1.0, n=4):
+    """Kuhn-tetrahedralised box [0,lx]x[0,ly]x[0,lz], n cells a side."""
+    pts, cells = _tets_from_grid(np.linspace(0, lx, n + 1),
+                                 np.linspace(0, ly, n + 1),
+                                 np.linspace(0, lz, n + 1))
+    return _tet_mesh(pts, cells, lx, ly, lz)
+
+
+def duct_with_box_obstacle_3d(h=0.05, lx=2.5, ly=0.41, lz=0.41,
+                              ox=0.45, oy=0.15, s=0.1, h_near=None,
+                              h_z=None):
+    """3D duct with a square-section column obstacle (mesh/domain3D.geo).
+
+    With ``h_near`` the x/y grids are graded: spacing ~h_near at the column
+    faces growing geometrically to ~h in the far field.  The column spans
+    the full height, so z stays uniform: at ``h_z`` when given, else
+    min(h, 2*h_near), which bounds the aspect ratio of the near-column
+    cells."""
+    xs = _graded_coords(h, h_near, lx, (ox, ox + s), fine=[(ox, ox + s)])
+    ys = _graded_coords(h, h_near, ly, (oy, oy + s), fine=[(oy, oy + s)])
+    if h_z is None:
+        h_z = h if h_near is None else min(h, 2.0 * h_near)
+    zs = _coords_with(h_z, lz)
+
+    def keep(cx, cy, cz):
+        return ~((cx > ox) & (cx < ox + s) & (cy > oy) & (cy < oy + s))
+
+    pts, cells = _tets_from_grid(xs, ys, zs, keep)
+    return _tet_mesh(pts, cells, lx, ly, lz)
+
+
+def duct_with_cylinder_3d(h=0.05, h_near=None, lx=2.5, ly=0.41, lz=0.41,
+                          cx=0.45, cy=0.2, r=0.05, n_layers=None):
+    """3D duct with a circular cylinder (mesh/domain3D2.geo): the 2D
+    cross-section extruded along z into prisms, each split into 3 tets by
+    the global-index diagonal rule (conforming across prisms).  The
+    cylinder surface snaps radially with z kept."""
+    base = channel_with_cylinder_2d(h=h, h_near=h_near, lx=lx, ly=ly,
+                                    cx=cx, cy=cy, r=r)
+    nz = n_layers if n_layers is not None else max(1, int(np.ceil(lz / h)))
+    zs = np.linspace(0.0, lz, nz + 1)
+    n2 = base.n_points
+    pts = np.concatenate(
+        [np.concatenate([base.points, np.full((n2, 1), z)], axis=1)
+         for z in zs], axis=0)
+
+    tri = np.sort(base.cells.astype(np.int64), axis=1)
+    cells = []
+    for layer in range(nz):
+        b = tri + layer * n2               # bottom, sorted by global id
+        t = b + n2                         # top
+        v0, v1, v2 = b[:, 0], b[:, 1], b[:, 2]
+        w0, w1, w2 = t[:, 0], t[:, 1], t[:, 2]
+        cells.append(np.stack([v0, v1, v2, w0], axis=1))
+        cells.append(np.stack([v1, v2, w0, w1], axis=1))
+        cells.append(np.stack([v2, w0, w1, w2], axis=1))
+    mesh = _tet_mesh(pts, np.concatenate(cells, axis=0), lx, ly, lz)
+    mesh.snap_projectors = {4: _circle_projector(cx, cy, r, keep_z=True)}
     return mesh

@@ -1,15 +1,16 @@
 """Host-side mesh container (flat numpy arrays).
 
 The port's copy of ``navierstokes_tpu/mesh/geometry.py`` for triangle
-meshes: one canonical, globally indexed flat representation on the host
-(deal.II's Triangulation, src/NavierStokes.cpp:7-27), with the Hilbert
+and tetrahedron meshes: one canonical, globally indexed flat
+representation on the host (deal.II's Triangulation,
+src/NavierStokes.cpp:7-27), with the Hilbert
 vertex ordering that keeps every contiguous node range a compact spatial
 patch.  The numbering is the JAX package's, so the two packages read each
 other's checkpoints.
 
 Boundary-tag convention (identical to every reference .geo file,
-mesh/domain2D.geo:39-44):
-  0 = bottom walls, 1 = outlet, 2 = top walls, 3 = inlet, 4 = obstacle.
+mesh/domain2D.geo:39-44, mesh/domain3D.geo:104-109):
+  0 = bottom/lateral walls, 1 = outlet, 2 = top walls, 3 = inlet, 4 = obstacle.
 """
 
 from __future__ import annotations
@@ -37,16 +38,26 @@ def _part1by1(x):
     return x
 
 
+def _part1by2(x):
+    x &= 0x1FFFFF
+    x = (x | (x << 32)) & 0x1F00000000FFFF
+    x = (x | (x << 16)) & 0x1F0000FF0000FF
+    x = (x | (x << 8)) & 0x100F00F00F00F00F
+    x = (x | (x << 4)) & 0x10C30C30C30C30C3
+    x = (x | (x << 2)) & 0x1249249249249249
+    return x
+
+
 def hilbert_order(points: np.ndarray, bits: int = 16) -> np.ndarray:
-    """Permutation sorting 2D points along a Hilbert curve (Skilling's
+    """Permutation sorting 2D or 3D points along a Hilbert curve (Skilling's
     transpose algorithm, vectorized): consecutive ids are always spatial
     neighbours, which keeps the sparse operators' column gathers local."""
     pts = np.asarray(points, dtype=np.float64)
     lo = pts.min(axis=0)
     span = np.maximum(pts.max(axis=0) - lo, 1e-300)
     n = pts.shape[1]
-    if n != 2:
-        raise ValueError("hilbert_order: the port orders 2D points")
+    if n not in (2, 3):
+        raise ValueError(f"hilbert_order: {n}D points")
     X = ((pts - lo) / span * ((1 << bits) - 1)).astype(np.uint64)
     M = np.uint64(1) << np.uint64(bits - 1)
     # AxesToTranspose (Skilling 2004)
@@ -72,7 +83,11 @@ def hilbert_order(points: np.ndarray, bits: int = 16) -> np.ndarray:
     for i in range(n):
         X[:, i] ^= t
     # interleave transposed coordinate bits into one sort key (X[0] highest)
-    key = (_part1by1(X[:, 0]) << np.uint64(1)) | _part1by1(X[:, 1])
+    if n == 2:
+        key = (_part1by1(X[:, 0]) << np.uint64(1)) | _part1by1(X[:, 1])
+    else:
+        key = ((_part1by2(X[:, 0]) << np.uint64(2))
+               | (_part1by2(X[:, 1]) << np.uint64(1)) | _part1by2(X[:, 2]))
     return np.argsort(key, kind="stable")
 
 
@@ -113,10 +128,10 @@ class Mesh:
     # -- geometry ----------------------------------------------------------
 
     def cell_volumes(self) -> np.ndarray:
-        """Signed triangle areas (positive after orientation fix)."""
-        p = self.points[self.cells]                        # (nc, 3, 2)
-        edges = p[:, 1:, :] - p[:, :1, :]                  # (nc, 2, 2)
-        return np.linalg.det(edges) / 2.0
+        """Signed simplex volumes (positive after orientation fix)."""
+        p = self.points[self.cells]                        # (nc, dim+1, dim)
+        edges = p[:, 1:, :] - p[:, :1, :]                  # (nc, dim, dim)
+        return np.linalg.det(edges) / (2.0 if self.dim == 2 else 6.0)
 
     def ensure_positive_orientation(self) -> "Mesh":
         """Flip cells with negative volume (swap last two vertices)."""

@@ -1,8 +1,9 @@
 """Incompressible Navier-Stokes solver in PyTorch.
 
-Port of ``navierstokes_tpu/models/navier_stokes.py`` for P2/P1 in 2D
-(``operator="bsr"``, whose operators the port keeps in a compact layout)
-with the block-Jacobi tile F preconditioner, in both time schemes:
+Port of ``navierstokes_tpu/models/navier_stokes.py`` for P2/P1 on
+triangles (2D) and tetrahedra (3D) (``operator="bsr"``, whose operators
+the port keeps in a compact layout) with the block-Jacobi tile or the
+diagonal F preconditioner (``f_precond``), in both time schemes:
 
 * ``scheme="monolithic"`` (the reference's scheme, cpp:344-397): the
   saddle-point system per step by FGMRES with the ``cc``, ``pcd``,
@@ -109,7 +110,7 @@ def check_config(cfg: SolverConfig):
         ("scheme", cfg.scheme not in ("projection", "monolithic")),
         ("operator", cfg.operator != "bsr"),
         ("proj_poisson", cfg.proj_poisson != "laplacian"),
-        ("f_precond", cfg.f_precond != "bj"),
+        ("f_precond", cfg.f_precond not in ("bj", "jacobi", "diag")),
         ("f_solver", cfg.scheme == "monolithic"
          and cfg.f_solver == "richardson"),
         ("bj_tiles", cfg.bj_tiles not in ("auto", "blocked")),
@@ -189,8 +190,6 @@ class NavierStokes:
             self.mesh = Mesh(src.dim, src.points, src.cells,
                              src.boundary_faces, src.boundary_tags,
                              getattr(src, "snap_projectors", None))
-        if self.mesh.dim != 2:
-            raise NotImplementedError("3D is not ported")
         self.mesh.reorder_spatial()
         self.space = TaylorHoodSpace(self.mesh, self.degree_velocity,
                                      self.degree_pressure)
@@ -247,8 +246,9 @@ class NavierStokes:
         self._build_static()
         self._is_setup = True
 
+        # equilateral-equivalent cell size
         vols = np.abs(self.mesh.cell_volumes())
-        h_c = (vols * 2.0) ** 0.5
+        h_c = (vols * (2.0 if self.dim == 2 else 6.0)) ** (1.0 / self.dim)
         self._cfl_dt_over_h = torch.as_tensor(cfg.deltat / h_c,
                                               dtype=self.dtype, device=dev)
         self._cell_p2 = torch.as_tensor(np.asarray(sp.cell_p2, np.int64),
@@ -310,7 +310,8 @@ class NavierStokes:
         with its coarse inverse and lambda_max, the lumped pressure mass
         and, under monolithic, the Cahouet-Chabard operator
         Ap = B diag(mask/M_lumped) B^T with its coarse inverse and
-        lambda_max."""
+        lambda_max.  The block-Jacobi plan exists under f_precond="bj"
+        only."""
         sp, dev, dt_ = self.space, self.device, self.dtype
         cfg = self.config
         mask_flat = self.bc.host_mask[:, 0]
@@ -321,9 +322,10 @@ class NavierStokes:
                                    mask_flat / self._lumped_host, dt_, dev,
                                    b=self.ell.bp)
             self._ap_sc_inv, self._ap_lam = self._coarse_statics(self._ap)
-        self._bj_plan = build_block_jacobi_plan(
+        self._bj_plan = (build_block_jacobi_plan(
             self.ell.f, self.ell.bu, sp.n_p2,
             S=cfg.bj_tile_blocks or max(1, 256 // self.ell.bu), device=dev)
+            if cfg.f_precond == "bj" else None)
         out_sel = self.mesh.boundary_tags == TAG_OUTLET
         out_nodes = (np.unique(self.mesh.boundary_faces[out_sel])
                      if np.any(out_sel) else None)
@@ -337,9 +339,11 @@ class NavierStokes:
                                              dirichlet_nodes=out_nodes)
         self._ap_dir_sc_inv, self._ap_dir_lam = self._coarse_statics(
             self._ap_dir)
+        # lumped P1 mass: detJ * reference measure / (dim + 1) per vertex
         detj, _ = geometric_factors(sp)
-        mp_rows = np.repeat((detj * (0.5 / 3.0))[:, None],
-                            sp.cell_p1.shape[1], axis=1)
+        coeff = (0.5 / 3.0) if self.dim == 2 else (1.0 / 6.0 / 4.0)
+        mp_rows = np.repeat((detj * coeff)[:, None], sp.cell_p1.shape[1],
+                            axis=1)
         cd = sp.curved_data()
         if cd is not None:
             wdet = cd.qw[None, :] * cd.detj_q
@@ -367,7 +371,7 @@ class NavierStokes:
     def _bj_seed(self):
         """Exact tile inverses of the BC-masked static operator A0: the
         Newton-Schulz seed of the per-step inversion (computed once)."""
-        if self.config.bj_newton <= 0:
+        if self.config.bj_newton <= 0 or self._bj_plan is None:
             return None
         if self._bj_x0 is None:
             mflat = self.bc.mask[:, 0]
@@ -396,10 +400,14 @@ class NavierStokes:
         """``inner_bf16`` applies in fp32 runs only, as in the JAX model."""
         return bool(self.config.inner_bf16) and self.dtype == torch.float32
 
-    def _tiles(self, f_cell, mflat, sigma):
-        """The per-step block-Jacobi tile inverses, in bf16 under
-        ``inner_bf16`` / ``bj_bf16`` (fp32 runs), and the seconds of the
-        rebuild (timed between synchronisations: time_prec_init)."""
+    def _f_precond(self, f_cell, mflat, sigma, dinv):
+        """The F preconditioner of the step and the seconds of its rebuild
+        (time_prec_init).  "bj": the per-step block-Jacobi tile inverses,
+        in bf16 under ``inner_bf16`` / ``bj_bf16`` (fp32 runs), timed
+        between synchronisations.  Otherwise ("jacobi", "diag", as in the
+        JAX model) the diagonal scaling ``dinv``, nothing to rebuild."""
+        if self._bj_plan is None:
+            return (lambda r: r * dinv), 0.0
         cfg = self.config
         cuda = self.device.type == "cuda"
         if cuda:
@@ -412,7 +420,9 @@ class NavierStokes:
             inv_tiles = inv_tiles.to(torch.bfloat16)
         if cuda:
             torch.cuda.synchronize(self.device)
-        return inv_tiles, _walltime.perf_counter() - t0
+        seconds = _walltime.perf_counter() - t0
+        return (lambda r: block_jacobi_apply(self._bj_plan, inv_tiles, r),
+                seconds)
 
     def _forces(self, u_new, p_new, factor):
         """(drag, lift, Cd, Cl) on the obstacle (cpp:831-929)."""
@@ -458,6 +468,7 @@ class NavierStokes:
         d = ops.f_diag(ell, f_cell)
         mflat = mask[:, 0]
         sigma = torch.sum(d * mflat) / torch.clamp(torch.sum(mflat), min=1.0)
+        dinv = (1.0 / (d * mflat + sigma * (1.0 - mflat)))[:, None]
         zero_p = torch.zeros(self.space.n_p1, dtype=self.dtype,
                              device=self.device)
         # bf16 F values inside the u* solve (vectors and sums stay fp32)
@@ -480,8 +491,7 @@ class NavierStokes:
                                      with_f=False, with_g=False)
             return yp
 
-        inv_tiles, prec_seconds = self._tiles(f_cell, mflat, sigma)
-        pre_f = lambda r: block_jacobi_apply(self._bj_plan, inv_tiles, r)
+        pre_f, prec_seconds = self._f_precond(f_cell, mflat, sigma, dinv)
 
         # ---- u* momentum solve ----
         factor = self._time_factor(t_new)
@@ -595,12 +605,11 @@ class NavierStokes:
         b_p = -ag_p
 
         # ---- block preconditioner ----
-        inv_tiles, prec_seconds = self._tiles(f_cell, mflat, sigma)
-        pre_f = lambda r: block_jacobi_apply(self._bj_plan, inv_tiles, r)
+        pre_f, prec_seconds = self._f_precond(f_cell, mflat, sigma, dinv)
         _inner_f = InnerSolve(cfg.inner_tol, cfg.inner_maxiter_f,
                               method=cfg.f_solver)
-        # the F solves take the block-Jacobi tiles whatever preconditioner
-        # the block preconditioner hands them, as the JAX model's inner_f
+        # the F solves take the step's F preconditioner whatever the block
+        # preconditioner hands them, as the JAX model's inner_f
         inner_f = lambda op, rhs, pre=None: _inner_f(op, rhs, pre_f)
         inner_s = InnerSolve(cfg.inner_tol, cfg.inner_maxiter_s)
         vcycles = dict(n_cycles=cfg.schur_vcycles,

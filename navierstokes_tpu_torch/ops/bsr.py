@@ -8,7 +8,7 @@ The port keeps only the nonzeros (``ops/sell.py``).  The host part
 each operator's entries per nonzero in element order (the JAX builder's
 order, so float64 values agree to the last bit) and lays the operators out
 for the one SELL SpMV (``kernels/sell_spmv.py``): F, A0 and the mass on
-the P2 node pattern (D=2), G with rows node*dim + d, B = G^T, and the
+the P2 node pattern (D = dim), G with rows node*dim + d, B = G^T, and the
 P1-P1 pattern of the PCD pressure convection.
 
 Per step, the convection part of F and the PCD pressure convection are

@@ -2,13 +2,14 @@
 
 Port of ``navierstokes_tpu/ops/forces.py`` (formula parity with
 src/NavierStokes.cpp:879-922): with outward unit normal n and tangent
-t = (ny, -nx),
+t = (ny, -nx[, 0]),
 
     drag += [ nu * ngt * ny - p * nx ] * JxW
     lift -= [ nu * ngt * nx + p * ny ] * JxW
 
 where ngt is n . grad(u) . t ("reference") or t . grad(u) . n ("st",
-the Schaefer-Turek definition), then Cd/Cl = -2 (drag, lift) / (U^2 D).
+the Schaefer-Turek definition), then Cd/Cl = -2 (drag, lift) / (U^2 D),
+divided by ``span_3d`` more in 3D (cpp:913-917).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """P1 operators and the block-Jacobi velocity preconditioner.
 
-Port of ``navierstokes_tpu/ops/p1ell.py`` (the 2D subset), in the compact
-SELL layout of ``ops/sell.py`` where the JAX package keeps blocked ELLs:
+Port of ``navierstokes_tpu/ops/p1ell.py`` (the subset the BSR path reads,
+on triangles and tetrahedra), in the compact SELL layout of
+``ops/sell.py`` where the JAX package keeps blocked ELLs:
 
 * ``assemble_p1_stiffness`` — the consistent P1 Laplacian of the pressure
   Poisson solve, host-assembled, applied through the SELL SpMV kernel

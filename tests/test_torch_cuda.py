@@ -1,8 +1,9 @@
 """Tests of the port that need an NVIDIA GPU, plus its host shims: the
 fp32, bf16-values and fp64 SELL SpMV kernels against their plain versions
-in every use of the step, bit-identical repeats, the wrapper's refusals,
-model steps (projection; monolithic with bf16 and refinement) that launch
-the kernels, and the port's own mesh generator where matplotlib is absent.
+in every use of the step, in 2D and (D=3) in 3D, bit-identical repeats,
+the wrapper's refusals, model steps (projection; monolithic with bf16 and
+refinement; 3D) that launch the kernels, and the port's own mesh
+generator where matplotlib is absent.
 
 This file imports no jax and nothing of the JAX package at module level,
 so that it also runs where only the port's dependencies are installed:
@@ -11,7 +12,8 @@ so that it also runs where only the port's dependencies are installed:
 
 (``--noconftest`` because tests/conftest.py configures jax).  The CUDA
 cases carry the ``cuda`` marker and skip where there is no card.
-Fixture: the h=0.12 cylinder channel of tests/test_pallas_matvec.py.
+Fixtures: the h=0.12 cylinder channel of tests/test_pallas_matvec.py;
+in 3D the h=0.15 square-column duct of tests/test_torch_3d.py.
 """
 
 import dataclasses
@@ -80,6 +82,27 @@ def _uses(space, dev):
     }
 
 
+@pytest.fixture(scope="module")
+def space3d():
+    from navierstokes_tpu_torch.mesh.generators import \
+        duct_with_box_obstacle_3d
+    return TaylorHoodSpace(duct_with_box_obstacle_3d(h=0.15))
+
+
+def _uses_3d(space, dev):
+    """use -> (pattern, fp32 values, fp32 x) of the 3D step's D=3 products,
+    F (with convection) and the mass, and of B, whose x is the flat 3D
+    velocity."""
+    b = TB.build_bsr(space, TA.cell_arrays_numpy(space), torch.float32, dev)
+    rng = np.random.default_rng(5)
+    x = lambda *shape: torch.as_tensor(rng.standard_normal(shape),
+                                       dtype=torch.float32, device=dev)
+    f = 3.0 * b.m_vals + TB.convection_blk(b, 0.3 * x(space.n_p2, 3))
+    return {"F": (b.f, f, x(space.n_p2, 3)),
+            "mass": (b.f, b.m_vals, x(space.n_p2, 3)),
+            "B": (b.b, b.b_vals, x(space.n_p2 * 3))}
+
+
 def _variant(space, dev, use, variant):
     vdt, xdt, tol, field = VARIANTS[variant]
     mat, vals, x = _uses(space, dev)[use]
@@ -132,6 +155,81 @@ def test_repeat_is_bit_identical_on_cuda(cuda, space, use, variant):
     assert getattr(K.COUNTS, field) == 3
     assert K.COUNTS.by_pattern == {(mat.name, vals.dtype): 3}
     assert torch.equal(ys[0], ys[1]) and torch.equal(ys[0], ys[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use", ["F", "mass", "B"])
+@pytest.mark.parametrize("variant", ["f32", "bf16", "f64"])
+def test_3d_products_match_plain_on_cuda(cuda, space3d, use, variant):
+    """The 3D products against the plain version on the card, with the
+    2D limits (only the summation order differs); F and the mass launch the
+    D=3 instantiation, B the D=1 one, and repeats are bit-identical."""
+    vdt, xdt, tol, field = VARIANTS[variant]
+    mat, vals, x = _uses_3d(space3d, cuda)[use]
+    vals, x = vals.to(vdt), x.to(xdt)
+    K.COUNTS.reset()
+    ys = [K.sell_spmv(mat, vals, x) for _ in range(2)]
+    y_p = K.sell_spmv_plain(mat, vals, x)
+    torch.cuda.synchronize()
+    D = 1 if x.dim() == 1 else x.shape[1]
+    assert K.COUNTS.by_variant == {(vdt, D): 2}
+    assert getattr(K.COUNTS, field) == 2
+    assert ys[0].shape == y_p.shape and ys[0].dtype == y_p.dtype == xdt
+    assert torch.equal(ys[0], ys[1])
+    err = ((ys[0] - y_p).abs().max() / y_p.abs().max()).item()
+    assert err <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["f32", "f64"])
+def test_3d_x_needs_only_its_element_alignment(cuda, space3d, variant):
+    """A D=3 row of x is read as three scalars, so x starting one element
+    past a 16-byte boundary (any row start) is taken."""
+    vdt, xdt, _, _ = VARIANTS[variant]
+    mat, vals, x = _uses_3d(space3d, cuda)["F"]
+    vals, x = vals.to(vdt), x.to(xdt)
+    buf = torch.empty(x.numel() + 1, dtype=xdt, device=cuda)
+    x_off = buf[1:].view(x.shape)
+    x_off.copy_(x)
+    assert x_off.data_ptr() % 16 != 0
+    y_k = K.sell_spmv(mat, vals, x_off)
+    torch.cuda.synchronize()
+    assert torch.equal(y_k, K.sell_spmv(mat, vals, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,options", [
+    ("projection", dict(f_precond="diag")),
+    ("projection", dict(f_precond="bj", inner_bf16=True)),
+    ("monolithic", dict(inner_bf16=True, refine=1))])
+def test_3d_steps_on_cuda_launch_d3(cuda, tmp_path, space3d, scheme,
+                                    options):
+    """fp32 3D steps launch the D=3 instantiation of each variant the
+    configuration reads (fp32 always, bf16 under inner_bf16, fp64 under
+    refinement) and no plain version."""
+    from navierstokes_tpu_torch.mesh.generators import \
+        duct_with_box_obstacle_3d
+    from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
+    cfg = SolverConfig(dtype="float32", scheme=scheme,
+                       output_dir=str(tmp_path / "out"),
+                       cache_dir=str(tmp_path / "cache"),
+                       csv_path=str(tmp_path / "forces.csv"), **options)
+    ns = NavierStokes(duct_with_box_obstacle_3d(h=0.15), 2, 1, deltat=0.01,
+                      T=0.02, step=2, device="cuda", config=cfg,
+                      inlet=InletConfig(kind="biparabolic", u_m=0.45,
+                                        height=0.41))
+    ns.set_re_number(20)
+    ns.setup()
+    K.COUNTS.reset()
+    ns.solve()
+    want = {torch.float32} | ({torch.bfloat16} if cfg.inner_bf16 else set()) \
+        | ({torch.float64} if cfg.refine else set())
+    for dt in want:
+        assert K.COUNTS.by_variant.get((dt, 3), 0) > 0, dt
+    assert K.COUNTS.plain_cuda_calls == 0
+    assert ns._u.shape == (ns.space.n_p2, 3)
+    assert bool(torch.isfinite(ns._u).all()) and np.isfinite([ns.cd,
+                                                              ns.cl]).all()
 
 
 @pytest.mark.cuda

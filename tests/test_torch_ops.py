@@ -285,16 +285,21 @@ def test_convert_ell_plan_and_state(space, ell_pair, built):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py with every module it
-    imports, load without pulling in jax or any module of the JAX package
-    (a fresh interpreter: this test process has both loaded)."""
+    """Every module of the port (the scenario registry and CLI among
+    them), and chip_smoke.py with every module it imports, load without
+    pulling in jax or any module of the JAX package (a fresh interpreter:
+    this test process has both loaded)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import navierstokes_tpu_torch as pkg\n"
+        "import navierstokes_tpu_torch.scenarios.cli\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "'navierstokes_tpu_torch.')]\n"
-        "[importlib.import_module(m) for m in mods]\n"
-        "assert len(mods) >= 24, mods\n"
+        "[importlib.import_module(m) for m in mods\n"
+        " if m != 'navierstokes_tpu_torch.__main__']\n"
+        "assert len(mods) >= 28, mods\n"
+        "assert {'navierstokes_tpu_torch.scenarios.cli', "
+        "'navierstokes_tpu_torch.scenarios.registry'} <= set(mods)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'navierstokes_tpu')]\n"

@@ -1,16 +1,25 @@
-"""Per-step profile of the PyTorch port at the bench point, on one GPU.
+"""Per-step profile of the PyTorch port at a full-size point, on one GPU.
 
-    python3 tools/torch_step_profile.py [--tree DIR] [--scheme S] ...
+    python3 tools/torch_step_profile.py [--tree DIR] [--case C] [--scheme S]
 
-Builds the ``chip_smoke.py`` bench configuration (Schaefer-Turek 2D-2,
-``.bench_mesh.npz``, 1,014,414 DoF, fp32, Poisson CG budget 100) with the
-``navierstokes_tpu_torch`` package found under ``--tree`` (default: this
-checkout), so that two versions of the port can be measured in one run
-on the same card.  It uses only the port's public surface (the package's
-``InletConfig``/``SolverConfig``, ``NavierStokes``, ``a0_cell``, ``ell``
-and ``_ops.convection``), which every version of the port has.
+Builds, with the ``navierstokes_tpu_torch`` package found under ``--tree``
+(default: this checkout), so that two versions of the port can be
+measured in one run on the same card, one of two cases:
 
-It prints, for the scheme:
+* ``--case bench`` (default): the ``chip_smoke.py`` bench configuration
+  (Schaefer-Turek 2D-2, ``.bench_mesh.npz``, 1,014,414 DoF, fp32, Poisson
+  CG budget 100) in ``--scheme`` monolithic or projection;
+* ``--case 3d1``: Schaefer-Turek 3D-1Z as ``scripts/validate_st.py 3d1
+  --projection --f-precond diag --h 0.023 --hnear 0.007`` runs it
+  (3,393,382 DoF, biparabolic U_m=0.45, nu=1e-3, projection BDF2 with the
+  diagonal F preconditioner, budgets 100 BiCGStab / 50 CG, dt=0.01,
+  fp32); ``--scheme`` is ignored.
+
+It uses only the port's public surface (the package's
+``InletConfig``/``SolverConfig``, ``NavierStokes``, the mesh generators,
+``a0_cell``, ``ell`` and ``_ops.convection``).
+
+It prints, for the case:
 * steps/s over ``--steps`` timed steps after ``--warm`` warm-up steps
   (host clock between two synchronisations), iterations per step and the
   peak device memory;
@@ -44,6 +53,24 @@ def card_line():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "?"
+
+
+def model_3d1(work):
+    import navierstokes_tpu_torch as pkg
+    from navierstokes_tpu_torch.mesh.generators import \
+        duct_with_box_obstacle_3d
+    from navierstokes_tpu_torch.models import navier_stokes as M
+    cfg = pkg.SolverConfig(
+        dtype="float32", output_dir=os.path.join(work, "out"),
+        cache_dir=os.path.join(work, "cache"),
+        csv_path=os.path.join(work, "forces.csv"), nu=1.0e-3, ref_length=0.1,
+        force_formula="st", scheme="projection", f_precond="diag",
+        proj_f_maxiter=100, proj_p_maxiter=50, inner_maxiter_f=10)
+    inlet = pkg.InletConfig(kind="biparabolic", u_m=0.45, height=0.41)
+    ns = M.NavierStokes(duct_with_box_obstacle_3d(h=0.023, h_near=0.007), 2,
+                        1, deltat=0.01, T=3.0, step=400, inlet=inlet,
+                        config=cfg, device="cuda")
+    return ns.setup()
 
 
 def bench_model(scheme, work):
@@ -97,6 +124,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=ROOT,
                     help="checkout whose navierstokes_tpu_torch is measured")
+    ap.add_argument("--case", default="bench", choices=["bench", "3d1"])
     ap.add_argument("--scheme", default="monolithic",
                     choices=["monolithic", "projection"])
     ap.add_argument("--warm", type=int, default=5)
@@ -110,12 +138,15 @@ def main():
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     card = card_line()
-    tag = f"[{os.path.basename(tree)} {args.scheme}]"
+    label = "3d1" if args.case == "3d1" else args.scheme
+    tag = f"[{os.path.basename(tree)} {label}]"
     work = os.path.join(tree, "build", "step_profile")
     t0 = time.perf_counter()
-    ns = bench_model(args.scheme, work)
+    ns = (model_3d1(work) if args.case == "3d1"
+          else bench_model(args.scheme, work))
     torch.cuda.synchronize()
-    print(f"{tag} setup {time.perf_counter() - t0:.1f} s", flush=True)
+    setup_s = time.perf_counter() - t0
+    print(f"{tag} setup {setup_s:.1f} s, {ns.space.n_dofs} DoF", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
     ms = [ns.solve_time_step() for _ in range(args.warm)]
@@ -128,7 +159,7 @@ def main():
     step_ms = wall / args.steps * 1e3
 
     u = torch.as_tensor(np.random.default_rng(1234).standard_normal(
-        (ns.space.n_p2, 2)), dtype=torch.float32, device="cuda")
+        (ns.space.n_p2, ns.dim)), dtype=torch.float32, device="cuda")
     rebuild = lambda: ns.a0_cell + ns._ops.convection(ns.ell, u)
     rebuild_cold, rebuild_warm = time_ms(rebuild, True), time_ms(rebuild,
                                                                  False)
@@ -152,6 +183,10 @@ def main():
 
     print(f"{tag} iterations per step: " + " ".join(its(m) for m in ms),
           flush=True)
+    print(f"{tag} Cd per step: " + " ".join(f"{m.cd:.5f}" for m in ms),
+          flush=True)
+    print(f"{tag} every solve converged: {all(m.converged for m in ms)}",
+          flush=True)
     print(f"{tag} steps/s {args.steps / wall:.4f} ({args.steps} steps in "
           f"{wall:.3f} s, {step_ms:.1f} ms/step), peak {peak} bytes "
           f"({peak / 2**30:.2f} GiB) on {card}", flush=True)
@@ -169,8 +204,11 @@ def main():
         print(f"{tag} torch.profiler recorded no device time: kernel time "
               "not measured", flush=True)
     print(json.dumps({
-        "tree": os.path.basename(tree), "scheme": args.scheme, "card": card,
-        "steps_per_s": args.steps / wall, "step_ms": step_ms,
+        "tree": os.path.basename(tree), "case": args.case,
+        "scheme": label, "card": card, "setup_s": setup_s,
+        "n_dofs": ns.space.n_dofs, "steps_per_s": args.steps / wall,
+        "step_ms": step_ms, "cd": [m.cd for m in ms],
+        "converged": all(m.converged for m in ms),
         "peak_bytes": peak, "iterations": [its(m) for m in ms],
         "rebuild_ms_cold": rebuild_cold, "rebuild_ms_warm": rebuild_warm,
         "kernel_ms_per_step": kernel_ms if rows else None,
