@@ -48,7 +48,36 @@ and checks them:
    with D=3; the P1 Laplacian, G and B with D=1), all three variants,
    timed as in phase 3;
 12. the CLI on the card: ``run 3d-test1`` for two steps at the scenario's
-   default h with the default device.
+   default h with the default device;
+13. a NACA small fixture (``2d-naca`` at h=0.1, 8 degrees, monolithic
+   ``cc``): 5 steps on the card against the CPU, fp32, under phase 4's
+   rule;
+14. the NACA 2408 sweep at full size, as users run it:
+   ``sweep-naca --angles 0 2 4 8 --T 1.0 --output-step 100`` through the
+   CLI's main on the default device at the scenario's h=0.02 (157,634 to
+   157,958 DoF, 100 monolithic ``cc`` steps per angle), inside
+   ``build/chip_smoke/naca``; the DoF counts of the TPU sweep's log, every
+   step's FGMRES count under its budget, finite rows, the thin-airfoil
+   criteria of tests/test_naca_values.py on the four final Cl; setup
+   seconds and steps/s per angle, peak memory, the steps' launches per
+   step (the setups' launches apart) and the final Cd/Cl beside the TPU
+   csv's (``artifacts/naca_sweep``, for information only); then the fp32
+   kernel against its plain version in every use of the NACA step (F,
+   mass, P1 Laplacian, Ap, G, B) on a 2d-naca model at h=0.02, timed as
+   in phase 3 (the record's ``sell_spmv_naca`` entry);
+15. checkpoint post-processing: ``run 2d-test1`` for 4 steps with
+   ``--output-step 2``, then ``postprocess --t0 0 --t1 4 --step 2``
+   through the CLI (the VTUs), and the same replay through
+   ``NavierStokes.post_process``, whose Cd/Cl equal the live csv rows to
+   1e-6 relative;
+16. the outlet pressure ``p_out`` and a forcing term on the phase 4 small
+   fixture, in both schemes: 5 steps on the card against the CPU, fp32,
+   under phase 4's rule;
+17. ``StokesSolver`` in float64 on the card: the manufactured solution of
+   tests/test_torch_stokes.py on the unit square, P2/P1 (n = 4, 8, 16) and
+   P3/P2 (n = 4, 8); the L2 errors equal the CPU's to 1e-9 relative and
+   converge at the Taylor-Hood rates (P2/P1: u > 2.5, p > 1.5; P3/P2:
+   u > 3.5, p > 2.5).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
@@ -57,6 +86,7 @@ result, each one JSON object.  Imports no jax and nothing of the JAX
 package.
 """
 
+import collections
 import dataclasses
 import functools
 import gc
@@ -89,6 +119,13 @@ REPLACES_BF16 = "navierstokes_tpu/ops/pallas_matvec.py:53"
 # TPU shows the same totals), and this script requires every solve of the
 # 20 steps to converge.
 CG_BUDGET = 100
+# The NACA 2408 sweep of tests/2D/test_naca/run_test.sh as the TPU round ran
+# it (artifacts/naca_sweep/sweep.log): the DoF count of the 2d-naca mesh at
+# its default h=0.02 per angle of attack, and T=1.0 (100 steps of 0.01).
+NACA_DOFS = {0: 157_634, 2: 157_958, 4: 157_670, 8: 157_859}
+NACA_SWEEP_ARGS = ("--T", "1.0", "--output-step", "100")
+NACA_TPU_CSV = os.path.join(HERE, "artifacts", "naca_sweep",
+                            "output_{:g}.csv")
 HBM_BYTES_PER_S = 3.35e12     # published H100 SXM device-memory rate
 FLUSH_BYTES = 128 << 20       # read between calls timed L2-cold
 L2_BYTES = 50 << 20           # H100 L2
@@ -168,12 +205,13 @@ def _flush_buffer():
     return torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
 
 
-def per_step_launches(n_steps):
-    """Kernel launches per step by operator and value dtype (the launch
-    counts of the path just driven)."""
+def per_step_launches(n_steps, by_pattern=None):
+    """Kernel launches per step by operator and value dtype (``by_pattern``,
+    by default the launch counts of the path just driven)."""
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    by_pattern = COUNTS.by_pattern if by_pattern is None else by_pattern
     return {f"{name} {str(dt).replace('torch.', '')}": v / n_steps
-            for (name, dt), v in COUNTS.by_pattern.items()}
+            for (name, dt), v in by_pattern.items()}
 
 
 def _time_ms(fn, cold, n=30):
@@ -383,7 +421,7 @@ def phase_kernel_vs_plain(ns, dtypes, tag):
     return out
 
 
-def small_model(device, tmp, dtype="float32", **overrides):
+def small_model(device, tmp, dtype="float32", forcing=None, **overrides):
     from navierstokes_tpu_torch.config import InletConfig, SolverConfig
     from navierstokes_tpu_torch.mesh.generators import (
         channel_with_cylinder_2d)
@@ -397,7 +435,7 @@ def small_model(device, tmp, dtype="float32", **overrides):
         setattr(cfg, k, v)
     ns = NavierStokes(channel_with_cylinder_2d(h=0.1, h_near=0.04), 2, 1,
                       deltat=0.01, T=0.05, step=5, inlet=inlet, config=cfg,
-                      device=device)
+                      device=device, forcing=forcing)
     ns.set_re_number(20)
     return ns.setup()
 
@@ -425,14 +463,10 @@ def phase_small_fixture():
     n_threads = torch.get_num_threads()
     alt_threads = 1 if n_threads > 1 else 4
 
-    def rel_u(a, b):
-        a, b = a.cpu().double(), b.cpu().double()
-        return float((a - b).abs().max() / b.abs().max())
-
     def gaps(ma, mb, a, b):
         scale = max(abs(mb.cd), abs(mb.cl), 1e-30)
         return (abs(ma.cd - mb.cd) / scale, abs(ma.cl - mb.cl) / scale,
-                rel_u(a._u, b._u))
+                _rel(a._u, b._u))
 
     worst = dict(cd=0.0, cl=0.0, u=0.0, its=0, noise=0.0)
     for k in range(5):
@@ -452,8 +486,8 @@ def phase_small_fixture():
             f"|Cl|): Cd {dcd:.2e}, Cl {dcl:.2e}), u rel {du:.2e}; CPU "
             f"{n_threads} vs {alt_threads} threads: worst of Cd, Cl, u "
             f"{noise:.2e}; against CPU float64 ({mr.f_iterations}+"
-            f"{mr.p_iterations} its): u rel cuda {rel_u(gpu._u, ref._u):.2e},"
-            f" cpu {rel_u(cpu._u, ref._u):.2e}")
+            f"{mr.p_iterations} its): u rel cuda {_rel(gpu._u, ref._u):.2e},"
+            f" cpu {_rel(cpu._u, ref._u):.2e}")
         for key, v in (("cd", dcd), ("cl", dcl), ("u", du), ("its", dits),
                        ("noise", noise)):
             worst[key] = max(worst[key], v)
@@ -537,10 +571,6 @@ def phase_monolithic_small():
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     launches = {}
 
-    def rel_u(a, b):
-        a, b = a.cpu().double(), b.cpu().double()
-        return float((a - b).abs().max() / b.abs().max())
-
     for tag, kw, field in MONO_SMALL:
         kw = dict(scheme="monolithic", **kw)
         d = os.path.join(WORK, "mono_" + tag.replace("+", "_")
@@ -564,8 +594,8 @@ def phase_monolithic_small():
             scale = max(abs(mc.cd), abs(mc.cl), 1e-30)
             dcd = abs(mg.cd - mc.cd) / scale
             dcl = abs(mg.cl - mc.cl) / scale
-            du = rel_u(gpu._u, cpu._u)
-            du64 = min(rel_u(gpu._u, ref._u), rel_u(cpu._u, ref._u))
+            du = _rel(gpu._u, cpu._u)
+            du64 = min(_rel(gpu._u, ref._u), _rel(cpu._u, ref._u))
             dits = abs(mg.iterations - mc.iterations)
             check(mg.converged and mc.converged,
                   f"[7] {tag}: FGMRES converged at step {k + 1}")
@@ -573,8 +603,8 @@ def phase_monolithic_small():
                 f"cpu {mc.iterations} (float64 {mr.iterations}); Cd "
                 f"{mg.cd:.6f} vs {mc.cd:.6f} (diff / max(|Cd|,|Cl|): Cd "
                 f"{dcd:.2e}, Cl {dcl:.2e}), u rel {du:.2e}; against CPU "
-                f"float64: u rel cuda {rel_u(gpu._u, ref._u):.2e}, cpu "
-                f"{rel_u(cpu._u, ref._u):.2e}; residual cuda "
+                f"float64: u rel cuda {_rel(gpu._u, ref._u):.2e}, cpu "
+                f"{_rel(cpu._u, ref._u):.2e}; residual cuda "
                 f"{mg.residual:.2e}")
             for key, v in (("cd", dcd), ("cl", dcl), ("u", du),
                            ("its", dits), ("u64", du64)):
@@ -697,76 +727,86 @@ SMALL_3D = (
     ("monolithic cc", dict(scheme="monolithic"), (torch.float32,)),
     ("cc+inner_bf16", dict(scheme="monolithic", inner_bf16=True),
      (torch.float32, torch.bfloat16)),
-    ("cc+refine=2", dict(scheme="monolithic", refine=2, refine_tol=1e-3),
+    # "blocked": the JAX model refines in 3D only with its blocked mass
+    ("cc+refine=2", dict(scheme="monolithic", refine=2, refine_tol=1e-3,
+                         mass_format="blocked"),
      (torch.float32, torch.float64)))
+
+
+def _rel(a, b):
+    a, b = a.cpu().double(), b.cpu().double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def card_against_cpu(phase, tag, make, n_steps=5):
+    """CUDA fp32 against CPU fp32, ``n_steps`` steps, under phase 4's rule:
+    1e-4 of the force scale and of |u|, 1e-3 only where the gap is at most
+    three times the gap between two CPU fp32 runs that differ only in their
+    thread count; iteration totals within 1; no plain-version call on a
+    CUDA tensor.  ``make(device, name)`` builds a set-up model.  Returns
+    the card run's launches by (value dtype, D)."""
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    n_threads = torch.get_num_threads()
+    alt_threads = 1 if n_threads > 1 else 4
+    gpu, cpu, alt = make("cuda", "gpu"), make("cpu", "cpu"), make("cpu", "alt")
+    worst = dict(cd=0.0, cl=0.0, u=0.0, its=0, noise=0.0)
+    counts = {}
+    for k in range(n_steps):
+        torch.cuda.synchronize()
+        COUNTS.reset()
+        mg = gpu.solve_time_step()
+        torch.cuda.synchronize()
+        check(COUNTS.plain_cuda_calls == 0,
+              f"[{phase}] {tag}: no plain-version calls on CUDA tensors")
+        for key, v in COUNTS.by_variant.items():
+            counts[key] = counts.get(key, 0) + v
+        mc = cpu.solve_time_step()
+        torch.set_num_threads(alt_threads)
+        ma = alt.solve_time_step()
+        torch.set_num_threads(n_threads)
+        check(mg.converged and mc.converged,
+              f"[{phase}] {tag}: converged at step {k + 1}")
+        scale = max(abs(mc.cd), abs(mc.cl), 1e-30)
+        gap = dict(cd=abs(mg.cd - mc.cd) / scale,
+                   cl=abs(mg.cl - mc.cl) / scale, u=_rel(gpu._u, cpu._u),
+                   its=abs(mg.iterations - mc.iterations),
+                   noise=max(abs(ma.cd - mc.cd) / scale,
+                             abs(ma.cl - mc.cl) / scale,
+                             _rel(alt._u, cpu._u)))
+        log(f"[{phase}] {tag} step {k + 1}: its cuda {mg.iterations} cpu "
+            f"{mc.iterations}; Cd {mg.cd:.6f} vs {mc.cd:.6f} (diff / "
+            f"max(|Cd|,|Cl|): Cd {gap['cd']:.2e}, Cl {gap['cl']:.2e}), "
+            f"u rel {gap['u']:.2e}; CPU {n_threads} vs {alt_threads} "
+            f"threads: {gap['noise']:.2e}")
+        for key, v in gap.items():
+            worst[key] = max(worst[key], v)
+    gate = 1e-4
+    gap = max(worst["cd"], worst["cl"], worst["u"])
+    if 1e-4 < gap <= 1e-3 and gap <= 3 * worst["noise"]:
+        gate = 1e-3
+    log(f"[{phase}] {tag} worst: Cd {worst['cd']:.2e}, Cl {worst['cl']:.2e}, "
+        f"u {worst['u']:.2e} (gate {gate:g}; CPU-CPU noise "
+        f"{worst['noise']:.2e}), iteration diff {worst['its']} (limit "
+        f"1); launches over {n_steps} steps by (dtype, D): "
+        + ", ".join(f"{str(dt).replace('torch.', '')} D={D}: {n}"
+                    for (dt, D), n in sorted(counts.items(), key=str)))
+    check(worst["cd"] <= gate and worst["cl"] <= gate,
+          f"[{phase}] {tag} Cd/Cl")
+    check(worst["u"] <= gate, f"[{phase}] {tag} u")
+    check(worst["its"] <= 1, f"[{phase}] {tag} iteration counts")
+    return counts
 
 
 def phase_small_3d():
     """CUDA fp32 against CPU fp32 on the 3D small fixture, 5 steps per
-    configuration, under phase 4's rule: 1e-4 of the force scale and of
-    |u|, 1e-3 only where the gap is at most three times the gap between
-    two CPU fp32 runs that differ only in their thread count; iteration
-    totals within 1.  Returns the launches by (value dtype, D) of each
-    configuration's card run."""
-    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
-    n_threads = torch.get_num_threads()
-    alt_threads = 1 if n_threads > 1 else 4
+    configuration, under phase 4's rule (``card_against_cpu``).  Returns
+    the launches by (value dtype, D) of each configuration's card run."""
     launches = {}
-
-    def rel_u(a, b):
-        a, b = a.cpu().double(), b.cpu().double()
-        return float((a - b).abs().max() / b.abs().max())
-
     for tag, kw, want in SMALL_3D:
         d = os.path.join(WORK, "duct_" + tag.replace(" ", "_")
                          .replace("+", "_").replace("=", ""))
-        gpu = duct_model("cuda", d + "_gpu", **kw)
-        cpu = duct_model("cpu", d + "_cpu", **kw)
-        alt = duct_model("cpu", d + "_alt", **kw)
-        worst = dict(cd=0.0, cl=0.0, u=0.0, its=0, noise=0.0)
-        counts = {}
-        for k in range(5):
-            torch.cuda.synchronize()
-            COUNTS.reset()
-            mg = gpu.solve_time_step()
-            torch.cuda.synchronize()
-            check(COUNTS.plain_cuda_calls == 0,
-                  f"[9] {tag}: no plain-version calls on CUDA tensors")
-            for key, v in COUNTS.by_variant.items():
-                counts[key] = counts.get(key, 0) + v
-            mc = cpu.solve_time_step()
-            torch.set_num_threads(alt_threads)
-            ma = alt.solve_time_step()
-            torch.set_num_threads(n_threads)
-            check(mg.converged and mc.converged,
-                  f"[9] {tag}: converged at step {k + 1}")
-            scale = max(abs(mc.cd), abs(mc.cl), 1e-30)
-            gap = dict(cd=abs(mg.cd - mc.cd) / scale,
-                       cl=abs(mg.cl - mc.cl) / scale, u=rel_u(gpu._u, cpu._u),
-                       its=abs(mg.iterations - mc.iterations),
-                       noise=max(abs(ma.cd - mc.cd) / scale,
-                                 abs(ma.cl - mc.cl) / scale,
-                                 rel_u(alt._u, cpu._u)))
-            log(f"[9] {tag} step {k + 1}: its cuda {mg.iterations} cpu "
-                f"{mc.iterations}; Cd {mg.cd:.6f} vs {mc.cd:.6f} (diff / "
-                f"max(|Cd|,|Cl|): Cd {gap['cd']:.2e}, Cl {gap['cl']:.2e}), "
-                f"u rel {gap['u']:.2e}; CPU {n_threads} vs {alt_threads} "
-                f"threads: {gap['noise']:.2e}")
-            for key, v in gap.items():
-                worst[key] = max(worst[key], v)
-        gate = 1e-4
-        gap = max(worst["cd"], worst["cl"], worst["u"])
-        if 1e-4 < gap <= 1e-3 and gap <= 3 * worst["noise"]:
-            gate = 1e-3
-        log(f"[9] {tag} worst: Cd {worst['cd']:.2e}, Cl {worst['cl']:.2e}, "
-            f"u {worst['u']:.2e} (gate {gate:g}; CPU-CPU noise "
-            f"{worst['noise']:.2e}), iteration diff {worst['its']} (limit "
-            f"1); launches over 5 steps by (dtype, D): "
-            + ", ".join(f"{str(dt).replace('torch.', '')} D={D}: {n}"
-                        for (dt, D), n in sorted(counts.items(), key=str)))
-        check(worst["cd"] <= gate and worst["cl"] <= gate, f"[9] {tag} Cd/Cl")
-        check(worst["u"] <= gate, f"[9] {tag} u")
-        check(worst["its"] <= 1, f"[9] {tag} iteration counts")
+        counts = card_against_cpu(
+            9, tag, lambda dev, name: duct_model(dev, f"{d}_{name}", **kw))
         for dt in want:
             check(counts.get((dt, 3), 0) > 0,
                   f"[9] {tag}: the D=3 {dt} kernel launched on its path")
@@ -910,6 +950,309 @@ def phase_cli():
           "[12] no plain-version calls on CUDA tensors")
 
 
+def naca_small(device, tmp, dtype="float32"):
+    """The NACA small fixture: the 2d-naca scenario at h=0.1 and 8 degrees,
+    monolithic ``cc`` (the scenario's defaults), fp32."""
+    from navierstokes_tpu_torch.scenarios.registry import build_solver
+    return build_solver("2d-naca", h=0.1, config=_config(tmp, dtype),
+                        mesh_kwargs=dict(angle_deg=8.0), device=device,
+                        t_final=0.05, output_step=5).setup()
+
+
+def phase_naca_small():
+    d = os.path.join(WORK, "naca_small")
+    counts = card_against_cpu(
+        13, "2d-naca h=0.1 8 deg", lambda dev, name: naca_small(
+            dev, f"{d}_{name}"))
+    check(counts.get((torch.float32, 2), 0) > 0,
+          "[13] the fp32 kernel launched on the NACA path")
+
+
+def _csv_rows(path):
+    rows = np.genfromtxt(path, delimiter=",", names=True)
+    return np.atleast_1d(rows)
+
+
+def thin_airfoil_fit(angles, cl):
+    """tests/test_naca_values.py's criteria on final Cl per angle (degrees):
+    (slope per degree, Cl at 0 degrees, R^2, whether all four hold)."""
+    angles, cl = np.asarray(angles, float), np.asarray(cl, float)
+    a = np.vstack([angles, np.ones_like(angles)]).T
+    (slope, cl0), res, _, _ = np.linalg.lstsq(a, cl, rcond=None)
+    r2 = 1.0 - float(res[0]) / float(((cl - cl.mean()) ** 2).sum())
+    two_pi_per_deg = 2.0 * np.pi * np.pi / 180.0
+    ok = (bool(np.all(np.diff(cl) > 0))
+          and 0.55 * two_pi_per_deg < slope < two_pi_per_deg
+          and r2 > 0.98 and 0.0 < cl0 < 2.0 * np.pi * np.radians(2.5))
+    return float(slope), float(cl0), r2, ok
+
+
+def _take_counts(into):
+    """Add the launch counts by pattern and the plain-version CUDA calls
+    to the Counter ``into`` and set the counts to 0."""
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    into.update(COUNTS.by_pattern)
+    into["plain"] += COUNTS.plain_cuda_calls
+    COUNTS.reset()
+
+
+def phase_naca_sweep(card):
+    """``sweep-naca --angles 0 2 4 8`` through the CLI's main on the default
+    device at the scenario's h, inside build/chip_smoke/naca (the sweep
+    writes output_<angle>.csv into the working directory).  The CLI's
+    build_solver is wrapped for the run only, to time each angle's mesh
+    and setup and to count the setup's launches apart from the steps'."""
+    from navierstokes_tpu_torch.config import SolverConfig
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    from navierstokes_tpu_torch.scenarios import cli
+    d = os.path.join(WORK, "naca")
+    os.makedirs(d, exist_ok=True)
+    setups = []
+    steps_c, setup_c = collections.Counter(), collections.Counter()
+    build = cli.build_solver
+
+    def timed_build(*args, **kwargs):
+        t0 = time.perf_counter()
+        ns = build(*args, **kwargs)
+        setup = ns.setup
+
+        def timed_setup():
+            _take_counts(steps_c)        # the previous angle's steps
+            out = setup()
+            torch.cuda.synchronize()
+            setups.append((ns.space.n_dofs, time.perf_counter() - t0))
+            _take_counts(setup_c)
+            return out
+        ns.setup = timed_setup
+        return ns
+
+    argv = (["sweep-naca", "--angles"] + [str(a) for a in NACA_DOFS]
+            + list(NACA_SWEEP_ARGS))
+    cwd = os.getcwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    COUNTS.reset()
+    t0 = time.perf_counter()
+    cli.build_solver = timed_build
+    os.chdir(d)
+    try:
+        rc = cli.main(argv)
+    finally:
+        os.chdir(cwd)
+        cli.build_solver = build
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _take_counts(steps_c)
+    plain_cuda = steps_c.pop("plain") + setup_c.pop("plain")
+    launches = sum(v for (_, dt), v in steps_c.items()
+                   if dt == torch.float32)
+    setup_launches = sum(v for (_, dt), v in setup_c.items()
+                         if dt == torch.float32)
+    f_launches = steps_c.get(("F", torch.float32), 0)
+    check(rc == 0, "[14] sweep-naca exit code")
+    check(len(setups) == len(NACA_DOFS), "[14] one model per angle")
+    budget = SolverConfig().outer_maxiter
+    final, n_steps, runs = {}, 0, []
+    for (angle, dofs), (n_dofs, setup_s) in zip(NACA_DOFS.items(), setups):
+        rows = _csv_rows(os.path.join(d, f"output_{angle:g}.csv"))
+        n_steps += len(rows)
+        step_s = rows["time_prec_init"] + rows["time_sol"]
+        its = rows["GMRES_iters"].astype(int)
+        tpu = _csv_rows(NACA_TPU_CSV.format(angle))[-1]
+        final[angle] = (float(rows["Cd"][-1]), float(rows["Cl"][-1]))
+        sps = len(rows) / float(step_s.sum())
+        late = (len(rows) - 10) / float(step_s[10:].sum() or np.nan)
+        runs.append(dict(angle=angle, dofs=n_dofs, setup_s=setup_s,
+                         steps_per_s=sps, steps_per_s_after_10=late,
+                         steps=len(rows)))
+        log(f"[14] {angle:g} deg: {n_dofs} DoF (TPU log {dofs}), setup "
+            f"{setup_s:.2f} s, {len(rows)} steps at {sps:.4f} steps/s "
+            f"(steps 11-{len(rows)}: {late:.4f}); FGMRES "
+            f"its per step {' '.join(map(str, its))}; final Cd "
+            f"{final[angle][0]:.5f}, Cl {final[angle][1]:.5f} (TPU csv "
+            f"{tpu['Cd']:.5f}, {tpu['Cl']:.5f}, for information)")
+        check(n_dofs == dofs, f"[14] {angle:g} deg DoF count {n_dofs}")
+        check(len(rows) == 100, f"[14] {angle:g} deg: 100 csv rows")
+        check(bool(np.all(its < budget)),
+              f"[14] {angle:g} deg: every FGMRES count under {budget}")
+        check(all(np.isfinite(rows[c]).all() for c in rows.dtype.names),
+              f"[14] {angle:g} deg: finite csv rows")
+    slope, cl0, r2, ok = thin_airfoil_fit(
+        list(final), [cl for _, cl in final.values()])
+    per_step = per_step_launches(n_steps, steps_c)
+    log(f"[14] thin-airfoil fit of the final Cl: slope "
+        f"{slope / (2 * np.pi * np.pi / 180):.4f} x 2 pi per radian, Cl(0) "
+        f"{cl0:.5f}, R^2 {r2:.5f}")
+    log(f"[14] sweep {wall:.1f} s with setup on {card}; peak device memory "
+        f"{peak} bytes ({peak / 2**30:.2f} GiB); fp32 kernel launches "
+        f"{launches} (F {f_launches}) over {n_steps} steps, and "
+        f"{setup_launches} in the four setups; plain-version CUDA calls "
+        f"{plain_cuda}; per step by operator {per_step}")
+    check(ok, "[14] thin-airfoil criteria (monotone, slope 0.55-1.0 x "
+          "2 pi, R^2 > 0.98, 0 < Cl(0) < 2 pi 2.5 deg)")
+    check(f_launches >= n_steps, "[14] the F product launched every step")
+    check(plain_cuda == 0, "[14] no plain-version calls on CUDA tensors")
+    return dict(launches=launches, setup_launches=setup_launches,
+                per_step=per_step, peak_bytes=peak, runs=runs, final=final)
+
+
+# the SpMV uses of the monolithic cc step (no PCD convection)
+NACA_USES = ("F", "mass", "P1 Laplacian", "Ap", "G", "B")
+
+
+def phase_kernel_naca():
+    """The fp32 kernel against its plain version in every use of the NACA
+    step, on the 2d-naca operators at the scenario's h (0 degrees), timed
+    as in phase 3."""
+    from navierstokes_tpu_torch.scenarios.registry import build_solver
+    ns = build_solver("2d-naca", config=_config(os.path.join(
+        WORK, "naca_kernel"), "float32"), device="cuda").setup()
+    check(ns.space.n_dofs == NACA_DOFS[0],
+          f"[14] 2d-naca model DoF count {ns.space.n_dofs}")
+    uses = spmv_uses(ns, np.random.default_rng(5678))
+    return [check_and_time(use, mat, vals, x, "14")
+            for use, mat, vals, x in uses if use in NACA_USES]
+
+
+def phase_postprocess():
+    """``run 2d-test1`` for 4 steps with output every 2, then the CLI's
+    ``postprocess`` (VTUs) and ``NavierStokes.post_process`` on the same
+    checkpoints, whose Cd/Cl must equal the live csv rows."""
+    from navierstokes_tpu_torch.scenarios.cli import main as cli_main
+    from navierstokes_tpu_torch.scenarios.registry import build_solver
+    d = os.path.join(WORK, "post")
+    out, csv = os.path.join(d, "out"), os.path.join(d, "forces.csv")
+    common = ["--output-step", "2", "--output-dir", out, "--cache-dir",
+              os.path.join(d, "cache"), "--csv", csv]
+    check(cli_main(["run", "2d-test1", "--T", "0.04"] + common) == 0,
+          "[15] CLI run exit code")
+    live = _csv_rows(csv)
+    for f in os.listdir(out):
+        os.remove(os.path.join(out, f))
+    check(cli_main(["postprocess", "2d-test1", "--t0", "0", "--t1", "4",
+                    "--step", "2"] + common) == 0,
+          "[15] CLI postprocess exit code")
+    for ts in (0, 2, 4):
+        for ext in ("vtu", "pvtu"):
+            check(os.path.exists(os.path.join(
+                out, f"output-stokes_{ts:06d}.{ext}")),
+                f"[15] the replay wrote output-stokes_{ts:06d}.{ext}")
+    ns = build_solver("2d-test1", config=_config(d, "float32"), t_final=0.04,
+                      output_step=2).setup()
+    replay = ns.post_process(2, 4, 2)
+    worst = 0.0
+    for ts, t, cd, cl in replay:
+        row = live[ts - 1]
+        check(abs(t - row["time"]) <= 1e-6, f"[15] replay time at {ts}")
+        for a, b in ((cd, row["Cd"]), (cl, row["Cl"])):
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+        log(f"[15] ts {ts}: replayed Cd {cd!r}, Cl {cl!r}; live {row['Cd']!r},"
+            f" {row['Cl']!r}")
+    log(f"[15] replay against the live csv: worst relative gap {worst:.3e} "
+        "(limit 1e-6)")
+    check(worst <= 1e-6, "[15] replayed Cd/Cl equal the live run's")
+
+
+def _forcing(x, t):
+    """f(x, t) = (1, 0.5 x_0): the forcing of tests/test_torch_rhs.py."""
+    return torch.stack([torch.ones_like(x[:, 0]), 0.5 * x[:, 0]], dim=1)
+
+
+RHS_SMALL = (("projection p_out", dict(scheme="projection", p_out=0.7)),
+             ("monolithic p_out", dict(scheme="monolithic", p_out=0.7)),
+             ("projection forcing", dict(scheme="projection",
+                                         forcing=_forcing)),
+             ("monolithic forcing", dict(scheme="monolithic",
+                                         forcing=_forcing)))
+
+
+def phase_rhs_terms():
+    for tag, kw in RHS_SMALL:
+        d = os.path.join(WORK, "rhs_" + tag.replace(" ", "_"))
+        counts = card_against_cpu(
+            16, tag, lambda dev, name: small_model(dev, f"{d}_{name}", **kw))
+        check(counts.get((torch.float32, 2), 0) > 0,
+              f"[16] {tag}: the fp32 kernel launched")
+
+
+STOKES_NU = 1.0
+# (degree_velocity, degree_pressure, meshes n x n, least rates of u, p)
+STOKES_CASES = ((2, 1, (4, 8, 16), 2.5, 1.5), (3, 2, (4, 8), 3.5, 2.5))
+
+
+def _stokes_u(x):
+    u = np.empty_like(x)
+    u[:, 0] = np.sin(np.pi * x[:, 0]) * np.cos(np.pi * x[:, 1])
+    u[:, 1] = -np.cos(np.pi * x[:, 0]) * np.sin(np.pi * x[:, 1])
+    return u
+
+
+def _stokes_p(x):
+    return np.cos(np.pi * x[:, 0]) * np.cos(np.pi * x[:, 1])
+
+
+def _stokes_f(x, t=0.0):
+    """-nu lap(u) + grad(p) of the manufactured solution."""
+    f = 2.0 * STOKES_NU * np.pi ** 2 * _stokes_u(x)
+    f[:, 0] -= np.pi * np.sin(np.pi * x[:, 0]) * np.cos(np.pi * x[:, 1])
+    f[:, 1] -= np.pi * np.cos(np.pi * x[:, 0]) * np.sin(np.pi * x[:, 1])
+    return f
+
+
+def stokes_errors(device, n, kv, kp):
+    """(L2 error of u, of p, FGMRES iterations, seconds) of the
+    manufactured Stokes problem on the n x n unit square."""
+    from navierstokes_tpu_torch.config import SolverConfig
+    from navierstokes_tpu_torch.fem.interpolation import (l2_error_pressure,
+                                                          l2_error_velocity)
+    from navierstokes_tpu_torch.mesh import rectangle_2d
+    from navierstokes_tpu_torch.models.stokes import StokesSolver
+    from navierstokes_tpu_torch.ops.assembly import forcing_rhs
+    t0 = time.perf_counter()
+    solver = StokesSolver(rectangle_2d(1.0, 1.0, n, n), nu=STOKES_NU,
+                          config=SolverConfig(dtype="float64"),
+                          degree_velocity=kv, degree_pressure=kp,
+                          device=device)
+    sp = solver.space
+    nodes = np.unique(np.concatenate([sp.p2_nodes_on_tag(t)
+                                      for t in (0, 1, 2, 3)]))
+    u, p, res = solver.solve(nodes, _stokes_u(sp.p2_coords[nodes]),
+                             rhs_u=forcing_rhs(sp, _stokes_f), tol=1e-12,
+                             maxiter=800)
+    check(bool(res.converged), f"[17] P{kv}/P{kp} n={n} on {device}: "
+          "FGMRES converged")
+    return (l2_error_velocity(sp, u, _stokes_u),
+            l2_error_pressure(sp, p, _stokes_p), int(res.iterations),
+            time.perf_counter() - t0)
+
+
+def phase_stokes():
+    out = []
+    for kv, kp, ns, rate_u, rate_p in STOKES_CASES:
+        errs = []
+        for n in ns:
+            eu, ep, its, sec = stokes_errors("cuda", n, kv, kp)
+            cu, cp, cits, _ = stokes_errors("cpu", n, kv, kp)
+            gap = max(abs(eu - cu) / cu, abs(ep - cp) / cp)
+            log(f"[17] P{kv}/P{kp} n={n}: L2 error u {eu:.6e}, p {ep:.6e} "
+                f"({its} FGMRES its, {sec:.2f} s with setup); CPU {cu:.6e}, "
+                f"{cp:.6e} ({cits} its); relative gap {gap:.2e} (limit 1e-9)")
+            check(gap <= 1e-9, f"[17] P{kv}/P{kp} n={n}: errors equal the "
+                  "CPU's")
+            errs.append((eu, ep))
+            out.append(dict(kv=kv, kp=kp, n=n, err_u=eu, err_p=ep,
+                            iterations=its, seconds=sec))
+        for (n0, (u0, p0)), (n1, (u1, p1)) in zip(zip(ns, errs),
+                                                  zip(ns[1:], errs[1:])):
+            ru, rp = np.log2(u0 / u1), np.log2(p0 / p1)
+            log(f"[17] P{kv}/P{kp} rates n={n0}->{n1}: u {ru:.3f} (> "
+                f"{rate_u}), p {rp:.3f} (> {rate_p})")
+            check(ru > rate_u and rp > rate_p,
+                  f"[17] P{kv}/P{kp} rates n={n0}->{n1}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -917,6 +1260,7 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     os.makedirs(WORK, exist_ok=True)
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build()
     t0 = time.perf_counter()
@@ -945,18 +1289,26 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_cli()
+    phase_naca_small()
+    naca = phase_naca_sweep(card)
+    uses_naca = phase_kernel_naca()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_postprocess()
+    phase_rhs_terms()
+    stokes = phase_stokes()
     paths = {"projection": bench["per_step"], "monolithic": mono["per_step"]}
     # F and the mass share the F pattern, so one count covers both
     pattern_of = {"F": "F", "mass": "F", "P1 Laplacian": "P1 Laplacian",
                   "Ap": "Ap", "G": "G", "B": "B", "PCD convection": "PP"}
 
-    def entry(dt, uses, launches, replaces):
+    def entry(dt, uses, launches, replaces, paths=paths, suffix=""):
         f_use = uses[0]
         for u in uses:
             key = f"{pattern_of[u['use']]} {str(dt).replace('torch.', '')}"
             u["launches_per_step"] = {p: c.get(key, 0.0)
                                       for p, c in paths.items()}
-        return {"name": VARIANTS[dt][2], "route": "cuda",
+        return {"name": VARIANTS[dt][2] + suffix, "route": "cuda",
                 "source": KERNEL_SOURCE, "replaces": replaces,
                 "launches": launches,
                 "max_abs_err": max(u["max_abs_err"] for u in uses),
@@ -975,6 +1327,7 @@ def main():
         kernels.append(entry(dt, uses, launches, replaces))
     kernels[0]["rebuild_ms"] = fp32["rebuild_ms"]
     kernels[0]["floor_ms"] = fp32["floor_ms"]
+    kernels[0]["stokes"] = stokes
     # D=3: launches on 3D-1Z (fp32) and on the 3D small fixture's bf16 and
     # refinement paths; the uses are the 3D-1Z operators (phase 11)
     d3_pattern = {"F (D=3)": "F", "mass (D=3)": "F", "P1 Laplacian":
@@ -1001,7 +1354,15 @@ def main():
     kernels[3]["steps_per_s_3d1"] = st3d1["steps_per_s"]
     kernels[3]["setup_s_3d1"] = st3d1["setup_s"]
     kernels[3]["peak_bytes_3d1"] = st3d1["peak_bytes"]
+    # the NACA sweep: its step launches, and the uses at its own shapes
+    kernels.append(entry(torch.float32, uses_naca, naca["launches"],
+                         REPLACES, paths={"naca": naca["per_step"]},
+                         suffix="_naca"))
+    kernels[-1].update({k: naca[k] for k in ("setup_launches", "runs",
+                                             "peak_bytes")})
     record = {"kernels": kernels}
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -124,7 +124,7 @@ class SolverConfig:
 
     # Physics (src/NavierStokes.hpp:254-256)
     nu: float = 1.0e-3
-    p_out: float = 0.0            # outlet pressure; only 0 is ported
+    p_out: float = 0.0            # outlet pressure (Neumann RHS, cpp:257-278)
     # Reference length of the Cd/Cl normalization: the reference hard-codes
     # 0.4 (src/NavierStokes.hpp:256) even for the d=0.1 cylinder.
     ref_length: float = 0.4
@@ -216,7 +216,10 @@ class SolverConfig:
     # contraction region.  0 = exact inverse every step.
     bj_newton: int = 3
     # Mass realization of the JAX package: "auto" and "blocked" are
-    # accepted ("node" is not ported).
+    # accepted ("node" is not ported).  The port's mass always sits in the
+    # F slots; as in the JAX model, refinement runs only where the JAX
+    # model keeps a blocked mass: 2D, or "blocked" ("auto" is the node mass
+    # in 3D there).
     mass_format: str = "auto"
 
     # Curved (superparametric P2) geometry on boundaries with analytic

@@ -1,15 +1,20 @@
-"""Taylor-Hood P2/P1 function space on a triangle or tetrahedron mesh.
+"""Taylor-Hood function space on a triangle or tetrahedron mesh
+(production pair P2/P1; any degree pair, as the reference constructor
+allows, src/NavierStokes.hpp:173-178).
 
-The port's copy of the P2/P1 path of ``navierstokes_tpu/fem/spaces.py``
-(deal.II's FESystem/DoFHandler, src/NavierStokes.cpp:31-92).  The DoF
-layout is canonical and global, and the same as the JAX package's:
+The port's copy of ``navierstokes_tpu/fem/spaces.py`` (deal.II's
+FESystem/DoFHandler, src/NavierStokes.cpp:31-92).  The DoF layout is
+canonical and global, and the same as the JAX package's.  For P2/P1:
 
   * pressure DoFs  = mesh vertices, index = vertex id          (n_p1,)
   * velocity nodes = vertices then unique edges, Hilbert-ordered by
-    coordinates                                                (n_p2,)
+    coordinates (``rcm``)                                      (n_p2,)
   * velocity DoF arrays are stored node-major as (n_p2, dim)
 
-so checkpoints and tables agree between the two packages.
+and for any other degree the entity-major generalisation of
+``_lagrange_numbering``, so checkpoints and tables agree between the two
+packages.  The names ``n_p2`` / ``cell_p2`` / ``p2_coords`` (velocity)
+and ``n_p1`` / ``cell_p1`` (pressure) are kept for every degree.
 """
 
 from __future__ import annotations
@@ -20,11 +25,9 @@ import functools
 import numpy as np
 
 from navierstokes_tpu_torch.fem.quadrature import gauss_simplex
-from navierstokes_tpu_torch.fem.reference_elements import (ReferenceSimplex,
-                                                           edges_of,
-                                                           facets_of,
-                                                           shape_grads,
-                                                           shape_values)
+from navierstokes_tpu_torch.fem.reference_elements import (
+    ReferenceSimplex, edges_of, facets_of, lattice_multi_indices, n_basis,
+    node_ref_coords, shape_grads, shape_values)
 from navierstokes_tpu_torch.mesh.geometry import Mesh, hilbert_order
 
 
@@ -32,6 +35,77 @@ def _encode_pairs(a: np.ndarray, b: np.ndarray, n: int) -> np.ndarray:
     lo = np.minimum(a, b).astype(np.int64)
     hi = np.maximum(a, b).astype(np.int64)
     return lo * np.int64(n) + hi
+
+
+def _lagrange_numbering(mesh: Mesh, k: int, cells: np.ndarray,
+                        cell_edges: np.ndarray, edge_verts: np.ndarray):
+    """Global numbering of the degree-k Lagrange lattice on a simplex
+    mesh, entity-major:
+
+      [0, n_points)                 vertices (= vertex id)
+      n_points + e*(k-1) + s        edge e, slot s: the node at fraction
+                                    (s+1)/k from the LOWER vertex id toward
+                                    the higher, so the cells sharing an
+                                    edge agree whatever their orientation
+      + face f (3D, k == 3)         one interior node per unique face
+      + cell-interior nodes         per cell (2D k >= 3)
+
+    The per-cell column order is ``lattice_multi_indices``'.  At k = 2 it
+    is the P2 layout (vertices, then unique edges).  Returns (n_nodes,
+    cell_nodes (nc, n_basis) int32, coords, edge_node_block (n_edges,
+    k-1), face_key_sorted or None, face_node or None)."""
+    dim = mesh.dim
+    if dim == 3 and k > 3:
+        raise NotImplementedError("3D degree > 3 not supported")
+    npnt = mesh.n_points
+    nc = mesh.n_cells
+    n_edges = edge_verts.shape[0]
+    nb = n_basis(dim, k)
+
+    cell_nodes = np.empty((nc, nb), np.int64)
+    cell_nodes[:, :dim + 1] = cells
+    col = dim + 1
+    if k >= 2:
+        for le, (a, b) in enumerate(edges_of(dim)):
+            e = cell_edges[:, le].astype(np.int64)
+            a_is_lo = cells[:, a] < cells[:, b]
+            for r in range(1, k):
+                s = np.where(a_is_lo, r - 1, k - r - 1)
+                cell_nodes[:, col] = npnt + e * (k - 1) + s
+                col += 1
+    n_en = n_edges * (k - 1)
+    base_f = npnt + n_en
+    n_faces = 0
+    face_key_sorted = face_node = None
+    if dim == 3 and k >= 3:
+        fverts = cells[:, np.array(facets_of(3))]          # (nc, 4, 3)
+        fs = np.sort(fverts, axis=2).astype(np.int64)
+        key = (fs[..., 0] * npnt + fs[..., 1]) * npnt + fs[..., 2]
+        face_key_sorted, invf = np.unique(key.ravel(), return_inverse=True)
+        n_faces = len(face_key_sorted)
+        cell_nodes[:, col:col + 4] = base_f + invf.reshape(nc, 4)
+        col += 4
+        face_node = base_f + np.arange(n_faces, dtype=np.int64)
+    base_i = base_f + n_faces
+    n_int = nb - col
+    if n_int:
+        cell_nodes[:, col:] = (base_i
+                               + np.arange(nc, dtype=np.int64)[:, None]
+                               * n_int + np.arange(n_int))
+    n_nodes = base_i + nc * n_int
+
+    # coordinates: lattice positions inside each cell (shared nodes get the
+    # same value from every cell that writes them)
+    alphas = lattice_multi_indices(dim, k).astype(np.float64) / k
+    xn = np.einsum("la,cad->cld", alphas, mesh.points[cells])
+    coords = np.zeros((n_nodes, dim))
+    coords[cell_nodes.reshape(-1)] = xn.reshape(-1, dim)
+
+    edge_node_block = (npnt + np.arange(n_en, dtype=np.int64)
+                       .reshape(n_edges, k - 1)) if k >= 2 else \
+        np.zeros((n_edges, 0), np.int64)
+    return (n_nodes, cell_nodes.astype(np.int32), coords, edge_node_block,
+            face_key_sorted, face_node)
 
 
 @dataclasses.dataclass
@@ -75,19 +149,20 @@ class CurvedData:
 
 
 class TaylorHoodSpace:
-    """P2 velocity / P1 pressure on a simplex mesh; the P2 nodes are
-    Hilbert-ordered by coordinates (``_reorder_p2``), which keeps the
-    sparse operators' column gathers local."""
+    """Velocity degree ``degree_velocity`` / pressure degree
+    ``degree_pressure`` on a simplex mesh.  ``rcm=True`` (the default)
+    Hilbert-orders the velocity nodes by coordinates (``_reorder_p2``),
+    which keeps the sparse operators' column gathers local; the order is
+    a function of the mesh alone."""
 
     def __init__(self, mesh: Mesh, degree_velocity: int = 2,
-                 degree_pressure: int = 1):
-        if (degree_velocity, degree_pressure) != (2, 1):
-            raise NotImplementedError("the port's space is P2/P1")
+                 degree_pressure: int = 1, rcm: bool = True):
         mesh.ensure_positive_orientation()
         self.mesh = mesh
         self.dim = mesh.dim
-        self.rs = ReferenceSimplex(self.dim)
-        self.degree_velocity, self.degree_pressure = 2, 1
+        kv, kp = degree_velocity, degree_pressure
+        self.rs = ReferenceSimplex(self.dim, kv, kp)
+        self.degree_velocity, self.degree_pressure = kv, kp
 
         # ---- unique edges & P2 numbering (edge keys ascending) ----------
         edges = np.array(edges_of(self.dim), dtype=np.int64)
@@ -102,21 +177,34 @@ class TaylorHoodSpace:
         eb = (uniq % np.int64(mesh.n_points)).astype(np.int64)
         self._edge_key_sorted = uniq
         self._edge_verts = np.stack([ea, eb], axis=1)   # (n_edges, 2)
-
-        self.n_p2 = mesh.n_points + self.n_edges
-        # cell -> P2 node map, local order = vertices then edges
-        self.cell_p2 = np.concatenate(
-            [cells, mesh.n_points + cell_edges], axis=1).astype(np.int32)
-        mids = 0.5 * (mesh.points[ea] + mesh.points[eb])
-        # P2 node coordinates (vertices + edge midpoints): boundary-value
-        # interpolation (src/NavierStokes.cpp:296-324) and VTU output
-        self.p2_coords = np.concatenate([mesh.points, mids], axis=0)
+        self._face_key_sorted = self._face_node = None
         self._vertex_node = np.arange(mesh.n_points, dtype=np.int64)
-        self._edge_node_block = (
-            mesh.n_points + np.arange(self.n_edges, dtype=np.int64)[:, None])
-        self.n_p1 = mesh.n_points
-        self.cell_p1 = mesh.cells.astype(np.int32)
-        self._reorder_p2()
+
+        if kv == 2:
+            self.n_p2 = mesh.n_points + self.n_edges
+            # cell -> P2 node map, local order = vertices then edges
+            self.cell_p2 = np.concatenate(
+                [cells, mesh.n_points + cell_edges], axis=1).astype(np.int32)
+            mids = 0.5 * (mesh.points[ea] + mesh.points[eb])
+            # P2 node coordinates (vertices + edge midpoints): boundary-value
+            # interpolation (src/NavierStokes.cpp:296-324) and VTU output
+            self.p2_coords = np.concatenate([mesh.points, mids], axis=0)
+            self._edge_node_block = (
+                mesh.n_points
+                + np.arange(self.n_edges, dtype=np.int64)[:, None])
+        else:
+            (self.n_p2, self.cell_p2, self.p2_coords, self._edge_node_block,
+             self._face_key_sorted, self._face_node) = _lagrange_numbering(
+                 mesh, kv, cells, cell_edges, self._edge_verts)
+        if kp == 1:
+            self.n_p1 = mesh.n_points
+            self.cell_p1 = mesh.cells.astype(np.int32)
+        else:
+            # a pressure lattice of its own (the P2 pressure of P3/P2)
+            self.n_p1, self.cell_p1 = _lagrange_numbering(
+                mesh, kp, cells, cell_edges, self._edge_verts)[:2]
+        if rcm:
+            self._reorder_p2()
 
         # boundary face -> (cell, local facet)
         self._bf_cells, self._bf_locals = mesh.match_boundary_faces()
@@ -138,6 +226,8 @@ class TaylorHoodSpace:
         self.p2_coords = np.ascontiguousarray(self.p2_coords[perm])
         self._vertex_node = inv[self._vertex_node]
         self._edge_node_block = inv[self._edge_node_block]
+        if self._face_node is not None:
+            self._face_node = inv[self._face_node]
 
     # ---- curved (superparametric) boundary geometry ----------------------
 
@@ -147,7 +237,11 @@ class TaylorHoodSpace:
         Vertices stay put; the touched cells then integrate with the
         quadratic map (``curved_data``) and ``face_data`` of a snapped tag
         returns per-point normals/JxW.  Returns the tags that had faces to
-        snap."""
+        snap.  P2 velocity only: other degrees keep straight cells."""
+        if self.degree_velocity != 2:
+            raise NotImplementedError(
+                "curved boundary snapping moves the P2 midside geometry "
+                "nodes; other velocity degrees use straight cells")
         snapped = []
         new_nodes = []
         for tag, proj in projectors.items():
@@ -207,13 +301,21 @@ class TaylorHoodSpace:
         return self._curved_cache
 
     def pressure_at_p2_nodes(self, p: np.ndarray) -> np.ndarray:
-        """Prolong the P1 pressure to all P2 nodes (exact: vertices keep
-        their value, midpoints take the edge mean); VTU output."""
+        """Prolong the pressure to all velocity nodes (exact: the pressure
+        space lies in the velocity space); VTU output.  P2/P1: vertices
+        keep their value, midpoints take the edge mean; other pairs
+        evaluate the pressure basis at the velocity lattice per cell."""
         p = np.asarray(p)
         out = np.zeros(self.n_p2, dtype=p.dtype)
-        out[self._vertex_node] = p
-        out[self._edge_node_block[:, 0]] = 0.5 * (
-            p[self._edge_verts[:, 0]] + p[self._edge_verts[:, 1]])
+        if (self.degree_velocity, self.degree_pressure) == (2, 1):
+            out[self._vertex_node] = p
+            out[self._edge_node_block[:, 0]] = 0.5 * (
+                p[self._edge_verts[:, 0]] + p[self._edge_verts[:, 1]])
+            return out
+        Np = shape_values(self.dim, self.degree_pressure,
+                          node_ref_coords(self.dim, self.degree_velocity))
+        out[self.cell_p2.astype(np.int64).reshape(-1)] = np.einsum(
+            "lj,cj->cl", Np, p[self.cell_p1.astype(np.int64)]).reshape(-1)
         return out
 
     # ---- DoF queries -----------------------------------------------------
@@ -241,8 +343,9 @@ class TaylorHoodSpace:
         return idx
 
     def p2_nodes_on_faces(self, faces: np.ndarray) -> np.ndarray:
-        """Unique velocity-node ids on the given facets: their vertices and
-        edge midpoints."""
+        """Unique velocity-node ids on the given facets: their vertices,
+        every facet-edge lattice node and (3D, degree 3) the facet's
+        interior node."""
         if len(faces) == 0:
             return np.zeros((0,), np.int64)
         faces = np.asarray(faces, np.int64)
@@ -252,6 +355,12 @@ class TaylorHoodSpace:
             for j in range(i + 1, d):
                 eid = self.edge_id(faces[:, i], faces[:, j])
                 nodes.append(self._edge_node_block[eid].ravel())
+        if self._face_node is not None and d == 3:
+            npnt = self.mesh.n_points
+            fs = np.sort(faces, axis=1)
+            key = (fs[:, 0] * npnt + fs[:, 1]) * npnt + fs[:, 2]
+            nodes.append(self._face_node[np.searchsorted(
+                self._face_key_sorted, key)])
         return np.unique(np.concatenate(nodes))
 
     def p2_nodes_on_tag(self, tag: int) -> np.ndarray:

@@ -8,6 +8,11 @@ The port's copy of the 2D channel and the 3D generators of
   with graded rings around the circle and optional wake refinement.
   Point-in-polygon tests use even-odd ray casting (``_Polygon``) where the
   JAX package uses ``matplotlib.path.Path``; both give the same mesh.
+* ``naca_channel_2d`` — the 2.2 x 1.0 box with an airfoil polyline
+  centred at (0.4, 0.5) (mesh/test.py:45-51), Delaunay-triangulated the
+  same way, graded toward the resampled polyline.
+* ``rectangle_2d`` — a structured triangulated rectangle for tests and
+  manufactured solutions.
 * ``duct_with_box_obstacle_3d`` — the 2.5 x 0.41 x 0.41 duct with an
   S=0.1 square column at (0.45, 0.15) (mesh/domain3D.geo:1-9): a graded
   tensor grid, each hexahedron split into six Kuhn tetrahedra.
@@ -272,6 +277,61 @@ def channel_with_cylinder_2d(h=0.02, h_near=None, lx=2.2, ly=0.41,
     # exact circle for superparametric P2 boundary cells (fem/spaces.py)
     mesh.snap_projectors = {4: _circle_projector(cx, cy, r)}
     return mesh
+
+
+def rectangle_2d(lx=1.0, ly=1.0, nx=8, ny=8):
+    """Structured triangulated rectangle (each quad split along one
+    diagonal, alternating).  Tags: y=0 -> 0, x=lx -> 1, y=ly -> 2,
+    x=0 -> 3."""
+    xs = np.linspace(0, lx, nx + 1)
+    ys = np.linspace(0, ly, ny + 1)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    pts = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    def vid(i, j):
+        return i * (ny + 1) + j
+
+    cells = []
+    for i in range(nx):
+        for j in range(ny):
+            v00, v10 = vid(i, j), vid(i + 1, j)
+            v01, v11 = vid(i, j + 1), vid(i + 1, j + 1)
+            if (i + j) % 2 == 0:
+                cells += [[v00, v10, v11], [v00, v11, v01]]
+            else:
+                cells += [[v00, v10, v01], [v10, v11, v01]]
+    mesh = Mesh(2, pts, np.array(cells, np.int32),
+                np.zeros((0, 2), np.int32), np.zeros((0,), np.int32))
+    mesh.ensure_positive_orientation()
+    return _classify_box_boundary(mesh, lx, ly).validate()
+
+
+def naca_channel_2d(airfoil_points, h=0.015, h_near=None,
+                    lx=2.2, ly=1.0, dx=0.4, dy=0.5, near_band=0.35):
+    """Channel around an airfoil polyline (mesh/test.py Mesh class:
+    2.2 x 1.0 box, airfoil centred at (0.4, 0.5), default h=0.015).
+
+    ``airfoil_points``: (n, 2) closed polyline of the transformed airfoil
+    relative to its centre (mesh/airfoil.py), resampled to spacing
+    ~``h_near`` (h/3 by default) before triangulation."""
+    h_near = h_near if h_near is not None else h / 3.0
+    poly = np.asarray(airfoil_points, float) + np.array([dx, dy])
+
+    loop = np.concatenate([_segment_points(poly[i], poly[(i + 1) % len(poly)],
+                                           h_near)
+                           for i in range(len(poly))], axis=0)
+    # drop consecutive near-identical points
+    d = np.linalg.norm(np.diff(np.vstack([loop, loop[:1]]), axis=0), axis=1)
+    loop = loop[d >= 1e-12]
+    tree = cKDTree(loop)
+
+    def dist_fn(p):
+        # distance to the polyline's points (enough for the grading)
+        return tree.query(p, k=1)[0]
+
+    mesh, _ = _delaunay_mesh_2d(lx, ly, h, [loop], [_Polygon(loop)], None,
+                                dist_fn, h_near, near_band)
+    return _classify_box_boundary(mesh, lx, ly).validate()
 
 
 # ---------------------------------------------------------------------------

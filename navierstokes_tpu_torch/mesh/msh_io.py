@@ -1,6 +1,9 @@
-"""gmsh ``.msh`` reader — ASCII and binary, formats 2.2 and 4.1.
+"""gmsh ``.msh`` reader and writers — ASCII and binary, formats 2.2 and
+4.1.
 
-The port's copy of the reader half of ``navierstokes_tpu/mesh/msh_io.py``.
+The port's copy of ``navierstokes_tpu/mesh/msh_io.py``.  The writers
+export a mesh for gmsh users: ``write_msh`` (2.2 ASCII) and
+``write_msh_binary`` (2.2 or 4.1 binary, as ``gmsh -bin`` writes).
 
 Replaces deal.II ``GridIn::read_msh`` (reference: src/NavierStokes.cpp:11-17),
 which ingests whatever gmsh writes, including ``gmsh -bin`` binary output.
@@ -313,3 +316,126 @@ def _parse_v4_bin(raw: bytes):
         conn = rec[:, 1:].astype(np.int64)
         elems.append((etype, edim, ent_phys.get((edim, etag), 0), conn))
     return coords, ids, elems
+
+
+def write_msh_binary(mesh: Mesh, path: str, version: str = "4.1"):
+    """Write binary msh (2.2 or 4.1), matching what ``gmsh -bin`` emits —
+    and exercising the binary read path without needing gmsh installed."""
+    dim = mesh.dim
+    cell_type = 2 if dim == 2 else 4
+    face_type = 1 if dim == 2 else 2
+    with open(path, "wb") as f:
+        if version == "2.2":
+            f.write(b"$MeshFormat\n2.2 1 8\n")
+            f.write(struct.pack("<i", 1))
+            f.write(b"\n$EndMeshFormat\n")
+            f.write(b"$Nodes\n" + str(mesh.n_points).encode() + b"\n")
+            rec = np.zeros(mesh.n_points,
+                           np.dtype([("id", "<i4"), ("xyz", "<f8", (3,))]))
+            rec["id"] = np.arange(1, mesh.n_points + 1)
+            rec["xyz"][:, :dim] = mesh.points
+            f.write(rec.tobytes())
+            f.write(b"\n$EndNodes\n")
+            n_elems = mesh.n_cells + mesh.n_boundary_faces
+            f.write(b"$Elements\n" + str(n_elems).encode() + b"\n")
+            eid = 1
+            for tag in np.unique(mesh.boundary_tags):
+                sel = mesh.boundary_tags == tag
+                faces = mesh.boundary_faces[sel]
+                f.write(struct.pack("<3i", face_type, len(faces), 2))
+                rec = np.empty((len(faces), 3 + dim), "<i4")
+                rec[:, 0] = np.arange(eid, eid + len(faces))
+                rec[:, 1] = rec[:, 2] = tag
+                rec[:, 3:] = faces + 1
+                f.write(rec.tobytes())
+                eid += len(faces)
+            f.write(struct.pack("<3i", cell_type, mesh.n_cells, 2))
+            rec = np.empty((mesh.n_cells, 3 + dim + 1), "<i4")
+            rec[:, 0] = np.arange(eid, eid + mesh.n_cells)
+            rec[:, 1] = rec[:, 2] = 10
+            rec[:, 3:] = mesh.cells + 1
+            f.write(rec.tobytes())
+            f.write(b"\n$EndElements\n")
+            return
+
+        # ---- 4.1 binary ----
+        f.write(b"$MeshFormat\n4.1 1 8\n")
+        f.write(struct.pack("<i", 1))
+        f.write(b"\n$EndMeshFormat\n")
+        tags = list(np.unique(mesh.boundary_tags))
+        # entities: one codim-1 entity per boundary tag + one domain entity
+        f.write(b"$Entities\n")
+        cnt = [0, 0, 0, 0]
+        cnt[dim - 1] = len(tags)
+        cnt[dim] = 1
+        f.write(struct.pack("<4q", *cnt))
+        for t in tags:                      # boundary entities, phys = tag
+            f.write(struct.pack("<i", int(t)))
+            f.write(struct.pack("<6d", *([0.0] * 6)))
+            f.write(struct.pack("<q", 1))
+            f.write(struct.pack("<i", int(t)))
+            f.write(struct.pack("<q", 0))
+        f.write(struct.pack("<i", 1))       # domain entity, phys = 10
+        f.write(struct.pack("<6d", *([0.0] * 6)))
+        f.write(struct.pack("<q", 1))
+        f.write(struct.pack("<i", 10))
+        f.write(struct.pack("<q", 0))
+        f.write(b"\n$EndEntities\n")
+
+        f.write(b"$Nodes\n")
+        f.write(struct.pack("<4q", 1, mesh.n_points, 1, mesh.n_points))
+        f.write(struct.pack("<3i", dim, 1, 0))
+        f.write(struct.pack("<q", mesh.n_points))
+        f.write(np.arange(1, mesh.n_points + 1, dtype="<i8").tobytes())
+        xyz = np.zeros((mesh.n_points, 3))
+        xyz[:, :dim] = mesh.points
+        f.write(xyz.astype("<f8").tobytes())
+        f.write(b"\n$EndNodes\n")
+
+        f.write(b"$Elements\n")
+        n_elems = mesh.n_cells + mesh.n_boundary_faces
+        f.write(struct.pack("<4q", len(tags) + 1, n_elems, 1, n_elems))
+        eid = 1
+        for t in tags:
+            sel = mesh.boundary_tags == t
+            faces = mesh.boundary_faces[sel]
+            f.write(struct.pack("<3i", dim - 1, int(t), face_type))
+            f.write(struct.pack("<q", len(faces)))
+            rec = np.empty((len(faces), 1 + dim), "<i8")
+            rec[:, 0] = np.arange(eid, eid + len(faces))
+            rec[:, 1:] = faces + 1
+            f.write(rec.tobytes())
+            eid += len(faces)
+        f.write(struct.pack("<3i", dim, 1, cell_type))
+        f.write(struct.pack("<q", mesh.n_cells))
+        rec = np.empty((mesh.n_cells, 1 + dim + 1), "<i8")
+        rec[:, 0] = np.arange(eid, eid + mesh.n_cells)
+        rec[:, 1:] = mesh.cells + 1
+        f.write(rec.tobytes())
+        f.write(b"\n$EndElements\n")
+
+
+def write_msh(mesh: Mesh, path: str):
+    """Write msh 2.2 ASCII (readable by gmsh, deal.II and ourselves)."""
+    dim = mesh.dim
+    cell_type = 2 if dim == 2 else 4
+    face_type = 1 if dim == 2 else 2
+    with open(path, "w") as f:
+        f.write("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n")
+        f.write(f"$Nodes\n{mesh.n_points}\n")
+        for i, p in enumerate(mesh.points):
+            xyz = list(p) + [0.0] * (3 - dim)
+            f.write(f"{i + 1} {xyz[0]:.16g} {xyz[1]:.16g} {xyz[2]:.16g}\n")
+        f.write("$EndNodes\n")
+        n_elems = mesh.n_cells + mesh.n_boundary_faces
+        f.write(f"$Elements\n{n_elems}\n")
+        eid = 1
+        for face, tag in zip(mesh.boundary_faces, mesh.boundary_tags):
+            conn = " ".join(str(v + 1) for v in face)
+            f.write(f"{eid} {face_type} 2 {tag} {tag} {conn}\n")
+            eid += 1
+        for cell in mesh.cells:
+            conn = " ".join(str(v + 1) for v in cell)
+            f.write(f"{eid} {cell_type} 2 10 10 {conn}\n")
+            eid += 1
+        f.write("$EndElements\n")

@@ -13,10 +13,18 @@ diagonal F preconditioner (``f_precond``), in both time schemes:
 * ``scheme="projection"`` (BDF1 or BDF2) with the consistent P1 Laplacian
   Poisson solve.
 
+Both schemes take the outlet pressure ``p_out`` (the Neumann RHS,
+src/NavierStokes.cpp:257-278) and an optional forcing term ``forcing``
+(cpp:240-243): a torch callable ``f(x, t) -> (m, dim)`` of the physical
+quadrature points ``x`` (m, dim) and the step's time ``t`` (a 0-d tensor),
+on the model's device and dtype, evaluated every step.
+
 The public surface follows the reference's class
-(src/NavierStokes.hpp:173-189): ``set_re_number``, ``setup``,
-``solve_time_step``, ``solve(time_step=N)`` with restart, ``output``,
-``export_data`` / ``import_data``, ``measured_cfl`` and ``.cd`` / ``.cl``.
+(src/NavierStokes.hpp:173-189, src/postprocess.cpp): ``set_re_number``,
+``setup``, ``assemble``, ``solve_time_step``, ``solve(time_step=N)`` with
+restart, ``output``, ``export_data`` / ``import_data``,
+``compute_forces``, ``post_process``, ``measured_cfl`` and ``.cd`` /
+``.cl``.
 
 Options outside this port raise ``NotImplementedError`` naming the
 option (``check_config``).  Tensors live on the explicit ``device``; the
@@ -47,12 +55,16 @@ from navierstokes_tpu_torch.utils.checkpoint import (checkpoint_path,
 from navierstokes_tpu_torch.utils.csv_logger import ForcesCsv
 from navierstokes_tpu_torch.utils.vtu import write_vtu_pvtu
 from navierstokes_tpu_torch.ops.assembly import (build_face_arrays,
+                                                 build_forcing_data,
                                                  cell_arrays_numpy,
+                                                 forcing_integral,
                                                  geometric_factors)
 from navierstokes_tpu_torch.ops.boundary import build_dirichlet
 from navierstokes_tpu_torch.ops.bsr import (BsrOps, apply_pp, build_bsr,
                                             pressure_convection_blk)
-from navierstokes_tpu_torch.ops.forces import drag_lift, force_coefficients
+from navierstokes_tpu_torch.ops.forces import (drag_lift, force_coefficients,
+                                               neumann_rhs)
+from navierstokes_tpu_torch.ops.operators import segment_plan
 from navierstokes_tpu_torch.ops.p1ell import (assemble_ap,
                                               assemble_p1_stiffness,
                                               block_jacobi_apply,
@@ -117,7 +129,6 @@ def check_config(cfg: SolverConfig):
         ("mass_format", cfg.mass_format not in ("auto", "blocked")),
         ("proj_p_extrap", cfg.proj_p_extrap != 0.0),
         ("n_devices", cfg.n_devices > 1),
-        ("p_out", cfg.p_out != 0.0),
     ]
     for name, bad in unsupported:
         if bad:
@@ -129,10 +140,17 @@ def check_config(cfg: SolverConfig):
                          f"{sorted(_DTYPES)}")
 
 
+def _plus(b, term):
+    """b + term; b itself when the term is absent (None)."""
+    return b if term is None else b + term
+
+
 class NavierStokes:
     """Constructor mirrors the reference's (mesh, degree_velocity,
     degree_pressure, deltat, T, step); ``device`` ("cpu", "cuda", ...) is
-    required."""
+    required.  ``forcing``: the ForcingTerm hook
+    (src/NavierStokes.hpp:56-65), a torch ``f(x (m, dim), t 0-d) ->
+    (m, dim)``, or None (the reference's zero forcing)."""
 
     def __init__(self, mesh, degree_velocity: int = 2,
                  degree_pressure: int = 1, deltat: float = 0.01,
@@ -149,9 +167,8 @@ class NavierStokes:
             raise NotImplementedError(
                 f"degrees ({degree_velocity},{degree_pressure}): only P2/P1 "
                 "is ported")
-        if forcing is not None:
-            raise NotImplementedError("forcing term is not ported")
         check_config(self.config)
+        self.forcing = forcing
         self.device = _resolve_device(device)
         self.degree_velocity = degree_velocity
         self.degree_pressure = degree_pressure
@@ -233,16 +250,30 @@ class NavierStokes:
             g_cols=h.g_cols_full if schur_coarse else None,
             g_agg=h.g_agg if schur_coarse else None, dtype=self.dtype,
             device=dev)
-        # refinement's float64 copies of the static values (fp32 only)
-        self._ell64 = (float64_tables(self.ell)
-                       if cfg.scheme == "monolithic" and cfg.refine > 0
-                       and self.dtype == torch.float32 else None)
+        # refinement's float64 copies of the static values: fp32 runs, and
+        # only where the JAX model refines, i.e. where it keeps a blocked
+        # mass (2D, or mass_format="blocked"; "auto" is its node mass in 3D)
+        refines = (cfg.scheme == "monolithic" and cfg.refine > 0
+                   and self.dtype == torch.float32
+                   and (self.dim == 2 or cfg.mass_format == "blocked"))
+        self._ell64 = float64_tables(self.ell) if refines else None
         self._build_cc_statics()
 
         tags = set(self.mesh.boundary_tags.tolist())
         self.faces_obst = (build_face_arrays(sp, TAG_OBSTACLE, self.dtype,
                                              dev)
                            if TAG_OBSTACLE in tags else None)
+        # the constant Neumann RHS of p_out (cpp:257-278); None when zero
+        self.rhs_neumann = None
+        if TAG_OUTLET in tags and cfg.p_out != 0.0:
+            faces_out = build_face_arrays(sp, TAG_OUTLET, self.dtype, dev)
+            self.rhs_neumann = neumann_rhs(
+                faces_out, cfg.p_out,
+                segment_plan(faces_out.vel_nodes.cpu().numpy(), sp.n_p2,
+                             dev))
+        # quadrature data of the per-step forcing integral (cpp:240-243)
+        self._forcing_data = (build_forcing_data(sp, self.dtype, dev)
+                              if self.forcing is not None else None)
         self._build_static()
         self._is_setup = True
 
@@ -424,6 +455,12 @@ class NavierStokes:
         return (lambda r: block_jacobi_apply(self._bj_plan, inv_tiles, r),
                 seconds)
 
+    def _forcing_term(self, t_new):
+        """The forcing integral at ``t_new``; None without forcing."""
+        if self._forcing_data is None:
+            return None
+        return forcing_integral(self._forcing_data, self.forcing, t_new)
+
     def _forces(self, u_new, p_new, factor):
         """(drag, lift, Cd, Cl) on the obstacle (cpp:831-929)."""
         if self.faces_obst is None:
@@ -496,7 +533,9 @@ class NavierStokes:
         # ---- u* momentum solve ----
         factor = self._time_factor(t_new)
         g = bc.lift(factor)
-        b_u = ops.mass_apply(ell, u_t) - apply_Bt_raw(p)
+        # the JAX model's order: M u + Neumann - B^T p + forcing
+        b_u = _plus(_plus(ops.mass_apply(ell, u_t), self.rhs_neumann)
+                    - apply_Bt_raw(p), self._forcing_term(t_new))
         fg, _ = ops.apply_blocks(ell, f_cell, g, zero_p, with_g=False,
                                  with_gt=False)
         b_u = (b_u - fg) * mask + sigma * g
@@ -597,11 +636,14 @@ class NavierStokes:
                                      with_f=False, with_g=False)
             return yp
 
-        # ---- RHS (cpp:240-278): M u^n / dt, lifted ----
+        # ---- RHS (cpp:240-278): M u^n / dt + Neumann + forcing, lifted ----
         factor = self._time_factor(t_new)
         g = bc.lift(factor)
+        f_extra = self._forcing_term(t_new)
+        b_u = _plus(_plus(ops.mass_apply(ell, u) / dt, self.rhs_neumann),
+                    f_extra)
         ag_u, ag_p = ops.apply_blocks(ell, f_cell, g, zero_p)
-        b_u = (ops.mass_apply(ell, u) / dt - ag_u) * mask + sigma * g
+        b_u = (b_u - ag_u) * mask + sigma * g
         b_p = -ag_p
 
         # ---- block preconditioner ----
@@ -671,7 +713,8 @@ class NavierStokes:
         (u_new, p_new), true_res = res.x, res.residual
         if self._ell64 is not None:
             f64, m64, s64 = f_cell.double(), mask.double(), sigma.double()
-            b64 = rhs_f64(self._ell64, f64, m64, s64, u, g, dt)
+            b64 = rhs_f64(self._ell64, f64, m64, s64, u, g, dt,
+                          self.rhs_neumann, f_extra)
 
             def correction(r):
                 return fgmres(apply_A, r, tol=cfg.refine_tol,
@@ -705,6 +748,19 @@ class NavierStokes:
         self.time = m.time
         self.drag, self.lift, self.cd, self.cl = m.drag, m.lift, m.cd, m.cl
         return m
+
+    def assemble(self, time: float):
+        """The operator F = A0 + C(u) at the current state, as its compact
+        F values (the reference's assemble, cpp:133-330).  Callable any
+        time after setup() (state lazily zero-initialised); ``time`` is
+        recorded, so a following solve_time_step() takes the inlet factor
+        at ``time + dt`` as the reference's loop does."""
+        if not hasattr(self, "_u"):
+            self._init_state(0)
+        self.time = float(time)
+        self._t = torch.tensor(self.time, dtype=self.dtype,
+                               device=self.device)
+        return self.a0_cell + self._ops.convection(self.ell, self._u)
 
     def solve_time_step(self) -> StepMetrics:
         """Advance exactly one step (cpp:344-397); usable straight after
@@ -801,3 +857,28 @@ class NavierStokes:
 
     def import_data(self, time_step: int):
         self._init_state(time_step)
+
+    def compute_forces(self, time: float | None = None):
+        """Drag, lift, Cd and Cl of the current state (cpp:831-929); a
+        pulsating inlet normalises by its instantaneous mean at ``time``
+        (default: the state's time), as the step does.  Returns (Cd, Cl)."""
+        t = torch.tensor(self.time if time is None else time,
+                         dtype=self.dtype, device=self.device)
+        forces = self._forces(self._u, self._p, self._time_factor(t))
+        self.drag, self.lift, self.cd, self.cl = map(float, forces)
+        return self.cd, self.cl
+
+    def post_process(self, initial_time_step: int, final_time_step: int,
+                     step: int):
+        """Replay checkpoints without solving: import, forces, VTU for
+        every ``step``-th time step from ``initial_time_step`` to
+        ``final_time_step`` (cpp:808-828, src/postprocess.cpp).  Returns
+        [(time_step, time, Cd, Cl), ...]."""
+        results = []
+        for ts in range(initial_time_step, final_time_step + 1, step):
+            self._init_state(ts)
+            cd, cl = self.compute_forces(self.time)
+            self.output(ts)
+            results.append((ts, self.time, cd, cl))
+            print(f"post-process ts={ts}: Cd={cd:.5f} Cl={cl:.5f}")
+        return results

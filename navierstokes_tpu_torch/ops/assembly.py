@@ -1,9 +1,11 @@
 """Per-cell geometric factors, element matrices and boundary-face data.
 
 Port of ``navierstokes_tpu/ops/assembly.py``: the host (numpy, float64)
-preprocessing products, with the boundary-face quadrature data as tensors
-on the model's device.  Integrands follow the reference
-(src/NavierStokes.cpp:191-248): mass, viscosity, the pressure coupling;
+preprocessing products, and as tensors on the model's device the
+per-cell arrays of the generic element operator (``build_cell_arrays``),
+the boundary-face quadrature data and the forcing quadrature data.
+Integrands follow the reference (src/NavierStokes.cpp:191-248): mass,
+viscosity, the pressure coupling, the forcing integral (cpp:240-243);
 snapped (curved) boundary cells use per-quadrature-point quadratic
 geometry.
 """
@@ -16,18 +18,20 @@ import numpy as np
 import torch
 
 from navierstokes_tpu_torch.fem.spaces import FaceData, TaylorHoodSpace
+from navierstokes_tpu_torch.ops.operators import SegmentPlan, segment_plan
 
 
 @dataclasses.dataclass
 class CellArrays:
-    """Host (numpy) per-cell arrays."""
-    cell_p2: np.ndarray     # (nc, n_v) velocity-node ids
-    cell_p1: np.ndarray     # (nc, n_p) pressure-node ids
-    detj: np.ndarray        # (nc,)
-    jinv: np.ndarray        # (nc, dim, dim) reference<-physical
-    mass: np.ndarray        # (nc, n_v, n_v) scalar mass element matrices
-    stiff: np.ndarray       # (nc, n_v, n_v) scalar stiffness
-    grad: np.ndarray        # (nc, n_v, dim, n_p) -int d_d(phi_a) psi_j
+    """Per-cell arrays: numpy (float64) from ``cell_arrays_numpy``, tensors
+    on a device from ``build_cell_arrays``."""
+    cell_p2: np.ndarray | torch.Tensor  # (nc, n_v) velocity-node ids
+    cell_p1: np.ndarray | torch.Tensor  # (nc, n_p) pressure-node ids
+    detj: np.ndarray | torch.Tensor     # (nc,)
+    jinv: np.ndarray | torch.Tensor     # (nc, dim, dim) reference<-physical
+    mass: np.ndarray | torch.Tensor     # (nc, n_v, n_v) scalar mass
+    stiff: np.ndarray | torch.Tensor    # (nc, n_v, n_v) scalar stiffness
+    grad: np.ndarray | torch.Tensor     # (nc, n_v, dim, n_p) -int dphi psi
 
 
 @dataclasses.dataclass
@@ -83,6 +87,71 @@ def cell_arrays_numpy(space: TaylorHoodSpace) -> CellArrays:
     return CellArrays(cell_p2=np.asarray(space.cell_p2),
                       cell_p1=np.asarray(space.cell_p1), detj=detj,
                       jinv=jinv, mass=mass, stiff=stiff, grad=grad)
+
+
+def build_cell_arrays(space: TaylorHoodSpace, dtype, device) -> CellArrays:
+    """The per-cell arrays of ``cell_arrays_numpy`` as tensors on
+    ``device`` (indices int64), for any degree pair."""
+    c = cell_arrays_numpy(space)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    i = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    return CellArrays(
+        cell_p2=i(c.cell_p2), cell_p1=i(c.cell_p1), detj=f(c.detj),
+        jinv=f(c.jinv), mass=f(c.mass), stiff=f(c.stiff), grad=f(c.grad))
+
+
+def quadrature_points(space: TaylorHoodSpace):
+    """(detJ (nc,), physical quadrature points (nc, n_q, dim)) of the
+    affine cells: x = sum_k lambda_k(qp) v_k."""
+    detj, _ = geometric_factors(space)
+    verts = space.mesh.points[space.mesh.cells]          # (nc, dim+1, dim)
+    qp = space.rs.qp
+    bary = np.concatenate([1.0 - qp.sum(axis=1)[:, None], qp], axis=1)
+    return detj, np.einsum("qk,ckd->cqd", bary, verts)
+
+
+@dataclasses.dataclass
+class ForcingData:
+    """Quadrature data of the per-step forcing integral
+    r[(a, d)] = int f_d(x, t) phi_a dx (src/NavierStokes.cpp:240-243)."""
+    xq: torch.Tensor        # (nc, n_q, dim) physical quadrature points
+    w: torch.Tensor         # (nc, n_q, n_v) qw * phi_a * detJ
+    plan: SegmentPlan       # (cell, a) entries -> velocity nodes
+
+
+def build_forcing_data(space: TaylorHoodSpace, dtype,
+                       device) -> ForcingData:
+    detj, xq = quadrature_points(space)
+    wq = np.einsum("q,qa,c->cqa", space.rs.qw, space.rs.phi_v, detj)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return ForcingData(xq=f(xq), w=f(wq),
+                       plan=segment_plan(space.cell_p2, space.n_p2, device))
+
+
+def forcing_integral(data: ForcingData, forcing, t):
+    """The forcing RHS at time ``t`` (0-d tensor): ``forcing(x (m, dim),
+    t) -> (m, dim)`` at every quadrature point, cast to the data's dtype,
+    integrated against the velocity basis and summed into the nodes in a
+    fixed order.  Returns (n_p2, dim)."""
+    xq = data.xq
+    dim = xq.shape[-1]
+    fq = forcing(xq.reshape(-1, dim), t).to(xq.dtype).reshape(xq.shape)
+    r_c = torch.einsum("cqa,cqd->cad", data.w, fq)
+    return data.plan(r_c.reshape(-1, dim))
+
+
+def forcing_rhs(space: TaylorHoodSpace, f_fn, t: float = 0.0) -> np.ndarray:
+    """Host-side forcing assembly r[(a, d)] = int f_d(x, t) phi_a dx with
+    a numpy ``f_fn(points (n, dim), t) -> (n, dim)``: (n_p2, dim) float64.
+    The reference's ForcingTerm is identically zero
+    (src/NavierStokes.hpp:56-65); manufactured solutions use the hook."""
+    rs, dim = space.rs, space.dim
+    detj, xq = quadrature_points(space)
+    fq = f_fn(xq.reshape(-1, dim), t).reshape(xq.shape)
+    r_c = np.einsum("q,qa,cqd,c->cad", rs.qw, rs.phi_v, fq, detj)
+    out = np.zeros((space.n_p2, dim))
+    np.add.at(out, np.asarray(space.cell_p2).reshape(-1), r_c.reshape(-1, dim))
+    return out
 
 
 def build_face_arrays(space: TaylorHoodSpace, tag: int, dtype,

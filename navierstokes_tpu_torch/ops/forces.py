@@ -9,7 +9,8 @@ t = (ny, -nx[, 0]),
 
 where ngt is n . grad(u) . t ("reference") or t . grad(u) . n ("st",
 the Schaefer-Turek definition), then Cd/Cl = -2 (drag, lift) / (U^2 D),
-divided by ``span_3d`` more in 3D (cpp:913-917).
+divided by ``span_3d`` more in 3D (cpp:913-917).  ``neumann_rhs`` is the
+outlet-pressure term of the momentum RHS (cpp:257-278).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from navierstokes_tpu_torch.ops.assembly import FaceArrays
+from navierstokes_tpu_torch.ops.operators import SegmentPlan
 
 
 def drag_lift(faces: FaceArrays, u, p, nu, formula: str = "reference"):
@@ -53,3 +55,13 @@ def force_coefficients(drag, lift, u_mean, ref_length, dim, span_3d=0.41):
     else:
         denom = max(abs(denom), 1e-12)
     return 2.0 * -drag / denom, 2.0 * -lift / denom
+
+
+def neumann_rhs(faces: FaceArrays, p_out: float, plan: SegmentPlan):
+    """Outflow Neumann RHS -p_out * int_{Gamma_out} (n . v): (n_p2, dim).
+    ``plan`` sums the (face, node) entries into the nodes in a fixed order
+    (a segment plan over ``faces.vel_nodes``), so the sum is the same bits
+    on every run."""
+    r = -p_out * torch.einsum("fq,fqa,fqd->fad", faces.jxw, faces.phi_v,
+                              faces.normals)
+    return plan(r.reshape(-1, r.shape[-1]))

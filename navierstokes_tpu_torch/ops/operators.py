@@ -1,10 +1,19 @@
-"""Per-cell convection element matrices and the presorted segment sum.
+"""Per-cell element operators and the presorted segment sum.
 
-Port of ``navierstokes_tpu/ops/operators.py`` ``convection_matrices``,
-``curved_convection_fix`` and ``Scatter``: c_ab = int phi_a ((u_old .
-grad) phi_b), the reference's T1 form (src/NavierStokes.cpp:204-208), as a
-contraction of the reference tensor T_hat with per-cell J^-1 u values;
-snapped (curved) cells get the quadratic-geometry quadrature version.
+Port of ``navierstokes_tpu/ops/operators.py``:
+
+* ``convection_matrices`` / ``curved_convection_fix``: c_ab = int phi_a
+  ((u_old . grad) phi_b), the reference's T1 form
+  (src/NavierStokes.cpp:204-208), as a contraction of the reference tensor
+  T_hat with per-cell J^-1 u values; snapped (curved) cells get the
+  quadratic-geometry quadrature version;
+* ``SegmentPlan`` (JAX's ``Scatter``): a fixed-order segment sum;
+* the generic element ("cells") operator, for any Taylor-Hood degree
+  pair: gather the DoF values of each cell, contract them with the
+  per-cell element matrices (batched einsums) and sum back into the nodes
+  through segment plans (``apply_blocks``, ``f_diag``, ``schur_diag``,
+  ``mass_apply``, ``lumped_mass``).  ``cells`` is an
+  ops/assembly.CellArrays of tensors (``build_cell_arrays``).
 """
 
 from __future__ import annotations
@@ -44,10 +53,12 @@ class SegmentPlan:
     lengths: torch.Tensor | None = None   # entries per target
 
     def __call__(self, flat_values: torch.Tensor) -> torch.Tensor:
+        """(n_flat, ...) -> (num_segments, ...)."""
         if self.order is not None:
             return torch.segment_reduce(flat_values[self.order], "sum",
                                         lengths=self.lengths, axis=0)
-        out = flat_values.new_zeros(self.num_segments)
+        out = flat_values.new_zeros((self.num_segments,)
+                                    + flat_values.shape[1:])
         for k, (src, dst) in enumerate(self.passes):
             if k == 0:
                 out[dst] = flat_values[src]
@@ -105,3 +116,60 @@ def curved_convection_fix(cells, c_elem: torch.Tensor,
     c_elem = c_elem.clone()
     c_elem[ids] = c_k.to(c_elem.dtype)
     return c_elem
+
+
+def apply_blocks(cells, f_cell: torch.Tensor, scat_v: SegmentPlan,
+                 scat_p: SegmentPlan, xu: torch.Tensor, xp: torch.Tensor,
+                 with_f=True, with_g=True, with_gt=True):
+    """The monolithic block operator, each term optional:
+    yu = F xu + G xp (momentum rows), yp = G^T xu (continuity rows);
+    xu (n_p2, dim), xp (n_p1,) -> (yu, yp) of the same shapes."""
+    nc, dim = cells.cell_p2.shape[0], cells.jinv.shape[1]
+    yu_c = None
+    if with_f or with_gt:
+        xu_c = xu[cells.cell_p2]                          # (nc, n_v, dim)
+    if with_f:
+        yu_c = torch.einsum("cab,cbd->cad", f_cell, xu_c)
+    if with_g:
+        g_term = torch.einsum("cadj,cj->cad", cells.grad, xp[cells.cell_p1])
+        yu_c = g_term if yu_c is None else yu_c + g_term
+    yu = (scat_v(yu_c.reshape(-1, dim)) if yu_c is not None
+          else torch.zeros_like(xu))
+    if with_gt:
+        yp_c = torch.einsum("cbdj,cbd->cj", cells.grad, xu_c)
+        yp = scat_p(yp_c.reshape(nc * yp_c.shape[1]))
+    else:
+        yp = torch.zeros_like(xp)
+    return yu, yp
+
+
+def f_diag(cells, f_cell: torch.Tensor, scat_v_diag: SegmentPlan):
+    """Diagonal of the velocity block F, one value per node: (n_p2,)
+    (aSIMPLE's D = diag(F), src/NavierStokes.cpp:948-953)."""
+    return scat_v_diag(torch.diagonal(f_cell, dim1=1, dim2=2).reshape(-1))
+
+
+def schur_diag(cells, node_weights: torch.Tensor,
+               scat_p_diag: SegmentPlan) -> torch.Tensor:
+    """diag_S[j] = sum_{c,a,d} grad[c,a,d,j]^2 w[node(c,a)], the Jacobi
+    scale of the inner Schur solves (the reference's ILU(S),
+    src/NavierStokes.cpp:959).  Like the JAX cells path this sums squares
+    of per-cell contributions, so for nodes shared by several cells it
+    leaves out the cross-cell products of the assembled diag(B W B^T)
+    (ops/bsr.schur_diag is exact): preconditioner quality only."""
+    w_c = node_weights.reshape(-1)[cells.cell_p2]          # (nc, n_v)
+    contrib = torch.einsum("cadj,cadj,ca->cj", cells.grad, cells.grad, w_c)
+    return scat_p_diag(contrib.reshape(-1))
+
+
+def mass_apply(cells, scat_v: SegmentPlan, u: torch.Tensor) -> torch.Tensor:
+    """Consistent mass matrix times velocity: (n_p2, dim)."""
+    r = torch.einsum("cab,cbd->cad", cells.mass, u[cells.cell_p2])
+    return scat_v(r.reshape(-1, u.shape[1]))
+
+
+def lumped_mass(cells, mlump_hat: torch.Tensor,
+                scat_v_diag: SegmentPlan) -> torch.Tensor:
+    """Abs-lumped mass per velocity node, sum_{q,j} |phi_j phi_i| JxW
+    (src/NavierStokes.cpp:232-236): (n_p2,)."""
+    return scat_v_diag((cells.detj[:, None] * mlump_hat[None, :]).reshape(-1))

@@ -4,11 +4,16 @@ The port's copy of ``navierstokes_tpu/scenarios/cli.py``:
 
     python -m navierstokes_tpu_torch list
     python -m navierstokes_tpu_torch run 3d-test1 [--h 0.04] [--T 2.0] ...
+    python -m navierstokes_tpu_torch postprocess 2d-test1 --t0 0 --t1 20 \
+        --step 2
+    python -m navierstokes_tpu_torch sweep-naca --angles 0 2 4 8
 
 with the JAX CLI's flags plus ``--device`` (default ``cuda``; ``cpu``
-runs the same step on the host).  ``postprocess`` and ``sweep-naca``
-parse their arguments and raise ``NotImplementedError``: checkpoint
-replay and the airfoil mesh are not ported.
+runs the same step on the host).  ``postprocess`` replays the
+checkpoints in ``--cache-dir`` (forces and VTUs, no solve);
+``sweep-naca`` runs the 2d-naca scenario once per angle of attack and
+writes ``output_<angle>.csv`` into the current directory
+(tests/2D/test_naca/run_test.sh).
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ def _add_common(p):
                    help="torch device of the run (cuda, cuda:N or cpu)")
 
 
-def _build(args, name):
+def _build(args, name, mesh_kwargs=None):
     cfg = SolverConfig(dtype=args.dtype, preconditioner=args.preconditioner,
                        operator=args.operator, n_devices=args.n_devices,
                        scheme=args.scheme, refine=args.refine,
@@ -65,7 +70,8 @@ def _build(args, name):
         from navierstokes_tpu_torch.mesh.msh_io import read_msh
         mesh = read_msh(args.mesh)
     return build_solver(name, h=args.h, config=cfg, mesh=mesh,
-                        device=args.device, **overrides)
+                        mesh_kwargs=mesh_kwargs, device=args.device,
+                        **overrides)
 
 
 def main(argv=None):
@@ -80,8 +86,8 @@ def main(argv=None):
     _add_common(p_run)
 
     p_post = sub.add_parser("postprocess",
-                            help="replay checkpoints -> forces + VTU (not "
-                                 "ported)")
+                            help="replay checkpoints -> forces + VTU "
+                                 "(src/postprocess.cpp parity)")
     p_post.add_argument("scenario", choices=sorted(SCENARIOS))
     p_post.add_argument("--t0", type=int, default=0)
     p_post.add_argument("--t1", type=int, default=20)
@@ -89,7 +95,8 @@ def main(argv=None):
     _add_common(p_post)
 
     p_naca = sub.add_parser("sweep-naca",
-                            help="angle-of-attack sweep (not ported)")
+                            help="angle-of-attack sweep "
+                                 "(tests/2D/test_naca/run_test.sh parity)")
     p_naca.add_argument("--angles", type=float, nargs="+", required=True)
     p_naca.add_argument("--chord", type=float, default=0.4)
     p_naca.add_argument("--code", type=str, default="2408")
@@ -106,12 +113,21 @@ def main(argv=None):
         ns.solve(time_step=args.restart_step)
         print(f"final Cd = {ns.cd:.6f}, Cl = {ns.cl:.6f}")
         return 0
-    raise NotImplementedError(
-        f"command {args.cmd!r}: "
-        + ("NavierStokes.post_process (checkpoint replay)"
-           if args.cmd == "postprocess" else
-           "the airfoil mesh (mesh.airfoil, naca_channel_2d)")
-        + " is not ported to navierstokes_tpu_torch")
+    if args.cmd == "postprocess":
+        ns = _build(args, args.scenario)
+        ns.setup()
+        ns.post_process(args.t0, args.t1, args.step)
+        return 0
+    for angle in args.angles:               # sweep-naca
+        args.csv = f"output_{angle:g}.csv"
+        ns = _build(args, "2d-naca",
+                    mesh_kwargs=dict(code=args.code, chord=args.chord,
+                                     angle_deg=angle))
+        ns.setup()
+        ns.solve()
+        print(f"angle {angle}: Cd = {ns.cd:.6f}, Cl = {ns.cl:.6f} "
+              f"-> {args.csv}")
+    return 0
 
 
 if __name__ == "__main__":

@@ -5,8 +5,6 @@ The port's copy of ``navierstokes_tpu/scenarios/registry.py``: the same
 nine scenarios with the same parameters and citations of the reference
 programs they mirror (src/main.cpp, tests/{2D,3D}/test_*/src/*.cpp).
 Meshes come from the port's generators or a user-supplied .msh file.
-``2d-naca`` is listed, but its airfoil mesh is not ported: building it
-raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,9 +13,15 @@ import dataclasses
 from typing import Callable, Optional
 
 from navierstokes_tpu_torch.config import InletConfig, SolverConfig
+import math
+
+import numpy as np
+
 from navierstokes_tpu_torch.mesh import (channel_with_cylinder_2d,
                                          duct_with_box_obstacle_3d,
-                                         duct_with_cylinder_3d)
+                                         duct_with_cylinder_3d,
+                                         naca_channel_2d)
+from navierstokes_tpu_torch.mesh.airfoil import naca4_polyline
 
 
 @dataclasses.dataclass
@@ -46,10 +50,13 @@ def _duct3d_cyl(h, **kw):
     return duct_with_cylinder_3d(h=h, **kw)
 
 
-def _naca(h, **kw):
-    raise NotImplementedError(
-        "scenario 2d-naca: the airfoil mesh (mesh.airfoil, "
-        "naca_channel_2d) is not ported to navierstokes_tpu_torch")
+def _naca(h, code="2408", chord=0.4, angle_deg=0.0):
+    """The NACA ``code`` section scaled to ``chord`` and rotated by
+    -``angle_deg`` (the reference's convention, mesh/test.py:33-41)."""
+    a = math.radians(angle_deg)
+    c, s = math.cos(-a), math.sin(-a)
+    rot = np.array([[c, -s], [s, c]])
+    return naca_channel_2d((naca4_polyline(code) * chord) @ rot.T, h=h)
 
 
 SCENARIOS = {

@@ -39,11 +39,17 @@ def apply_saddle_f64(bsr64: BsrData, f64, mask, sigma, xu, xp):
     return yu, apply_b(bsr64, xum)
 
 
-def rhs_f64(bsr64: BsrData, f64, mask, sigma, u, g, dt: float):
-    """The step RHS in float64: b_u = (M u / dt - F g) * mask + sigma g,
-    b_p = -(B g), with the fp32 system's dt."""
+def rhs_f64(bsr64: BsrData, f64, mask, sigma, u, g, dt: float,
+            neumann=None, extra=None):
+    """The step RHS in float64: b_u = (M u / dt [+ neumann] [+ extra] -
+    F g) * mask + sigma g, b_p = -(B g), with the fp32 system's dt;
+    ``neumann`` (the p_out term) and ``extra`` (the forcing integral) are
+    the fp32 step's vectors."""
     u, g = u.double(), g.double()
     b_u = apply_f(bsr64, bsr64.m_vals, u) / float(np.float32(dt))
+    for term in (neumann, extra):
+        if term is not None:
+            b_u = b_u + term.double()
     b_u = (b_u - apply_f(bsr64, f64, g)) * mask + sigma * g
     return b_u, -apply_b(bsr64, g)
 

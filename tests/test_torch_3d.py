@@ -312,6 +312,37 @@ def test_3d_steps_match_jax(tmp_path, scheme, f_precond):
     assert tns.measured_cfl() == pytest.approx(jns.measured_cfl(), rel=1e-9)
 
 
+def _fp32_duct_run(tmp, refine, mass_format):
+    cfg = SolverConfig(dtype="float32", scheme="monolithic", refine=refine,
+                       mass_format=mass_format, ref_length=0.1,
+                       force_formula="st", output_dir=os.path.join(tmp, "out"),
+                       cache_dir=os.path.join(tmp, "cache"),
+                       csv_path=os.path.join(tmp, "forces.csv"))
+    ns = TNS(t_duct(h=0.15), 2, 1, deltat=0.01, T=0.02, step=2,
+             inlet=InletConfig(kind="biparabolic", u_m=0.45, height=0.41),
+             config=cfg, device="cpu")
+    ns.set_re_number(20)
+    ns.setup()
+    ms = [ns.solve_time_step() for _ in range(2)]
+    return ns, ms
+
+
+def test_3d_refinement_follows_the_jax_mass_rule(tmp_path):
+    """The JAX model refines only where it keeps a blocked mass
+    (models/navier_stokes.py:1139-1141): in 3D under mass_format="auto"
+    (its node mass) a refine=2 fp32 run is the refine=0 run bit for bit;
+    under "blocked" it refines (its float64 residual moves the result)."""
+    base, mb = _fp32_duct_run(str(tmp_path / "r0"), 0, "auto")
+    auto, ma = _fp32_duct_run(str(tmp_path / "auto"), 2, "auto")
+    blk, mk = _fp32_duct_run(str(tmp_path / "blk"), 2, "blocked")
+    assert auto._ell64 is None and blk._ell64 is not None
+    assert torch.equal(auto._u, base._u) and torch.equal(auto._p, base._p)
+    assert [m.iterations for m in ma] == [m.iterations for m in mb]
+    assert [m.residual for m in ma] == [m.residual for m in mb]
+    assert not torch.equal(blk._u, base._u)
+    assert all(m.residual < b.residual for m, b in zip(mk, mb))
+
+
 def test_2d_jacobi_projection_matches_jax(tmp_path):
     """The diagonal F preconditioner on the 2D cylinder channel of
     tests/test_torch_model.py: no tile plan, time_prec_init 0."""

@@ -5,9 +5,9 @@
 ``run`` writes the JAX CLI's csv, to 1e-9 of each column's largest value,
 for 2d-test1 (monolithic, the default scheme) and 3d-test1 (projection)
 at a coarse h in float64 on the CPU, all columns but the wall-clock
-``time_prec_init`` and ``time_sol``; ``--device`` defaults to the card;
-the commands and the scenario that are not ported raise
-``NotImplementedError`` by name.
+``time_prec_init`` and ``time_sol``; ``--device`` defaults to the card.
+The NACA sweep and ``postprocess`` are held to JAX's in
+tests/test_torch_naca.py and tests/test_torch_postprocess.py.
 """
 
 import dataclasses
@@ -61,8 +61,6 @@ def test_registry_entries_equal_jax():
             if f.name == "inlet":
                 a, b = dataclasses.asdict(a), dataclasses.asdict(b)
             assert a == b, (name, f.name)
-        if name == "2d-naca":
-            continue
         h = 0.15 if j.dim == 3 else 0.12
         jm, tm = j.mesh_fn(h), t.mesh_fn(h)
         for f in ("points", "cells", "boundary_faces", "boundary_tags"):
@@ -108,16 +106,3 @@ def test_default_device_is_the_card(tmp_path):
         tcli.main(args)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         treg.build_solver("3d-test1", h=0.15)
-
-
-def test_unported_commands_and_scenario_raise(tmp_path):
-    common = ["--device", "cpu", "--h", "0.1"]
-    with pytest.raises(NotImplementedError, match="mesh.airfoil"):
-        tcli.main(["run", "2d-naca"] + common)
-    with pytest.raises(NotImplementedError, match="mesh.airfoil"):
-        treg.build_solver("2d-naca", h=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="post_process"):
-        tcli.main(["postprocess", "2d-test1", "--t0", "0", "--t1", "2"]
-                  + common)
-    with pytest.raises(NotImplementedError, match="sweep-naca"):
-        tcli.main(["sweep-naca", "--angles", "2", "8"] + common)

@@ -2,7 +2,9 @@
 fp32, bf16-values and fp64 SELL SpMV kernels against their plain versions
 in every use of the step, in 2D and (D=3) in 3D, bit-identical repeats,
 the wrapper's refusals, model steps (projection; monolithic with bf16 and
-refinement; 3D) that launch the kernels, and the port's own mesh
+refinement; 3D; the NACA scenario; the outlet pressure and a forcing
+term) that launch the kernels, the outlet-pressure and forcing RHS and
+``StokesSolver`` on the card against the CPU, and the port's own mesh
 generator where matplotlib is absent.
 
 This file imports no jax and nothing of the JAX package at module level,
@@ -201,12 +203,13 @@ def test_3d_x_needs_only_its_element_alignment(cuda, space3d, variant):
 @pytest.mark.parametrize("scheme,options", [
     ("projection", dict(f_precond="diag")),
     ("projection", dict(f_precond="bj", inner_bf16=True)),
-    ("monolithic", dict(inner_bf16=True, refine=1))])
+    ("monolithic", dict(inner_bf16=True, refine=1, mass_format="blocked"))])
 def test_3d_steps_on_cuda_launch_d3(cuda, tmp_path, space3d, scheme,
                                     options):
     """fp32 3D steps launch the D=3 instantiation of each variant the
     configuration reads (fp32 always, bf16 under inner_bf16, fp64 under
-    refinement) and no plain version."""
+    refinement, which 3D runs with the blocked mass, as the JAX model
+    does) and no plain version."""
     from navierstokes_tpu_torch.mesh.generators import \
         duct_with_box_obstacle_3d
     from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
@@ -374,3 +377,102 @@ def test_mesh_without_matplotlib_is_identical(tmp_path):
             np.testing.assert_array_equal(z["c"], ref.cells)
             np.testing.assert_array_equal(z["f"], ref.boundary_faces)
             np.testing.assert_array_equal(z["t"], ref.boundary_tags)
+
+
+def _channel_model(device, tmp_path, **cfg_fields):
+    from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
+    forcing = cfg_fields.pop("forcing", None)
+    cfg = SolverConfig(dtype="float32", output_dir=str(tmp_path / "out"),
+                       cache_dir=str(tmp_path / "cache"),
+                       csv_path=str(tmp_path / "forces.csv"), **cfg_fields)
+    ns = NavierStokes(channel_with_cylinder_2d(h=0.12), 2, 1, deltat=0.01,
+                      T=0.02, step=2, device=device, config=cfg,
+                      inlet=InletConfig(kind="parabolic", u_m=0.3,
+                                        height=0.41), forcing=forcing)
+    ns.set_re_number(20)
+    return ns.setup()
+
+
+def _torch_forcing(x, t):
+    return torch.stack([torch.ones_like(x[:, 0]), 0.5 * x[:, 0]], dim=1)
+
+
+@pytest.mark.cuda
+def test_naca_steps_on_cuda_launch_the_kernel(cuda, tmp_path):
+    """Two monolithic cc steps of the 2d-naca scenario (h=0.1, 8 degrees)
+    on the card run through the fp32 kernel and no plain version."""
+    from navierstokes_tpu_torch.scenarios.registry import build_solver
+    cfg = SolverConfig(dtype="float32", output_dir=str(tmp_path / "out"),
+                       cache_dir=str(tmp_path / "cache"),
+                       csv_path=str(tmp_path / "forces.csv"))
+    ns = build_solver("2d-naca", h=0.1, config=cfg,
+                      mesh_kwargs=dict(angle_deg=8.0), device="cuda",
+                      t_final=0.02, output_step=2).setup()
+    K.COUNTS.reset()
+    ns.solve()
+    assert K.COUNTS.launches > 0 and K.COUNTS.plain_cuda_calls == 0
+    assert bool(torch.isfinite(ns._u).all()) and np.isfinite([ns.cd,
+                                                              ns.cl]).all()
+
+
+@pytest.mark.cuda
+def test_neumann_and_forcing_rhs_on_cuda_equal_cpu(cuda):
+    """The outlet-pressure RHS and the forcing integral, float64, on the
+    card equal the CPU's (fixed-order segment sums on both)."""
+    from navierstokes_tpu_torch.ops.forces import neumann_rhs
+    from navierstokes_tpu_torch.ops.operators import segment_plan
+    sp = TaylorHoodSpace(channel_with_cylinder_2d(h=0.12))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        faces = TA.build_face_arrays(sp, 1, torch.float64, dev)
+        plan = segment_plan(faces.vel_nodes.cpu().numpy(), sp.n_p2, dev)
+        data = TA.build_forcing_data(sp, torch.float64, dev)
+        t = torch.tensor(0.3, dtype=torch.float64, device=dev)
+        out[dev] = (neumann_rhs(faces, 0.7, plan),
+                    TA.forcing_integral(data, _torch_forcing, t))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.is_cuda
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=1e-12 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["projection", "monolithic"])
+@pytest.mark.parametrize("term", ["p_out", "forcing"])
+def test_rhs_term_steps_on_cuda_launch_the_kernel(cuda, tmp_path, scheme,
+                                                  term):
+    fields = (dict(p_out=0.7) if term == "p_out"
+              else dict(forcing=_torch_forcing))
+    ns = _channel_model("cuda", tmp_path, scheme=scheme, **fields)
+    K.COUNTS.reset()
+    ns.solve()
+    assert K.COUNTS.launches > 0 and K.COUNTS.plain_cuda_calls == 0
+    assert bool(torch.isfinite(ns._u).all()) and np.isfinite([ns.cd,
+                                                              ns.cl]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,kp", [(2, 1), (3, 2)])
+def test_stokes_solver_on_cuda_equals_cpu(cuda, kv, kp):
+    """StokesSolver in float64 on the card: the cells operator's solution
+    equals the CPU's to 1e-9.  The card's batched products sum in another
+    order, so at a tolerance of 1e-12 the FGMRES count may differ by one."""
+    from navierstokes_tpu_torch.mesh.generators import rectangle_2d
+    from navierstokes_tpu_torch.models.stokes import StokesSolver
+    res = {}
+    for dev in ("cpu", "cuda"):
+        solver = StokesSolver(rectangle_2d(1.0, 1.0, 4, 4), nu=1.0,
+                              config=SolverConfig(dtype="float64"),
+                              degree_velocity=kv, degree_pressure=kp,
+                              device=dev)
+        sp = solver.space
+        nodes = np.unique(np.concatenate([sp.p2_nodes_on_tag(t)
+                                          for t in (0, 1, 2, 3)]))
+        x = sp.p2_coords[nodes]
+        res[dev] = solver.solve(nodes, np.stack([x[:, 1], -x[:, 0]], 1),
+                                rhs_u=np.ones((sp.n_p2, 2)), tol=1e-12)
+    (uc, pc, rc), (ug, pg, rg) = res["cpu"], res["cuda"]
+    assert abs(int(rg.iterations) - int(rc.iterations)) <= 1
+    assert bool(rg.converged)
+    for a, b in ((ug, uc), (pg, pc)):
+        assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max()

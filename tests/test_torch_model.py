@@ -155,8 +155,7 @@ def test_jax_checkpoint_restarts_port(mesh, tmp_path):
 @pytest.mark.parametrize("option,value", [
     ("f_solver", "richardson"), ("operator", "cells"), ("operator", "ell"),
     ("proj_poisson", "schur"), ("bj_tiles", "scatter"), ("bj_tiles", "rows"),
-    ("mass_format", "node"), ("proj_p_extrap", 1.0), ("n_devices", 4),
-    ("p_out", 1.0)])
+    ("mass_format", "node"), ("proj_p_extrap", 1.0), ("n_devices", 4)])
 def test_unported_options_raise(mesh, tmp_path, option, value):
     # Richardson inner F solves are a monolithic-scheme option
     scheme = "monolithic" if option == "f_solver" else "projection"
@@ -166,10 +165,6 @@ def test_unported_options_raise(mesh, tmp_path, option, value):
 
 
 def test_unported_model_features_raise(mesh, tmp_path):
-    with pytest.raises(NotImplementedError, match="forcing"):
-        TNS(mesh, 2, 1, 0.01, 0.03, 3, device="cpu",
-            config=SolverConfig(scheme="projection"),
-            forcing=lambda x, t: x)
     with pytest.raises(NotImplementedError, match="P2/P1"):
         TNS(mesh, 3, 2, 0.01, 0.03, 3, device="cpu",
             config=SolverConfig(scheme="projection"))

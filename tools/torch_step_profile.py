@@ -4,7 +4,7 @@
 
 Builds, with the ``navierstokes_tpu_torch`` package found under ``--tree``
 (default: this checkout), so that two versions of the port can be
-measured in one run on the same card, one of two cases:
+measured in one run on the same card, one of three cases:
 
 * ``--case bench`` (default): the ``chip_smoke.py`` bench configuration
   (Schaefer-Turek 2D-2, ``.bench_mesh.npz``, 1,014,414 DoF, fp32, Poisson
@@ -13,7 +13,10 @@ measured in one run on the same card, one of two cases:
   --projection --f-precond diag --h 0.023 --hnear 0.007`` runs it
   (3,393,382 DoF, biparabolic U_m=0.45, nu=1e-3, projection BDF2 with the
   diagonal F preconditioner, budgets 100 BiCGStab / 50 CG, dt=0.01,
-  fp32); ``--scheme`` is ignored.
+  fp32); ``--scheme`` is ignored;
+* ``--case naca``: the ``sweep-naca`` step, the 2d-naca scenario at its
+  default h=0.02 and 8 degrees (157,859 DoF, uniform inlet U=1, nu=1e-3,
+  monolithic ``cc``, dt=0.01, fp32); ``--scheme`` is ignored.
 
 It uses only the port's public surface (the package's
 ``InletConfig``/``SolverConfig``, ``NavierStokes``, the mesh generators,
@@ -73,6 +76,18 @@ def model_3d1(work):
     return ns.setup()
 
 
+def model_naca(work):
+    import navierstokes_tpu_torch as pkg
+    from navierstokes_tpu_torch.scenarios.registry import build_solver
+    cfg = pkg.SolverConfig(
+        dtype="float32", output_dir=os.path.join(work, "out"),
+        cache_dir=os.path.join(work, "cache"),
+        csv_path=os.path.join(work, "forces.csv"))
+    return build_solver("2d-naca", config=cfg,
+                        mesh_kwargs=dict(angle_deg=8.0), device="cuda",
+                        output_step=1000).setup()
+
+
 def bench_model(scheme, work):
     import navierstokes_tpu_torch as pkg
     from navierstokes_tpu_torch.models import navier_stokes as M
@@ -124,7 +139,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=ROOT,
                     help="checkout whose navierstokes_tpu_torch is measured")
-    ap.add_argument("--case", default="bench", choices=["bench", "3d1"])
+    ap.add_argument("--case", default="bench",
+                    choices=["bench", "3d1", "naca"])
     ap.add_argument("--scheme", default="monolithic",
                     choices=["monolithic", "projection"])
     ap.add_argument("--warm", type=int, default=5)
@@ -138,11 +154,12 @@ def main():
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     card = card_line()
-    label = "3d1" if args.case == "3d1" else args.scheme
+    label = args.case if args.case in ("3d1", "naca") else args.scheme
     tag = f"[{os.path.basename(tree)} {label}]"
     work = os.path.join(tree, "build", "step_profile")
     t0 = time.perf_counter()
     ns = (model_3d1(work) if args.case == "3d1"
+          else model_naca(work) if args.case == "naca"
           else bench_model(args.scheme, work))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
