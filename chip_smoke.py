@@ -77,7 +77,19 @@ and checks them:
    tests/test_torch_stokes.py on the unit square, P2/P1 (n = 4, 8, 16) and
    P3/P2 (n = 4, 8); the L2 errors equal the CPU's to 1e-9 relative and
    converge at the Taylor-Hood rates (P2/P1: u > 2.5, p > 1.5; P3/P2:
-   u > 3.5, p > 2.5).
+   u > 3.5, p > 2.5);
+18. the generic element ("cells") operator of ``NavierStokes``: on the
+   h=0.15 cylinder channel, P2/P1 with ``operator="cells"`` and aSIMPLE,
+   P3/P2 with ``cc`` (aSIMPLE on cells) and with ``ayosida``, and on the
+   3D small fixture P2/P1 cells, 2 steps each on the card against the
+   CPU in float64 with the inner solves at 1e-10 under phase 4's rule;
+   P3/P2 ``cc`` + ``inner_bf16`` in fp32, card and CPU each within 1e-3
+   of the CPU float64 run; then Schaefer-Turek 2D-1 in P3/P2 at full
+   width (``channel_with_cylinder_2d(h=0.010, h_near=0.0033)``, 654,022
+   DoF, fp32, FGMRES unrestarted): 3 warm-up and 5 timed steps, every
+   step converged, no SELL launch; steps/s, FGMRES iterations, setup
+   seconds and peak memory on a line of their own before the kernel
+   record.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
@@ -738,17 +750,20 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-def card_against_cpu(phase, tag, make, n_steps=5):
-    """CUDA fp32 against CPU fp32, ``n_steps`` steps, under phase 4's rule:
-    1e-4 of the force scale and of |u|, 1e-3 only where the gap is at most
-    three times the gap between two CPU fp32 runs that differ only in their
-    thread count; iteration totals within 1; no plain-version call on a
-    CUDA tensor.  ``make(device, name)`` builds a set-up model.  Returns
-    the card run's launches by (value dtype, D)."""
+def card_against_cpu(phase, tag, make, n_steps=5, gate=None):
+    """CUDA against CPU in the models' dtype, ``n_steps`` steps, under
+    phase 4's rule: 1e-4 of the force scale and of |u|, 1e-3 only where the
+    gap is at most three times the gap between two CPU fp32 runs that
+    differ only in their thread count; iteration totals within 1; no
+    plain-version call on a CUDA tensor.  A fixed ``gate`` (the float64
+    runs of phase 18) replaces the fp32 limits, and no noise run is made.
+    ``make(device, name)`` builds a set-up model.  Returns the card run's
+    launches by (value dtype, D)."""
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     n_threads = torch.get_num_threads()
     alt_threads = 1 if n_threads > 1 else 4
-    gpu, cpu, alt = make("cuda", "gpu"), make("cpu", "cpu"), make("cpu", "alt")
+    gpu, cpu = make("cuda", "gpu"), make("cpu", "cpu")
+    alt = make("cpu", "alt") if gate is None else None
     worst = dict(cd=0.0, cl=0.0, u=0.0, its=0, noise=0.0)
     counts = {}
     for k in range(n_steps):
@@ -761,33 +776,37 @@ def card_against_cpu(phase, tag, make, n_steps=5):
         for key, v in COUNTS.by_variant.items():
             counts[key] = counts.get(key, 0) + v
         mc = cpu.solve_time_step()
-        torch.set_num_threads(alt_threads)
-        ma = alt.solve_time_step()
-        torch.set_num_threads(n_threads)
         check(mg.converged and mc.converged,
               f"[{phase}] {tag}: converged at step {k + 1}")
         scale = max(abs(mc.cd), abs(mc.cl), 1e-30)
         gap = dict(cd=abs(mg.cd - mc.cd) / scale,
                    cl=abs(mg.cl - mc.cl) / scale, u=_rel(gpu._u, cpu._u),
-                   its=abs(mg.iterations - mc.iterations),
-                   noise=max(abs(ma.cd - mc.cd) / scale,
-                             abs(ma.cl - mc.cl) / scale,
-                             _rel(alt._u, cpu._u)))
+                   its=abs(mg.iterations - mc.iterations), noise=0.0)
+        noise = ""
+        if alt is not None:
+            torch.set_num_threads(alt_threads)
+            ma = alt.solve_time_step()
+            torch.set_num_threads(n_threads)
+            gap["noise"] = max(abs(ma.cd - mc.cd) / scale,
+                               abs(ma.cl - mc.cl) / scale,
+                               _rel(alt._u, cpu._u))
+            noise = (f"; CPU {n_threads} vs {alt_threads} threads: "
+                     f"{gap['noise']:.2e}")
         log(f"[{phase}] {tag} step {k + 1}: its cuda {mg.iterations} cpu "
             f"{mc.iterations}; Cd {mg.cd:.6f} vs {mc.cd:.6f} (diff / "
             f"max(|Cd|,|Cl|): Cd {gap['cd']:.2e}, Cl {gap['cl']:.2e}), "
-            f"u rel {gap['u']:.2e}; CPU {n_threads} vs {alt_threads} "
-            f"threads: {gap['noise']:.2e}")
+            f"u rel {gap['u']:.2e}{noise}")
         for key, v in gap.items():
             worst[key] = max(worst[key], v)
-    gate = 1e-4
-    gap = max(worst["cd"], worst["cl"], worst["u"])
-    if 1e-4 < gap <= 1e-3 and gap <= 3 * worst["noise"]:
-        gate = 1e-3
+    if gate is None:
+        gate = 1e-4
+        gap = max(worst["cd"], worst["cl"], worst["u"])
+        if 1e-4 < gap <= 1e-3 and gap <= 3 * worst["noise"]:
+            gate = 1e-3
+    noise = "" if alt is None else f"; CPU-CPU noise {worst['noise']:.2e}"
     log(f"[{phase}] {tag} worst: Cd {worst['cd']:.2e}, Cl {worst['cl']:.2e}, "
-        f"u {worst['u']:.2e} (gate {gate:g}; CPU-CPU noise "
-        f"{worst['noise']:.2e}), iteration diff {worst['its']} (limit "
-        f"1); launches over {n_steps} steps by (dtype, D): "
+        f"u {worst['u']:.2e} (gate {gate:g}{noise}), iteration diff "
+        f"{worst['its']} (limit 1); launches over {n_steps} steps by (dtype, D): "
         + ", ".join(f"{str(dt).replace('torch.', '')} D={D}: {n}"
                     for (dt, D), n in sorted(counts.items(), key=str)))
     check(worst["cd"] <= gate and worst["cl"] <= gate,
@@ -1253,6 +1272,164 @@ def phase_stokes():
     return out
 
 
+EXPECTED_DOFS_2D1_P3 = 654_022
+# Cd of the 2D-1 P3/P2 window's steps 1-4 in float64 (tools/torch_st2d1.py
+# on an H100); the fp32 window was within 1.7e-3 of them, relative
+CD_2D1_P3_FLOAT64 = (196.47550, 14.02107, 10.87792, 9.33736)
+CD_2D1_P3_GATE = 5e-3
+# Inner solves of the cells card-against-CPU runs (tests/test_torch_cells.py
+# measures why): at the default 1e-2 the cells step's Jacobi-BiCGStab Schur
+# solves make it sensitive to round-off (a 1e-15 change of A0 moves u by
+# 2e-6 and the FGMRES counts by several), at 1e-10 it is not (6e-12).
+CELLS_TIGHT = dict(inner_tol=1e-10, inner_maxiter_f=1000,
+                   inner_maxiter_s=1000)
+
+
+def cells_small(device, tmp, kv, kp, dtype="float64", **overrides):
+    """The cells small fixture: the cylinder channel at h=0.15,
+    h_near=0.06 (P3/P2 4,916 DoF; P2/P1 with the cylinder snapped),
+    parabolic U_m=0.3, Re=20, dt=0.01, monolithic."""
+    from navierstokes_tpu_torch.config import InletConfig
+    from navierstokes_tpu_torch.mesh.generators import (
+        channel_with_cylinder_2d)
+    from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
+    ns = NavierStokes(channel_with_cylinder_2d(h=0.15, h_near=0.06), kv, kp,
+                      deltat=0.01, T=0.05, step=5,
+                      inlet=InletConfig(kind="parabolic", u_m=0.3,
+                                        height=0.41),
+                      config=_config(tmp, dtype, scheme="monolithic",
+                                     **overrides), device=device)
+    ns.set_re_number(20)
+    return ns.setup()
+
+
+# the cells configurations held card against CPU in float64 (phase 18)
+CELLS_SMALL = (
+    ("P2/P1 cells asimple", lambda dev, d: cells_small(
+        dev, d, 2, 1, operator="cells", preconditioner="asimple",
+        **CELLS_TIGHT)),
+    ("P3/P2 cc", lambda dev, d: cells_small(dev, d, 3, 2, **CELLS_TIGHT)),
+    ("P3/P2 ayosida", lambda dev, d: cells_small(
+        dev, d, 3, 2, preconditioner="ayosida", **CELLS_TIGHT)),
+    ("3D P2/P1 cells", lambda dev, d: duct_model(
+        dev, d, "float64", operator="cells", preconditioner="asimple",
+        **CELLS_TIGHT)))
+
+
+def phase_cells_small():
+    """Card against CPU on the cells operator.  The four configurations
+    of CELLS_SMALL in float64, 2 steps, within 1e-9 (the CPU parity
+    tests' limit; ``card_against_cpu``); in fp32 phase 4's rule cannot
+    hold between any two runs of the cells step, two CPU runs included
+    (their FGMRES counts differ by up to 5 and Cd by up to 1.5e-3 of the
+    force scale, the error of its fp32 solve).  The fp32 step (P3/P2
+    ``cc``), plain and with ``inner_bf16``, is held, card and CPU alike,
+    to the CPU float64 run within 1e-3 of |u| over 3 steps, every solve
+    converged.  No SELL kernel launches on the cells path."""
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    t0 = time.perf_counter()
+    for tag, fn in CELLS_SMALL:
+        d = os.path.join(WORK, "cells_" + tag.replace(" ", "_")
+                         .replace("/", ""))
+        built = []
+
+        def make(dev, name, fn=fn, d=d, built=built):
+            built.append(fn(dev, f"{d}_{name}"))
+            return built[-1]
+
+        counts = card_against_cpu(18, tag, make, n_steps=2, gate=1e-9)
+        check(all(ns._operator == "cells" for ns in built),
+              f"[18] {tag}: the cells operator")
+        check(sum(counts.values()) == 0, f"[18] {tag}: no SELL launch")
+    d = os.path.join(WORK, "cells_fp32")
+    ref = cells_small("cpu", d + "_f64", 3, 2, "float64")
+    ref_steps = [(ref.solve_time_step(), ref._u.clone()) for _ in range(3)]
+    for tag, kw in (("cc", {}), ("cc+inner_bf16", dict(inner_bf16=True))):
+        gpu = cells_small("cuda", f"{d}_{tag}_gpu", 3, 2, "float32", **kw)
+        cpu = cells_small("cpu", f"{d}_{tag}_cpu", 3, 2, "float32", **kw)
+        torch.cuda.synchronize()
+        COUNTS.reset()
+        worst = 0.0
+        for k, (mr, u_ref) in enumerate(ref_steps):
+            mg, mc = gpu.solve_time_step(), cpu.solve_time_step()
+            gaps = (_rel(gpu._u, u_ref), _rel(cpu._u, u_ref),
+                    _rel(gpu._u, cpu._u))
+            worst = max(worst, *gaps)
+            log(f"[18] P3/P2 {tag} fp32 step {k + 1}: FGMRES its cuda "
+                f"{mg.iterations} cpu {mc.iterations} (float64 "
+                f"{mr.iterations}); u rel to float64: cuda {gaps[0]:.2e}, "
+                f"cpu {gaps[1]:.2e}; cuda to cpu {gaps[2]:.2e}")
+            check(mg.converged and mc.converged,
+                  f"[18] {tag} fp32: converged at step {k + 1}")
+        torch.cuda.synchronize()
+        check(COUNTS.launches == 0 and COUNTS.plain_cuda_calls == 0,
+              f"[18] {tag} fp32: no SELL launch, no plain-version CUDA call")
+        log(f"[18] P3/P2 {tag} fp32 worst u gap {worst:.2e} (limit 1e-3)")
+        check(worst <= 1e-3, f"[18] {tag} fp32 within 1e-3 of float64")
+    log(f"[18] small cells cases in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_2d1_p3(card):
+    """The 2D-1 P3/P2 window (``tools/torch_step_profile.py``'s
+    ``model_2d1``): 1 warm-up and 3 timed steps (a start-up step takes
+    15-25 s on an H100); every step converged, finite Cd and Cl, the Cd of
+    steps 1-4 within CD_2D1_P3_GATE of the float64 run's, no SELL
+    launch."""
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    from torch_step_profile import model_2d1
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ns = model_2d1(os.path.join(WORK, "st2d1_p3"))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_dofs = ns.space.n_dofs
+    check(n_dofs == EXPECTED_DOFS_2D1_P3, f"[18] 2D-1 P3/P2 DoF {n_dofs}")
+    check(ns._operator == "cells", "[18] 2D-1 P3/P2 on the cells operator")
+    log(f"[18] 2D-1 P3/P2: {n_dofs} DoF ({ns.mesh.n_cells} cells), setup "
+        f"{setup_s:.1f} s with the mesh")
+    n_warm, n_meas = 1, 3
+    COUNTS.reset()
+    ms = [ns.solve_time_step() for _ in range(n_warm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms += [ns.solve_time_step() for _ in range(n_meas)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_cuda = COUNTS.launches, COUNTS.plain_cuda_calls
+    peak = torch.cuda.max_memory_allocated()
+    sps = n_meas / wall
+    its = [m.iterations for m in ms]
+    cd_gaps = [abs(m.cd - ref) / abs(ref)
+               for m, ref in zip(ms, CD_2D1_P3_FLOAT64)]
+    log(f"[18] FGMRES iterations per step: {' '.join(map(str, its))} (budget "
+        f"{ns.config.outer_maxiter})")
+    log(f"[18] Cd per step: " + " ".join(f"{m.cd:.5f}" for m in ms)
+        + f"; Cl {ms[-1].cl:.5f}, t {ms[-1].time:.4f}; relative to float64: "
+        + " ".join(f"{g:.2e}" for g in cd_gaps)
+        + f" (limit {CD_2D1_P3_GATE:g})")
+    for m in ms:
+        check(m.converged, f"[18] 2D-1 P3/P2 converged at t={m.time}")
+        check(all(np.isfinite([m.cd, m.cl, m.residual])),
+              f"[18] 2D-1 P3/P2 finite forces at t={m.time}")
+    check(max(cd_gaps) <= CD_2D1_P3_GATE,
+          "[18] 2D-1 P3/P2 Cd against the float64 run")
+    check(bool(torch.isfinite(ns._u).all() and torch.isfinite(ns._p).all()),
+          "[18] 2D-1 P3/P2 finite u, p")
+    check(launches == 0 and plain_cuda == 0,
+          f"[18] 2D-1 P3/P2: SELL launches {launches}, plain-version CUDA "
+          f"calls {plain_cuda} (0 each)")
+    out = dict(n_dofs=n_dofs, steps_per_s=sps, setup_s=setup_s,
+               peak_bytes=peak, iterations=its,
+               iterations_timed=sum(its[n_warm:]) / n_meas,
+               cd_gap_float64=max(cd_gaps), sell_launches=launches)
+    log(f"[18] 2D-1 P3/P2 window: {json.dumps(out)} on {card}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1297,6 +1474,10 @@ def main():
     phase_postprocess()
     phase_rhs_terms()
     stokes = phase_stokes()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_cells_small()
+    cells_2d1 = phase_2d1_p3(card)
     paths = {"projection": bench["per_step"], "monolithic": mono["per_step"]}
     # F and the mass share the F pattern, so one count covers both
     pattern_of = {"F": "F", "mass": "F", "P1 Laplacian": "P1 Laplacian",
@@ -1363,6 +1544,9 @@ def main():
     record = {"kernels": kernels}
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
+    log(f"2D-1 P3/P2 cells window: {cells_2d1['steps_per_s']:.4f} steps/s, "
+        f"FGMRES {cells_2d1['iterations_timed']:.1f} per timed step, setup "
+        f"{cells_2d1['setup_s']:.1f} s, peak {cells_2d1['peak_bytes']} bytes")
     log(card)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

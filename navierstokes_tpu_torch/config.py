@@ -230,7 +230,9 @@ class SolverConfig:
 
     # Numerics
     dtype: str = "float32"        # compute dtype on the device
-    operator: str = "bsr"         # only "bsr" is ported ("ell", "cells" not)
+    # "bsr" (P2/P1, compact operators) or "cells" (the generic element
+    # operator, any degree pair, monolithic only); "ell" is not ported
+    operator: str = "bsr"
     # Node-block size of the block-Jacobi tiles and the Schur aggregates;
     # 0 => 16.
     bsr_block: int = 0

@@ -1,17 +1,33 @@
 """Incompressible Navier-Stokes solver in PyTorch.
 
-Port of ``navierstokes_tpu/models/navier_stokes.py`` for P2/P1 on
-triangles (2D) and tetrahedra (3D) (``operator="bsr"``, whose operators
-the port keeps in a compact layout) with the block-Jacobi tile or the
-diagonal F preconditioner (``f_precond``), in both time schemes:
+Port of ``navierstokes_tpu/models/navier_stokes.py`` on triangles (2D)
+and tetrahedra (3D), on one of two operators:
 
-* ``scheme="monolithic"`` (the reference's scheme, cpp:344-397): the
-  saddle-point system per step by FGMRES with the ``cc``, ``pcd``,
-  ``asimple``, ``ayosida`` or ``identity`` block preconditioner, optional
-  float64-residual refinement (``refine``) and bf16 inner F values
-  (``inner_bf16`` / ``bj_bf16``);
-* ``scheme="projection"`` (BDF1 or BDF2) with the consistent P1 Laplacian
-  Poisson solve.
+* ``operator="bsr"`` (P2/P1; its operators kept in a compact layout for
+  the SELL SpMV) with the block-Jacobi tile or the diagonal F
+  preconditioner (``f_precond``), in both time schemes:
+
+  - ``scheme="monolithic"`` (the reference's scheme, cpp:344-397): the
+    saddle-point system per step by FGMRES with the ``cc``, ``pcd``,
+    ``asimple``, ``ayosida`` or ``identity`` block preconditioner,
+    optional float64-residual refinement (``refine``) and bf16 inner F
+    values (``inner_bf16`` / ``bj_bf16``);
+  - ``scheme="projection"`` (BDF1 or BDF2) with the consistent P1
+    Laplacian Poisson solve;
+
+* ``operator="cells"``, the generic element operator (ops/operators.py:
+  per-cell element matrices, batched einsums and fixed-order segment
+  sums) for any Taylor-Hood pair the space takes.  Every pair other than
+  P2/P1 switches to it in ``setup`` (with a printed line and
+  ``config.operator`` set), as in the JAX model.  It runs the monolithic
+  scheme only; ``setup`` refuses ``scheme="projection"`` on it
+  (ValueError; JAX asserts at the first step).  As in JAX, the F
+  preconditioner is the diagonal scaling whatever ``f_precond`` says,
+  ``cc`` and ``pcd`` fall back to aSIMPLE, aSIMPLE and aYosida solve
+  their Schur systems by Jacobi-BiCGStab (no V-cycle), ``refine`` does
+  nothing and ``inner_bf16`` rounds the F values of the inner solves to
+  bf16 (kept in the compute dtype).  Curved-boundary snapping is P2
+  geometry: P3 and higher keep straight cells.
 
 Both schemes take the outlet pressure ``p_out`` (the Neumann RHS,
 src/NavierStokes.cpp:257-278) and an optional forcing term ``forcing``
@@ -29,8 +45,8 @@ restart, ``output``, ``export_data`` / ``import_data``,
 Options outside this port raise ``NotImplementedError`` naming the
 option (``check_config``).  Tensors live on the explicit ``device``; the
 compute dtype is ``SolverConfig.dtype``.  One step is plain tensor code
-plus the SELL SpMV kernel on compact operator values (``ops/sell.py``);
-the time loop is a Python loop over steps.
+plus, on ``bsr``, the SELL SpMV kernel on compact operator values
+(``ops/sell.py``); the time loop is a Python loop over steps.
 """
 
 from __future__ import annotations
@@ -54,7 +70,8 @@ from navierstokes_tpu_torch.utils.checkpoint import (checkpoint_path,
                                                      import_state)
 from navierstokes_tpu_torch.utils.csv_logger import ForcesCsv
 from navierstokes_tpu_torch.utils.vtu import write_vtu_pvtu
-from navierstokes_tpu_torch.ops.assembly import (build_face_arrays,
+from navierstokes_tpu_torch.ops.assembly import (build_cell_arrays,
+                                                 build_face_arrays,
                                                  build_forcing_data,
                                                  cell_arrays_numpy,
                                                  forcing_integral,
@@ -64,7 +81,7 @@ from navierstokes_tpu_torch.ops.bsr import (BsrOps, apply_pp, build_bsr,
                                             pressure_convection_blk)
 from navierstokes_tpu_torch.ops.forces import (drag_lift, force_coefficients,
                                                neumann_rhs)
-from navierstokes_tpu_torch.ops.operators import segment_plan
+from navierstokes_tpu_torch.ops.operators import CellOps, segment_plan
 from navierstokes_tpu_torch.ops.p1ell import (assemble_ap,
                                               assemble_p1_stiffness,
                                               block_jacobi_apply,
@@ -120,7 +137,7 @@ def check_config(cfg: SolverConfig):
     """Raise NotImplementedError for every option outside this port."""
     unsupported = [
         ("scheme", cfg.scheme not in ("projection", "monolithic")),
-        ("operator", cfg.operator != "bsr"),
+        ("operator", cfg.operator not in ("bsr", "cells")),
         ("proj_poisson", cfg.proj_poisson != "laplacian"),
         ("f_precond", cfg.f_precond not in ("bj", "jacobi", "diag")),
         ("f_solver", cfg.scheme == "monolithic"
@@ -163,10 +180,6 @@ class NavierStokes:
         self.config.t_final = T
         self.config.output_step = step
         self.inlet = inlet or InletConfig()
-        if (degree_velocity, degree_pressure) != (2, 1):
-            raise NotImplementedError(
-                f"degrees ({degree_velocity},{degree_pressure}): only P2/P1 "
-                "is ported")
         check_config(self.config)
         self.forcing = forcing
         self.device = _resolve_device(device)
@@ -216,11 +229,21 @@ class NavierStokes:
         print(f"DoFs: velocity {sp.n_velocity_dofs} + pressure "
               f"{sp.n_pressure_dofs} = {sp.n_dofs}")
         proj = getattr(self.mesh, "snap_projectors", None)
-        if cfg.curved_boundary and proj:
+        if (cfg.curved_boundary and proj
+                and self.degree_velocity == 2):  # snapping is P2 geometry
             snapped = sp.snap_boundaries(proj)
             if snapped:
                 print(f"curved boundary: tags {snapped} snapped "
                       f"({len(sp.curved_data().ids)} superparametric cells)")
+        if (cfg.operator == "bsr"
+                and (self.degree_velocity, self.degree_pressure) != (2, 1)):
+            print(f"operator 'bsr' is P2/P1-optimized; degrees "
+                  f"({self.degree_velocity},{self.degree_pressure}) use "
+                  "the generic 'cells' operator")
+            cfg.operator = "cells"
+        self._operator = cfg.operator
+        if self._operator == "cells" and cfg.scheme == "projection":
+            raise ValueError("scheme='projection' requires operator='bsr'")
 
         cells_host = cell_arrays_numpy(sp)
         self._cells_host = cells_host
@@ -238,26 +261,17 @@ class NavierStokes:
         np.add.at(lm, np.asarray(sp.cell_p2).reshape(-1), rows.reshape(-1))
         self._lumped_host = lm
 
-        blk = cfg.bsr_block or None
-        self.ell = build_bsr(sp, cells_host, self.dtype, dev, bu=blk, bp=blk)
-        self._ops = BsrOps()
-        self._agg_blocks = cfg.schur_agg_blocks or max(1, 64 // self.ell.bp)
-        schur_coarse = (cfg.scheme == "monolithic"
-                        and cfg.preconditioner in ("asimple", "ayosida"))
-        h = self.ell.host
-        self._coarse_plan = build_coarse_plan(
-            sp.n_p1, self.ell.bp, self._agg_blocks,
-            g_cols=h.g_cols_full if schur_coarse else None,
-            g_agg=h.g_agg if schur_coarse else None, dtype=self.dtype,
-            device=dev)
-        # refinement's float64 copies of the static values: fp32 runs, and
-        # only where the JAX model refines, i.e. where it keeps a blocked
-        # mass (2D, or mass_format="blocked"; "auto" is its node mass in 3D)
-        refines = (cfg.scheme == "monolithic" and cfg.refine > 0
-                   and self.dtype == torch.float32
-                   and (self.dim == 2 or cfg.mass_format == "blocked"))
-        self._ell64 = float64_tables(self.ell) if refines else None
-        self._build_cc_statics()
+        if self._operator == "cells":
+            # the element operator: no compact patterns, tiles, coarse
+            # plan or pressure statics (the JAX model's cells branch)
+            self.cells = build_cell_arrays(sp, self.dtype, dev,
+                                           host=cells_host)
+            self._op = self.cells
+            self._ops = CellOps(sp, torch.as_tensor(
+                sp.rs.T_hat, dtype=self.dtype, device=dev), dev)
+            self._bj_plan = self._ell64 = None
+        else:
+            self._build_bsr(cells_host)
 
         tags = set(self.mesh.boundary_tags.tolist())
         self.faces_obst = (build_face_arrays(sp, TAG_OBSTACLE, self.dtype,
@@ -320,6 +334,32 @@ class NavierStokes:
         speed = torch.sqrt((u * u).sum(dim=-1))
         return float((speed[self._cell_p2].max(dim=1).values
                       * self._cfl_dt_over_h).max())
+
+    def _build_bsr(self, cells_host):
+        """The compact operators, the Schur coarse plan, refinement's
+        float64 tables and the pressure-side statics (``operator="bsr"``)."""
+        cfg, sp, dev = self.config, self.space, self.device
+        blk = cfg.bsr_block or None
+        self.ell = build_bsr(sp, cells_host, self.dtype, dev, bu=blk, bp=blk)
+        self._op = self.ell
+        self._ops = BsrOps()
+        self._agg_blocks = cfg.schur_agg_blocks or max(1, 64 // self.ell.bp)
+        schur_coarse = (cfg.scheme == "monolithic"
+                        and cfg.preconditioner in ("asimple", "ayosida"))
+        h = self.ell.host
+        self._coarse_plan = build_coarse_plan(
+            sp.n_p1, self.ell.bp, self._agg_blocks,
+            g_cols=h.g_cols_full if schur_coarse else None,
+            g_agg=h.g_agg if schur_coarse else None, dtype=self.dtype,
+            device=dev)
+        # refinement's float64 copies of the static values: fp32 runs, and
+        # only where the JAX model refines, i.e. where it keeps a blocked
+        # mass (2D, or mass_format="blocked"; "auto" is its node mass in 3D)
+        refines = (cfg.scheme == "monolithic" and cfg.refine > 0
+                   and self.dtype == torch.float32
+                   and (self.dim == 2 or cfg.mass_format == "blocked"))
+        self._ell64 = float64_tables(self.ell) if refines else None
+        self._build_cc_statics()
 
     def _coarse_statics(self, op):
         """(dense coarse inverse, lambda_max) of an assembled P1 operator
@@ -384,14 +424,19 @@ class NavierStokes:
         self._mp_lumped = torch.as_tensor(mp, dtype=dt_, device=dev)
 
     def _build_static(self):
-        """A0 = c_t M/dt + nu K (c_t = 3/2 for the BDF2 projection),
-        combined on the host, and the dt / lumped-mass vector of aYosida;
-        the Newton seed follows A0 (``_bj_seed``)."""
+        """A0 = c_t M/dt + nu K (c_t = 3/2 for the BDF2 projection): the
+        compact F values combined on the host (bsr) or the per-cell
+        matrices (cells); the dt / lumped-mass vector of aYosida; the
+        Newton seed follows A0 (``_bj_seed``)."""
         cfg = self.config
         ct = 1.5 if cfg.scheme == "projection" and cfg.proj_bdf2 else 1.0
-        h = self.ell.host
-        self.a0_cell = self.ell.f.values(
-            (ct / cfg.deltat) * h.m_nz + self.nu * h.k_nz, self.dtype)
+        if self._operator == "cells":
+            self.a0_cell = ((ct / cfg.deltat) * self.cells.mass
+                            + self.nu * self.cells.stiff)
+        else:
+            h = self.ell.host
+            self.a0_cell = self.ell.f.values(
+                (ct / cfg.deltat) * h.m_nz + self.nu * h.k_nz, self.dtype)
         self.dt_mlump_inv = torch.as_tensor(
             (cfg.deltat / self._lumped_host)[:, None], dtype=self.dtype,
             device=self.device)
@@ -596,43 +641,49 @@ class NavierStokes:
 
         solved by FGMRES from (2u^n - u^{n-1}, p^n) with the configured
         block preconditioner, then ``refine`` passes of float64-residual
-        refinement (fp32 runs).  ``phi_prev`` passes through unchanged.
+        refinement (fp32 runs, bsr; the cells operator's fallbacks are in
+        the module docstring).  ``phi_prev`` passes through unchanged.
         Returns (u_new, p_new, t_new, phi_prev, StepMetrics)."""
         cfg = self.config
-        ops, ell, bc = self._ops, self.ell, self.bc
+        ops, op, bc = self._ops, self._op, self.bc
         mask = bc.mask
         dt = cfg.deltat
         t_new = t_prev + dt
-        f_cell = self.a0_cell + ops.convection(ell, u)
-        d = ops.f_diag(ell, f_cell)
+        f_cell = self.a0_cell + ops.convection(op, u)
+        d = ops.f_diag(op, f_cell)
         mflat = mask[:, 0]
         sigma = torch.sum(d * mflat) / torch.clamp(torch.sum(mflat), min=1.0)
         dinv = (1.0 / (d * mflat + sigma * (1.0 - mflat)))[:, None]
         zero_p = torch.zeros(self.space.n_p1, dtype=self.dtype,
                              device=self.device)
-        # bf16 F values for the preconditioner's inner solves
-        f_inner = (f_cell.to(torch.bfloat16) if self._bf16_inner()
-                   else f_cell)
+        # bf16 F values for the preconditioner's inner solves; the cells
+        # operator's einsums take one dtype, so there the rounded values
+        # stay fp32, as JAX's bf16-by-fp32 einsum promotes them
+        f_inner = f_cell
+        if self._bf16_inner():
+            f_inner = f_cell.to(torch.bfloat16)
+            if self._operator == "cells":
+                f_inner = f_inner.to(self.dtype)
 
         def apply_A(x):
             xu, xp = x
             xum = xu * mask
-            yu, yp = ops.apply_blocks(ell, f_cell, xum, xp)
+            yu, yp = ops.apply_blocks(op, f_cell, xum, xp)
             return yu * mask + sigma * (xu - xum), yp
 
         def apply_F(xu):
             xum = xu * mask
-            yu, _ = ops.apply_blocks(ell, f_inner, xum, zero_p,
+            yu, _ = ops.apply_blocks(op, f_inner, xum, zero_p,
                                      with_g=False, with_gt=False)
             return (yu * mask + sigma * (xu - xum)).to(self.dtype)
 
         def apply_Bt(xp):
-            yu, _ = ops.apply_blocks(ell, f_cell, u, xp, with_f=False,
+            yu, _ = ops.apply_blocks(op, f_cell, u, xp, with_f=False,
                                      with_gt=False)
             return yu * mask
 
         def apply_B(xu):
-            _, yp = ops.apply_blocks(ell, f_cell, xu * mask, zero_p,
+            _, yp = ops.apply_blocks(op, f_cell, xu * mask, zero_p,
                                      with_f=False, with_g=False)
             return yp
 
@@ -640,9 +691,9 @@ class NavierStokes:
         factor = self._time_factor(t_new)
         g = bc.lift(factor)
         f_extra = self._forcing_term(t_new)
-        b_u = _plus(_plus(ops.mass_apply(ell, u) / dt, self.rhs_neumann),
+        b_u = _plus(_plus(ops.mass_apply(op, u) / dt, self.rhs_neumann),
                     f_extra)
-        ag_u, ag_p = ops.apply_blocks(ell, f_cell, g, zero_p)
+        ag_u, ag_p = ops.apply_blocks(op, f_cell, g, zero_p)
         b_u = (b_u - ag_u) * mask + sigma * g
         b_p = -ag_p
 
@@ -659,8 +710,11 @@ class NavierStokes:
 
         def vcycle_s(node_weights, diag_s):
             """Two-level V-cycle on S = B diag(w) B^T: per-step coarse
-            matrix (inverted in fp32) and lambda_max estimate."""
-            sc_inv = coarse_inverse(coarse_matrix(ell, self._coarse_plan,
+            matrix (inverted in fp32) and lambda_max estimate.  None on
+            the cells operator (Jacobi-BiCGStab instead), as in JAX."""
+            if self._operator == "cells":
+                return None
+            sc_inv = coarse_inverse(coarse_matrix(self.ell, self._coarse_plan,
                                                   node_weights))
 
             def apply_s(v):
@@ -674,15 +728,17 @@ class NavierStokes:
                                       sc_inv, lam_max=lam, **vcycles)
 
         pc = cfg.preconditioner
+        if pc in ("cc", "pcd") and self._operator == "cells":
+            pc = "asimple"      # the JAX model's fallback off the bsr path
         if pc in ("cc", "pcd"):
             apply_ap = lambda v: ell_matvec(self._ap, v)
             solve_ap = make_vcycle_solver(apply_ap, self._ap.diag,
                                           self._coarse_plan, self._ap_sc_inv,
                                           lam_max=self._ap_lam, **vcycles)
             if pc == "pcd":
-                np_flat = pressure_convection_blk(ell, u)
+                np_flat = pressure_convection_blk(self.ell, u)
                 M = make_pcd(apply_F, apply_Bt, solve_ap, apply_ap,
-                             lambda v: apply_pp(ell, np_flat, v),
+                             lambda v: apply_pp(self.ell, np_flat, v),
                              self._mp_lumped, dinv, dt, self._nu_t, inner_f)
             else:
                 M = make_cahouet_chabard(apply_F, apply_Bt, solve_ap,
@@ -690,7 +746,7 @@ class NavierStokes:
                                          self._nu_t, inner_f)
         elif pc in ("asimple", "ayosida"):
             w = (dinv if pc == "asimple" else self.dt_mlump_inv)[:, 0] * mflat
-            diag_s = ops.schur_diag(ell, w)
+            diag_s = ops.schur_diag(op, w)
             if pc == "asimple":
                 M = make_asimple(apply_F, apply_B, apply_Bt, dinv, diag_s,
                                  cfg.alpha, inner_f, inner_s,
@@ -751,7 +807,8 @@ class NavierStokes:
 
     def assemble(self, time: float):
         """The operator F = A0 + C(u) at the current state, as its compact
-        F values (the reference's assemble, cpp:133-330).  Callable any
+        F values (bsr) or its per-cell matrices (nc, n_v, n_v) (cells)
+        (the reference's assemble, cpp:133-330).  Callable any
         time after setup() (state lazily zero-initialised); ``time`` is
         recorded, so a following solve_time_step() takes the inlet factor
         at ``time + dt`` as the reference's loop does."""
@@ -760,7 +817,7 @@ class NavierStokes:
         self.time = float(time)
         self._t = torch.tensor(self.time, dtype=self.dtype,
                                device=self.device)
-        return self.a0_cell + self._ops.convection(self.ell, self._u)
+        return self.a0_cell + self._ops.convection(self._op, self._u)
 
     def solve_time_step(self) -> StepMetrics:
         """Advance exactly one step (cpp:344-397); usable straight after

@@ -32,6 +32,13 @@ class CellArrays:
     mass: np.ndarray | torch.Tensor     # (nc, n_v, n_v) scalar mass
     stiff: np.ndarray | torch.Tensor    # (nc, n_v, n_v) scalar stiffness
     grad: np.ndarray | torch.Tensor     # (nc, n_v, dim, n_p) -int dphi psi
+    # the snapped (curved) cells of the per-step convection fix
+    # (ops/operators.curved_convection_fix), tensors only; None on meshes
+    # without snapped boundaries
+    curv_ids: torch.Tensor | None = None     # (k,) int64
+    curv_nodes: torch.Tensor | None = None   # (k, n_v) int64
+    curv_phi: torch.Tensor | None = None     # (n_cq, n_v)
+    curv_dphys: torch.Tensor | None = None   # (k, n_cq, n_v, dim), w*detJ
 
 
 @dataclasses.dataclass
@@ -89,15 +96,23 @@ def cell_arrays_numpy(space: TaylorHoodSpace) -> CellArrays:
                       jinv=jinv, mass=mass, stiff=stiff, grad=grad)
 
 
-def build_cell_arrays(space: TaylorHoodSpace, dtype, device) -> CellArrays:
-    """The per-cell arrays of ``cell_arrays_numpy`` as tensors on
-    ``device`` (indices int64), for any degree pair."""
-    c = cell_arrays_numpy(space)
+def build_cell_arrays(space: TaylorHoodSpace, dtype, device,
+                      host: CellArrays | None = None) -> CellArrays:
+    """The per-cell arrays of ``cell_arrays_numpy`` (or of ``host``, its
+    result) as tensors on ``device`` (indices int64), for any degree pair,
+    with the curved-convection fields of ``curved_conv_inputs``."""
+    c = host if host is not None else cell_arrays_numpy(space)
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     i = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    ci, cn, cphi, cdphys = curved_conv_inputs(space)
+    curved = ci is not None
     return CellArrays(
         cell_p2=i(c.cell_p2), cell_p1=i(c.cell_p1), detj=f(c.detj),
-        jinv=f(c.jinv), mass=f(c.mass), stiff=f(c.stiff), grad=f(c.grad))
+        jinv=f(c.jinv), mass=f(c.mass), stiff=f(c.stiff), grad=f(c.grad),
+        curv_ids=i(ci) if curved else None,
+        curv_nodes=i(cn) if curved else None,
+        curv_phi=f(cphi) if curved else None,
+        curv_dphys=f(cdphys) if curved else None)
 
 
 def quadrature_points(space: TaylorHoodSpace):

@@ -13,7 +13,9 @@ Port of ``navierstokes_tpu/ops/operators.py``:
   per-cell element matrices (batched einsums) and sum back into the nodes
   through segment plans (``apply_blocks``, ``f_diag``, ``schur_diag``,
   ``mass_apply``, ``lumped_mass``).  ``cells`` is an
-  ops/assembly.CellArrays of tensors (``build_cell_arrays``).
+  ops/assembly.CellArrays of tensors (``build_cell_arrays``);
+* ``CellOps``: those products as the NavierStokes model's operator
+  interface (``operator="cells"``).
 """
 
 from __future__ import annotations
@@ -90,7 +92,8 @@ def segment_plan(ids, num_segments: int, device) -> SegmentPlan:
 def convection_matrices(cells, t_hat: torch.Tensor,
                         u: torch.Tensor) -> torch.Tensor:
     """(nc, n_v, n_v) convection element matrices.  ``cells`` carries
-    cell_p2, jinv, detj and the curv_* fields (ops/bsr.BsrData)."""
+    cell_p2, jinv, detj and the curv_* fields (ops/bsr.BsrData or
+    ops/assembly.CellArrays)."""
     nv = cells.cell_p2.shape[1]
     u_c = u[cells.cell_p2]                                # (nc, n_v, dim)
     w = torch.einsum("cxd,ced->cxe", cells.jinv, u_c)     # (nc, dim, n_v)
@@ -173,3 +176,32 @@ def lumped_mass(cells, mlump_hat: torch.Tensor,
     """Abs-lumped mass per velocity node, sum_{q,j} |phi_j phi_i| JxW
     (src/NavierStokes.cpp:232-236): (n_p2,)."""
     return scat_v_diag((cells.detj[:, None] * mlump_hat[None, :]).reshape(-1))
+
+
+class CellOps:
+    """Operator interface of the NavierStokes model over CellArrays (the
+    JAX ``SingleDeviceOps``), with the call shape of ops/bsr.BsrOps: the
+    element operator summed into the velocity and pressure nodes by the
+    plans ``scat_v`` (cell_p2) and ``scat_p`` (cell_p1)."""
+
+    def __init__(self, space, t_hat: torch.Tensor, device):
+        self.scat_v = segment_plan(space.cell_p2, space.n_p2, device)
+        self.scat_p = segment_plan(space.cell_p1, space.n_p1, device)
+        self.t_hat = t_hat
+
+    def convection(self, cells, u):
+        return convection_matrices(cells, self.t_hat, u)
+
+    def apply_blocks(self, cells, f_cell, xu, xp, with_f=True, with_g=True,
+                     with_gt=True):
+        return apply_blocks(cells, f_cell, self.scat_v, self.scat_p, xu, xp,
+                            with_f=with_f, with_g=with_g, with_gt=with_gt)
+
+    def f_diag(self, cells, f_cell):
+        return f_diag(cells, f_cell, self.scat_v)
+
+    def mass_apply(self, cells, u):
+        return mass_apply(cells, self.scat_v, u)
+
+    def schur_diag(self, cells, node_weights):
+        return schur_diag(cells, node_weights, self.scat_p)

@@ -38,7 +38,7 @@ def _add_common(p):
                    choices=["identity", "asimple", "ayosida", "cc", "pcd"])
     p.add_argument("--operator", type=str, default=SolverConfig.operator,
                    choices=["bsr", "ell", "cells"],
-                   help="only bsr is ported")
+                   help="bsr and cells are ported, ell is not")
     p.add_argument("--scheme", type=str, default=SolverConfig.scheme,
                    choices=["monolithic", "projection"],
                    help="monolithic = reference-parity coupled solve; "

@@ -153,7 +153,7 @@ def test_jax_checkpoint_restarts_port(mesh, tmp_path):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("f_solver", "richardson"), ("operator", "cells"), ("operator", "ell"),
+    ("f_solver", "richardson"), ("operator", "ell"),
     ("proj_poisson", "schur"), ("bj_tiles", "scatter"), ("bj_tiles", "rows"),
     ("mass_format", "node"), ("proj_p_extrap", 1.0), ("n_devices", 4)])
 def test_unported_options_raise(mesh, tmp_path, option, value):
@@ -165,9 +165,6 @@ def test_unported_options_raise(mesh, tmp_path, option, value):
 
 
 def test_unported_model_features_raise(mesh, tmp_path):
-    with pytest.raises(NotImplementedError, match="P2/P1"):
-        TNS(mesh, 3, 2, 0.01, 0.03, 3, device="cpu",
-            config=SolverConfig(scheme="projection"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TNS(mesh, 2, 1, 0.01, 0.03, 3, device="cuda",

@@ -1,10 +1,11 @@
 """Per-step profile of the PyTorch port at a full-size point, on one GPU.
 
     python3 tools/torch_step_profile.py [--tree DIR] [--case C] [--scheme S]
+        [--operator O]
 
 Builds, with the ``navierstokes_tpu_torch`` package found under ``--tree``
 (default: this checkout), so that two versions of the port can be
-measured in one run on the same card, one of three cases:
+measured in one run on the same card, one of five cases:
 
 * ``--case bench`` (default): the ``chip_smoke.py`` bench configuration
   (Schaefer-Turek 2D-2, ``.bench_mesh.npz``, 1,014,414 DoF, fp32, Poisson
@@ -16,11 +17,19 @@ measured in one run on the same card, one of three cases:
   fp32); ``--scheme`` is ignored;
 * ``--case naca``: the ``sweep-naca`` step, the 2d-naca scenario at its
   default h=0.02 and 8 degrees (157,859 DoF, uniform inlet U=1, nu=1e-3,
-  monolithic ``cc``, dt=0.01, fp32); ``--scheme`` is ignored.
+  monolithic ``cc``, dt=0.01, fp32); ``--scheme`` is ignored;
+* ``--case p3``: Schaefer-Turek 2D-1 in P3/P2 on the generic element
+  ("cells") operator, as ``chip_smoke.py``'s phase 18 window runs it
+  (``model_2d1``: ``channel_with_cylinder_2d(h=0.010, h_near=0.0033)``,
+  654,022 DoF, parabolic U_m=0.3, nu=1e-3, monolithic with the default
+  ``cc``, which runs aSIMPLE on cells, dt=0.01, fp32, FGMRES unrestarted
+  within its budget of 400);
+* ``--case 2d1``: the same mesh and physics in P2/P1 (268,539 DoF, the
+  cylinder snapped) on ``--operator`` bsr (default) or cells.
 
 It uses only the port's public surface (the package's
 ``InletConfig``/``SolverConfig``, ``NavierStokes``, the mesh generators,
-``a0_cell``, ``ell`` and ``_ops.convection``).
+``a0_cell``, ``_op`` and ``_ops.convection``).
 
 It prints, for the case:
 * steps/s over ``--steps`` timed steps after ``--warm`` warm-up steps
@@ -49,6 +58,11 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# FGMRES budget and restart length of the 2D-1 cases.  P3/P2 on cells at
+# 654,022 DoF does not converge within 400 iterations at the default restart
+# of 64, in fp32 or float64; unrestarted it takes 202 and 290 at steps 1-2
+# (H100).
+OUTER_MAXITER_2D1 = 400
 
 
 def card_line():
@@ -86,6 +100,36 @@ def model_naca(work):
     return build_solver("2d-naca", config=cfg,
                         mesh_kwargs=dict(angle_deg=8.0), device="cuda",
                         output_step=1000).setup()
+
+
+def model_2d1(work, degrees=(3, 2), operator="bsr", dtype="float32", T=4.0,
+              step=400, csv_name="forces.csv"):
+    """Schaefer-Turek 2D-1 as scripts/validate_st.py 2d1 builds it: the
+    mesh ``channel_with_cylinder_2d(h=0.010, h_near=0.0033)``, parabolic
+    inlet U_m=0.3, nu=1e-3, ``ref_length=0.1``, the Schaefer-Turek force
+    formula, dt=0.01, monolithic with the default ``cc``,
+    ``inner_maxiter_f=10``, FGMRES unrestarted within OUTER_MAXITER_2D1;
+    in the velocity/pressure ``degrees`` on ``operator`` (any pair but
+    P2/P1 switches to cells), on the card.  Checkpoints every ``step``
+    steps, VTUs and the csv ``csv_name`` go under ``work``.  The set-up
+    model; ``chip_smoke.py`` phase 18 and ``tools/torch_st2d1.py`` build
+    their 2D-1 runs here."""
+    import navierstokes_tpu_torch as pkg
+    from navierstokes_tpu_torch.mesh.generators import \
+        channel_with_cylinder_2d
+    from navierstokes_tpu_torch.models import navier_stokes as M
+    cfg = pkg.SolverConfig(
+        dtype=dtype, output_dir=os.path.join(work, "out"),
+        cache_dir=os.path.join(work, "cache"),
+        csv_path=os.path.join(work, csv_name), nu=1.0e-3, ref_length=0.1,
+        force_formula="st", scheme="monolithic", operator=operator,
+        inner_maxiter_f=10, outer_maxiter=OUTER_MAXITER_2D1,
+        outer_restart=OUTER_MAXITER_2D1)
+    inlet = pkg.InletConfig(kind="parabolic", u_m=0.3, height=0.41)
+    ns = M.NavierStokes(channel_with_cylinder_2d(h=0.010, h_near=0.0033),
+                        *degrees, deltat=0.01, T=T, step=step, inlet=inlet,
+                        config=cfg, device="cuda")
+    return ns.setup()
 
 
 def bench_model(scheme, work):
@@ -140,7 +184,9 @@ def main():
     ap.add_argument("--tree", default=ROOT,
                     help="checkout whose navierstokes_tpu_torch is measured")
     ap.add_argument("--case", default="bench",
-                    choices=["bench", "3d1", "naca"])
+                    choices=["bench", "3d1", "naca", "p3", "2d1"])
+    ap.add_argument("--operator", default="bsr", choices=["bsr", "cells"],
+                    help="operator of --case 2d1")
     ap.add_argument("--scheme", default="monolithic",
                     choices=["monolithic", "projection"])
     ap.add_argument("--warm", type=int, default=5)
@@ -154,12 +200,15 @@ def main():
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     card = card_line()
-    label = args.case if args.case in ("3d1", "naca") else args.scheme
+    label = {"3d1": "3d1", "naca": "naca", "p3": "p3 cells",
+             "2d1": f"2d1 {args.operator}"}.get(args.case, args.scheme)
     tag = f"[{os.path.basename(tree)} {label}]"
     work = os.path.join(tree, "build", "step_profile")
     t0 = time.perf_counter()
     ns = (model_3d1(work) if args.case == "3d1"
           else model_naca(work) if args.case == "naca"
+          else model_2d1(work) if args.case == "p3"
+          else model_2d1(work, (2, 1), args.operator) if args.case == "2d1"
           else bench_model(args.scheme, work))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -177,7 +226,7 @@ def main():
 
     u = torch.as_tensor(np.random.default_rng(1234).standard_normal(
         (ns.space.n_p2, ns.dim)), dtype=torch.float32, device="cuda")
-    rebuild = lambda: ns.a0_cell + ns._ops.convection(ns.ell, u)
+    rebuild = lambda: ns.a0_cell + ns._ops.convection(ns._op, u)
     rebuild_cold, rebuild_warm = time_ms(rebuild, True), time_ms(rebuild,
                                                                  False)
 
