@@ -38,9 +38,9 @@ and checks them:
    on the card against the CPU, fp32, under phase 4's rule, for projection
    with ``bj`` and with ``jacobi``, monolithic ``cc``, ``cc`` +
    ``inner_bf16`` and ``cc`` + ``refine=2`` (the D=3 bf16 and fp64 paths);
-10. 3D-1Z at full width (``scenarios.registry.build_solver("3d-test1")``
-   on ``duct_with_box_obstacle_3d(h=0.023, h_near=0.007)``, the run of
-   ``scripts/validate_st.py 3d1 --projection --f-precond diag``): 3
+10. 3D-1Z at full width (``scenarios.validate.build_case("3d1")`` on
+   ``duct_with_box_obstacle_3d(h=0.023, h_near=0.007)``, the run of
+   ``validate 3d1 --projection --f-precond diag``, nu=1e-3): 3
    warm-up and 5 timed steps; setup seconds, steps/s, peak memory, the
    per-step iteration totals and Cd beside the TPU log's
    (``logs/st_3d1_34M_diagp1.log``, for information only);
@@ -85,11 +85,17 @@ and checks them:
    CPU in float64 with the inner solves at 1e-10 under phase 4's rule;
    P3/P2 ``cc`` + ``inner_bf16`` in fp32, card and CPU each within 1e-3
    of the CPU float64 run; then Schaefer-Turek 2D-1 in P3/P2 at full
-   width (``channel_with_cylinder_2d(h=0.010, h_near=0.0033)``, 654,022
-   DoF, fp32, FGMRES unrestarted): 3 warm-up and 5 timed steps, every
-   step converged, no SELL launch; steps/s, FGMRES iterations, setup
-   seconds and peak memory on a line of their own before the kernel
-   record.
+   width (``validate.build_case("2d1", degree=3)`` on
+   ``channel_with_cylinder_2d(h=0.010, h_near=0.0033)``, 654,022 DoF,
+   fp32, FGMRES unrestarted): 1 warm-up and 3 timed steps, every step
+   converged, Cd against the float64 run's, no SELL launch; steps/s,
+   FGMRES iterations, setup seconds and peak memory on a line of their
+   own before the kernel record;
+19. the validation driver as users run it, in a process of its own:
+   ``python -m navierstokes_tpu_torch.scenarios.validate 2d2 --projection
+   --h 0.05 --T 0.05`` (13,518 DoF, 20 steps) on the default device; exit
+   code 0, a last JSON line with finite Cd_max, Cl_max and St, every step
+   converged and the fp32 SELL kernel launched with D=1 and D=2.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
@@ -834,18 +840,16 @@ def phase_small_3d():
 
 
 def model_3d1():
-    """3D-1Z at full width through the scenario registry: the run of
-    scripts/validate_st.py 3d1 --projection --f-precond diag --h 0.023
-    --hnear 0.007 (biparabolic U_m=0.45, Re=20 so nu=1e-3, ref_length 0.1,
-    the Schaefer-Turek force formula, BDF2 projection, budgets 100
-    BiCGStab / 50 CG, dt=0.01, fp32)."""
-    from navierstokes_tpu_torch.scenarios.registry import build_solver
-    cfg = _config(os.path.join(WORK, "st3d1"), "float32", ref_length=0.1,
-                  force_formula="st", scheme="projection", f_precond="diag",
-                  proj_f_maxiter=100, proj_p_maxiter=50, inner_maxiter_f=10)
-    return build_solver("3d-test1", h=0.023, config=cfg,
-                        mesh_kwargs=dict(h_near=0.007), device="cuda",
-                        t_final=3.0, output_step=400)
+    """3D-1Z at full width, as ``python -m
+    navierstokes_tpu_torch.scenarios.validate 3d1 --projection --f-precond
+    diag --h 0.023 --hnear 0.007`` builds it (biparabolic U_m=0.45,
+    nu=1e-3, ref_length 0.1, the Schaefer-Turek force formula, BDF2
+    projection, budgets 100 BiCGStab / 50 CG, dt=0.01, fp32), not set
+    up."""
+    from navierstokes_tpu_torch.scenarios.validate import build_case
+    return build_case("3d1", device="cuda", h=0.023, h_near=0.007,
+                      projection=True, f_precond="diag",
+                      out=os.path.join(WORK, "st3d1"), setup=False)
 
 
 def phase_3d1(card):
@@ -862,6 +866,7 @@ def phase_3d1(card):
     cfg = ns.config
     check(ns.space.n_dofs == EXPECTED_DOFS_3D1,
           f"[10] 3D-1Z DoF count {ns.space.n_dofs}")
+    check(ns.nu == 1.0e-3, f"[10] 3D-1Z nu {ns.nu}")
     log(f"[10] 3D-1Z: {ns.space.n_dofs} DoF ({ns.mesh.n_cells} tets, "
         f"{ns.ell.f.nnz} F nonzeros), setup {setup_s:.1f} s")
     n_warm, n_meas = 3, 5
@@ -1273,8 +1278,9 @@ def phase_stokes():
 
 
 EXPECTED_DOFS_2D1_P3 = 654_022
-# Cd of the 2D-1 P3/P2 window's steps 1-4 in float64 (tools/torch_st2d1.py
-# on an H100); the fp32 window was within 1.7e-3 of them, relative
+# Cd of the 2D-1 P3/P2 window's steps 1-4 in float64 (``validate 2d1
+# --degree 3 --dtype float64`` on an H100); the fp32 window was within
+# 1.7e-3 of them, relative
 CD_2D1_P3_FLOAT64 = (196.47550, 14.02107, 10.87792, 9.33736)
 CD_2D1_P3_GATE = 5e-3
 # Inner solves of the cells card-against-CPU runs (tests/test_torch_cells.py
@@ -1370,19 +1376,19 @@ def phase_cells_small():
 
 
 def phase_2d1_p3(card):
-    """The 2D-1 P3/P2 window (``tools/torch_step_profile.py``'s
-    ``model_2d1``): 1 warm-up and 3 timed steps (a start-up step takes
-    15-25 s on an H100); every step converged, finite Cd and Cl, the Cd of
-    steps 1-4 within CD_2D1_P3_GATE of the float64 run's, no SELL
-    launch."""
+    """The 2D-1 P3/P2 window (``validate.build_case("2d1", degree=3)``
+    at h=0.010, h_near=0.0033): 1 warm-up and 3 timed steps (a start-up
+    step takes 15-25 s on an H100); every step converged, finite Cd and
+    Cl, the Cd of steps 1-4 within CD_2D1_P3_GATE of the float64 run's,
+    no SELL launch."""
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
-    sys.path.insert(0, os.path.join(HERE, "tools"))
-    from torch_step_profile import model_2d1
+    from navierstokes_tpu_torch.scenarios.validate import build_case
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    ns = model_2d1(os.path.join(WORK, "st2d1_p3"))
+    ns = build_case("2d1", device="cuda", h=0.010, h_near=0.0033, degree=3,
+                    out=os.path.join(WORK, "st2d1_p3"))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_dofs = ns.space.n_dofs
@@ -1428,6 +1434,48 @@ def phase_2d1_p3(card):
     log(f"[18] 2D-1 P3/P2 window: {json.dumps(out)} on {card}; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# The validation driver's phase: 2D-2 projection on the h=0.05 channel
+# (13,518 DoF), 20 steps of dt=0.0025, enough for the Strouhal FFT (it
+# needs 8 rows in the trace's second half).
+VALIDATE_ARGS = ("2d2", "--projection", "--h", "0.05", "--T", "0.05")
+
+
+def phase_validate(card):
+    """``python -m navierstokes_tpu_torch.scenarios.validate`` as a user
+    runs it, in a process of its own on the card: exit code 0, a last line
+    of JSON with finite statistics and the fp32 SELL kernel launched."""
+    t0 = time.perf_counter()
+    out = os.path.join(WORK, "validate")
+    r = subprocess.run(
+        [sys.executable, "-m", "navierstokes_tpu_torch.scenarios.validate",
+         *VALIDATE_ARGS, "--out", out], cwd=HERE, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p])})
+    wall = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    check(r.returncode == 0, f"[19] validate exit code {r.returncode}: "
+          f"{r.stderr.strip()[-2000:]}")
+    res = json.loads(lines[-1])
+    stats = res["stats"] or {}
+    launches = res["sell_launches_per_step"]
+    log(f"[19] validate {' '.join(VALIDATE_ARGS)}: {res['n_dofs']} DoF, "
+        f"{res['steps']} steps, {res['steps_per_s']:.2f} steps/s, setup "
+        f"{res['setup_s']:.1f} s, peak {res['peak_bytes']} bytes, stats "
+        f"{stats}, SELL launches per step {launches}, on {res['card']}; "
+        f"phase {wall:.1f} s")
+    check(sorted(stats) == ["cd_max", "cl_max", "st"] and all(
+        v is not None and np.isfinite(v) for v in stats.values()),
+        "[19] finite statistics")
+    check(res["unconverged_steps"] == 0, "[19] every step converged")
+    check(launches.get("float32 D=1", 0) > 0
+          and launches.get("float32 D=2", 0) > 0,
+          "[19] the fp32 SELL kernel launched (D=1 and D=2)")
+    check(res["card"] == card, "[19] the card's line in the record")
+    return res
 
 
 def main():
@@ -1478,6 +1526,7 @@ def main():
     torch.cuda.empty_cache()
     phase_cells_small()
     cells_2d1 = phase_2d1_p3(card)
+    phase_validate(card)
     paths = {"projection": bench["per_step"], "monolithic": mono["per_step"]}
     # F and the mass share the F pattern, so one count covers both
     pattern_of = {"F": "F", "mass": "F", "P1 Laplacian": "P1 Laplacian",

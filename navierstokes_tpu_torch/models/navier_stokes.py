@@ -861,9 +861,12 @@ class NavierStokes:
         self.time = float(state.time)
         self._t = torch.tensor(self.time, **kw)
 
-    def solve(self, time_step: int = 0, csv_path: str | None = None):
+    def solve(self, time_step: int = 0, csv_path: str | None = None,
+              on_step=None):
         """Time loop (cpp:439-499): ICs or restart, then one step at a time
-        with a csv row per step and VTU + checkpoint every output_step."""
+        with a csv row per step and VTU + checkpoint every output_step.
+        ``on_step(ts, metrics, wall_seconds)``, if given, is called after
+        each step (the validation driver's per-step record)."""
         if not self._is_setup:
             raise RuntimeError("call setup() first")
         cfg = self.config
@@ -890,6 +893,8 @@ class NavierStokes:
                       f"(res {m.residual:.1e}), Cd = {self.cd:.5f}, "
                       f"Cl = {self.cl:.5f} (CFL {cfl:.2f}, "
                       f"{wall * 1e3:.1f} ms/step)")
+                if on_step is not None:
+                    on_step(ts, m, wall)
                 if out_every and ts % out_every == 0:
                     self.output(ts)
                     self.export_data(ts)

@@ -18,6 +18,7 @@ on triangles and tetrahedra), in the compact SELL layout of
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -208,6 +209,11 @@ def block_jacobi_inverse(plan: BlockJacobiPlan, f_vals, mask_flat, sigma):
     return _inv(a).to(f_vals.dtype)
 
 
+# Exact tile inversions (``BJ_INVERSIONS["exact"]``): the validation
+# driver reads when the exact-inverse fallback begins.
+BJ_INVERSIONS = collections.Counter()
+
+
 def block_jacobi_invert(plan: BlockJacobiPlan, f_vals, mask_flat, sigma,
                         x0=None, iters: int = 3):
     """Per-step tile inverses: ``iters`` Newton-Schulz steps
@@ -218,12 +224,14 @@ def block_jacobi_invert(plan: BlockJacobiPlan, f_vals, mask_flat, sigma,
     a = block_jacobi_tiles(plan, f_vals, mask_flat, sigma)
     out_dtype = f_vals.dtype
     if x0 is None or iters <= 0:
+        BJ_INVERSIONS["exact"] += 1
         return _inv(a).to(out_dtype)
     x = x0.to(torch.float32)
     ax = torch.matmul(a, x)
     eye = torch.eye(a.shape[-1], dtype=torch.float32, device=a.device)
     r = (eye[None] - ax).abs().sum(-1).max()
     if not bool(r < 0.9):
+        BJ_INVERSIONS["exact"] += 1
         return _inv(a).to(out_dtype)
     for i in range(iters):
         x = 2.0 * x - torch.matmul(x, ax)

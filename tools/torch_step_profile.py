@@ -10,24 +10,26 @@ measured in one run on the same card, one of five cases:
 * ``--case bench`` (default): the ``chip_smoke.py`` bench configuration
   (Schaefer-Turek 2D-2, ``.bench_mesh.npz``, 1,014,414 DoF, fp32, Poisson
   CG budget 100) in ``--scheme`` monolithic or projection;
-* ``--case 3d1``: Schaefer-Turek 3D-1Z as ``scripts/validate_st.py 3d1
-  --projection --f-precond diag --h 0.023 --hnear 0.007`` runs it
-  (3,393,382 DoF, biparabolic U_m=0.45, nu=1e-3, projection BDF2 with the
-  diagonal F preconditioner, budgets 100 BiCGStab / 50 CG, dt=0.01,
-  fp32); ``--scheme`` is ignored;
+* ``--case 3d1``: Schaefer-Turek 3D-1Z as ``python -m
+  navierstokes_tpu_torch.scenarios.validate 3d1 --projection --f-precond
+  diag --h 0.023 --hnear 0.007`` builds it (3,393,382 DoF, biparabolic
+  U_m=0.45, nu=1e-3, projection BDF2 with the diagonal F preconditioner,
+  budgets 100 BiCGStab / 50 CG, dt=0.01, fp32); ``--scheme`` is ignored;
 * ``--case naca``: the ``sweep-naca`` step, the 2d-naca scenario at its
   default h=0.02 and 8 degrees (157,859 DoF, uniform inlet U=1, nu=1e-3,
   monolithic ``cc``, dt=0.01, fp32); ``--scheme`` is ignored;
 * ``--case p3``: Schaefer-Turek 2D-1 in P3/P2 on the generic element
   ("cells") operator, as ``chip_smoke.py``'s phase 18 window runs it
-  (``model_2d1``: ``channel_with_cylinder_2d(h=0.010, h_near=0.0033)``,
-  654,022 DoF, parabolic U_m=0.3, nu=1e-3, monolithic with the default
-  ``cc``, which runs aSIMPLE on cells, dt=0.01, fp32, FGMRES unrestarted
-  within its budget of 400);
+  (``validate 2d1 --degree 3 --h 0.010 --hnear 0.0033``: 654,022 DoF,
+  parabolic U_m=0.3, nu=1e-3, monolithic with the default ``cc``, which
+  runs aSIMPLE on cells, dt=0.01, fp32, FGMRES unrestarted within its
+  budget of 400);
 * ``--case 2d1``: the same mesh and physics in P2/P1 (268,539 DoF, the
   cylinder snapped) on ``--operator`` bsr (default) or cells.
 
-It uses only the port's public surface (the package's
+The Schaefer-Turek cases come from ``scenarios.validate.build_case``, so
+a ``--tree`` measured with them must have that module.  Otherwise the
+script uses only the port's public surface (the package's
 ``InletConfig``/``SolverConfig``, ``NavierStokes``, the mesh generators,
 ``a0_cell``, ``_op`` and ``_ops.convection``).
 
@@ -58,11 +60,6 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# FGMRES budget and restart length of the 2D-1 cases.  P3/P2 on cells at
-# 654,022 DoF does not converge within 400 iterations at the default restart
-# of 64, in fp32 or float64; unrestarted it takes 202 and 290 at steps 1-2
-# (H100).
-OUTER_MAXITER_2D1 = 400
 
 
 def card_line():
@@ -73,21 +70,9 @@ def card_line():
 
 
 def model_3d1(work):
-    import navierstokes_tpu_torch as pkg
-    from navierstokes_tpu_torch.mesh.generators import \
-        duct_with_box_obstacle_3d
-    from navierstokes_tpu_torch.models import navier_stokes as M
-    cfg = pkg.SolverConfig(
-        dtype="float32", output_dir=os.path.join(work, "out"),
-        cache_dir=os.path.join(work, "cache"),
-        csv_path=os.path.join(work, "forces.csv"), nu=1.0e-3, ref_length=0.1,
-        force_formula="st", scheme="projection", f_precond="diag",
-        proj_f_maxiter=100, proj_p_maxiter=50, inner_maxiter_f=10)
-    inlet = pkg.InletConfig(kind="biparabolic", u_m=0.45, height=0.41)
-    ns = M.NavierStokes(duct_with_box_obstacle_3d(h=0.023, h_near=0.007), 2,
-                        1, deltat=0.01, T=3.0, step=400, inlet=inlet,
-                        config=cfg, device="cuda")
-    return ns.setup()
+    from navierstokes_tpu_torch.scenarios.validate import build_case
+    return build_case("3d1", device="cuda", h=0.023, h_near=0.007,
+                      projection=True, f_precond="diag", out=work)
 
 
 def model_naca(work):
@@ -102,34 +87,13 @@ def model_naca(work):
                         output_step=1000).setup()
 
 
-def model_2d1(work, degrees=(3, 2), operator="bsr", dtype="float32", T=4.0,
-              step=400, csv_name="forces.csv"):
-    """Schaefer-Turek 2D-1 as scripts/validate_st.py 2d1 builds it: the
-    mesh ``channel_with_cylinder_2d(h=0.010, h_near=0.0033)``, parabolic
-    inlet U_m=0.3, nu=1e-3, ``ref_length=0.1``, the Schaefer-Turek force
-    formula, dt=0.01, monolithic with the default ``cc``,
-    ``inner_maxiter_f=10``, FGMRES unrestarted within OUTER_MAXITER_2D1;
-    in the velocity/pressure ``degrees`` on ``operator`` (any pair but
-    P2/P1 switches to cells), on the card.  Checkpoints every ``step``
-    steps, VTUs and the csv ``csv_name`` go under ``work``.  The set-up
-    model; ``chip_smoke.py`` phase 18 and ``tools/torch_st2d1.py`` build
-    their 2D-1 runs here."""
-    import navierstokes_tpu_torch as pkg
-    from navierstokes_tpu_torch.mesh.generators import \
-        channel_with_cylinder_2d
-    from navierstokes_tpu_torch.models import navier_stokes as M
-    cfg = pkg.SolverConfig(
-        dtype=dtype, output_dir=os.path.join(work, "out"),
-        cache_dir=os.path.join(work, "cache"),
-        csv_path=os.path.join(work, csv_name), nu=1.0e-3, ref_length=0.1,
-        force_formula="st", scheme="monolithic", operator=operator,
-        inner_maxiter_f=10, outer_maxiter=OUTER_MAXITER_2D1,
-        outer_restart=OUTER_MAXITER_2D1)
-    inlet = pkg.InletConfig(kind="parabolic", u_m=0.3, height=0.41)
-    ns = M.NavierStokes(channel_with_cylinder_2d(h=0.010, h_near=0.0033),
-                        *degrees, deltat=0.01, T=T, step=step, inlet=inlet,
-                        config=cfg, device="cuda")
-    return ns.setup()
+def model_2d1(work, degree=3, operator="bsr"):
+    """Schaefer-Turek 2D-1 as ``validate 2d1 --h 0.010 --hnear 0.0033``
+    builds it, in P``degree``/P``degree - 1`` on ``operator`` (P3/P2 runs
+    on cells), fp32 on the card."""
+    from navierstokes_tpu_torch.scenarios.validate import build_case
+    return build_case("2d1", device="cuda", h=0.010, h_near=0.0033,
+                      degree=degree, operator=operator, out=work)
 
 
 def bench_model(scheme, work):
@@ -208,7 +172,7 @@ def main():
     ns = (model_3d1(work) if args.case == "3d1"
           else model_naca(work) if args.case == "naca"
           else model_2d1(work) if args.case == "p3"
-          else model_2d1(work, (2, 1), args.operator) if args.case == "2d1"
+          else model_2d1(work, 2, args.operator) if args.case == "2d1"
           else bench_model(args.scheme, work))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
