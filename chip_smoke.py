@@ -81,13 +81,13 @@ and checks them:
 18. the generic element ("cells") operator of ``NavierStokes``: on the
    h=0.15 cylinder channel, P2/P1 with ``operator="cells"`` and aSIMPLE,
    P3/P2 with ``cc`` (aSIMPLE on cells) and with ``ayosida``, and on the
-   3D small fixture P2/P1 cells, 2 steps each on the card against the
-   CPU in float64 with the inner solves at 1e-10 under phase 4's rule;
-   P3/P2 ``cc`` + ``inner_bf16`` in fp32, card and CPU each within 1e-3
-   of the CPU float64 run; then Schaefer-Turek 2D-1 in P3/P2 at full
-   width (``validate.build_case("2d1", degree=3)`` on
+   3D small fixture P2/P1 cells, 1 step each on the card against the
+   CPU in float64 with the inner solves at 1e-10 within 1e-9;
+   P3/P2 ``cc`` and ``cc`` + ``inner_bf16`` in fp32, 2 steps, card and
+   CPU each within 1e-3 of the CPU float64 run; then Schaefer-Turek 2D-1
+   in P3/P2 at full width (``validate.build_case("2d1", degree=3)`` on
    ``channel_with_cylinder_2d(h=0.010, h_near=0.0033)``, 654,022 DoF,
-   fp32, FGMRES unrestarted): 1 warm-up and 3 timed steps, every step
+   fp32, FGMRES unrestarted): 1 warm-up and 2 timed steps, every step
    converged, Cd against the float64 run's, no SELL launch; steps/s,
    FGMRES iterations, setup seconds and peak memory on a line of their
    own before the kernel record;
@@ -95,7 +95,17 @@ and checks them:
    ``python -m navierstokes_tpu_torch.scenarios.validate 2d2 --projection
    --h 0.05 --T 0.05`` (13,518 DoF, 20 steps) on the default device; exit
    code 0, a last JSON line with finite Cd_max, Cl_max and St, every step
-   converged and the fp32 SELL kernel launched with D=1 and D=2.
+   converged and the fp32 SELL kernel launched with D=1 and D=2;
+20. row sharding (``n_devices=2``, both shards on ``cuda:0``, right after
+   phase 6 while the phase 5 model lives): the bench point's projection
+   model on two row shards, 3 steps bit for bit against phase 5's first 3
+   (u, p, Cd, Cl, iteration counts) with their ms per step beside phase
+   5's; the sharded F (the step's values at phase 5's state), mass, G
+   and B products, the convection slot values and the block-Jacobi tiles
+   (exact inverse, Newton-Schulz) bit for bit against the unsharded ones;
+   each shard's operator bytes against the one-device operators' and the
+   home device's memory; then the phase 4 small fixture in monolithic
+   ``cc`` on three shards against one, bit for bit.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
@@ -197,7 +207,7 @@ def phase_build():
         f"{regs[0] if regs else 'no ptxas report'}")
 
 
-def bench_model(device, **overrides):
+def bench_model(device, shard_devices=None, **overrides):
     from navierstokes_tpu_torch.config import InletConfig, SolverConfig
     from navierstokes_tpu_torch.mesh.geometry import Mesh
     from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
@@ -213,7 +223,8 @@ def bench_model(device, **overrides):
     for k, v in overrides.items():
         setattr(cfg, k, v)
     ns = NavierStokes(mesh, 2, 1, deltat=0.00125, T=1.0, step=10,
-                      inlet=inlet, config=cfg, device=device)
+                      inlet=inlet, config=cfg, device=device,
+                      shard_devices=shard_devices)
     ns.set_re_number(100)
     return ns
 
@@ -439,7 +450,8 @@ def phase_kernel_vs_plain(ns, dtypes, tag):
     return out
 
 
-def small_model(device, tmp, dtype="float32", forcing=None, **overrides):
+def small_model(device, tmp, dtype="float32", forcing=None,
+                shard_devices=None, **overrides):
     from navierstokes_tpu_torch.config import InletConfig, SolverConfig
     from navierstokes_tpu_torch.mesh.generators import (
         channel_with_cylinder_2d)
@@ -453,7 +465,8 @@ def small_model(device, tmp, dtype="float32", forcing=None, **overrides):
         setattr(cfg, k, v)
     ns = NavierStokes(channel_with_cylinder_2d(h=0.1, h_near=0.04), 2, 1,
                       deltat=0.01, T=0.05, step=5, inlet=inlet, config=cfg,
-                      device=device, forcing=forcing)
+                      device=device, forcing=forcing,
+                      shard_devices=shard_devices)
     ns.set_re_number(20)
     return ns.setup()
 
@@ -528,9 +541,16 @@ def phase_bench(ns, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     COUNTS.reset()
-    ms_all = []
-    for _ in range(n_warm):
+    ms_all, first = [], dict(ms=[])
+    for k in range(n_warm):
+        t1 = time.perf_counter()
         ms_all.append(ns.solve_time_step())
+        if k < SHARD_STEPS:      # phase 20's reference
+            torch.cuda.synchronize()
+            first["ms"].append((time.perf_counter() - t1) * 1e3)
+        if k + 1 == SHARD_STEPS:
+            first.update(u=ns._u.clone(), p=ns._p.clone(),
+                         metrics=list(ms_all))
     torch.cuda.synchronize()
     launches_warm = COUNTS.launches
     t0 = time.perf_counter()
@@ -570,7 +590,7 @@ def phase_bench(ns, card):
     check(plain_cuda == 0, "no plain-version calls on CUDA tensors")
     log(f"[5] all {len(ms_all)} solves converged (rel tol {tol:g})")
     return dict(launches=launches, steps_per_s=sps, peak_bytes=peak,
-                per_step=per_step)
+                per_step=per_step, first=first)
 
 
 # the small-fixture monolithic configurations of phase 7, and the launch
@@ -1324,13 +1344,13 @@ CELLS_SMALL = (
 
 def phase_cells_small():
     """Card against CPU on the cells operator.  The four configurations
-    of CELLS_SMALL in float64, 2 steps, within 1e-9 (the CPU parity
+    of CELLS_SMALL in float64, 1 step, within 1e-9 (the CPU parity
     tests' limit; ``card_against_cpu``); in fp32 phase 4's rule cannot
     hold between any two runs of the cells step, two CPU runs included
     (their FGMRES counts differ by up to 5 and Cd by up to 1.5e-3 of the
     force scale, the error of its fp32 solve).  The fp32 step (P3/P2
     ``cc``), plain and with ``inner_bf16``, is held, card and CPU alike,
-    to the CPU float64 run within 1e-3 of |u| over 3 steps, every solve
+    to the CPU float64 run within 1e-3 of |u| over 2 steps, every solve
     converged.  No SELL kernel launches on the cells path."""
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     t0 = time.perf_counter()
@@ -1343,13 +1363,13 @@ def phase_cells_small():
             built.append(fn(dev, f"{d}_{name}"))
             return built[-1]
 
-        counts = card_against_cpu(18, tag, make, n_steps=2, gate=1e-9)
+        counts = card_against_cpu(18, tag, make, n_steps=1, gate=1e-9)
         check(all(ns._operator == "cells" for ns in built),
               f"[18] {tag}: the cells operator")
         check(sum(counts.values()) == 0, f"[18] {tag}: no SELL launch")
     d = os.path.join(WORK, "cells_fp32")
     ref = cells_small("cpu", d + "_f64", 3, 2, "float64")
-    ref_steps = [(ref.solve_time_step(), ref._u.clone()) for _ in range(3)]
+    ref_steps = [(ref.solve_time_step(), ref._u.clone()) for _ in range(2)]
     for tag, kw in (("cc", {}), ("cc+inner_bf16", dict(inner_bf16=True))):
         gpu = cells_small("cuda", f"{d}_{tag}_gpu", 3, 2, "float32", **kw)
         cpu = cells_small("cpu", f"{d}_{tag}_cpu", 3, 2, "float32", **kw)
@@ -1377,9 +1397,9 @@ def phase_cells_small():
 
 def phase_2d1_p3(card):
     """The 2D-1 P3/P2 window (``validate.build_case("2d1", degree=3)``
-    at h=0.010, h_near=0.0033): 1 warm-up and 3 timed steps (a start-up
-    step takes 15-25 s on an H100); every step converged, finite Cd and
-    Cl, the Cd of steps 1-4 within CD_2D1_P3_GATE of the float64 run's,
+    at h=0.010, h_near=0.0033): 1 warm-up and 2 timed steps (a start-up
+    step takes 15-30 s on an H100); every step converged, finite Cd and
+    Cl, the Cd of steps 1-3 within CD_2D1_P3_GATE of the float64 run's,
     no SELL launch."""
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     from navierstokes_tpu_torch.scenarios.validate import build_case
@@ -1396,7 +1416,7 @@ def phase_2d1_p3(card):
     check(ns._operator == "cells", "[18] 2D-1 P3/P2 on the cells operator")
     log(f"[18] 2D-1 P3/P2: {n_dofs} DoF ({ns.mesh.n_cells} cells), setup "
         f"{setup_s:.1f} s with the mesh")
-    n_warm, n_meas = 1, 3
+    n_warm, n_meas = 1, 2
     COUNTS.reset()
     ms = [ns.solve_time_step() for _ in range(n_warm)]
     torch.cuda.synchronize()
@@ -1478,6 +1498,143 @@ def phase_validate(card):
     return res
 
 
+# phase 20: steps of the sharded bench point held to phase 5's first ones
+SHARD_STEPS = 3
+
+
+def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
+                  small_devices=("cuda:0",) * 3):
+    """Row sharding: the bench point's projection model on ``devices``
+    (one shard each; by default two shards on one card, the vectors and
+    the pressure side on the home device ``cuda:0``) against the
+    unsharded model ``ns`` of phase 5, bit for bit; then the small
+    fixture on ``small_devices`` against one device."""
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    from navierstokes_tpu_torch.ops import p1ell
+    from navierstokes_tpu_torch.ops.bsr import BsrOps
+    from navierstokes_tpu_torch.parallel import sharded_bsr
+    from navierstokes_tpu_torch.parallel.sharded_bsr import (ShardedBsrOps,
+                                                             operator_bytes)
+    t_phase = time.perf_counter()
+    cards = sorted({torch.device(d) for d in devices}, key=str)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    mem0 = {d: torch.cuda.memory_allocated(d) for d in cards}
+    t0 = time.perf_counter()
+    sh = bench_model("cuda:0", shard_devices=list(devices),
+                     n_devices=len(devices)).setup()
+    for d in cards:
+        torch.cuda.synchronize(d)
+    setup_s = time.perf_counter() - t0
+    model_bytes = {str(d): torch.cuda.memory_allocated(d) - mem0[d]
+                   for d in cards}
+    rows = [(str(s.device), s.rows, s.prows) for s in sh.ell.shards]
+    log(f"[20] {len(devices)} row shards of the bench point: setup "
+        f"{setup_s:.1f} s, device / velocity / pressure rows {rows}")
+    check(len(sh.ell.shards) == len(devices), "[20] one shard per device")
+    first = bench["first"]
+    COUNTS.reset()
+    torch.cuda.reset_peak_memory_stats()
+    ms, walls = [], []
+    for _ in range(SHARD_STEPS):
+        t1 = time.perf_counter()
+        ms.append(sh.solve_time_step())
+        for d in cards:
+            torch.cuda.synchronize(d)
+        walls.append((time.perf_counter() - t1) * 1e3)
+    launches, plain_cuda = COUNTS.launches, COUNTS.plain_cuda_calls
+    per_step = per_step_launches(SHARD_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    for k, (a, b) in enumerate(zip(ms, first["metrics"])):
+        log(f"[20] step {k + 1}: its {a.f_iterations}+{a.p_iterations} "
+            f"(one device {b.f_iterations}+{b.p_iterations}), Cd {a.cd!r} "
+            f"({b.cd!r}), Cl {a.cl!r} ({b.cl!r}); {walls[k]:.2f} ms "
+            f"(one device {first['ms'][k]:.2f} ms)")
+        check((a.f_iterations, a.p_iterations, a.cd, a.cl)
+              == (b.f_iterations, b.p_iterations, b.cd, b.cl),
+              f"[20] step {k + 1} equals phase 5's bit for bit")
+    gap_u = (sh._u - first["u"]).abs().max().item()
+    gap_p = (sh._p - first["p"]).abs().max().item()
+    eq_u = torch.equal(sh._u, first["u"])
+    eq_p = torch.equal(sh._p, first["p"])
+    log(f"[20] after {SHARD_STEPS} steps: u equal {eq_u} (max gap "
+        f"{gap_u:.3e}), p equal {eq_p} (max gap {gap_p:.3e})")
+    check(eq_u and eq_p, "[20] u and p equal phase 5's bit for bit")
+    check(launches > 0, "[20] kernel launched on the sharded path")
+    check(plain_cuda == 0, "[20] no plain-version calls on CUDA tensors")
+    log(f"[20] kernel launches: {launches} over {SHARD_STEPS} steps; per "
+        f"step by operator {per_step}")
+
+    # products at phase 5's state, the sharded against the unsharded kernel
+    ops, sops = BsrOps(), ShardedBsrOps()
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rand = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+    xu, xp = rand(ns.space.n_p2, 2), rand(ns.space.n_p1)
+    conv1 = ops.convection(ns.ell, ns._u)
+    conv2 = sops.convection(sh.ell, ns._u)
+    f1, f2 = ns.a0_cell + conv1, sh.a0_cell + conv2
+    same = {"convection slots": torch.equal(sh.ell.unshard(conv2), conv1),
+            "F slots": torch.equal(sh.ell.unshard(f2), f1)}
+    for name, a, b in (
+            ("F", ops.apply_f(ns.ell, f1, xu), sops.apply_f(sh.ell, f2, xu)),
+            ("mass", ops.mass_apply(ns.ell, xu),
+             sops.mass_apply(sh.ell, xu)),
+            ("G", ops.apply_bt(ns.ell, xp), sops.apply_bt(sh.ell, xp)),
+            ("B", ops.apply_b(ns.ell, xu), sops.apply_b(sh.ell, xu))):
+        same[name] = a.shape == b.shape and torch.equal(a, b)
+    # the block-Jacobi tiles at that state: the exact inverse (the fallback
+    # from step 19 on) and a Newton-Schulz step from it
+    mflat = ns.bc.mask[:, 0]
+    d = ops.f_diag(ns.ell, f1)
+    sigma = torch.sum(d * mflat) / torch.clamp(torch.sum(mflat), min=1.0)
+    x1 = p1ell.block_jacobi_inverse(ns._bj_plan, f1, mflat, sigma)
+    x2 = sharded_bsr.block_jacobi_inverse(sh._bj_plan, f2, mflat, sigma)
+    home = lambda parts: torch.cat([t.to(x1.device) for t in parts])
+    same["exact tile inverse"] = torch.equal(home(x2.parts), x1)
+    n1 = p1ell.block_jacobi_invert(ns._bj_plan, f1, mflat, sigma, x0=x1)
+    n2 = sharded_bsr.block_jacobi_invert(sh._bj_plan, f2, mflat, sigma,
+                                         x0=x2)
+    same["Newton-Schulz tiles"] = torch.equal(home(n2.parts), n1)
+    del x1, x2, n1, n2
+    log(f"[20] sharded against unsharded, bit for bit: {same}")
+    check(all(same.values()), "[20] sharded products equal the unsharded")
+
+    # memory: each shard's operators against the one-device operators
+    shard_bytes = sh.ell.shard_bytes()
+    one_bytes = operator_bytes(ns.ell)
+    log(f"[20] operator bytes per shard {shard_bytes} (sum "
+        f"{sum(shard_bytes)}) against one device {one_bytes}; the sharded "
+        f"model holds {model_bytes} bytes per card after setup (home "
+        f"cuda:0), home peak {peak} bytes over its steps, on {card}")
+
+    # the small fixture, monolithic cc, three shards against one
+    small = {}
+    for n, devs in ((1, None), (len(small_devices), list(small_devices))):
+        m = small_model("cuda", os.path.join(WORK, f"shard_small{n}"),
+                        shard_devices=devs, n_devices=n,
+                        scheme="monolithic", preconditioner="cc")
+        small[n] = ([m.solve_time_step() for _ in range(SHARD_STEPS)],
+                    m._u, m._p)
+    (m1, u1, p1), (mn, un, pn) = small[1], small[len(small_devices)]
+    its = [(a.iterations, b.iterations) for a, b in zip(mn, m1)]
+    eq = (torch.equal(un.to(u1.device), u1)
+          and torch.equal(pn.to(p1.device), p1)
+          and all((a.cd, a.cl, a.iterations) == (b.cd, b.cl, b.iterations)
+                  for a, b in zip(mn, m1)))
+    log(f"[20] small fixture, monolithic cc, {len(small_devices)} shards "
+        f"on {list(small_devices)} against 1: FGMRES {its}, bit for bit "
+        f"{eq}")
+    check(eq, "[20] small fixture on shards equals 1 bit for bit")
+    wall = time.perf_counter() - t_phase
+    log(f"[20] ms per step sharded {[round(w, 2) for w in walls]} against "
+        f"phase 5's first steps {[round(w, 2) for w in first['ms']]}; phase "
+        f"{wall:.1f} s")
+    return dict(launches=launches, per_step=per_step, setup_s=setup_s,
+                shard_bytes=shard_bytes, one_device_bytes=one_bytes,
+                model_bytes=model_bytes, peak_bytes=peak, ms=walls,
+                one_device_ms=first["ms"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1500,6 +1657,7 @@ def main():
     bench = phase_bench(ns, card)
     variants = phase_kernel_vs_plain(ns, (torch.bfloat16, torch.float64),
                                      "6")
+    sharded = phase_sharded(ns, bench, card)
     del ns
     gc.collect()
     torch.cuda.empty_cache()
@@ -1527,7 +1685,8 @@ def main():
     phase_cells_small()
     cells_2d1 = phase_2d1_p3(card)
     phase_validate(card)
-    paths = {"projection": bench["per_step"], "monolithic": mono["per_step"]}
+    paths = {"projection": bench["per_step"], "monolithic": mono["per_step"],
+             "sharded": sharded["per_step"]}
     # F and the mass share the F pattern, so one count covers both
     pattern_of = {"F": "F", "mass": "F", "P1 Laplacian": "P1 Laplacian",
                   "Ap": "Ap", "G": "G", "B": "B", "PCD convection": "PP"}
@@ -1549,7 +1708,9 @@ def main():
 
     kernels = []
     for dt, launches, replaces in (
-            (torch.float32, bench["launches"] + mono["launches"], REPLACES),
+            (torch.float32,
+             bench["launches"] + mono["launches"] + sharded["launches"],
+             REPLACES),
             (torch.bfloat16, small["cc+inner_bf16"]["launches_bf16"],
              REPLACES_BF16),
             (torch.float64, small["cc+refine=2"]["launches_f64"], None)):

@@ -11,7 +11,8 @@ nor the JAX package.
 The port covers P2/P1 on triangles (2D) and tetrahedra (3D) on the BSR
 operator in both time schemes (monolithic FGMRES with its five block
 preconditioners, and projection), with the block-Jacobi or the diagonal F
-preconditioner, and the scenario registry with its CLI
+preconditioner, row sharding of that operator over several devices in
+one process (``parallel/``), and the scenario registry with its CLI
 (``python -m navierstokes_tpu_torch list|run``); see
 ``models/navier_stokes.py`` ``check_config`` for what raises
 ``NotImplementedError``.

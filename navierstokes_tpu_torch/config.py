@@ -249,4 +249,6 @@ class SolverConfig:
     csv_path: str = "forces_vs_time.csv"
 
     # Distribution
-    n_devices: int = 0  # 0 or 1: one device (more is not ported)
+    # 0 or 1: one device; N > 1: the bsr operator split by rows over N
+    # devices, the vectors on the model's device (parallel/)
+    n_devices: int = 0

@@ -135,10 +135,13 @@ def sell_spmv(mat: SellMatrix, vals, x):
                     device=dev)
     n_slices = mat.slice_ptr.shape[0] - 1
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(lib, entry)(
-        vals.data_ptr(), mat.cols.data_ptr(), mat.slice_ptr.data_ptr(),
-        mat.rows.data_ptr(), x.data_ptr(), y.data_ptr(), n_slices, D,
-        stream)
+    # the C entry launches on the current device: make it the tensors'
+    # (a row shard on another card, parallel/sharded_bsr.py)
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(
+            vals.data_ptr(), mat.cols.data_ptr(), mat.slice_ptr.data_ptr(),
+            mat.rows.data_ptr(), x.data_ptr(), y.data_ptr(), n_slices, D,
+            stream)
     if rc != 0:
         msg = (lib.nst_cuda_error_string(rc).decode() if rc > 0 else
                f"no instantiation for D={D} in csrc/sell_spmv.cu")

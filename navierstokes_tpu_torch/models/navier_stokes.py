@@ -42,7 +42,10 @@ restart, ``output``, ``export_data`` / ``import_data``,
 ``compute_forces``, ``post_process``, ``measured_cfl`` and ``.cd`` /
 ``.cl``.
 
-Options outside this port raise ``NotImplementedError`` naming the
+``SolverConfig.n_devices`` > 1 splits the bsr operator by rows over
+several devices in one process (``parallel/``, ``shard_devices``), the
+vectors staying on ``device``; the run equals the one-device run bit for
+bit.  Options outside this port raise ``NotImplementedError`` naming the
 option (``check_config``).  Tensors live on the explicit ``device``; the
 compute dtype is ``SolverConfig.dtype``.  One step is plain tensor code
 plus, on ``bsr``, the SELL SpMV kernel on compact operator values
@@ -77,8 +80,7 @@ from navierstokes_tpu_torch.ops.assembly import (build_cell_arrays,
                                                  forcing_integral,
                                                  geometric_factors)
 from navierstokes_tpu_torch.ops.boundary import build_dirichlet
-from navierstokes_tpu_torch.ops.bsr import (BsrOps, apply_pp, build_bsr,
-                                            pressure_convection_blk)
+from navierstokes_tpu_torch.ops.bsr import BsrOps, build_bsr
 from navierstokes_tpu_torch.ops.forces import (drag_lift, force_coefficients,
                                                neumann_rhs)
 from navierstokes_tpu_torch.ops.operators import CellOps, segment_plan
@@ -93,8 +95,10 @@ from navierstokes_tpu_torch.solvers.krylov import bicgstab, cg, fgmres
 from navierstokes_tpu_torch.solvers.preconditioners import (
     InnerSolve, make_asimple, make_ayosida, make_cahouet_chabard,
     make_identity, make_pcd)
-from navierstokes_tpu_torch.solvers.refine import (float64_tables,
-                                                   refine_saddle, rhs_f64)
+from navierstokes_tpu_torch.parallel import sharded_bsr
+from navierstokes_tpu_torch.parallel.sharding import (cell_partitioning,
+                                                      shard_devices)
+from navierstokes_tpu_torch.solvers.refine import refine_saddle, rhs_f64
 from navierstokes_tpu_torch.solvers.schur import (build_coarse_plan,
                                                   coarse_inverse,
                                                   coarse_matrix,
@@ -145,7 +149,6 @@ def check_config(cfg: SolverConfig):
         ("bj_tiles", cfg.bj_tiles not in ("auto", "blocked")),
         ("mass_format", cfg.mass_format not in ("auto", "blocked")),
         ("proj_p_extrap", cfg.proj_p_extrap != 0.0),
-        ("n_devices", cfg.n_devices > 1),
     ]
     for name, bad in unsupported:
         if bad:
@@ -167,14 +170,18 @@ class NavierStokes:
     degree_pressure, deltat, T, step); ``device`` ("cpu", "cuda", ...) is
     required.  ``forcing``: the ForcingTerm hook
     (src/NavierStokes.hpp:56-65), a torch ``f(x (m, dim), t 0-d) ->
-    (m, dim)``, or None (the reference's zero forcing)."""
+    (m, dim)``, or None (the reference's zero forcing).
+    ``shard_devices``: the devices of the ``SolverConfig.n_devices`` row
+    shards (parallel/sharding.shard_devices; default ``cuda:0 ..`` on a
+    CUDA ``device``, the CPU on a CPU one); ``device`` is the home of the
+    vectors."""
 
     def __init__(self, mesh, degree_velocity: int = 2,
                  degree_pressure: int = 1, deltat: float = 0.01,
                  T: float = 1.0, step: int = 10,
                  inlet: InletConfig | None = None,
                  config: SolverConfig | None = None, *, device,
-                 forcing=None):
+                 forcing=None, shard_devices=None):
         self.config = config or SolverConfig()
         self.config.deltat = deltat
         self.config.t_final = T
@@ -183,6 +190,7 @@ class NavierStokes:
         check_config(self.config)
         self.forcing = forcing
         self.device = _resolve_device(device)
+        self._shard_devices = shard_devices
         self.degree_velocity = degree_velocity
         self.degree_pressure = degree_pressure
         self._mesh_source = mesh
@@ -242,8 +250,15 @@ class NavierStokes:
                   "the generic 'cells' operator")
             cfg.operator = "cells"
         self._operator = cfg.operator
+        self._sharded = cfg.operator == "bsr" and cfg.n_devices > 1
         if self._operator == "cells" and cfg.scheme == "projection":
             raise ValueError("scheme='projection' requires operator='bsr'")
+        if self._operator == "cells" and cfg.n_devices > 1:
+            raise NotImplementedError(
+                f"SolverConfig.n_devices={cfg.n_devices} on the cells "
+                "operator is not ported to navierstokes_tpu_torch: the port "
+                "shards the bsr operator by rows (parallel/), not the JAX "
+                "package's shard_map cells path (parallel/sharded_ops.py)")
 
         cells_host = cell_arrays_numpy(sp)
         self._cells_host = cells_host
@@ -337,12 +352,25 @@ class NavierStokes:
 
     def _build_bsr(self, cells_host):
         """The compact operators, the Schur coarse plan, refinement's
-        float64 tables and the pressure-side statics (``operator="bsr"``)."""
+        float64 tables and the pressure-side statics (``operator="bsr"``).
+        With ``n_devices`` > 1 the operators are built on the CPU and split
+        by rows over the shard devices (parallel/sharded_bsr.py); the rest
+        stays on the home device."""
         cfg, sp, dev = self.config, self.space, self.device
         blk = cfg.bsr_block or None
-        self.ell = build_bsr(sp, cells_host, self.dtype, dev, bu=blk, bp=blk)
+        if self._sharded:
+            full = build_bsr(sp, cells_host, self.dtype, "cpu", bu=blk,
+                             bp=blk)
+            self.ell = sharded_bsr.ShardedBsr(
+                full, sp.cell_p1, dev,
+                shard_devices(dev, cfg.n_devices, self._shard_devices),
+                self._bj_tile_blocks(full.bu) * full.bu)
+            self._ops = sharded_bsr.ShardedBsrOps()
+        else:
+            self.ell = build_bsr(sp, cells_host, self.dtype, dev, bu=blk,
+                                 bp=blk)
+            self._ops = BsrOps()
         self._op = self.ell
-        self._ops = BsrOps()
         self._agg_blocks = cfg.schur_agg_blocks or max(1, 64 // self.ell.bp)
         schur_coarse = (cfg.scheme == "monolithic"
                         and cfg.preconditioner in ("asimple", "ayosida"))
@@ -358,8 +386,20 @@ class NavierStokes:
         refines = (cfg.scheme == "monolithic" and cfg.refine > 0
                    and self.dtype == torch.float32
                    and (self.dim == 2 or cfg.mass_format == "blocked"))
-        self._ell64 = float64_tables(self.ell) if refines else None
+        self._ell64 = self._ops.float64_tables(self.ell) if refines else None
         self._build_cc_statics()
+
+    def _bj_tile_blocks(self, bu: int) -> int:
+        """S, the node blocks per block-Jacobi tile."""
+        return self.config.bj_tile_blocks or max(1, 256 // bu)
+
+    def _devices(self):
+        """The home device and every shard device."""
+        devs = [self.device]
+        if self._sharded:
+            devs += [s.device for s in self.ell.shards
+                     if s.device not in devs]
+        return devs
 
     def _coarse_statics(self, op):
         """(dense coarse inverse, lambda_max) of an assembled P1 operator
@@ -393,10 +433,13 @@ class NavierStokes:
                                    mask_flat / self._lumped_host, dt_, dev,
                                    b=self.ell.bp)
             self._ap_sc_inv, self._ap_lam = self._coarse_statics(self._ap)
-        self._bj_plan = (build_block_jacobi_plan(
-            self.ell.f, self.ell.bu, sp.n_p2,
-            S=cfg.bj_tile_blocks or max(1, 256 // self.ell.bu), device=dev)
-            if cfg.f_precond == "bj" else None)
+        S = self._bj_tile_blocks(self.ell.bu)
+        self._bj_plan = None
+        if cfg.f_precond == "bj" and self._sharded:
+            self._bj_plan = sharded_bsr.block_jacobi_plan(self.ell, S)
+        elif cfg.f_precond == "bj":
+            self._bj_plan = build_block_jacobi_plan(
+                self.ell.f, self.ell.bu, sp.n_p2, S=S, device=dev)
         out_sel = self.mesh.boundary_tags == TAG_OUTLET
         out_nodes = (np.unique(self.mesh.boundary_faces[out_sel])
                      if np.any(out_sel) else None)
@@ -435,7 +478,9 @@ class NavierStokes:
                             + self.nu * self.cells.stiff)
         else:
             h = self.ell.host
-            self.a0_cell = self.ell.f.values(
+            values = (self.ell.f_values if self._sharded
+                      else self.ell.f.values)
+            self.a0_cell = values(
                 (ct / cfg.deltat) * h.m_nz + self.nu * h.k_nz, self.dtype)
         self.dt_mlump_inv = torch.as_tensor(
             (cfg.deltat / self._lumped_host)[:, None], dtype=self.dtype,
@@ -454,8 +499,9 @@ class NavierStokes:
             d = self._ops.f_diag(self.ell, self.a0_cell)
             sigma0 = (torch.sum(d * mflat)
                       / torch.clamp(torch.sum(mflat), min=1.0))
-            self._bj_x0 = block_jacobi_inverse(self._bj_plan, self.a0_cell,
-                                               mflat, sigma0)
+            inverse = (sharded_bsr.block_jacobi_inverse if self._sharded
+                       else block_jacobi_inverse)
+            self._bj_x0 = inverse(self._bj_plan, self.a0_cell, mflat, sigma0)
         return self._bj_x0
 
     def _time_factor(self, t):
@@ -486,19 +532,22 @@ class NavierStokes:
             return (lambda r: r * dinv), 0.0
         cfg = self.config
         cuda = self.device.type == "cuda"
+        invert, apply = ((sharded_bsr.block_jacobi_invert,
+                          sharded_bsr.block_jacobi_apply) if self._sharded
+                         else (block_jacobi_invert, block_jacobi_apply))
         if cuda:
-            torch.cuda.synchronize(self.device)
+            for d in self._devices():
+                torch.cuda.synchronize(d)
         t0 = _walltime.perf_counter()
-        inv_tiles = block_jacobi_invert(self._bj_plan, f_cell, mflat, sigma,
-                                        x0=self._bj_seed(),
-                                        iters=cfg.bj_newton)
+        inv_tiles = invert(self._bj_plan, f_cell, mflat, sigma,
+                           x0=self._bj_seed(), iters=cfg.bj_newton)
         if self.dtype == torch.float32 and (cfg.inner_bf16 or cfg.bj_bf16):
             inv_tiles = inv_tiles.to(torch.bfloat16)
         if cuda:
-            torch.cuda.synchronize(self.device)
+            for d in self._devices():
+                torch.cuda.synchronize(d)
         seconds = _walltime.perf_counter() - t0
-        return (lambda r: block_jacobi_apply(self._bj_plan, inv_tiles, r),
-                seconds)
+        return (lambda r: apply(self._bj_plan, inv_tiles, r)), seconds
 
     def _forcing_term(self, t_new):
         """The forcing integral at ``t_new``; None without forcing."""
@@ -736,9 +785,9 @@ class NavierStokes:
                                           self._coarse_plan, self._ap_sc_inv,
                                           lam_max=self._ap_lam, **vcycles)
             if pc == "pcd":
-                np_flat = pressure_convection_blk(self.ell, u)
+                np_flat = ops.pressure_convection(self.ell, u)
                 M = make_pcd(apply_F, apply_Bt, solve_ap, apply_ap,
-                             lambda v: apply_pp(self.ell, np_flat, v),
+                             lambda v: ops.apply_pp(self.ell, np_flat, v),
                              self._mp_lumped, dinv, dt, self._nu_t, inner_f)
             else:
                 M = make_cahouet_chabard(apply_F, apply_Bt, solve_ap,
@@ -769,7 +818,7 @@ class NavierStokes:
         (u_new, p_new), true_res = res.x, res.residual
         if self._ell64 is not None:
             f64, m64, s64 = f_cell.double(), mask.double(), sigma.double()
-            b64 = rhs_f64(self._ell64, f64, m64, s64, u, g, dt,
+            b64 = rhs_f64(ops, self._ell64, f64, m64, s64, u, g, dt,
                           self.rhs_neumann, f_extra)
 
             def correction(r):
@@ -778,8 +827,8 @@ class NavierStokes:
                               maxiter=cfg.refine_maxiter, precond=M).x
 
             (u_new, p_new), true_res = refine_saddle(
-                self._ell64, f64, m64, s64, b64, (u_new, p_new), correction,
-                cfg.refine)
+                ops, self._ell64, f64, m64, s64, b64, (u_new, p_new),
+                correction, cfg.refine)
         u_new = u_new * mask + g       # exact boundary values
 
         drag, lift, cd, cl = self._forces(u_new, p_new, factor)
@@ -817,7 +866,8 @@ class NavierStokes:
         self.time = float(time)
         self._t = torch.tensor(self.time, dtype=self.dtype,
                                device=self.device)
-        return self.a0_cell + self._ops.convection(self._op, self._u)
+        f_vals = self.a0_cell + self._ops.convection(self._op, self._u)
+        return self.ell.unshard(f_vals) if self._sharded else f_vals
 
     def solve_time_step(self) -> StepMetrics:
         """Advance exactly one step (cpp:344-397); usable straight after
@@ -909,7 +959,8 @@ class NavierStokes:
         write_vtu_pvtu(self.config.output_dir, "output-stokes", time_step,
                        sp.p2_coords, np.asarray(sp.cell_p2),
                        self._u.cpu().numpy(), p_p2,
-                       np.zeros(self.mesh.n_cells))
+                       cell_partitioning(self.mesh.n_cells,
+                                         self.config.n_devices))
 
     def export_data(self, time_step: int):
         export_state(self.config.cache_dir, time_step, self._u.cpu().numpy(),

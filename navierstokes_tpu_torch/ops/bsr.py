@@ -233,14 +233,20 @@ def schur_diag(bsr: BsrData, node_weights):
     return sell_spmv(bsr.b, bsr.b_vals * bsr.b_vals, wu.contiguous())
 
 
+def pressure_convection_elements(cells, u):
+    """(nc, n_p, n_p) element matrices of the pressure-space convection;
+    ``cells`` carries cell_p2, jinv, detj and tp_hat."""
+    u_c = u[cells.cell_p2]                                # (nc, n_v, dim)
+    w = torch.einsum("cxd,ced->cxe", cells.jinv, u_c) \
+        * cells.detj[:, None, None]
+    return torch.einsum("ijxe,cxe->cij", cells.tp_hat, w)
+
+
 def pressure_convection_blk(bsr: BsrData, u):
     """Per-step pressure-space convection N_p(u), np_ij = int psi_i (u .
     grad psi_j), the moving part of the PCD preconditioner's Fp, reduced
     into the compact P1-P1 slots that ``apply_pp`` reads."""
-    u_c = u[bsr.cell_p2]                                  # (nc, n_v, dim)
-    w = torch.einsum("cxd,ced->cxe", bsr.jinv, u_c) * bsr.detj[:, None, None]
-    np_elem = torch.einsum("ijxe,cxe->cij", bsr.tp_hat, w)
-    return bsr.pp_plan(np_elem.reshape(-1))
+    return bsr.pp_plan(pressure_convection_elements(bsr, u).reshape(-1))
 
 
 def apply_pp(bsr: BsrData, pp_vals, xp):
@@ -249,22 +255,50 @@ def apply_pp(bsr: BsrData, pp_vals, xp):
     return sell_spmv(bsr.pp, pp_vals, xp.contiguous())
 
 
+def float64_tables(bsr: BsrData) -> BsrData:
+    """``bsr`` with exact float64 copies of the static values refinement's
+    residual reads (the mass, G and B; solvers/refine.py)."""
+    return dataclasses.replace(bsr, m_vals=bsr.m_vals.double(),
+                               g_vals=bsr.g_vals.double(),
+                               b_vals=bsr.b_vals.double())
+
+
 class BsrOps:
-    """Operator interface of the model over BsrData (one F SpMV)."""
+    """Operator interface of the model over BsrData (one F SpMV).  The
+    row-sharded ``parallel/sharded_bsr.ShardedBsrOps`` has the same
+    methods."""
 
     def convection(self, bsr: BsrData, u):
         return convection_blk(bsr, u)
 
+    def apply_f(self, bsr: BsrData, f_vals, xu):
+        return apply_f(bsr, f_vals, xu)
+
+    def apply_bt(self, bsr: BsrData, p):
+        return apply_bt(bsr, p)
+
+    def apply_b(self, bsr: BsrData, xu):
+        return apply_b(bsr, xu)
+
+    def pressure_convection(self, bsr: BsrData, u):
+        return pressure_convection_blk(bsr, u)
+
+    def apply_pp(self, bsr: BsrData, pp_vals, xp):
+        return apply_pp(bsr, pp_vals, xp)
+
+    def float64_tables(self, bsr: BsrData) -> BsrData:
+        return float64_tables(bsr)
+
     def apply_blocks(self, bsr: BsrData, f_vals, xu, xp, with_f=True,
                      with_g=True, with_gt=True):
         """(F xu + G xp, B xu), each term optional."""
-        yu = apply_f(bsr, f_vals, xu) if with_f else None
+        yu = self.apply_f(bsr, f_vals, xu) if with_f else None
         if with_g:
-            g = apply_bt(bsr, xp)
+            g = self.apply_bt(bsr, xp)
             yu = g if yu is None else yu + g
         if yu is None:
             yu = torch.zeros_like(xu)
-        yp = apply_b(bsr, xu) if with_gt else torch.zeros_like(xp)
+        yp = self.apply_b(bsr, xu) if with_gt else torch.zeros_like(xp)
         return yu, yp
 
     def f_diag(self, bsr: BsrData, f_vals):

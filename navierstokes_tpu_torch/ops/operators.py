@@ -69,13 +69,22 @@ class SegmentPlan:
         return out
 
 
-def segment_plan(ids, num_segments: int, device) -> SegmentPlan:
+def segment_plan(ids, num_segments: int, device, passes=None,
+                 pos=None) -> SegmentPlan:
+    """The plan summing entry i into segment ``ids[i]``.  ``passes``
+    forces the method (True: gather-add passes, False: segment_reduce;
+    None: passes where no target has more than MAX_PASSES entries).
+    ``pos`` places entry i at ``pos[i]`` of the flat values (default: i),
+    for a plan over a subset of another plan's entries."""
     flat = np.asarray(ids, np.int64).reshape(-1)
     order = np.argsort(flat, kind="stable")
     lengths = np.bincount(flat, minlength=num_segments)
     t = lambda a: torch.as_tensor(a, device=device)
-    if lengths.max(initial=0) > MAX_PASSES:
-        return SegmentPlan(num_segments=int(num_segments), order=t(order),
+    pos = np.arange(len(flat)) if pos is None else np.asarray(pos, np.int64)
+    if passes is None:
+        passes = lengths.max(initial=0) <= MAX_PASSES
+    if not passes:
+        return SegmentPlan(num_segments=int(num_segments), order=t(pos[order]),
                            lengths=t(lengths))
     start = np.zeros(num_segments + 1, np.int64)
     np.cumsum(lengths, out=start[1:])
@@ -85,8 +94,9 @@ def segment_plan(ids, num_segments: int, device) -> SegmentPlan:
     by_rank = np.argsort(rank, kind="stable")
     groups = (np.split(by_rank, np.cumsum(np.bincount(rank))[:-1])
               if len(rank) else [])
-    passes = tuple((t(order[g]), t(seg[g])) for g in groups)
-    return SegmentPlan(num_segments=int(num_segments), passes=passes)
+    return SegmentPlan(num_segments=int(num_segments),
+                       passes=tuple((t(pos[order[g]]), t(seg[g]))
+                                    for g in groups))
 
 
 def convection_matrices(cells, t_hat: torch.Tensor,

@@ -153,15 +153,17 @@ class BlockJacobiPlan:
 
 
 def build_block_jacobi_plan(f: SellMatrix, bu: int, n_p2: int, S: int,
-                            device) -> BlockJacobiPlan:
+                            device, col0: int = 0) -> BlockJacobiPlan:
     """Tile plan of the F pattern ``f`` (ops/bsr.BsrData.f): S node blocks
-    of ``bu`` nodes per tile."""
+    of ``bu`` nodes per tile.  A row shard of F (parallel/sharded_bsr.py)
+    passes its ``n_p2`` rows and the node ``col0`` of its first row, a
+    multiple of S * bu."""
     SB = S * bu
     n_tiles = -(-n_p2 // SB)
     if n_tiles * SB * SB >= 2 ** 31:
         raise ValueError(f"block-Jacobi tiles of {n_tiles * SB * SB} "
                          "values exceed int32 range")
-    r, c = f.nz_row, f.nz_col
+    r, c = f.nz_row, f.nz_col - col0
     on = (r // SB) == (c // SB)
     pos = (r[on] // SB) * (SB * SB) + (r[on] % SB) * SB + c[on] % SB
     return BlockJacobiPlan(pos=torch.as_tensor(pos, device=device),
@@ -221,23 +223,41 @@ def block_jacobi_invert(plan: BlockJacobiPlan, f_vals, mask_flat, sigma,
     inverse when the seed is outside the contraction region
     (max row-sum norm of I - A X0 >= 0.9).  A deterministic function of
     the step state, so restarts reproduce the continuous run."""
-    a = block_jacobi_tiles(plan, f_vals, mask_flat, sigma)
-    out_dtype = f_vals.dtype
-    if x0 is None or iters <= 0:
+    return block_jacobi_invert_parts([(plan, f_vals, mask_flat, sigma, x0)],
+                                     iters)[0]
+
+
+def block_jacobi_invert_parts(parts, iters: int = 3):
+    """``block_jacobi_invert`` of the tile stacks of several row shards,
+    ``parts`` = [(plan, f_vals, mask_flat, sigma, x0), ...] each on its own
+    device.  The exact-inverse guard takes the largest norm over all
+    tiles of all parts, on the first part's device, so every shard makes
+    the one decision a single stack would."""
+    tiles = [block_jacobi_tiles(plan, f, m, s) for plan, f, m, s, _ in parts]
+    out_dtype = parts[0][1].dtype
+    x0s = [p[4] for p in parts]
+    exact = x0s[0] is None or iters <= 0
+    if not exact:
+        xs = [x0.to(torch.float32) for x0 in x0s]
+        axs = [torch.matmul(a, x) for a, x in zip(tiles, xs)]
+        home = axs[0].device
+        norms = []
+        for ax in axs:
+            eye = torch.eye(ax.shape[-1], dtype=torch.float32,
+                            device=ax.device)
+            norms.append((eye[None] - ax).abs().sum(-1).max().to(home))
+        exact = not bool(torch.stack(norms).max() < 0.9)
+    if exact:
         BJ_INVERSIONS["exact"] += 1
-        return _inv(a).to(out_dtype)
-    x = x0.to(torch.float32)
-    ax = torch.matmul(a, x)
-    eye = torch.eye(a.shape[-1], dtype=torch.float32, device=a.device)
-    r = (eye[None] - ax).abs().sum(-1).max()
-    if not bool(r < 0.9):
-        BJ_INVERSIONS["exact"] += 1
-        return _inv(a).to(out_dtype)
-    for i in range(iters):
-        x = 2.0 * x - torch.matmul(x, ax)
-        if i + 1 < iters:
-            ax = torch.matmul(a, x)
-    return x.to(out_dtype)
+        return [_inv(a).to(out_dtype) for a in tiles]
+    out = []
+    for a, x, ax in zip(tiles, xs, axs):
+        for i in range(iters):
+            x = 2.0 * x - torch.matmul(x, ax)
+            if i + 1 < iters:
+                ax = torch.matmul(a, x)
+        out.append(x.to(out_dtype))
+    return out
 
 
 def block_jacobi_apply(plan: BlockJacobiPlan, inv_tiles, r):

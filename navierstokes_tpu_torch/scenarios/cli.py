@@ -44,7 +44,9 @@ def _add_common(p):
                    help="monolithic = reference-parity coupled solve; "
                         "projection = pressure-correction (fast)")
     p.add_argument("--n-devices", type=int, default=SolverConfig.n_devices,
-                   help="0 or 1: one device (more is not ported)")
+                   help="row shards of the bsr operator (0 or 1: one "
+                        "device); N > 1 puts them on cuda:0 .. cuda:N-1, "
+                        "or all on the CPU with --device cpu")
     p.add_argument("--refine", type=int, default=SolverConfig.refine,
                    help="float64-residual refinement passes per monolithic "
                         "fp32 solve (solvers/refine.py)")

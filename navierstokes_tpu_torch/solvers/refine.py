@@ -7,54 +7,45 @@ of the BC-masked block system is evaluated in float64, and each correction
 is an ordinary fp32 FGMRES solve with the step's preconditioner.  The JAX
 package evaluates the residual in double-float (two fp32s, its TPU has no
 fast float64); the port uses native float64 through the fp64 SpMV variant,
-on exact float64 copies of the fp32 operator values (``float64_tables``),
-so the system refined is exactly the fp32 system being solved.
+on exact float64 copies of the fp32 operator values
+(``ops/bsr.float64_tables``), so the system refined is exactly the fp32
+system being solved.
 """
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
-from navierstokes_tpu_torch.ops.bsr import (BsrData, apply_b, apply_bt,
-                                            apply_f)
 
-
-def float64_tables(bsr: BsrData) -> BsrData:
-    """``bsr`` with exact float64 copies of the static values the residual
-    reads (the mass, G and B); made once, when refinement is on."""
-    return dataclasses.replace(bsr, m_vals=bsr.m_vals.double(),
-                               g_vals=bsr.g_vals.double(),
-                               b_vals=bsr.b_vals.double())
-
-
-def apply_saddle_f64(bsr64: BsrData, f64, mask, sigma, xu, xp):
+def apply_saddle_f64(ops, bsr64, f64, mask, sigma, xu, xp):
     """The BC-masked monolithic operator (the step's apply_A) in float64:
-    yu = (F xu_m + G xp) * mask + sigma (xu - xu_m);  yp = B xu_m."""
+    yu = (F xu_m + G xp) * mask + sigma (xu - xu_m);  yp = B xu_m.
+    ``ops`` is the model's operator interface (ops/bsr.BsrOps or the
+    row-sharded parallel/sharded_bsr.ShardedBsrOps), ``bsr64`` its tables
+    with float64 static values (``ops.float64_tables``)."""
     xum = xu * mask
-    yu = (apply_f(bsr64, f64, xum) + apply_bt(bsr64, xp)) * mask \
+    yu = (ops.apply_f(bsr64, f64, xum) + ops.apply_bt(bsr64, xp)) * mask \
         + sigma * (xu - xum)
-    return yu, apply_b(bsr64, xum)
+    return yu, ops.apply_b(bsr64, xum)
 
 
-def rhs_f64(bsr64: BsrData, f64, mask, sigma, u, g, dt: float,
-            neumann=None, extra=None):
+def rhs_f64(ops, bsr64, f64, mask, sigma, u, g, dt: float, neumann=None,
+            extra=None):
     """The step RHS in float64: b_u = (M u / dt [+ neumann] [+ extra] -
     F g) * mask + sigma g, b_p = -(B g), with the fp32 system's dt;
     ``neumann`` (the p_out term) and ``extra`` (the forcing integral) are
     the fp32 step's vectors."""
     u, g = u.double(), g.double()
-    b_u = apply_f(bsr64, bsr64.m_vals, u) / float(np.float32(dt))
+    b_u = ops.mass_apply(bsr64, u) / float(np.float32(dt))
     for term in (neumann, extra):
         if term is not None:
             b_u = b_u + term.double()
-    b_u = (b_u - apply_f(bsr64, f64, g)) * mask + sigma * g
-    return b_u, -apply_b(bsr64, g)
+    b_u = (b_u - ops.apply_f(bsr64, f64, g)) * mask + sigma * g
+    return b_u, -ops.apply_b(bsr64, g)
 
 
-def refine_saddle(bsr64: BsrData, f64, mask, sigma, b64, x, solve_fn,
+def refine_saddle(ops, bsr64, f64, mask, sigma, b64, x, solve_fn,
                   n_passes: int):
     """``n_passes`` of refinement from the fp32 solution ``x`` = (u, p).
     ``f64``, ``mask`` and ``sigma`` are float64 casts of the fp32 step's
@@ -66,7 +57,7 @@ def refine_saddle(bsr64: BsrData, f64, mask, sigma, b64, x, solve_fn,
     xu, xp = x[0].double(), x[1].double()
 
     def residual():
-        au, ap = apply_saddle_f64(bsr64, f64, mask, sigma, xu, xp)
+        au, ap = apply_saddle_f64(ops, bsr64, f64, mask, sigma, xu, xp)
         return (b_u - au).to(dtype), (b_p - ap).to(dtype)
 
     for _ in range(n_passes):

@@ -393,6 +393,41 @@ def _channel_model(device, tmp_path, **cfg_fields):
     return ns.setup()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("fields", [
+    dict(scheme="projection"), dict(scheme="monolithic"),
+    dict(scheme="monolithic", preconditioner="asimple"),
+    dict(scheme="monolithic", refine=2, inner_bf16=True)])
+def test_row_shards_on_one_card_equal_one_device(cuda, tmp_path, fields, n):
+    """``n_devices`` row shards, all on cuda:0, step bit for bit like the
+    unsharded model on the card (fp32, the curved cylinder), and launch
+    the kernel per shard."""
+    from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
+    runs = []
+    for k, devs in ((1, None), (n, ["cuda:0"] * n)):
+        cfg = SolverConfig(dtype="float32", n_devices=k,
+                           output_dir=str(tmp_path / f"out{k}"),
+                           cache_dir=str(tmp_path / f"cache{k}"),
+                           csv_path=str(tmp_path / f"forces{k}.csv"),
+                           **fields)
+        ns = NavierStokes(channel_with_cylinder_2d(h=0.12), 2, 1,
+                          deltat=0.01, T=0.03, step=3, device="cuda",
+                          config=cfg, shard_devices=devs,
+                          inlet=InletConfig(kind="parabolic", u_m=0.3,
+                                            height=0.41))
+        ns.set_re_number(20)
+        ns.setup()
+        K.COUNTS.reset()
+        ms = [ns.solve_time_step() for _ in range(3)]
+        assert K.COUNTS.launches > 0 and K.COUNTS.plain_cuda_calls == 0
+        runs.append((ns, [(m.iterations, m.cd, m.cl) for m in ms]))
+    (one, m1), (sh, mn) = runs
+    # the h=0.12 channel has 4 tiles: no shard takes a single one
+    assert len(sh.ell.shards) == 2 and mn == m1
+    assert torch.equal(sh._u, one._u) and torch.equal(sh._p, one._p)
+
+
 def _torch_forcing(x, t):
     return torch.stack([torch.ones_like(x[:, 0]), 0.5 * x[:, 0]], dim=1)
 

@@ -155,7 +155,7 @@ def test_jax_checkpoint_restarts_port(mesh, tmp_path):
 @pytest.mark.parametrize("option,value", [
     ("f_solver", "richardson"), ("operator", "ell"),
     ("proj_poisson", "schur"), ("bj_tiles", "scatter"), ("bj_tiles", "rows"),
-    ("mass_format", "node"), ("proj_p_extrap", 1.0), ("n_devices", 4)])
+    ("mass_format", "node"), ("proj_p_extrap", 1.0)])
 def test_unported_options_raise(mesh, tmp_path, option, value):
     # Richardson inner F solves are a monolithic-scheme option
     scheme = "monolithic" if option == "f_solver" else "projection"
