@@ -24,8 +24,9 @@ and checks them:
    the card against the same steps on the CPU, both fp32, with a second
    CPU fp32 run in another thread count as the measure of fp32 noise;
 5. 20 bench-point projection steps (10 warm-up + 10 timed) through
-   ``NavierStokes.solve_time_step``, with the kernel's launch count per
-   operator;
+   ``NavierStokes.solve_time_step``, replayed from the step's captured
+   CUDA graphs (models/step_graphs.py, captured first), with the kernel's
+   launch count per operator (from the graphs' replay records);
 6. the bf16-values and fp64 kernel variants against their plain versions
    in every use, timed as in phase 3;
 7. the small fixture under ``scheme="monolithic"``: 5 steps on the card
@@ -41,7 +42,8 @@ and checks them:
 10. 3D-1Z at full width (``scenarios.validate.build_case("3d1")`` on
    ``duct_with_box_obstacle_3d(h=0.023, h_near=0.007)``, the run of
    ``validate 3d1 --projection --f-precond diag``, nu=1e-3): 3
-   warm-up and 5 timed steps; setup seconds, steps/s, peak memory, the
+   warm-up and 5 timed steps, captured like phase 5's; setup seconds,
+   capture seconds, steps/s, peak memory, the
    per-step iteration totals and Cd beside the TPU log's
    (``logs/st_3d1_34M_diagp1.log``, for information only);
 11. the SpMV kernel in every 3D use on the 3D-1Z operators (F and the mass
@@ -102,10 +104,26 @@ and checks them:
    (u, p, Cd, Cl, iteration counts) with their ms per step beside phase
    5's; the sharded F (the step's values at phase 5's state), mass, G
    and B products, the convection slot values and the block-Jacobi tiles
-   (exact inverse, Newton-Schulz) bit for bit against the unsharded ones;
+   (the seed's exact inverse, Newton-Schulz, the per-step exact inverse) bit
+   for bit against the unsharded ones;
    each shard's operator bytes against the one-device operators' and the
    home device's memory; then the phase 4 small fixture in monolithic
-   ``cc`` on three shards against one, bit for bit.
+   ``cc`` on three shards against one, bit for bit (the sharded steps are
+   eager, phase 5's captured);
+21. (right after phase 5) the device-resident loops: from phase 5's end
+   state, 10 bench-point steps eager (``solve_time_step(_eager=True)``)
+   and 10 captured, in the order eager, captured, captured, eager, every
+   run equal bit for bit (u, p, Cd, Cl, BiCGStab + CG counts) and with the
+   same SELL launches per step, the first captured run with
+   ``set_sync_debug_mode("error")`` around each replay; steps/s of each
+   run, flag reads and masked iterations per step, capture seconds, peak
+   memory; the exact tile inverse at the bench point's 1,760 tiles
+   (``inv_ex`` gives ``inv``'s bits; the capturable cuSOLVER LU against
+   it); one chunked ``solve`` of 16 steps from the initial state (chunks
+   of 8) whose csv equals phase 5's first 16 steps; the Givens kernel
+   (csrc/arnoldi_lsq.cu) against its plain version at every call of
+   5 FGMRES steps of the monolithic small fixture, bit for bit, and
+   its time.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
@@ -540,6 +558,12 @@ def phase_bench(ns, card):
     n_warm, n_meas = 10, 10
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    sg = ns.capture_graphs()
+    capture_peak = torch.cuda.max_memory_allocated()
+    log(f"[5] captured the projection step: {len(sg.graphs)} graphs in "
+        f"{sg.capture_seconds:.2f} s (with a warm-up step), peak "
+        f"{capture_peak} bytes")
+    torch.cuda.reset_peak_memory_stats()
     COUNTS.reset()
     ms_all, first = [], dict(ms=[])
     for k in range(n_warm):
@@ -589,8 +613,236 @@ def phase_bench(ns, card):
     check(launches > 0, "kernel launched on the main path")
     check(plain_cuda == 0, "no plain-version calls on CUDA tensors")
     log(f"[5] all {len(ms_all)} solves converged (rel tol {tol:g})")
+    end = {a: getattr(ns, a).clone() for a in ("_u", "_p", "_u_prev",
+                                               "_phi", "_t")}
+    end["time"] = ns.time
     return dict(launches=launches, steps_per_s=sps, peak_bytes=peak,
-                per_step=per_step, first=first)
+                per_step=per_step, first=first, metrics=ms_all, end=end,
+                capture_s=sg.capture_seconds)
+
+
+# phase 21: steps of each mode from phase 5's end state, and the chunked
+# solve's length and chunk
+GRAPH_STEPS = 10
+CHUNK_STEPS, CHUNK_EVERY = 16, 8
+GIVENS_SOURCE = "navierstokes_tpu_torch/csrc/arnoldi_lsq.cu"
+# the JAX algebra the Givens kernel runs (no Pallas kernel): the stored
+# rotations, fori_loop(rot_body), and the new rotation
+GIVENS_REPLACES = "navierstokes_tpu/solvers/krylov.py:116"
+FP32_OPS_PER_S = 67e12        # published H100 SXM fp32 rate, no tensor core
+
+
+def _load_state(ns, state):
+    for attr in ("_u", "_p", "_u_prev", "_phi", "_t"):
+        setattr(ns, attr, state[attr].clone())
+    ns.time = state["time"]
+
+
+def phase_graphs(ns, bench, card):
+    """Phase 21: eager against captured at the bench point, the exact
+    tile inverse, the chunked solve, the Givens kernel.  Leaves ``ns`` in
+    phase 5's end state."""
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    from navierstokes_tpu_torch.ops import p1ell
+    t_phase = time.perf_counter()
+    sg = ns.capture_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for mode in ("eager", "captured", "captured", "eager"):
+        _load_state(ns, bench["end"])
+        sg.sync_check = mode == "captured" and not any(
+            r["mode"] == "captured" for r in runs)
+        COUNTS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = [ns.solve_time_step(_eager=mode == "eager")
+              for _ in range(GRAPH_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append(dict(
+            mode=mode, sync_check=sg.sync_check, steps_per_s=GRAPH_STEPS / wall,
+            metrics=ms, u=ns._u.clone(), p=ns._p.clone(),
+            launches=per_step_launches(GRAPH_STEPS),
+            plain_cuda=COUNTS.plain_cuda_calls,
+            flag_reads=sum(m.flag_reads for m in ms) / GRAPH_STEPS,
+            masked=sum(m.masked_iterations for m in ms) / GRAPH_STEPS))
+        log(f"[21] {mode}{' (sync-checked replays)' if sg.sync_check else ''}"
+            f": {runs[-1]['steps_per_s']:.4f} steps/s ({GRAPH_STEPS} steps "
+            f"in {wall:.3f} s), flag reads per step "
+            f"{runs[-1]['flag_reads']:.2f}, masked iterations per step "
+            f"{runs[-1]['masked']:.2f}, on {card}")
+    sg.sync_check = False
+    peak = torch.cuda.max_memory_allocated()
+    ref = runs[0]
+    its = [f"{m.f_iterations}+{m.p_iterations}" for m in ref["metrics"]]
+    log(f"[21] iterations BiCGStab+CG per step: {' '.join(its)}; masked "
+        "per step (captured): "
+        + " ".join(str(m.masked_iterations) for m in runs[1]["metrics"]))
+    for r in runs[1:]:
+        same = (torch.equal(r["u"], ref["u"]) and torch.equal(r["p"], ref["p"])
+                and all((a.cd, a.cl, a.f_iterations, a.p_iterations)
+                        == (b.cd, b.cl, b.f_iterations, b.p_iterations)
+                        for a, b in zip(r["metrics"], ref["metrics"])))
+        check(same, f"[21] the {r['mode']} run equals the first eager run "
+              "bit for bit (u, p, Cd, Cl, counts)")
+        check(r["launches"] == ref["launches"],
+              f"[21] {r['mode']}: SELL launches per step equal the eager "
+              f"run's ({r['launches']} against {ref['launches']})")
+    check(all(r["plain_cuda"] == 0 for r in runs),
+          "[21] no plain-version calls on CUDA tensors")
+    sps = {m: [r["steps_per_s"] for r in runs if r["mode"] == m]
+           for m in ("eager", "captured")}
+    log(f"[21] captured equals eager bit for bit in all four runs; SELL "
+        f"launches per step (captured, from the replay records) "
+        f"{runs[1]['launches']}")
+    log(f"[21] capture {bench['capture_s']:.2f} s (phase 5), peak device "
+        f"memory over the four runs {peak} bytes ({peak / 2**30:.2f} GiB); "
+        f"steps/s eager {sps['eager']}, captured {sps['captured']} on "
+        f"{card}")
+
+    # the exact tile inverse at phase 5's end state
+    _load_state(ns, bench["end"])
+    mflat = ns.bc.mask[:, 0]
+    f = ns.a0_cell + ns._ops.convection(ns.ell, ns._u)
+    d = ns._ops.f_diag(ns.ell, f)
+    sigma = torch.sum(d * mflat) / torch.clamp(torch.sum(mflat), min=1.0)
+    tiles = p1ell.block_jacobi_tiles(ns._bj_plan, f, mflat, sigma)
+    inv = torch.linalg.inv(tiles)
+    same = torch.equal(torch.linalg.inv_ex(tiles).inverse, inv)
+    cus = p1ell._inv_capturable(tiles)
+    gap = float((cus - inv).abs().max() / inv.abs().max())
+    inv_ms = _time_ms(lambda: torch.linalg.inv(tiles), cold=False, n=5)
+    cus_ms = _time_ms(lambda: p1ell._inv_capturable(tiles), cold=False,
+                      n=5)
+    log(f"[21] exact inverse of the {tiles.shape[0]} tiles: inv_ex equals "
+        f"inv bit for bit {same}; the capturable cuSOLVER LU against inv: "
+        f"max gap {gap:.3e} of max|inv|; {cus_ms:.3f} ms against inv's "
+        f"{inv_ms:.3f} ms")
+    check(same, "[21] inv_ex gives inv's bits")
+    check(gap < 1e-4, "[21] the cuSOLVER tile inverse within 1e-4 of inv")
+    del tiles, inv, cus
+
+    # one chunked solve from the initial state against phase 5's steps
+    cfg = ns.config
+    saved = (cfg.t_final, cfg.output_step, cfg.csv_path)
+    cfg.t_final, cfg.output_step = CHUNK_STEPS * cfg.deltat, CHUNK_EVERY
+    cfg.csv_path = os.path.join(WORK, "chunked.csv")
+    t0 = time.perf_counter()
+    ns.solve()
+    wall = time.perf_counter() - t0
+    cfg.t_final, cfg.output_step, cfg.csv_path = saved
+    rows = _csv_rows(os.path.join(WORK, "chunked.csv"))
+    want = bench["metrics"][:CHUNK_STEPS]
+    same = len(rows) == CHUNK_STEPS and all(
+        (r["time"], int(r["GMRES_iters"]), r["Drag"], r["Lift"], r["Cd"],
+         r["Cl"]) == (m.time, m.iterations, m.drag, m.lift, m.cd, m.cl)
+        for r, m in zip(rows, want))
+    log(f"[21] chunked solve: {CHUNK_STEPS} steps in chunks of "
+        f"{CHUNK_EVERY}, {wall:.2f} s with the VTU and checkpoint writes; "
+        f"csv rows equal phase 5's steps 1-{CHUNK_STEPS} {same}; "
+        f"time_prec_init {rows['time_prec_init'][-1]:.5f} s, time_sol "
+        f"{rows['time_sol'][-1]:.5f} s at the last step")
+    check(same, "[21] the chunked solve's csv equals phase 5's steps")
+    check(np.isfinite(rows["time_sol"]).all()
+          and (rows["time_prec_init"] > 0).all(), "[21] csv time columns")
+    _load_state(ns, bench["end"])
+    givens = phase_givens()
+    log(f"[21] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(runs=[{k: r[k] for k in ("mode", "sync_check",
+                                         "steps_per_s", "flag_reads",
+                                         "masked", "launches")}
+                      for r in runs],
+                peak_bytes=peak, capture_s=bench["capture_s"],
+                inverse_gap=gap, givens=givens)
+
+
+def _restore(dst, src):
+    for a, b in zip(dst, src):
+        a.copy_(b)
+
+
+def phase_givens():
+    """The Givens kernel against its plain version at every call of 5
+    FGMRES steps of the monolithic small fixture (restart 64), bit for bit;
+    then its time over 40 successive columns from the fixture's first
+    Arnoldi state (target 0, so none stops early)."""
+    from navierstokes_tpu_torch.kernels import arnoldi_lsq as AL
+    from navierstokes_tpu_torch.solvers import krylov
+    calls = 0
+    kept = {}
+
+    def update(*args):
+        nonlocal calls
+        state = [a.clone() for a in args[:10]]
+        AL.lsq_update(*args)
+        plain = [a.cpu().clone() for a in state]
+        AL.lsq_update_plain(*plain, args[10])
+        for k in (0, 1, 2, 3, 6, 7, 8):
+            check(torch.equal(args[k].cpu(), plain[k]),
+                  f"[21] lsq_update kernel against plain, argument {k}")
+        calls += 1
+        if "update" not in kept and int(state[6]) == 0:
+            kept["update"] = (state, args[10])
+
+    orig = krylov.lsq_update
+    krylov.lsq_update = update
+    try:
+        ns = small_model("cuda", os.path.join(WORK, "givens"),
+                         scheme="monolithic", preconditioner="cc")
+        ms = [ns.solve_time_step() for _ in range(5)]
+    finally:
+        krylov.lsq_update = orig
+    torch.cuda.synchronize()
+    check(calls > 0, "[21] the Givens kernel ran in the fixture's FGMRES")
+    log(f"[21] Givens kernel against its plain version at every call of "
+        f"5 monolithic small-fixture steps (FGMRES "
+        f"{[m.iterations for m in ms]}): {calls} calls, all bit for bit")
+
+    # lsq_update: 40 successive columns j = 0..39, restored between bursts
+    (H, cs, sn, g, h, wn, j, res, act, tgt), _ = kept["update"]
+    m = H.shape[1]
+    # target 0 and a dominant new entry (each rotation's sine near 1, so
+    # |g[j+1]| does not decay): every launch of the burst stays active
+    tgt = torch.zeros_like(tgt)
+    wn = torch.full_like(wn, 10.0 * float(h.abs().max()) + 1.0)
+    work = [t.clone() for t in (H, cs, sn, g, j, res, act)]
+    init = [t.clone() for t in work]
+    n = 40
+
+    def burst(fn):
+        times = []
+        for _ in range(10):
+            _restore(work, init)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(n * 200_000)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(n):
+                fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / n)
+        return statistics.median(times)
+
+    kernel = lambda: AL.lsq_update(work[0], work[1], work[2], work[3], h, wn,
+                                   work[4], work[5], work[6], tgt, m)
+    plain = lambda: AL.lsq_update_plain(work[0], work[1], work[2], work[3], h,
+                                        wn, work[4], work[5], work[6], tgt, m)
+    upd_ms, upd_plain_ms = burst(kernel), burst(plain)
+    check(int(work[4]) == n, "[21] lsq_update timing: 40 active columns")
+    s = H.element_size()
+    upd_bytes = [s * (2 * (m + 1) + 2 * jj + 8) + 10 for jj in range(n)]
+    upd_ops = [6 * jj + 9 for jj in range(n)]
+    upd_bound = statistics.mean(
+        max(b / HBM_BYTES_PER_S, o / FP32_OPS_PER_S) * 1e3
+        for b, o in zip(upd_bytes, upd_ops))
+    log(f"[21] lsq_update (m={m}, j=0..{n - 1}): {upd_ms:.4f} ms per launch "
+        f"in a burst, plain {upd_plain_ms:.4f} ms, bound {upd_bound:.2e} ms "
+        f"(bytes)")
+    return dict(ms=upd_ms, plain_ms=upd_plain_ms, bound_ms=upd_bound,
+                library_ms=None, calls=calls)
 
 
 # the small-fixture monolithic configurations of phase 7, and the launch
@@ -683,7 +935,9 @@ def phase_monolithic_bench(card):
     check(ns.space.n_dofs == EXPECTED_DOFS, "monolithic DoF count")
     log(f"[8] monolithic bench point: {ns.space.n_dofs} DoF, setup "
         f"{setup_s:.1f} s")
+    from navierstokes_tpu_torch.kernels import arnoldi_lsq
     COUNTS.reset()
+    arnoldi_lsq.COUNTS.reset()
     ms_all, step_s = [], []
     n_warm = n_meas = 5
     k = 0
@@ -704,8 +958,11 @@ def phase_monolithic_bench(card):
     wall = time.perf_counter() - t0
     launches, plain_cuda = COUNTS.launches, COUNTS.plain_cuda_calls
     per_step = per_step_launches(n_warm + n_meas)
+    givens = dataclasses.asdict(arnoldi_lsq.COUNTS)
     peak = torch.cuda.max_memory_allocated()
     sps = n_meas / wall
+    log(f"[8] Givens kernel launches over {n_warm + n_meas} steps: "
+        f"{givens}")
     log(f"[8] FGMRES iterations per step: "
         + " ".join(str(m.iterations) for m in ms_all))
     log(f"[8] residual per step: "
@@ -733,10 +990,13 @@ def phase_monolithic_bench(card):
     check(bool(torch.isfinite(ns._u).all() and torch.isfinite(ns._p).all()),
           "[8] finite u, p")
     check(launches > 0, "[8] kernel launched on the monolithic path")
+    check(givens["update"] >= sum(m.iterations for m in ms_all),
+          "[8] the Givens kernel launched at every FGMRES iteration")
     check(plain_cuda == 0, "[8] no plain-version calls on CUDA tensors")
     log(f"[8] all {len(ms_all)} FGMRES solves converged (rel tol {tol:g})")
     return dict(launches=launches, steps_per_s=sps, peak_bytes=peak,
-                setup_s=setup_s, per_step=per_step)
+                setup_s=setup_s, per_step=per_step, givens=givens,
+                n_steps=n_warm + n_meas)
 
 
 def duct_model(device, tmp, dtype="float32", **overrides):
@@ -889,6 +1149,9 @@ def phase_3d1(card):
     check(ns.nu == 1.0e-3, f"[10] 3D-1Z nu {ns.nu}")
     log(f"[10] 3D-1Z: {ns.space.n_dofs} DoF ({ns.mesh.n_cells} tets, "
         f"{ns.ell.f.nnz} F nonzeros), setup {setup_s:.1f} s")
+    sg = ns.capture_graphs()
+    log(f"[10] captured the projection step: {len(sg.graphs)} graphs in "
+        f"{sg.capture_seconds:.2f} s")
     n_warm, n_meas = 3, 5
     COUNTS.reset()
     ms_all = [ns.solve_time_step() for _ in range(n_warm)]
@@ -932,7 +1195,8 @@ def phase_3d1(card):
     check(plain_cuda == 0, "[10] no plain-version calls on CUDA tensors")
     log(f"[10] all {n} steps' solves converged within their budgets")
     return ns, dict(launches=d3, steps_per_s=sps, peak_bytes=peak,
-                    setup_s=setup_s, per_step=per_step)
+                    setup_s=setup_s, per_step=per_step,
+                    capture_s=sg.capture_seconds)
 
 
 def spmv_uses_3d(ns, rng):
@@ -1595,7 +1859,13 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
     n2 = sharded_bsr.block_jacobi_invert(sh._bj_plan, f2, mflat, sigma,
                                          x0=x2)
     same["Newton-Schulz tiles"] = torch.equal(home(n2.parts), n1)
-    del x1, x2, n1, n2
+    # the per-step exact fallback (the capturable cuSOLVER LU)
+    e1 = p1ell.block_jacobi_invert(ns._bj_plan, f1, mflat, sigma, x0=None,
+                                   iters=0)
+    e2 = sharded_bsr.block_jacobi_invert(sh._bj_plan, f2, mflat, sigma,
+                                         x0=None, iters=0)
+    same["exact tile inverse, per step"] = torch.equal(home(e2.parts), e1)
+    del x1, x2, n1, n2, e1, e2
     log(f"[20] sharded against unsharded, bit for bit: {same}")
     check(all(same.values()), "[20] sharded products equal the unsharded")
 
@@ -1655,6 +1925,7 @@ def main():
     fp32 = phase_kernel_vs_plain(ns, (torch.float32,), "3")
     phase_small_fixture()
     bench = phase_bench(ns, card)
+    graphs = phase_graphs(ns, bench, card)
     variants = phase_kernel_vs_plain(ns, (torch.bfloat16, torch.float64),
                                      "6")
     sharded = phase_sharded(ns, bench, card)
@@ -1751,6 +2022,19 @@ def main():
                          suffix="_naca"))
     kernels[-1].update({k: naca[k] for k in ("setup_launches", "runs",
                                              "peak_bytes")})
+    # the Givens kernel: launches on the monolithic bench path (phase 8)
+    g = graphs["givens"]
+    kernels.append({
+        "name": "lsq_update", "route": "cuda", "source": GIVENS_SOURCE,
+        "replaces": GIVENS_REPLACES, "launches": mono["givens"]["update"],
+        "max_abs_err": 0.0, "ms": g["ms"], "plain_ms": g["plain_ms"],
+        "bound_ms": g["bound_ms"], "bound_by": "bytes",
+        "library_ms": g["library_ms"],
+        "launches_per_monolithic_step": (mono["givens"]["update"]
+                                         / mono["n_steps"])})
+    kernels[0]["graphs"] = {k: graphs[k] for k in ("runs", "peak_bytes",
+                                                   "capture_s",
+                                                   "inverse_gap")}
     record = {"kernels": kernels}
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

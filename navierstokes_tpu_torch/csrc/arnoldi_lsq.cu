@@ -1,0 +1,130 @@
+// FGMRES's Givens update on the card (sm_90a): one Arnoldi iteration's step
+// of the Hessenberg least-squares problem of solvers/krylov.py `gmres`.
+//
+// Replaces no Pallas kernel.  The JAX package runs this algebra inside its
+// `lax.while_loop` (navierstokes_tpu/solvers/krylov.py:108-126, the
+// `fori_loop(rot_body)` and the new rotation).  Eager PyTorch would spend
+// O(j) tiny launches per iteration on it, or a round trip to the host;
+// here each step is one launch that reads j, the flag and the target from
+// device memory, so a captured graph can replay it.  The cycle's
+// triangular solve stays on the host (kernels/arnoldi_lsq.py says why).
+//
+// Bound: the launch.  The algebra is serial (rotation i changes the entry
+// rotation i + 1 reads) and at most m + 1 = 65 values long at the default
+// restart, a few hundred flops and under 34 KB in fp64, so one CTA runs
+// it: its threads stage the column in shared memory and write H[:, j],
+// thread 0 does the serial part.
+//
+// The arithmetic is the plain version's (kernels/arnoldi_lsq.py), op for
+// op: every product, sum, quotient and square root is rounded on its own
+// (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn and the __d*_rn forms), so
+// nvcc contracts nothing into a fused multiply-add, and equals the host
+// arithmetic it replaces bit for bit.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+
+template <typename T> struct Rn;
+
+template <> struct Rn<float> {
+  static __device__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ float div(float a, float b) { return __fdiv_rn(a, b); }
+  static __device__ float sqrt(float a) { return __fsqrt_rn(a); }
+};
+
+template <> struct Rn<double> {
+  static __device__ double mul(double a, double b) { return __dmul_rn(a, b); }
+  static __device__ double add(double a, double b) { return __dadd_rn(a, b); }
+  static __device__ double div(double a, double b) { return __ddiv_rn(a, b); }
+  static __device__ double sqrt(double a) { return __dsqrt_rn(a); }
+};
+
+// H (m+1, m) row-major, cs, sn (m), g (m+1), h (m+1) the Gram-Schmidt
+// coefficients h1 + h2; while *active: h[j+1] = *wnorm, rotations 0..j-1,
+// the new rotation j, g rotated, H[:, j] = h, *res = |g[j+1]|, *j += 1,
+// *active = (*j < j_max) && (*res > *target).
+template <typename T>
+__global__ void lsq_update_kernel(T* __restrict__ H, T* __restrict__ cs,
+                                  T* __restrict__ sn, T* __restrict__ g,
+                                  const T* __restrict__ h,
+                                  const T* __restrict__ wnorm,
+                                  int* __restrict__ j_ptr,
+                                  T* __restrict__ res,
+                                  bool* __restrict__ active,
+                                  const T* __restrict__ target, int m,
+                                  int j_max) {
+  using R = Rn<T>;
+  extern __shared__ unsigned char smem_raw[];
+  T* col = reinterpret_cast<T*>(smem_raw);
+  if (!*active) return;            // the same for every thread
+  const int j = *j_ptr;
+  for (int i = threadIdx.x; i <= m; i += blockDim.x) col[i] = h[i];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    col[j + 1] = *wnorm;
+    for (int i = 0; i < j; ++i) {
+      const T c = cs[i], s = sn[i];
+      const T hi = R::add(R::mul(c, col[i]), R::mul(s, col[i + 1]));
+      col[i + 1] = R::add(R::mul(-s, col[i]), R::mul(c, col[i + 1]));
+      col[i] = hi;
+    }
+    const T a = col[j], b = col[j + 1];
+    const T denom = R::sqrt(R::add(R::mul(a, a), R::mul(b, b)));
+    T cj = T(1), sj = T(0);
+    if (denom > T(0)) {
+      const T d = denom > T(1e-30) ? denom : T(1e-30);
+      cj = R::div(a, d);
+      sj = R::div(b, d);
+    }
+    col[j] = denom;
+    col[j + 1] = T(0);
+    cs[j] = cj;
+    sn[j] = sj;
+    const T gj = g[j];
+    g[j + 1] = R::mul(-sj, gj);
+    g[j] = R::mul(cj, gj);
+    const T r = fabs(g[j + 1]);
+    *res = r;
+    *j_ptr = j + 1;
+    *active = (j + 1 < j_max) && (r > *target);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i <= m; i += blockDim.x) H[i * m + j] = col[i];
+}
+
+template <typename T>
+int update(void* H, void* cs, void* sn, void* g, const void* h,
+           const void* wnorm, int* j, void* res, bool* active,
+           const void* target, int m, int j_max, void* stream) {
+  const size_t smem = static_cast<size_t>(m + 1) * sizeof(T);
+  lsq_update_kernel<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(H), static_cast<T*>(cs), static_cast<T*>(sn),
+      static_cast<T*>(g), static_cast<const T*>(h),
+      static_cast<const T*>(wnorm), j, static_cast<T*>(res), active,
+      static_cast<const T*>(target), m, j_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int nst_lsq_update_f32(void* H, void* cs, void* sn, void* g, const void* h,
+                       const void* wnorm, int* j, void* res, bool* active,
+                       const void* target, int m, int j_max, void* stream) {
+  return update<float>(H, cs, sn, g, h, wnorm, j, res, active, target, m,
+                       j_max, stream);
+}
+
+int nst_lsq_update_f64(void* H, void* cs, void* sn, void* g, const void* h,
+                       const void* wnorm, int* j, void* res, bool* active,
+                       const void* target, int m, int j_max, void* stream) {
+  return update<double>(H, cs, sn, g, h, wnorm, j, res, active, target, m,
+                        j_max, stream);
+}
+
+}  // extern "C"

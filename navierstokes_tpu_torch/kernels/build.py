@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 Every ``navierstokes_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, at first
-use, and loaded with ``ctypes``.  The library lands in ``build/kernels/``
+for ``sm_90a``, one process per source, all started together, and the
+objects are linked into one shared library with a plain C interface, at
+first use, and loaded with ``ctypes``.  The library lands in ``build/kernels/``
 at the repository root (git-ignored) under a name that hashes the sources
 and flags, so an edited source rebuilds and an unchanged one loads the
 existing file.  There is no fallback: without ``nvcc`` the build raises.
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @functools.lru_cache(maxsize=1)
@@ -44,14 +45,29 @@ def build_info() -> dict:
     if not lib_path.exists():
         nvcc = _find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(sources, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(outs)
+        failed = [s.name for s, p in zip(sources, procs) if p.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+        log += proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink(missing_ok=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{log}")
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -59,6 +75,10 @@ def build_info() -> dict:
                   "nst_sell_spmv_f64"):
         fn = getattr(lib, entry)
         fn.argtypes = [p, p, p, p, p, p, i, i, p]
+        fn.restype = i
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"nst_lsq_update_{suffix}")
+        fn.argtypes = [p] * 10 + [i, i, p]
         fn.restype = i
     lib.nst_cuda_error_string.argtypes = [i]
     lib.nst_cuda_error_string.restype = ctypes.c_char_p

@@ -49,7 +49,12 @@ bit.  Options outside this port raise ``NotImplementedError`` naming the
 option (``check_config``).  Tensors live on the explicit ``device``; the
 compute dtype is ``SolverConfig.dtype``.  One step is plain tensor code
 plus, on ``bsr``, the SELL SpMV kernel on compact operator values
-(``ops/sell.py``); the time loop is a Python loop over steps.
+(``ops/sell.py``), with its Krylov loops on the device
+(solvers/krylov.py).  On the card the one-device bsr projection step
+replays captured CUDA graphs (models/step_graphs.py; ``_step_projection``
+is their plain version); ``solve`` runs chunks of steps to the next
+output boundary and reads their metrics once per chunk, as the JAX
+model's ``lax.scan`` chunks.
 """
 
 from __future__ import annotations
@@ -84,14 +89,15 @@ from navierstokes_tpu_torch.ops.bsr import BsrOps, build_bsr
 from navierstokes_tpu_torch.ops.forces import (drag_lift, force_coefficients,
                                                neumann_rhs)
 from navierstokes_tpu_torch.ops.operators import CellOps, segment_plan
-from navierstokes_tpu_torch.ops.p1ell import (assemble_ap,
+from navierstokes_tpu_torch.ops.p1ell import (BJ_INVERSIONS, assemble_ap,
                                               assemble_p1_stiffness,
                                               block_jacobi_apply,
                                               block_jacobi_inverse,
                                               block_jacobi_invert,
                                               build_block_jacobi_plan,
                                               coarse_from_ell, ell_matvec)
-from navierstokes_tpu_torch.solvers.krylov import bicgstab, cg, fgmres
+from navierstokes_tpu_torch.solvers.krylov import (BicgstabLoop, CgLoop,
+                                                   fgmres)
 from navierstokes_tpu_torch.solvers.preconditioners import (
     InnerSolve, make_asimple, make_ayosida, make_cahouet_chabard,
     make_identity, make_pcd)
@@ -125,6 +131,61 @@ class StepMetrics:
     prec_seconds: float      # block-Jacobi tile rebuild of the step
     f_iterations: int = 0    # projection: BiCGStab iterations of u*
     p_iterations: int = 0    # projection: CG iterations of the Poisson
+    flag_reads: int = 0      # projection: host reads of the step (the tile
+    #                          guard and one flag per Krylov block)
+    masked_iterations: int = 0   # projection: iterations run masked after
+    #                              a solve stopped, inside its last block
+    exact_inverse: bool = False  # the tile rebuild took the exact inverse
+
+
+# the fields of a step's metrics row on the device (float64), in order
+_ROW = ("time", "iterations", "residual", "converged", "drag", "lift", "cd",
+        "cl", "f_iterations", "p_iterations")
+
+
+@dataclasses.dataclass
+class _StepInfo:
+    """What the host knows of a step without reading its row: the span of
+    its tile rebuild, whether that took the exact inverse, the flags it
+    read and the iteration slots of its blocks (BiCGStab + CG)."""
+    span: object = None
+    exact_inverse: bool = False
+    flag_reads: int = 0
+    slots: int = 0
+
+
+class _Workspace:
+    """The tensors one step hands from segment to segment."""
+
+
+class _Span:
+    """The device time of a stretch of work: a pair of CUDA events on each
+    device's current stream, read after the step's rows, so timing waits
+    for nothing; the host clock on the CPU."""
+
+    def __init__(self, devices):
+        self._cuda = [d for d in devices if d.type == "cuda"]
+        self._ev = []
+        for d in self._cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            a.record(torch.cuda.current_stream(d))
+            self._ev.append((d, a, torch.cuda.Event(enable_timing=True)))
+        self._t = [_walltime.perf_counter()]
+
+    def stop(self):
+        for d, _, b in self._ev:
+            b.record(torch.cuda.current_stream(d))
+        self._t.append(_walltime.perf_counter())
+        return self
+
+    def seconds(self) -> float:
+        if not self._ev:
+            return self._t[1] - self._t[0]
+        out = 0.0
+        for _, a, b in self._ev:
+            b.synchronize()
+            out = max(out, a.elapsed_time(b) / 1e3)
+        return out
 
 
 def _resolve_device(device) -> torch.device:
@@ -200,6 +261,7 @@ class NavierStokes:
         self.time = 0.0
         self.drag = self.lift = self.cd = self.cl = 0.0
         self._is_setup = False
+        self._graphs = None
 
     # ------------------------------------------------------------------
     # setup & physics parameters
@@ -487,7 +549,10 @@ class NavierStokes:
             device=self.device)
         self._nu_t = torch.tensor(self.nu, dtype=self.dtype,
                                   device=self.device)
+        self._u_mean0 = torch.tensor(self.inlet.steady_mean_velocity(),
+                                     dtype=self.dtype, device=self.device)
         self._bj_x0 = None
+        self._graphs = None      # captured against the old A0
 
     def _bj_seed(self):
         """Exact tile inverses of the BC-masked static operator A0: the
@@ -523,31 +588,35 @@ class NavierStokes:
         return bool(self.config.inner_bf16) and self.dtype == torch.float32
 
     def _f_precond(self, f_cell, mflat, sigma, dinv):
-        """The F preconditioner of the step and the seconds of its rebuild
-        (time_prec_init).  "bj": the per-step block-Jacobi tile inverses,
-        in bf16 under ``inner_bf16`` / ``bj_bf16`` (fp32 runs), timed
-        between synchronisations.  Otherwise ("jacobi", "diag", as in the
-        JAX model) the diagonal scaling ``dinv``, nothing to rebuild."""
+        """The F preconditioner of the step, the span of its rebuild
+        (time_prec_init) and whether the rebuild took the exact inverse.
+        "bj": the per-step block-Jacobi tile inverses, in bf16 under
+        ``inner_bf16`` / ``bj_bf16`` (fp32 runs), timed by ``_Span``;
+        the Newton-Schulz guard is read once, before the branch.
+        Otherwise ("jacobi", "diag", as in the JAX model) the diagonal
+        scaling ``dinv``, nothing to rebuild (no span)."""
         if self._bj_plan is None:
-            return (lambda r: r * dinv), 0.0
+            return (lambda r: r * dinv), None, False
         cfg = self.config
-        cuda = self.device.type == "cuda"
         invert, apply = ((sharded_bsr.block_jacobi_invert,
                           sharded_bsr.block_jacobi_apply) if self._sharded
                          else (block_jacobi_invert, block_jacobi_apply))
-        if cuda:
-            for d in self._devices():
-                torch.cuda.synchronize(d)
-        t0 = _walltime.perf_counter()
+        exact0 = BJ_INVERSIONS["exact"]
+        span = _Span(self._devices())
         inv_tiles = invert(self._bj_plan, f_cell, mflat, sigma,
                            x0=self._bj_seed(), iters=cfg.bj_newton)
+        inv_tiles = self._tiles_dtype(inv_tiles)
+        span.stop()
+        return ((lambda r: apply(self._bj_plan, inv_tiles, r)), span,
+                BJ_INVERSIONS["exact"] > exact0)
+
+    def _tiles_dtype(self, inv_tiles):
+        """The tile inverses in bf16 under ``inner_bf16`` / ``bj_bf16``
+        (fp32 runs)."""
+        cfg = self.config
         if self.dtype == torch.float32 and (cfg.inner_bf16 or cfg.bj_bf16):
-            inv_tiles = inv_tiles.to(torch.bfloat16)
-        if cuda:
-            for d in self._devices():
-                torch.cuda.synchronize(d)
-        seconds = _walltime.perf_counter() - t0
-        return (lambda r: apply(self._bj_plan, inv_tiles, r)), seconds
+            return inv_tiles.to(torch.bfloat16)
+        return inv_tiles
 
     def _forcing_term(self, t_new):
         """The forcing integral at ``t_new``; None without forcing."""
@@ -556,19 +625,29 @@ class NavierStokes:
         return forcing_integral(self._forcing_data, self.forcing, t_new)
 
     def _forces(self, u_new, p_new, factor):
-        """(drag, lift, Cd, Cl) on the obstacle (cpp:831-929)."""
+        """(drag, lift, Cd, Cl) on the obstacle (cpp:831-929), 0-d tensors
+        on the model's device."""
         if self.faces_obst is None:
-            zero = torch.zeros((), dtype=self.dtype)
+            zero = torch.zeros((), dtype=self.dtype, device=self.device)
             return zero, zero, zero, zero
         cfg = self.config
         drag, lift = drag_lift(self.faces_obst, u_new, p_new, self._nu_t,
                                formula=cfg.force_formula)
-        u_mean0 = torch.tensor(self.inlet.steady_mean_velocity(),
-                               dtype=self.dtype, device=self.device)
+        u_mean0 = self._u_mean0
         u_norm = u_mean0 * factor if self.inlet.pulsating else u_mean0
         cd, cl = force_coefficients(drag, lift, u_norm, cfg.ref_length,
                                     self.dim, cfg.span_3d)
         return drag, lift, cd, cl
+
+    def _metrics_row(self, t_new, iterations, residual, converged, forces,
+                     f_iterations=0, p_iterations=0):
+        """The step's metrics as one float64 row on the device (``_ROW``):
+        read with the other rows of its chunk (``_read_rows``)."""
+        vals = (t_new, iterations, residual, converged, *forces,
+                f_iterations, p_iterations)
+        f64 = dict(dtype=torch.float64, device=self.device)
+        return torch.stack([v.to(torch.float64) if isinstance(v, torch.Tensor)
+                            else torch.full((), v, **f64) for v in vals])
 
     def _step_projection(self, u, p, t_prev, u_prev, phi_prev):
         """Rotational incremental pressure-correction step (Guermond,
@@ -580,31 +659,61 @@ class NavierStokes:
             u^{n+1} = u* - dt_eff W G phi   (W = diag(mask / M_lumped))
             p^{n+1} = p^n + phi + nu Mp^-1 (B u*)   [rotational]
 
-        Returns (u_new, p_new, t_new, phi, StepMetrics)."""
+        The plain (eager) version of the captured step
+        (models/step_graphs.py): the same segments in the same order, with
+        the tile guard and the loops' flags read as they come.  Returns
+        (u_new, p_new, t_new, phi, metrics row, _StepInfo)."""
+        ws = _Workspace()
+        self._proj_rebuild(ws, u, u_prev, t_prev)
+        pre_f, span, exact = self._f_precond(ws.f_cell, ws.mflat, ws.sigma,
+                                             ws.dinv)
+        floop = self._proj_momentum(ws, u, p, u_prev, pre_f)
+        floop.run()
+        ploop = self._proj_poisson(ws, phi_prev)
+        ploop.run()
+        u_new, p_new, phi, row = self._proj_finish(ws, p)
+        info = _StepInfo(span=span, exact_inverse=exact,
+                         flag_reads=floop.reads + ploop.reads
+                         + (self._bj_plan is not None
+                            and self.config.bj_newton > 0),
+                         slots=(floop.blocks * floop.check_every
+                                + ploop.blocks * ploop.check_every))
+        return u_new, p_new, ws.t_new, phi, row, info
+
+    def _proj_rebuild(self, ws, u, u_prev, t_prev):
+        """Segment (a) of the projection step: t_new, the BDF terms, the F
+        values A0 + C(u_adv), sigma and the diagonal scaling."""
+        cfg = self.config
+        ops, ell, mask = self._ops, self.ell, self.bc.mask
+        dt = cfg.deltat
+        ws.t_new = t_prev + dt
+        if cfg.proj_bdf2:
+            ws.alpha = 1.5
+            u_adv = 2.0 * u - u_prev
+            ws.u_t = (4.0 * u - u_prev) / (2.0 * dt)
+        else:
+            ws.alpha = 1.0
+            u_adv = u
+            ws.u_t = u / dt
+        ws.f_cell = self.a0_cell + ops.convection(ell, u_adv)
+        d = ops.f_diag(ell, ws.f_cell)
+        ws.mflat = mask[:, 0]
+        ws.sigma = (torch.sum(d * ws.mflat)
+                    / torch.clamp(torch.sum(ws.mflat), min=1.0))
+        ws.dinv = (1.0 / (d * ws.mflat + ws.sigma * (1.0 - ws.mflat)))[:, None]
+        ws.zero_p = torch.zeros(self.space.n_p1, dtype=self.dtype,
+                                device=self.device)
+        # bf16 F values inside the u* solve (vectors and sums stay fp32)
+        ws.f_inner = (ws.f_cell.to(torch.bfloat16) if self._bf16_inner()
+                      else ws.f_cell)
+
+    def _proj_momentum(self, ws, u, p, u_prev, pre_f):
+        """Segment (c): the u* right-hand side and the BiCGStab set-up
+        (the loop, not yet run)."""
         cfg = self.config
         ops, ell, bc = self._ops, self.ell, self.bc
-        mask = bc.mask
-        dt = cfg.deltat
-        t_new = t_prev + dt
-        if cfg.proj_bdf2:
-            alpha = 1.5
-            u_adv = 2.0 * u - u_prev
-            u_t = (4.0 * u - u_prev) / (2.0 * dt)
-        else:
-            alpha = 1.0
-            u_adv = u
-            u_t = u / dt
-        f_cell = self.a0_cell + ops.convection(ell, u_adv)
-        dt_eff = dt / alpha
-        d = ops.f_diag(ell, f_cell)
-        mflat = mask[:, 0]
-        sigma = torch.sum(d * mflat) / torch.clamp(torch.sum(mflat), min=1.0)
-        dinv = (1.0 / (d * mflat + sigma * (1.0 - mflat)))[:, None]
-        zero_p = torch.zeros(self.space.n_p1, dtype=self.dtype,
-                             device=self.device)
-        # bf16 F values inside the u* solve (vectors and sums stay fp32)
-        f_inner = (f_cell.to(torch.bfloat16) if self._bf16_inner()
-                   else f_cell)
+        mask, sigma, zero_p = bc.mask, ws.sigma, ws.zero_p
+        f_inner = ws.f_inner
 
         def apply_F(xu):
             xum = xu * mask
@@ -612,36 +721,37 @@ class NavierStokes:
                                      with_g=False, with_gt=False)
             return (yu * mask + sigma * (xu - xum)).to(self.dtype)
 
-        def apply_Bt_raw(xp):
-            yu, _ = ops.apply_blocks(ell, f_cell, torch.zeros_like(u), xp,
-                                     with_f=False, with_gt=False)
-            return yu
-
-        def apply_B_raw(xu):
-            _, yp = ops.apply_blocks(ell, f_cell, xu, zero_p,
-                                     with_f=False, with_g=False)
-            return yp
-
-        pre_f, prec_seconds = self._f_precond(f_cell, mflat, sigma, dinv)
-
-        # ---- u* momentum solve ----
-        factor = self._time_factor(t_new)
-        g = bc.lift(factor)
+        ws.factor = self._time_factor(ws.t_new)
+        ws.g = bc.lift(ws.factor)
         # the JAX model's order: M u + Neumann - B^T p + forcing
-        b_u = _plus(_plus(ops.mass_apply(ell, u_t), self.rhs_neumann)
-                    - apply_Bt_raw(p), self._forcing_term(t_new))
-        fg, _ = ops.apply_blocks(ell, f_cell, g, zero_p, with_g=False,
+        b_u = _plus(_plus(ops.mass_apply(ell, ws.u_t), self.rhs_neumann)
+                    - self._apply_bt_raw(ws, p),
+                    self._forcing_term(ws.t_new))
+        fg, _ = ops.apply_blocks(ell, ws.f_cell, ws.g, zero_p, with_g=False,
                                  with_gt=False)
-        b_u = (b_u - fg) * mask + sigma * g
-        tol = cfg.proj_tol
-        if self.dtype == torch.float32:
-            tol = max(tol, 3.0e-6)
+        b_u = (b_u - fg) * mask + sigma * ws.g
+        ws.tol = self._proj_tol()
         u_guess = 2.0 * u - u_prev
-        res_f = bicgstab(apply_F, b_u, x0=u_guess * mask + g, tol=tol,
-                         maxiter=cfg.proj_f_maxiter, precond=pre_f)
-        u_star = res_f.x * mask + g
+        ws.floop = BicgstabLoop(apply_F, b_u, x0=u_guess * mask + ws.g,
+                                tol=ws.tol, maxiter=cfg.proj_f_maxiter,
+                                precond=pre_f)
+        return ws.floop
 
-        # ---- pressure Poisson: Lp phi = B u* / dt_eff ----
+    def _proj_tol(self):
+        tol = self.config.proj_tol
+        return max(tol, 3.0e-6) if self.dtype == torch.float32 else tol
+
+    def _apply_bt_raw(self, ws, xp):
+        yu, _ = self._ops.apply_blocks(self.ell, ws.f_cell,
+                                       torch.zeros_like(ws.u_t), xp,
+                                       with_f=False, with_gt=False)
+        return yu
+
+    def _proj_poisson(self, ws, phi_prev):
+        """Segment (e): u*, its divergence and the CG set-up of the
+        pressure Poisson Lp phi = B u* / dt_eff (the loop, not yet run)."""
+        cfg = self.config
+        ws.u_star = ws.floop.x.reshape(ws.u_t.shape) * self.bc.mask + ws.g
         pinned = self._ap_dir_pinned
         ap_op = self._ap_dir
         apply_ap = lambda v: ell_matvec(ap_op, v)
@@ -653,33 +763,41 @@ class NavierStokes:
             # closed domain: keep the preconditioner output mean-free
             _solve0 = solve_ap
             solve_ap = lambda r: (lambda z: z - torch.mean(z))(_solve0(r))
-        div_star = apply_B_raw(u_star)
-        rhs_p = div_star / dt_eff
+        _, ws.div_star = self._ops.apply_blocks(
+            self.ell, ws.f_cell, ws.u_star, ws.zero_p, with_f=False,
+            with_g=False)
+        dt_eff = cfg.deltat / ws.alpha
+        rhs_p = ws.div_star / dt_eff
         if pinned:
             rhs_p = rhs_p * self._ap_dir_pin
         else:
             rhs_p = rhs_p - torch.mean(rhs_p)
-        res_p = cg(apply_ap, rhs_p, x0=phi_prev, tol=tol,
-                   maxiter=cfg.proj_p_maxiter, precond=solve_ap)
-        phi = (res_p.x * self._ap_dir_pin if pinned
-               else res_p.x - torch.mean(res_p.x))
+        ws.ploop = CgLoop(apply_ap, rhs_p, x0=phi_prev, tol=ws.tol,
+                          maxiter=cfg.proj_p_maxiter, precond=solve_ap)
+        return ws.ploop
 
-        # ---- correction + rotational pressure update ----
-        u_new = u_star - dt_eff * (self._ap_w[:, None] * apply_Bt_raw(phi))
-        u_new = u_new * mask + g
+    def _proj_finish(self, ws, p):
+        """Segment (g): the correction, the rotational pressure update, the
+        forces and the metrics row.  Returns (u_new, p_new, phi, row)."""
+        cfg = self.config
+        floop, ploop = ws.floop, ws.ploop
+        x_p = ploop.x
+        phi = (x_p * self._ap_dir_pin if self._ap_dir_pinned
+               else x_p - torch.mean(x_p))
+        dt_eff = cfg.deltat / ws.alpha
+        u_new = ws.u_star - dt_eff * (self._ap_w[:, None]
+                                      * self._apply_bt_raw(ws, phi))
+        u_new = u_new * self.bc.mask + ws.g
         p_new = p + phi
         if cfg.proj_rotational:
-            p_new = p_new + self._nu_t * (div_star / self._mp_lumped)
-
-        drag, lift, cd, cl = self._forces(u_new, p_new, factor)
-        metrics = StepMetrics(
-            time=float(t_new), iterations=res_f.iterations + res_p.iterations,
-            residual=float(torch.maximum(res_f.residual, res_p.residual)),
-            converged=res_f.converged and res_p.converged,
-            drag=float(drag), lift=float(lift), cd=float(cd), cl=float(cl),
-            prec_seconds=prec_seconds, f_iterations=res_f.iterations,
-            p_iterations=res_p.iterations)
-        return u_new, p_new, t_new, phi, metrics
+            p_new = p_new + self._nu_t * (ws.div_star / self._mp_lumped)
+        res_f, res_p = floop.residual(), ploop.residual()
+        converged = (res_f <= floop.target) & (res_p <= ploop.target)
+        row = self._metrics_row(
+            ws.t_new, floop.k + ploop.k, torch.maximum(res_f, res_p),
+            converged, self._forces(u_new, p_new, ws.factor),
+            floop.k, ploop.k)
+        return u_new, p_new, phi, row
 
     def _step_monolithic(self, u, p, t_prev, u_prev, phi_prev):
         """One semi-implicit step of the reference's saddle-point system
@@ -747,7 +865,7 @@ class NavierStokes:
         b_p = -ag_p
 
         # ---- block preconditioner ----
-        pre_f, prec_seconds = self._f_precond(f_cell, mflat, sigma, dinv)
+        pre_f, span, exact = self._f_precond(f_cell, mflat, sigma, dinv)
         _inner_f = InnerSolve(cfg.inner_tol, cfg.inner_maxiter_f,
                               method=cfg.f_solver)
         # the F solves take the step's F preconditioner whatever the block
@@ -831,28 +949,80 @@ class NavierStokes:
                 correction, cfg.refine)
         u_new = u_new * mask + g       # exact boundary values
 
-        drag, lift, cd, cl = self._forces(u_new, p_new, factor)
-        metrics = StepMetrics(
-            time=float(t_new), iterations=res.iterations,
-            residual=float(true_res), converged=res.converged,
-            drag=float(drag), lift=float(lift), cd=float(cd), cl=float(cl),
-            prec_seconds=prec_seconds)
-        return u_new, p_new, t_new, phi_prev, metrics
+        row = self._metrics_row(t_new, res.iterations, true_res,
+                                res.converged,
+                                self._forces(u_new, p_new, factor))
+        info = _StepInfo(span=span, exact_inverse=exact)
+        return u_new, p_new, t_new, phi_prev, row, info
 
     # ------------------------------------------------------------------
     # reference-parity public API
     # ------------------------------------------------------------------
 
-    def _advance(self) -> StepMetrics:
+    def _captures(self) -> bool:
+        """Whether the projection step runs from captured CUDA graphs: one
+        device, the bsr operator, the projection scheme, on the card."""
+        return (self.device.type == "cuda" and self._operator == "bsr"
+                and not self._sharded
+                and self.config.scheme == "projection")
+
+    def capture_graphs(self):
+        """The projection step's CUDA graphs (models/step_graphs.py),
+        captured now if they are not yet (otherwise at the first captured
+        step).  Raises on a model that does not capture (``_captures``)."""
+        if not self._captures():
+            raise ValueError("CUDA graphs capture the one-device bsr "
+                             "projection step on the card only")
+        if self._graphs is None:
+            from navierstokes_tpu_torch.models.step_graphs import StepGraphs
+            if not hasattr(self, "_u"):
+                self._init_state(0)
+            self._graphs = StepGraphs(self)
+        return self._graphs
+
+    def _run_steps(self, n: int, eager: bool = False):
+        """Advance ``n`` steps with no metric read: from the captured
+        graphs (``_captures``, unless ``eager``) or the plain step.
+        Returns (rows (n, len(_ROW)) float64 on the device, [_StepInfo])."""
+        if self._captures() and not eager:
+            return self.capture_graphs().run(n)
         step = (self._step_monolithic if self.config.scheme == "monolithic"
                 else self._step_projection)
-        u_new, p_new, t_new, phi, m = step(
-            self._u, self._p, self._t, self._u_prev, self._phi)
-        self._u_prev, self._u, self._p, self._phi = self._u, u_new, p_new, phi
-        self._t = t_new
-        self.time = m.time
-        self.drag, self.lift, self.cd, self.cl = m.drag, m.lift, m.cd, m.cl
-        return m
+        rows, infos = [], []
+        for _ in range(n):
+            u_new, p_new, t_new, phi, row, info = step(
+                self._u, self._p, self._t, self._u_prev, self._phi)
+            self._u_prev, self._u, self._p, self._phi = (self._u, u_new,
+                                                         p_new, phi)
+            self._t = t_new
+            rows.append(row)
+            infos.append(info)
+        return torch.stack(rows), infos
+
+    def _read_rows(self, rows, infos) -> list:
+        """The StepMetrics of a run of steps: its rows in one transfer,
+        the rebuild spans (read after it), and the model's time and
+        forces set from the last step."""
+        out = []
+        for v, info in zip(rows.cpu().tolist(), infos):
+            m = dict(zip(_ROW, v))
+            f_its, p_its = int(m["f_iterations"]), int(m["p_iterations"])
+            out.append(StepMetrics(
+                time=m["time"], iterations=int(m["iterations"]),
+                residual=m["residual"], converged=bool(m["converged"]),
+                drag=m["drag"], lift=m["lift"], cd=m["cd"], cl=m["cl"],
+                prec_seconds=(info.span.seconds() if info.span is not None
+                              else 0.0),
+                f_iterations=f_its, p_iterations=p_its,
+                flag_reads=info.flag_reads,
+                masked_iterations=(info.slots - f_its - p_its
+                                   if info.slots else 0),
+                exact_inverse=info.exact_inverse))
+        last = out[-1]
+        self.time = last.time
+        self.drag, self.lift, self.cd, self.cl = (last.drag, last.lift,
+                                                  last.cd, last.cl)
+        return out
 
     def assemble(self, time: float):
         """The operator F = A0 + C(u) at the current state, as its compact
@@ -869,12 +1039,16 @@ class NavierStokes:
         f_vals = self.a0_cell + self._ops.convection(self._op, self._u)
         return self.ell.unshard(f_vals) if self._sharded else f_vals
 
-    def solve_time_step(self) -> StepMetrics:
+    def solve_time_step(self, *, _eager: bool = False) -> StepMetrics:
         """Advance exactly one step (cpp:344-397); usable straight after
-        setup() (state lazily zero-initialized)."""
+        setup() (state lazily zero-initialized).  On the card the
+        one-device projection step replays its captured CUDA graphs
+        (models/step_graphs.py), as the JAX model's ``solve_time_step``
+        runs its compiled one-step chunk; ``_eager`` takes the plain step
+        instead (the comparisons of chip_smoke.py and the tests)."""
         if not hasattr(self, "_u"):
             self._init_state(0)
-        return self._advance()
+        return self._read_rows(*self._run_steps(1, _eager))[0]
 
     def _init_state(self, time_step: int = 0):
         sp = self.space
@@ -912,11 +1086,18 @@ class NavierStokes:
         self._t = torch.tensor(self.time, **kw)
 
     def solve(self, time_step: int = 0, csv_path: str | None = None,
-              on_step=None):
-        """Time loop (cpp:439-499): ICs or restart, then one step at a time
-        with a csv row per step and VTU + checkpoint every output_step.
-        ``on_step(ts, metrics, wall_seconds)``, if given, is called after
-        each step (the validation driver's per-step record)."""
+              on_step=None, *, _eager: bool = False):
+        """Time loop (cpp:439-499): ICs or restart, then chunks of steps
+        that end at the output boundaries (every ``output_step``) or at the
+        end, as the JAX model's ``lax.scan`` chunks: no metric is read
+        inside a chunk.  After each chunk: its rows read at once, a csv
+        row and a printed line per step (time_prec_init the step's tile
+        rebuild, time_sol the chunk's wall time per step minus it), the
+        measured CFL once, and VTU + checkpoint at a boundary.
+        ``on_step(ts, metrics, wall_seconds)``, if given, is called for each
+        step of a chunk with the chunk's wall time per step (the
+        validation driver's record).  ``_eager`` as in
+        ``solve_time_step``."""
         if not self._is_setup:
             raise RuntimeError("call setup() first")
         cfg = self.config
@@ -925,26 +1106,33 @@ class NavierStokes:
         dt = cfg.deltat
         n_total = int(np.floor(cfg.t_final / dt + 0.5)) - time_step
         out_every = cfg.output_step
+        ts, end = time_step, time_step + n_total
         with ForcesCsv(csv_path or cfg.csv_path) as csv:
-            for ts in range(time_step + 1, time_step + n_total + 1):
+            while ts < end:
+                k = end - ts
+                if out_every:
+                    k = min(k, out_every - ts % out_every)
                 t0 = _walltime.perf_counter()
-                m = self._advance()
-                wall = _walltime.perf_counter() - t0
-                # reference csv schema (cpp:383-390): time_prec_init = the
-                # tile rebuild, time_sol = the rest of the step
-                csv.row(m.time, dt, m.iterations, m.prec_seconds,
-                        max(wall - m.prec_seconds, 0.0), m.drag, m.lift,
-                        m.cd, m.cl)
+                ms = self._read_rows(*self._run_steps(k, _eager))
+                per_step = (_walltime.perf_counter() - t0) / k
                 cfl = self.measured_cfl()
-                its = (f"{m.iterations} FGMRES its"
-                       if cfg.scheme == "monolithic" else
-                       f"{m.f_iterations}+{m.p_iterations} BiCGStab+CG its")
-                print(f"n = {ts:4d}, t = {self.time:.4f}: {its} "
-                      f"(res {m.residual:.1e}), Cd = {self.cd:.5f}, "
-                      f"Cl = {self.cl:.5f} (CFL {cfl:.2f}, "
-                      f"{wall * 1e3:.1f} ms/step)")
-                if on_step is not None:
-                    on_step(ts, m, wall)
+                for i, m in enumerate(ms):
+                    # reference csv schema (cpp:383-390)
+                    csv.row(m.time, dt, m.iterations, m.prec_seconds,
+                            max(per_step - m.prec_seconds, 0.0), m.drag,
+                            m.lift, m.cd, m.cl)
+                    its = (f"{m.iterations} FGMRES its"
+                           if cfg.scheme == "monolithic" else
+                           f"{m.f_iterations}+{m.p_iterations} "
+                           "BiCGStab+CG its")
+                    cfl_part = f"CFL {cfl:.2f}, " if i == k - 1 else ""
+                    print(f"n = {ts + i + 1:4d}, t = {m.time:.4f}: {its} "
+                          f"(res {m.residual:.1e}), Cd = {m.cd:.5f}, "
+                          f"Cl = {m.cl:.5f} ({cfl_part}"
+                          f"{per_step * 1e3:.1f} ms/step)")
+                    if on_step is not None:
+                        on_step(ts + i + 1, m, per_step)
+                ts += k
                 if out_every and ts % out_every == 0:
                     self.output(ts)
                     self.export_data(ts)

@@ -19,6 +19,7 @@ on triangles and tetrahedra), in the compact SELL layout of
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -185,17 +186,30 @@ def block_jacobi_tiles(plan: BlockJacobiPlan, f_vals, mask_flat, sigma):
     return t.to(torch.float32)
 
 
+@contextlib.contextmanager
+def _cusolver():
+    """PyTorch's cuSOLVER / cuBLAS linear-algebra backend for the calls
+    inside.  Its default takes MAGMA for a batch of 256x256 LU
+    factorisations, which cannot be captured into a CUDA graph."""
+    old = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(old)
+
+
 def _inv(a):
-    """(Batched) inverse by LU with partial pivoting.  On the card:
-    ``torch.linalg.inv``.  On the CPU a single matrix (the Schur coarse
-    inverse) goes through SciPy's LAPACK getrf and getrs, the routines the
-    JAX package's CPU inverse calls, so the two give the same bits: its
-    fp32 rounding otherwise reaches 5e-9 of p in the float64 aYosida step.
-    A batch (the block-Jacobi tiles) is inverted one matrix at a time: the
-    batched LAPACK path of torch's CPU build hangs with more than one
-    thread (oneMKL rejects its ?LASWP call)."""
+    """(Batched) inverse by LU with partial pivoting.  On the card
+    ``torch.linalg.inv_ex``, which leaves its error flag on the device (no
+    host read) and gives ``torch.linalg.inv``'s bits.  On the CPU a single matrix (the Schur coarse inverse) goes through SciPy's
+    LAPACK getrf and getrs, the routines the JAX package's CPU inverse
+    calls, so the two give the same bits: its fp32 rounding otherwise
+    reaches 5e-9 of p in the float64 aYosida step.  A batch is inverted
+    one matrix at a time: the batched LAPACK path of torch's CPU build
+    hangs with more than one thread (oneMKL rejects its ?LASWP call)."""
     if a.is_cuda:
-        return torch.linalg.inv(a)
+        return torch.linalg.inv_ex(a).inverse
     if a.dim() == 2:
         import scipy.linalg
         m = a.numpy()
@@ -205,14 +219,24 @@ def _inv(a):
     return torch.stack([torch.linalg.inv(t) for t in a])
 
 
+def _inv_capturable(a):
+    """``_inv`` of a tile batch that a CUDA graph can capture: on the card
+    through the cuSOLVER / cuBLAS backend (``_cusolver``), in the captured
+    step (models/step_graphs.py) and the eager one alike."""
+    if not a.is_cuda:
+        return _inv(a)
+    with _cusolver():
+        return torch.linalg.inv_ex(a).inverse
+
+
 def block_jacobi_inverse(plan: BlockJacobiPlan, f_vals, mask_flat, sigma):
     """Exact tile inverses (the Newton seed of block_jacobi_invert)."""
     a = block_jacobi_tiles(plan, f_vals, mask_flat, sigma)
     return _inv(a).to(f_vals.dtype)
 
 
-# Exact tile inversions (``BJ_INVERSIONS["exact"]``): the validation
-# driver reads when the exact-inverse fallback begins.
+# Exact tile inversions (``BJ_INVERSIONS["exact"]``): the model flags the
+# steps whose rebuild took the exact inverse (StepMetrics.exact_inverse).
 BJ_INVERSIONS = collections.Counter()
 
 
@@ -232,31 +256,67 @@ def block_jacobi_invert_parts(parts, iters: int = 3):
     ``parts`` = [(plan, f_vals, mask_flat, sigma, x0), ...] each on its own
     device.  The exact-inverse guard takes the largest norm over all
     tiles of all parts, on the first part's device, so every shard makes
-    the one decision a single stack would."""
+    the one decision a single stack would; it is read once, before the
+    branch (JAX's ``lax.cond``)."""
+    g = block_jacobi_guard(parts, iters)
+    if g.norm is None or not bool(g.norm < GUARD_LIMIT):
+        return block_jacobi_exact(g)
+    return block_jacobi_newton(g, iters)
+
+
+# The Newton-Schulz seed is used while max row-sum |I - A X0| < GUARD_LIMIT.
+GUARD_LIMIT = 0.9
+
+
+@dataclasses.dataclass
+class BjGuard:
+    """The step's tile stacks and the Newton-Schulz guard, before the
+    branch: ``norm`` the max row-sum norm of I - A X0 over every tile of
+    every part (0-d, on the first part's device), None when the exact
+    inverse is forced (no seed or no Newton-Schulz steps)."""
+    tiles: list
+    xs: list
+    axs: list
+    norm: torch.Tensor | None
+    out_dtype: torch.dtype
+
+
+def block_jacobi_guard(parts, iters: int = 3) -> BjGuard:
+    """The tiles of ``parts`` (as ``block_jacobi_invert_parts``), the seed
+    X0 in fp32, A X0 and the guard norm, all on the devices: no host
+    read."""
     tiles = [block_jacobi_tiles(plan, f, m, s) for plan, f, m, s, _ in parts]
     out_dtype = parts[0][1].dtype
     x0s = [p[4] for p in parts]
-    exact = x0s[0] is None or iters <= 0
-    if not exact:
-        xs = [x0.to(torch.float32) for x0 in x0s]
-        axs = [torch.matmul(a, x) for a, x in zip(tiles, xs)]
-        home = axs[0].device
-        norms = []
-        for ax in axs:
-            eye = torch.eye(ax.shape[-1], dtype=torch.float32,
-                            device=ax.device)
-            norms.append((eye[None] - ax).abs().sum(-1).max().to(home))
-        exact = not bool(torch.stack(norms).max() < 0.9)
-    if exact:
-        BJ_INVERSIONS["exact"] += 1
-        return [_inv(a).to(out_dtype) for a in tiles]
+    if x0s[0] is None or iters <= 0:
+        return BjGuard(tiles, [], [], None, out_dtype)
+    xs = [x0.to(torch.float32) for x0 in x0s]
+    axs = [torch.matmul(a, x) for a, x in zip(tiles, xs)]
+    home = axs[0].device
+    norms = []
+    for ax in axs:
+        eye = torch.eye(ax.shape[-1], dtype=torch.float32, device=ax.device)
+        norms.append((eye[None] - ax).abs().sum(-1).max().to(home))
+    return BjGuard(tiles, xs, axs, torch.stack(norms).max(), out_dtype)
+
+
+def block_jacobi_exact(g: BjGuard):
+    """The exact tile inverses (the guard's fallback branch), capturable
+    (``_inv_capturable``)."""
+    BJ_INVERSIONS["exact"] += 1
+    return [_inv_capturable(a).to(g.out_dtype) for a in g.tiles]
+
+
+def block_jacobi_newton(g: BjGuard, iters: int):
+    """``iters`` Newton-Schulz steps X <- X (2I - A X) from the seed (the
+    guard's main branch)."""
     out = []
-    for a, x, ax in zip(tiles, xs, axs):
+    for a, x, ax in zip(g.tiles, g.xs, g.axs):
         for i in range(iters):
             x = 2.0 * x - torch.matmul(x, ax)
             if i + 1 < iters:
                 ax = torch.matmul(a, x)
-        out.append(x.to(out_dtype))
+        out.append(x.to(g.out_dtype))
     return out
 
 

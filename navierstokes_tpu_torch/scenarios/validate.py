@@ -21,7 +21,11 @@ Differences from the JAX script:
   place of ``--cpu``; ``--device cpu`` runs in float64 as ``--cpu`` did,
   and ``--dtype`` overrides either (float64 on the card).
 * ``--steps-per-chunk`` is dropped: it capped the length of a jitted
-  ``lax.scan`` chunk, and the port steps one at a time.
+  ``lax.scan`` chunk, a limit of TPU executables.  The port runs chunks
+  of the output interval (``NavierStokes.solve``, on the card from
+  captured CUDA graphs under ``--projection``), as the JAX script does
+  without the cap; each step's line comes after its chunk, with the
+  chunk's wall time per step.
 * ``--proj-poisson`` is dropped: only the Laplacian Poisson operator is
   ported (``schur`` is unstable in the JAX package, VALIDATION.md).
 * ``--degree 3`` (2d1 only) runs the case in P3/P2 on the generic element
@@ -280,7 +284,6 @@ def main(argv=None):
     args = parse_args(argv)
     import torch
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
-    from navierstokes_tpu_torch.ops.p1ell import BJ_INVERSIONS
     on_card = torch.device(args.device).type == "cuda"
     card = card_line() if on_card else None
     out = args.out or os.path.join("build", "validate", args.case)
@@ -308,16 +311,15 @@ def main(argv=None):
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak "
               "allocated", flush=True)
 
-    # per step: (iterations, f its, p its, converged, wall seconds, exact
-    # tile inversions so far)
+    # per step: (iterations, f its, p its, converged, wall seconds (the
+    # chunk's per step), whether the tile rebuild took the exact inverse)
     steps = []
 
     def record(ts, m, wall):
         steps.append((m.iterations, m.f_iterations, m.p_iterations,
-                      bool(m.converged), wall, BJ_INVERSIONS["exact"]))
+                      bool(m.converged), wall, m.exact_inverse))
 
     COUNTS.reset()
-    BJ_INVERSIONS.clear()
     t0 = time.perf_counter()
     ns.solve(time_step=args.restart_step, on_step=record)
     if on_card:
@@ -340,9 +342,8 @@ def main(argv=None):
     launches = {f"{str(dt).replace('torch.', '')} D={d}": c / max(n_run, 1)
                 for (dt, d), c in sorted(COUNTS.by_variant.items(),
                                          key=str)}
-    exact = [s[5] - (steps[k - 1][5] if k else 0)
-             for k, s in enumerate(steps)]
-    k_exact = next((k for k, e in enumerate(exact) if e > 0), None)
+    exact = [s[5] for s in steps]
+    k_exact = next((k for k, e in enumerate(exact) if e), None)
     after = [s[4] for s in steps[k_exact:]] if k_exact is not None else []
     result = {
         "case": args.case, "scheme": cfg.scheme, "dtype": cfg.dtype,
@@ -364,7 +365,7 @@ def main(argv=None):
         "sell_launches_per_step": launches,
         "exact_inverse_first_step": (None if k_exact is None
                                      else args.restart_step + k_exact + 1),
-        "exact_inverse_steps": sum(1 for e in exact if e > 0),
+        "exact_inverse_steps": sum(1 for e in exact if e),
         "ms_per_step_from_first_exact": (1e3 * sum(after) / len(after)
                                          if after else None),
         "stats": stats, "card": card}

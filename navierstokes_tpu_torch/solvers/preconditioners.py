@@ -23,7 +23,7 @@ from typing import Callable
 
 import torch
 
-from navierstokes_tpu_torch.solvers.krylov import bicgstab, gmres
+from navierstokes_tpu_torch.solvers.krylov import BicgstabLoop, gmres
 
 
 @dataclasses.dataclass
@@ -40,8 +40,10 @@ class InnerSolve:
             return gmres(apply_op, rhs, tol=self.tol,
                          restart=min(10, self.maxiter),
                          maxiter=self.maxiter, precond=precond).x
-        return bicgstab(apply_op, rhs, tol=self.tol, maxiter=self.maxiter,
-                        precond=precond).x
+        # only x: no read of the count and convergence
+        loop = BicgstabLoop(apply_op, rhs, tol=self.tol,
+                            maxiter=self.maxiter, precond=precond).run()
+        return loop.unravel(loop.x)
 
 
 def make_identity():

@@ -511,3 +511,81 @@ def test_stokes_solver_on_cuda_equals_cpu(cuda, kv, kp):
     assert bool(rg.converged)
     for a, b in ((ug, uc), (pg, pc)):
         assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max()
+
+
+def _projection_model(tmp, forcing=None, **fields):
+    from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
+    cfg = SolverConfig(dtype="float32", scheme="projection",
+                       output_dir=str(tmp / "out"),
+                       cache_dir=str(tmp / "cache"),
+                       csv_path=str(tmp / "forces.csv"))
+    for k, v in fields.items():
+        setattr(cfg, k, v)
+    ns = NavierStokes(channel_with_cylinder_2d(h=0.12), 2, 1, deltat=0.01,
+                      T=0.05, step=5, device="cuda", config=cfg,
+                      inlet=InletConfig(kind="parabolic", u_m=0.3,
+                                        height=0.41), forcing=forcing)
+    ns.set_re_number(20)
+    return ns.setup()
+
+
+def _forcing(x, t):
+    return torch.stack([0.2 * torch.sin(3.0 * x[:, 1]) * (1.0 + t),
+                        0.1 * torch.cos(2.0 * x[:, 0])], dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,fields", [
+    ("bj", {}), ("jacobi", dict(f_precond="jacobi")),
+    ("bdf1", dict(proj_bdf2=False)), ("exact tiles", dict(bj_newton=0)),
+    ("bj_bf16", dict(bj_bf16=True)), ("forcing", dict(forcing=_forcing))])
+def test_captured_steps_equal_eager_on_cuda(cuda, tmp_path, case, fields):
+    """5 projection steps replayed from the captured CUDA graphs equal 5
+    plain (eager) steps bit for bit, with the same counts; no replay
+    synchronises (set_sync_debug_mode("error") around each)."""
+    fields = dict(fields)
+    forcing = fields.pop("forcing", None)
+    eager = _projection_model(tmp_path / "eager", forcing, **fields)
+    graphs = _projection_model(tmp_path / "graphs", forcing, **fields)
+    graphs.capture_graphs().sync_check = True
+    me = [eager.solve_time_step(_eager=True) for _ in range(5)]
+    K.COUNTS.reset()
+    mg = [graphs.solve_time_step() for _ in range(5)]
+    assert K.COUNTS.launches > 0 and K.COUNTS.plain_cuda_calls == 0
+    assert torch.equal(eager._u, graphs._u)
+    assert torch.equal(eager._p, graphs._p)
+    for a, b in zip(me, mg):
+        assert (a.cd, a.cl, a.f_iterations, a.p_iterations, a.converged) \
+            == (b.cd, b.cl, b.f_iterations, b.p_iterations, b.converged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_givens_kernel_matches_plain_on_cuda(cuda, dtype):
+    """The Givens update on the card equals its plain version bit for bit
+    over a 40-column cycle (restart 64)."""
+    from navierstokes_tpu_torch.kernels import arnoldi_lsq as AL
+    m, out = 64, {}
+    for dev in ("cpu", "cuda"):
+        kw = dict(dtype=dtype, device=dev)
+        H = torch.zeros((m + 1, m), **kw)
+        cs, sn = torch.zeros(m, **kw), torch.zeros(m, **kw)
+        g = torch.zeros(m + 1, **kw)
+        g[0] = 3.0
+        j = torch.zeros((), dtype=torch.int32, device=dev)
+        res = torch.full((), 3.0, **kw)
+        act = torch.ones((), dtype=torch.bool, device=dev)
+        target = torch.full((), 1e-12, **kw)
+        rng = np.random.default_rng(7)
+        for _ in range(40):
+            col = rng.standard_normal(m + 1)
+            h = torch.as_tensor(col, **kw)
+            # a dominant new entry keeps |g[j+1]| from decaying to target
+            w = torch.as_tensor(10.0 * np.abs(col).max() + 1.0, **kw)
+            AL.lsq_update(H, cs, sn, g, h, w, j, res, act, target, m)
+        out[dev] = [t.cpu() for t in (H, cs, sn, g, j, res, act)]
+    assert int(out["cuda"][4]) == 40
+    names = ("H", "cs", "sn", "g", "j", "res", "active")
+    differ = [n for n, a, b in zip(names, out["cuda"], out["cpu"])
+              if not torch.equal(a, b)]
+    assert differ == []

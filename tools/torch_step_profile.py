@@ -1,7 +1,7 @@
 """Per-step profile of the PyTorch port at a full-size point, on one GPU.
 
     python3 tools/torch_step_profile.py [--tree DIR] [--case C] [--scheme S]
-        [--operator O]
+        [--operator O] [--eager]
 
 Builds, with the ``navierstokes_tpu_torch`` package found under ``--tree``
 (default: this checkout), so that two versions of the port can be
@@ -44,6 +44,12 @@ It prints, for the case:
   device time per step (kernels, copies and memsets), its share of the
   unprofiled step time, the SpMV kernels' part of it, and the kernels with
   the most time (name, calls, ms).
+
+On the card the one-device projection step replays its captured CUDA
+graphs (models/step_graphs.py); ``--eager`` steps it with the plain
+(eager) step instead (``solve_time_step(_eager=True)``), so the two can
+be compared in one call.  A ``--tree`` without captured graphs steps
+eagerly either way.
 
 The last line is one JSON object with these numbers.
 """
@@ -157,6 +163,8 @@ def main():
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--profile-steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--eager", action="store_true",
+                    help="the plain step, not the captured graphs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
@@ -166,6 +174,8 @@ def main():
     card = card_line()
     label = {"3d1": "3d1", "naca": "naca", "p3": "p3 cells",
              "2d1": f"2d1 {args.operator}"}.get(args.case, args.scheme)
+    if args.eager:
+        label += " eager"
     tag = f"[{os.path.basename(tree)} {label}]"
     work = os.path.join(tree, "build", "step_profile")
     t0 = time.perf_counter()
@@ -177,12 +187,16 @@ def main():
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     print(f"{tag} setup {setup_s:.1f} s, {ns.space.n_dofs} DoF", flush=True)
+    import inspect
+    kw = ({"_eager": True} if args.eager and "_eager" in inspect.signature(
+        ns.solve_time_step).parameters else {})
+    step = lambda: ns.solve_time_step(**kw)
 
     torch.cuda.reset_peak_memory_stats()
-    ms = [ns.solve_time_step() for _ in range(args.warm)]
+    ms = [step() for _ in range(args.warm)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ms += [ns.solve_time_step() for _ in range(args.steps)]
+    ms += [step() for _ in range(args.steps)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -198,7 +212,7 @@ def main():
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        ms += [ns.solve_time_step() for _ in range(args.profile_steps)]
+        ms += [step() for _ in range(args.profile_steps)]
         torch.cuda.synchronize()
     # device-side events only (kernels, copies, memsets): the operator
     # events above them carry the same device time again
@@ -236,6 +250,8 @@ def main():
     print(json.dumps({
         "tree": os.path.basename(tree), "case": args.case,
         "scheme": label, "card": card, "setup_s": setup_s,
+        "eager": bool(kw) or not (hasattr(ns, "_captures")
+                                  and ns._captures()),
         "n_dofs": ns.space.n_dofs, "steps_per_s": args.steps / wall,
         "step_ms": step_ms, "cd": [m.cd for m in ms],
         "converged": all(m.converged for m in ms),
