@@ -30,11 +30,17 @@ and checks them:
 6. the bf16-values and fp64 kernel variants against their plain versions
    in every use, timed as in phase 3;
 7. the small fixture under ``scheme="monolithic"``: 5 steps on the card
-   against the CPU, fp32, with ``cc``, ``asimple``, ``cc`` + ``inner_bf16``
-   (the bf16 variant's path) and ``cc`` + ``refine=2`` (the fp64
-   variant's path);
-8. the monolithic bench point (FGMRES + Cahouet-Chabard, BDF1): 5 warm-up
-   and 5 timed steps, after the projection model is freed;
+   (captured) against the CPU, fp32, with ``cc``, ``asimple``, ``cc`` +
+   ``inner_bf16`` (the bf16 variant's path) and ``cc`` + ``refine=2`` (the
+   fp64 variant's path), and against 5 eager steps on the card, bit for
+   bit with the same SELL and Givens launches;
+8. the monolithic bench point (FGMRES + Cahouet-Chabard, BDF1), after the
+   projection model is freed: the step captured (models/step_graphs.py
+   ``MonolithicGraphs``: FGMRES and inner BiCGStab iterations under
+   conditional nodes; capture seconds, graphs, bodies per block, peak and
+   reserved-memory growth), then 5 warm-up and 5 timed steps through
+   ``solve_time_step``; host reads and skipped bodies per step, one
+   Givens launch per FGMRES iteration;
 9. a 3D small fixture (the h=0.15 square-column duct, 6,954 DoF): 5 steps
    on the card against the CPU, fp32, under phase 4's rule, for projection
    with ``bj`` and with ``jacobi``, monolithic ``cc``, ``cc`` +
@@ -63,7 +69,10 @@ and checks them:
    criteria of tests/test_naca_values.py on the four final Cl; setup
    seconds and steps/s per angle, peak memory, the steps' launches per
    step (the setups' launches apart) and the final Cd/Cl beside the TPU
-   csv's (``artifacts/naca_sweep``, for information only); then the fp32
+   csv's (``artifacts/naca_sweep``, for information only); the sweep's
+   steps are captured, and its 8 degree run again through the CLI with the
+   plain step gives the same FGMRES counts, Cd and Cl at every step; then
+   the fp32
    kernel against its plain version in every use of the NACA step (F,
    mass, P1 Laplacian, Ap, G, B) on a 2d-naca model at h=0.02, timed as
    in phase 3 (the record's ``sell_spmv_naca`` entry);
@@ -121,9 +130,20 @@ and checks them:
    (``inv_ex`` gives ``inv``'s bits; the capturable cuSOLVER LU against
    it); one chunked ``solve`` of 16 steps from the initial state (chunks
    of 8) whose csv equals phase 5's first 16 steps; the Givens kernel
-   (csrc/arnoldi_lsq.cu) against its plain version at every call of
-   5 FGMRES steps of the monolithic small fixture, bit for bit, and
-   its time.
+   (csrc/arnoldi_lsq.cu, its bounds read from the device) against its
+   plain version at every call of 5 eager FGMRES steps of the monolithic
+   small fixture, bit for bit, and its time per launch from the host and
+   replayed from a graph;
+22. (right after phase 8) the captured monolithic step: from phase 8's
+   end state, 5 bench-point steps captured, eager, captured, eager, every
+   run equal bit for bit (u, p, Cd, Cl, FGMRES counts, residuals) with
+   the same SELL and Givens launches per step, the first captured run
+   with ``set_sync_debug_mode("error")`` around each replay; steps/s of
+   each run, host reads and skipped (captured) or masked (eager)
+   iterations per step, the capture's seconds and memory, peak memory;
+   then the conditional nodes' kernel (csrc/graph_cond.cu) against the
+   host read it replaces on 64 seeded flags, and its device time per node
+   skipped and run (the record's ``set_condition`` entry).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
@@ -764,33 +784,36 @@ def _restore(dst, src):
 
 def phase_givens():
     """The Givens kernel against its plain version at every call of 5
-    FGMRES steps of the monolithic small fixture (restart 64), bit for bit;
-    then its time over 40 successive columns from the fixture's first
-    Arnoldi state (target 0, so none stops early)."""
+    eager FGMRES steps of the monolithic small fixture (restart 64), bit
+    for bit; then its time over 40 successive columns from the fixture's
+    first Arnoldi state (target 0, so none stops early): launched from the
+    host in a burst, and replayed from a captured graph of the 40 launches
+    (its cost inside the captured monolithic step)."""
     from navierstokes_tpu_torch.kernels import arnoldi_lsq as AL
+    from navierstokes_tpu_torch.kernels.launches import record_launches
     from navierstokes_tpu_torch.solvers import krylov
     calls = 0
     kept = {}
 
     def update(*args):
         nonlocal calls
-        state = [a.clone() for a in args[:10]]
+        state = [a.clone() for a in args]
         AL.lsq_update(*args)
         plain = [a.cpu().clone() for a in state]
-        AL.lsq_update_plain(*plain, args[10])
-        for k in (0, 1, 2, 3, 6, 7, 8):
+        AL.lsq_update_plain(*plain)
+        for k in (0, 1, 2, 3, 7, 8, 9):
             check(torch.equal(args[k].cpu(), plain[k]),
                   f"[21] lsq_update kernel against plain, argument {k}")
         calls += 1
-        if "update" not in kept and int(state[6]) == 0:
-            kept["update"] = (state, args[10])
+        if "update" not in kept and int(state[7]) == 0:
+            kept["update"] = state
 
     orig = krylov.lsq_update
     krylov.lsq_update = update
     try:
         ns = small_model("cuda", os.path.join(WORK, "givens"),
                          scheme="monolithic", preconditioner="cc")
-        ms = [ns.solve_time_step() for _ in range(5)]
+        ms = [ns.solve_time_step(_eager=True) for _ in range(5)]
     finally:
         krylov.lsq_update = orig
     torch.cuda.synchronize()
@@ -800,17 +823,17 @@ def phase_givens():
         f"{[m.iterations for m in ms]}): {calls} calls, all bit for bit")
 
     # lsq_update: 40 successive columns j = 0..39, restored between bursts
-    (H, cs, sn, g, h, wn, j, res, act, tgt), _ = kept["update"]
+    H, cs, sn, g, h1, h2, wn, j, res, act, tgt, j_max = kept["update"]
     m = H.shape[1]
     # target 0 and a dominant new entry (each rotation's sine near 1, so
     # |g[j+1]| does not decay): every launch of the burst stays active
     tgt = torch.zeros_like(tgt)
-    wn = torch.full_like(wn, 10.0 * float(h.abs().max()) + 1.0)
+    wn = torch.full_like(wn, 10.0 * float((h1 + h2).abs().max()) + 1.0)
     work = [t.clone() for t in (H, cs, sn, g, j, res, act)]
     init = [t.clone() for t in work]
     n = 40
 
-    def burst(fn):
+    def timed(fn):
         times = []
         for _ in range(10):
             _restore(work, init)
@@ -819,30 +842,47 @@ def phase_givens():
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            for _ in range(n):
-                fn()
+            fn()
             b.record()
             b.synchronize()
             times.append(a.elapsed_time(b) / n)
         return statistics.median(times)
 
-    kernel = lambda: AL.lsq_update(work[0], work[1], work[2], work[3], h, wn,
-                                   work[4], work[5], work[6], tgt, m)
-    plain = lambda: AL.lsq_update_plain(work[0], work[1], work[2], work[3], h,
-                                        wn, work[4], work[5], work[6], tgt, m)
-    upd_ms, upd_plain_ms = burst(kernel), burst(plain)
+    kernel = lambda: AL.lsq_update(work[0], work[1], work[2], work[3], h1, h2,
+                                   wn, work[4], work[5], work[6], tgt, j_max)
+    plain = lambda: AL.lsq_update_plain(work[0], work[1], work[2], work[3],
+                                        h1, h2, wn, work[4], work[5],
+                                        work[6], tgt, j_max)
+
+    def burst(fn):
+        return lambda: [fn() for _ in range(n)]
+
+    upd_ms, upd_plain_ms = timed(burst(kernel)), timed(burst(plain))
     check(int(work[4]) == n, "[21] lsq_update timing: 40 active columns")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    _restore(work, init)
+    with record_launches(), torch.cuda.graph(graph, stream=stream):
+        burst(kernel)()
+    in_graph_ms = timed(graph.replay)
+    check(int(work[4]) == n, "[21] lsq_update in a graph: 40 active columns")
+    del graph
     s = H.element_size()
-    upd_bytes = [s * (2 * (m + 1) + 2 * jj + 8) + 10 for jj in range(n)]
-    upd_ops = [6 * jj + 9 for jj in range(n)]
+    # reads h1, h2, the j stored rotations, g[j], wnorm, j, j_max, the
+    # flag and the target; writes H[:, j], cs[j], sn[j], g[j:j+2], res, j
+    # and the flag
+    upd_bytes = [s * (3 * (m + 1) + 2 * jj + 8) + 14 for jj in range(n)]
+    upd_ops = [6 * jj + 9 + (m + 1) for jj in range(n)]
     upd_bound = statistics.mean(
         max(b / HBM_BYTES_PER_S, o / FP32_OPS_PER_S) * 1e3
         for b, o in zip(upd_bytes, upd_ops))
     log(f"[21] lsq_update (m={m}, j=0..{n - 1}): {upd_ms:.4f} ms per launch "
-        f"in a burst, plain {upd_plain_ms:.4f} ms, bound {upd_bound:.2e} ms "
+        f"in a burst, {in_graph_ms:.4f} ms per launch replayed from a "
+        f"graph, plain {upd_plain_ms:.4f} ms, bound {upd_bound:.2e} ms "
         f"(bytes)")
-    return dict(ms=upd_ms, plain_ms=upd_plain_ms, bound_ms=upd_bound,
-                library_ms=None, calls=calls)
+    return dict(ms=upd_ms, in_graph_ms=in_graph_ms, plain_ms=upd_plain_ms,
+                bound_ms=upd_bound, library_ms=None, calls=calls)
 
 
 # the small-fixture monolithic configurations of phase 7, and the launch
@@ -855,30 +895,52 @@ MONO_SMALL = (("cc", {}, "launches"),
 
 
 def phase_monolithic_small():
-    """CUDA fp32 against CPU fp32 (the gate: phase 4's limits) and both
-    against CPU float64 (printed), 5 monolithic steps per configuration;
-    every kernel the configuration's path runs must launch."""
+    """CUDA fp32 (captured) against CPU fp32 (the gate: phase 4's limits)
+    and both against CPU float64 (printed), 5 monolithic steps per
+    configuration, and the captured steps against eager ones on the card,
+    bit for bit with the same launches; every kernel the configuration's
+    path runs must launch."""
+    from navierstokes_tpu_torch.kernels import arnoldi_lsq
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     launches = {}
+
+    def step(ns, **kw):
+        torch.cuda.synchronize()
+        COUNTS.reset()
+        arnoldi_lsq.COUNTS.reset()
+        m = ns.solve_time_step(**kw)
+        torch.cuda.synchronize()
+        return m, (dict(COUNTS.by_variant), arnoldi_lsq.COUNTS.update,
+                   COUNTS.plain_cuda_calls), {
+                       f: getattr(COUNTS, f) for f in (
+                           "launches", "launches_bf16", "launches_f64")}
 
     for tag, kw, field in MONO_SMALL:
         kw = dict(scheme="monolithic", **kw)
         d = os.path.join(WORK, "mono_" + tag.replace("+", "_")
                          .replace("=", ""))
         gpu = small_model("cuda", d + "_gpu", **kw)
+        eag = small_model("cuda", d + "_eager", **kw)
         cpu = small_model("cpu", d + "_cpu", **kw)
         ref = small_model("cpu", d + "_f64", "float64", **kw)
+        gpu.capture_graphs()
         worst = dict(cd=0.0, cl=0.0, u=0.0, its=0, u64=0.0)
         counts = dict(launches=0, launches_bf16=0, launches_f64=0)
         for k in range(5):
-            torch.cuda.synchronize()
-            COUNTS.reset()
-            mg = gpu.solve_time_step()
-            torch.cuda.synchronize()
-            check(COUNTS.plain_cuda_calls == 0,
+            mg, cg, fields = step(gpu)
+            me, ce, _ = step(eag, _eager=True)
+            check(cg[2] == 0 and ce[2] == 0,
                   f"[7] {tag}: no plain-version calls on CUDA tensors")
             for f in counts:
-                counts[f] += getattr(COUNTS, f)
+                counts[f] += fields[f]
+            same = (torch.equal(gpu._u, eag._u)
+                    and torch.equal(gpu._p, eag._p)
+                    and (mg.cd, mg.cl, mg.iterations, mg.residual)
+                    == (me.cd, me.cl, me.iterations, me.residual))
+            check(same, f"[7] {tag} step {k + 1}: captured equals eager "
+                  "bit for bit")
+            check(cg[:2] == ce[:2], f"[7] {tag} step {k + 1}: captured "
+                  f"launches {cg[:2]} equal eager {ce[:2]}")
             mc = cpu.solve_time_step()
             mr = ref.solve_time_step()
             scale = max(abs(mc.cd), abs(mc.cl), 1e-30)
@@ -895,7 +957,8 @@ def phase_monolithic_small():
                 f"{dcd:.2e}, Cl {dcl:.2e}), u rel {du:.2e}; against CPU "
                 f"float64: u rel cuda {_rel(gpu._u, ref._u):.2e}, cpu "
                 f"{_rel(cpu._u, ref._u):.2e}; residual cuda "
-                f"{mg.residual:.2e}")
+                f"{mg.residual:.2e}; host reads captured {mg.flag_reads} "
+                f"eager {me.flag_reads}")
             for key, v in (("cd", dcd), ("cl", dcl), ("u", du),
                            ("its", dits), ("u64", du64)):
                 worst[key] = max(worst[key], v)
@@ -908,8 +971,10 @@ def phase_monolithic_small():
         log(f"[7] {tag} worst: Cd {worst['cd']:.2e}, Cl {worst['cl']:.2e}, "
             f"u {worst['u']:.2e} (gate {gate:g}; fp32 runs to float64 up "
             f"to {worst['u64']:.2e}), iteration diff {worst['its']} (limit "
-            f"1); launches over 5 steps: fp32 {counts['launches']}, bf16 "
-            f"{counts['launches_bf16']}, fp64 {counts['launches_f64']}")
+            f"1); launches over 5 captured steps: fp32 "
+            f"{counts['launches']}, bf16 {counts['launches_bf16']}, fp64 "
+            f"{counts['launches_f64']}; captured equal to eager bit for bit "
+            "at every step")
         check(worst["cd"] <= gate and worst["cl"] <= gate, f"{tag} Cd/Cl")
         check(worst["u"] <= gate, f"{tag} u")
         check(worst["its"] <= 1, f"{tag} iteration counts")
@@ -935,9 +1000,27 @@ def phase_monolithic_bench(card):
     check(ns.space.n_dofs == EXPECTED_DOFS, "monolithic DoF count")
     log(f"[8] monolithic bench point: {ns.space.n_dofs} DoF, setup "
         f"{setup_s:.1f} s")
-    from navierstokes_tpu_torch.kernels import arnoldi_lsq
+    from navierstokes_tpu_torch.kernels import arnoldi_lsq, conditional
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
+    sg = ns.capture_graphs()
+    capture = dict(
+        capture_s=sg.capture_seconds,
+        capture_peak_bytes=torch.cuda.max_memory_allocated(),
+        reserved_growth_bytes=torch.cuda.memory_reserved() - reserved0,
+        graphs=len(sg.graphs), nodes_per_block=sg.nodes_per_block,
+        block=sg.ce)
+    log(f"[8] captured the monolithic step: {len(sg.graphs)} graphs, "
+        f"{sg.nodes_per_block} conditional bodies per FGMRES block of "
+        f"{sg.ce}, in {sg.capture_seconds:.2f} s (with a warm-up step); "
+        f"peak {capture['capture_peak_bytes']} bytes, reserved memory grew "
+        f"by {capture['reserved_growth_bytes']} bytes (the graph pool and "
+        f"the body pool) on {card}")
+    torch.cuda.reset_peak_memory_stats()
     COUNTS.reset()
     arnoldi_lsq.COUNTS.reset()
+    conditional.COUNTS.reset()
     ms_all, step_s = [], []
     n_warm = n_meas = 5
     k = 0
@@ -959,10 +1042,15 @@ def phase_monolithic_bench(card):
     launches, plain_cuda = COUNTS.launches, COUNTS.plain_cuda_calls
     per_step = per_step_launches(n_warm + n_meas)
     givens = dataclasses.asdict(arnoldi_lsq.COUNTS)
+    nodes = conditional.COUNTS.set_condition
     peak = torch.cuda.max_memory_allocated()
     sps = n_meas / wall
     log(f"[8] Givens kernel launches over {n_warm + n_meas} steps: "
-        f"{givens}")
+        f"{givens}; set_condition launches {nodes}")
+    log(f"[8] host reads per step: "
+        + " ".join(str(m.flag_reads) for m in ms_all)
+        + "; skipped conditional bodies per step: "
+        + " ".join(str(m.masked_iterations) for m in ms_all))
     log(f"[8] FGMRES iterations per step: "
         + " ".join(str(m.iterations) for m in ms_all))
     log(f"[8] residual per step: "
@@ -990,13 +1078,175 @@ def phase_monolithic_bench(card):
     check(bool(torch.isfinite(ns._u).all() and torch.isfinite(ns._p).all()),
           "[8] finite u, p")
     check(launches > 0, "[8] kernel launched on the monolithic path")
-    check(givens["update"] >= sum(m.iterations for m in ms_all),
-          "[8] the Givens kernel launched at every FGMRES iteration")
+    check(givens["update"] == sum(m.iterations for m in ms_all),
+          "[8] the Givens kernel launched once per FGMRES iteration")
+    check(nodes > 0, "[8] the conditional nodes' kernel launched")
     check(plain_cuda == 0, "[8] no plain-version calls on CUDA tensors")
     log(f"[8] all {len(ms_all)} FGMRES solves converged (rel tol {tol:g})")
+    end = {a: getattr(ns, a).clone() for a in ("_u", "_p", "_u_prev",
+                                               "_phi", "_t")}
+    end["time"] = ns.time
     return dict(launches=launches, steps_per_s=sps, peak_bytes=peak,
                 setup_s=setup_s, per_step=per_step, givens=givens,
-                n_steps=n_warm + n_meas)
+                set_condition=nodes, n_steps=n_warm + n_meas, ns=ns,
+                end=end, capture=capture)
+
+
+# phase 22: bench-point monolithic steps of each run from phase 8's end
+# state, and the conditional-node check's node count
+MONO_GRAPH_STEPS = 5
+NODE_CHECK = 64
+COND_SOURCE = "navierstokes_tpu_torch/csrc/graph_cond.cu"
+# JAX's loop predicate: the cond of FGMRES's lax.while_loop
+COND_REPLACES = "navierstokes_tpu/solvers/krylov.py:132"
+
+
+def phase_monolithic_graphs(mono, card):
+    """Phase 22: from phase 8's end state, captured / eager / captured /
+    eager runs of MONO_GRAPH_STEPS bench-point monolithic steps, bit for
+    bit with the same SELL, Givens launches per step, the first captured
+    run under set_sync_debug_mode("error"); then the conditional nodes'
+    kernel against its plain version (a host read of the flag)."""
+    from navierstokes_tpu_torch.kernels import arnoldi_lsq, conditional
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    t_phase = time.perf_counter()
+    ns, n = mono["ns"], MONO_GRAPH_STEPS
+    sg = ns.capture_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for mode in ("captured", "eager", "captured", "eager"):
+        _load_state(ns, mono["end"])
+        sg.sync_check = mode == "captured" and not runs
+        COUNTS.reset()
+        arnoldi_lsq.COUNTS.reset()
+        conditional.COUNTS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = [ns.solve_time_step(_eager=mode == "eager") for _ in range(n)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append(dict(
+            mode=mode, sync_check=sg.sync_check, steps_per_s=n / wall,
+            metrics=ms, u=ns._u.clone(), p=ns._p.clone(),
+            launches=per_step_launches(n),
+            givens=arnoldi_lsq.COUNTS.update / n,
+            set_condition=conditional.COUNTS.set_condition / n,
+            plain_cuda=COUNTS.plain_cuda_calls,
+            flag_reads=sum(m.flag_reads for m in ms) / n,
+            masked=sum(m.masked_iterations for m in ms) / n))
+        r = runs[-1]
+        checked = " (sync-checked replays)" if r["sync_check"] else ""
+        log(f"[22] {mode}{checked}"
+            f": {r['steps_per_s']:.4f} steps/s ({n} steps in {wall:.3f} s), "
+            f"host reads per step {r['flag_reads']:.2f}, "
+            + ("skipped conditional bodies" if mode == "captured"
+               else "masked iterations")
+            + f" per step {r['masked']:.2f}, Givens launches per step "
+            f"{r['givens']:.2f}, set_condition per step "
+            f"{r['set_condition']:.2f}, on {card}")
+    sg.sync_check = False
+    peak = torch.cuda.max_memory_allocated()
+    ref = runs[0]
+    log(f"[22] FGMRES iterations per step: "
+        + " ".join(str(m.iterations) for m in ref["metrics"])
+        + "; host reads per step captured "
+        + " ".join(str(m.flag_reads) for m in ref["metrics"]) + ", eager "
+        + " ".join(str(m.flag_reads) for m in runs[1]["metrics"]))
+    for r in runs[1:]:
+        same = (torch.equal(r["u"], ref["u"]) and torch.equal(r["p"], ref["p"])
+                and all((a.cd, a.cl, a.iterations, a.residual)
+                        == (b.cd, b.cl, b.iterations, b.residual)
+                        for a, b in zip(r["metrics"], ref["metrics"])))
+        check(same, f"[22] the {r['mode']} run equals the first captured "
+              "run bit for bit (u, p, Cd, Cl, FGMRES counts)")
+        check((r["launches"], r["givens"]) == (ref["launches"], ref["givens"]),
+              f"[22] {r['mode']}: SELL and Givens launches per step "
+              f"({r['launches']}, {r['givens']}) equal the captured run's "
+              f"({ref['launches']}, {ref['givens']})")
+    check(all(r["plain_cuda"] == 0 for r in runs),
+          "[22] no plain-version calls on CUDA tensors")
+    check(all(m.flag_reads < e.flag_reads for m, e in
+              zip(ref["metrics"], runs[1]["metrics"])),
+          "[22] the captured step reads the host less often")
+    check(ref["givens"] * n == sum(m.iterations for m in ref["metrics"]),
+          "[22] one Givens launch per FGMRES iteration")
+    sps = {m: [r["steps_per_s"] for r in runs if r["mode"] == m]
+           for m in ("captured", "eager")}
+    cap = mono["capture"]
+    log(f"[22] captured equals eager bit for bit in all four runs, with the "
+        f"same launches per step (SELL {ref['launches']}, Givens "
+        f"{ref['givens']:.2f}); capture {cap['capture_s']:.2f} s (phase 8), "
+        f"{cap['nodes_per_block']} bodies per block; peak device memory "
+        f"over the four runs {peak} bytes ({peak / 2**30:.2f} GiB); steps/s "
+        f"captured {sps['captured']}, eager {sps['eager']} on {card}")
+    nodes = phase_if_nodes()
+    log(f"[22] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(runs=[{k: r[k] for k in ("mode", "sync_check", "steps_per_s",
+                                         "flag_reads", "masked", "launches",
+                                         "givens", "set_condition")}
+                      for r in runs],
+                peak_bytes=peak, nodes=nodes)
+
+
+def phase_if_nodes():
+    """The conditional nodes (csrc/graph_cond.cu's set_condition and the
+    if node it feeds) against their plain version, a host read of the
+    flag deciding the body: NODE_CHECK nodes on seeded flags, each body
+    adding one to its slot, the slots equal to the flags; then the device
+    time per node skipped and run (a body of one add) from bursts of
+    replays, and the host read's time."""
+    from navierstokes_tpu_torch.kernels.conditional import IfNodes
+    from navierstokes_tpu_torch.kernels.launches import record_launches
+    gen = torch.Generator().manual_seed(22)
+    want = torch.rand(NODE_CHECK, generator=gen) < 0.5
+    flags = want.cuda()
+    slots = torch.zeros(NODE_CHECK, dtype=torch.int32, device="cuda")
+    ifs = IfNodes("cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with record_launches(), torch.cuda.graph(graph, stream=stream), \
+            ifs.routed():
+        for i in range(NODE_CHECK):
+            ifs.body(flags[i], lambda i=i: slots[i].add_(1))
+    graph.replay()
+    got = slots.cpu()
+    err = int((got - want.int()).abs().max())
+    check(err == 0, "[22] set_condition and its if node against the host "
+          "read of the flag")
+
+    def per_node_ms(value):
+        flags.fill_(value)
+        times = []
+        for _ in range(10):
+            torch.cuda._sleep(2_000_000)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / NODE_CHECK)
+        return statistics.median(times)
+
+    skip_ms, run_ms = per_node_ms(False), per_node_ms(True)
+    flag = flags[0]
+    t0 = time.perf_counter()
+    for _ in range(200):
+        bool(flag)
+    plain_ms = (time.perf_counter() - t0) / 200 * 1e3
+    del graph
+    ifs.close()
+    log(f"[22] if nodes: {NODE_CHECK} nodes on seeded flags, bodies run "
+        f"where the flag is up, max |error| {err}; per node {skip_ms:.5f} ms "
+        f"skipped, {run_ms:.5f} ms with a body of one add (device time), "
+        f"the plain version's host read {plain_ms:.5f} ms (host clock)")
+    # set_condition reads one flag byte and sets the handle: a 1-byte
+    # read and one operation
+    bound = max(1 / HBM_BYTES_PER_S, 1 / FP32_OPS_PER_S) * 1e3
+    return dict(max_abs_err=err, ms=skip_ms, run_ms=run_ms,
+                plain_ms=plain_ms, bound_ms=bound)
 
 
 def duct_model(device, tmp, dtype="float32", **overrides):
@@ -1401,8 +1651,56 @@ def phase_naca_sweep(card):
           "2 pi, R^2 > 0.98, 0 < Cl(0) < 2 pi 2.5 deg)")
     check(f_launches >= n_steps, "[14] the F product launched every step")
     check(plain_cuda == 0, "[14] no plain-version calls on CUDA tensors")
+    eager = naca_eager_angle(build, d)
     return dict(launches=launches, setup_launches=setup_launches,
-                per_step=per_step, peak_bytes=peak, runs=runs, final=final)
+                per_step=per_step, peak_bytes=peak, runs=runs, final=final,
+                eager=eager)
+
+
+# the sweep's angle run again with the plain step (phase 14)
+NACA_EAGER_ANGLE = 8
+
+
+def naca_eager_angle(build, sweep_dir):
+    """The sweep's NACA_EAGER_ANGLE run again through the CLI with the
+    plain (eager) step: its csv's FGMRES counts, Cd and Cl equal the
+    captured sweep's at every step."""
+    from navierstokes_tpu_torch.scenarios import cli
+    d = os.path.join(WORK, "naca_eager")
+    os.makedirs(d, exist_ok=True)
+
+    def eager_build(*args, **kwargs):
+        ns = build(*args, **kwargs)
+        solve = ns.solve
+        ns.solve = lambda *a, **k: solve(*a, _eager=True, **k)
+        return ns
+
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    cli.build_solver = eager_build
+    os.chdir(d)
+    try:
+        rc = cli.main(["sweep-naca", "--angles", str(NACA_EAGER_ANGLE),
+                       *NACA_SWEEP_ARGS])
+    finally:
+        os.chdir(cwd)
+        cli.build_solver = build
+    wall = time.perf_counter() - t0
+    name = f"output_{NACA_EAGER_ANGLE:g}.csv"
+    a = _csv_rows(os.path.join(sweep_dir, name))
+    b = _csv_rows(os.path.join(d, name))
+    same = len(a) == len(b) and all(
+        np.array_equal(a[c], b[c]) for c in ("GMRES_iters", "Cd", "Cl"))
+    sps = len(b) / float((b["time_prec_init"] + b["time_sol"]).sum())
+    log(f"[14] {NACA_EAGER_ANGLE} deg again with the plain step: FGMRES "
+        f"total {int(b['GMRES_iters'].sum())} (captured "
+        f"{int(a['GMRES_iters'].sum())}), final Cl {b['Cl'][-1]!r} "
+        f"(captured {a['Cl'][-1]!r}), csv equal {same}; {sps:.4f} steps/s "
+        f"eager, run {wall:.1f} s with setup")
+    check(rc == 0 and same, "[14] the captured sweep's angle equals the "
+          "eager run (FGMRES counts, Cd, Cl at every step)")
+    return dict(angle=NACA_EAGER_ANGLE, steps_per_s=sps,
+                fgmres_total=int(b["GMRES_iters"].sum()))
 
 
 # the SpMV uses of the monolithic cc step (no PCD convection)
@@ -1934,6 +2232,8 @@ def main():
     torch.cuda.empty_cache()
     small = phase_monolithic_small()
     mono = phase_monolithic_bench(card)
+    mono_graphs = phase_monolithic_graphs(mono, card)
+    del mono["ns"]
     gc.collect()
     torch.cuda.empty_cache()
     small3d = phase_small_3d()
@@ -2022,19 +2322,35 @@ def main():
                          suffix="_naca"))
     kernels[-1].update({k: naca[k] for k in ("setup_launches", "runs",
                                              "peak_bytes")})
-    # the Givens kernel: launches on the monolithic bench path (phase 8)
+    # the Givens kernel: launches on the monolithic bench path (phase 8,
+    # captured)
     g = graphs["givens"]
     kernels.append({
         "name": "lsq_update", "route": "cuda", "source": GIVENS_SOURCE,
         "replaces": GIVENS_REPLACES, "launches": mono["givens"]["update"],
-        "max_abs_err": 0.0, "ms": g["ms"], "plain_ms": g["plain_ms"],
-        "bound_ms": g["bound_ms"], "bound_by": "bytes",
-        "library_ms": g["library_ms"],
-        "launches_per_monolithic_step": (mono["givens"]["update"]
-                                         / mono["n_steps"])})
+        "max_abs_err": 0.0, "ms": g["ms"], "in_graph_ms": g["in_graph_ms"],
+        "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": "bytes", "library_ms": g["library_ms"],
+        "launches_per_captured_step": (mono["givens"]["update"]
+                                       / mono["n_steps"]),
+        "launches_per_step_phase22": {r["mode"]: r["givens"]
+                                      for r in mono_graphs["runs"]}})
+    # the conditional nodes' kernel: launches on the same path
+    nd = mono_graphs["nodes"]
+    kernels.append({
+        "name": "set_condition", "route": "cuda", "source": COND_SOURCE,
+        "replaces": COND_REPLACES, "launches": mono["set_condition"],
+        "max_abs_err": float(nd["max_abs_err"]), "ms": nd["ms"],
+        "run_node_ms": nd["run_ms"], "plain_ms": nd["plain_ms"],
+        "bound_ms": nd["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "launches_per_captured_step": mono["set_condition"] / mono["n_steps"],
+        "capture": {k: v for k, v in mono["capture"].items()}})
     kernels[0]["graphs"] = {k: graphs[k] for k in ("runs", "peak_bytes",
                                                    "capture_s",
                                                    "inverse_gap")}
+    kernels[0]["monolithic_graphs"] = {
+        "runs": mono_graphs["runs"], "peak_bytes": mono_graphs["peak_bytes"],
+        **mono["capture"]}
     record = {"kernels": kernels}
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

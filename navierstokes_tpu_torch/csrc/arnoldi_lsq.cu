@@ -5,15 +5,19 @@
 // `lax.while_loop` (navierstokes_tpu/solvers/krylov.py:108-126, the
 // `fori_loop(rot_body)` and the new rotation).  Eager PyTorch would spend
 // O(j) tiny launches per iteration on it, or a round trip to the host;
-// here each step is one launch that reads j, the flag and the target from
-// device memory, so a captured graph can replay it.  The cycle's
-// triangular solve stays on the host (kernels/arnoldi_lsq.py says why).
+// here each step is one launch that reads everything that varies from
+// device memory: j, the flag, the target and the cycle's bound j_max.  So
+// one captured graph of an FGMRES block serves every cycle of every solve
+// (the outer solve and refinement's corrections), under a conditional
+// node per iteration (models/step_graphs.py).  The cycle's triangular
+// solve stays on the host (kernels/arnoldi_lsq.py says why).
 //
-// Bound: the launch.  The algebra is serial (rotation i changes the entry
-// rotation i + 1 reads) and at most m + 1 = 65 values long at the default
-// restart, a few hundred flops and under 34 KB in fp64, so one CTA runs
-// it: its threads stage the column in shared memory and write H[:, j],
-// thread 0 does the serial part.
+// Bound: the launch, now a node inside a CUDA graph (PERF.md gives its
+// in-graph time per launch).  The algebra is serial (rotation i changes
+// the entry rotation i + 1 reads) and at most m + 1 = 65 values long at
+// the default restart, a few hundred flops and under 34 KB in fp64, so
+// one CTA runs it: its threads stage the column h1 + h2 in shared memory
+// and write H[:, j], thread 0 does the serial part.
 //
 // The arithmetic is the plain version's (kernels/arnoldi_lsq.py), op for
 // op: every product, sum, quotient and square root is rounded on its own
@@ -43,26 +47,29 @@ template <> struct Rn<double> {
   static __device__ double sqrt(double a) { return __dsqrt_rn(a); }
 };
 
-// H (m+1, m) row-major, cs, sn (m), g (m+1), h (m+1) the Gram-Schmidt
-// coefficients h1 + h2; while *active: h[j+1] = *wnorm, rotations 0..j-1,
-// the new rotation j, g rotated, H[:, j] = h, *res = |g[j+1]|, *j += 1,
-// *active = (*j < j_max) && (*res > *target).
+// H (m+1, m) row-major, cs, sn (m), g (m+1), h1, h2 (m+1) the two
+// Gram-Schmidt passes' coefficients; while *active: h = h1 + h2,
+// h[j+1] = *wnorm, rotations 0..j-1, the new rotation j, g rotated,
+// H[:, j] = h, *res = |g[j+1]|, *j += 1,
+// *active = (*j < *j_max) && (*res > *target).
 template <typename T>
 __global__ void lsq_update_kernel(T* __restrict__ H, T* __restrict__ cs,
                                   T* __restrict__ sn, T* __restrict__ g,
-                                  const T* __restrict__ h,
+                                  const T* __restrict__ h1,
+                                  const T* __restrict__ h2,
                                   const T* __restrict__ wnorm,
                                   int* __restrict__ j_ptr,
                                   T* __restrict__ res,
                                   bool* __restrict__ active,
-                                  const T* __restrict__ target, int m,
-                                  int j_max) {
+                                  const T* __restrict__ target,
+                                  const int* __restrict__ j_max, int m) {
   using R = Rn<T>;
   extern __shared__ unsigned char smem_raw[];
   T* col = reinterpret_cast<T*>(smem_raw);
   if (!*active) return;            // the same for every thread
   const int j = *j_ptr;
-  for (int i = threadIdx.x; i <= m; i += blockDim.x) col[i] = h[i];
+  for (int i = threadIdx.x; i <= m; i += blockDim.x)
+    col[i] = R::add(h1[i], h2[i]);
   __syncthreads();
   if (threadIdx.x == 0) {
     col[j + 1] = *wnorm;
@@ -90,22 +97,24 @@ __global__ void lsq_update_kernel(T* __restrict__ H, T* __restrict__ cs,
     const T r = fabs(g[j + 1]);
     *res = r;
     *j_ptr = j + 1;
-    *active = (j + 1 < j_max) && (r > *target);
+    *active = (j + 1 < *j_max) && (r > *target);
   }
   __syncthreads();
   for (int i = threadIdx.x; i <= m; i += blockDim.x) H[i * m + j] = col[i];
 }
 
 template <typename T>
-int update(void* H, void* cs, void* sn, void* g, const void* h,
-           const void* wnorm, int* j, void* res, bool* active,
-           const void* target, int m, int j_max, void* stream) {
+int update(void* H, void* cs, void* sn, void* g, const void* h1,
+           const void* h2, const void* wnorm, int* j, void* res,
+           bool* active, const void* target, const int* j_max, int m,
+           void* stream) {
   const size_t smem = static_cast<size_t>(m + 1) * sizeof(T);
   lsq_update_kernel<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(H), static_cast<T*>(cs), static_cast<T*>(sn),
-      static_cast<T*>(g), static_cast<const T*>(h),
-      static_cast<const T*>(wnorm), j, static_cast<T*>(res), active,
-      static_cast<const T*>(target), m, j_max);
+      static_cast<T*>(g), static_cast<const T*>(h1),
+      static_cast<const T*>(h2), static_cast<const T*>(wnorm), j,
+      static_cast<T*>(res), active, static_cast<const T*>(target), j_max,
+      m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -113,18 +122,20 @@ int update(void* H, void* cs, void* sn, void* g, const void* h,
 
 extern "C" {
 
-int nst_lsq_update_f32(void* H, void* cs, void* sn, void* g, const void* h,
-                       const void* wnorm, int* j, void* res, bool* active,
-                       const void* target, int m, int j_max, void* stream) {
-  return update<float>(H, cs, sn, g, h, wnorm, j, res, active, target, m,
-                       j_max, stream);
+int nst_lsq_update_f32(void* H, void* cs, void* sn, void* g, const void* h1,
+                       const void* h2, const void* wnorm, int* j, void* res,
+                       bool* active, const void* target, const int* j_max,
+                       int m, void* stream) {
+  return update<float>(H, cs, sn, g, h1, h2, wnorm, j, res, active, target,
+                     j_max, m, stream);
 }
 
-int nst_lsq_update_f64(void* H, void* cs, void* sn, void* g, const void* h,
-                       const void* wnorm, int* j, void* res, bool* active,
-                       const void* target, int m, int j_max, void* stream) {
-  return update<double>(H, cs, sn, g, h, wnorm, j, res, active, target, m,
-                        j_max, stream);
+int nst_lsq_update_f64(void* H, void* cs, void* sn, void* g, const void* h1,
+                       const void* h2, const void* wnorm, int* j, void* res,
+                       bool* active, const void* target, const int* j_max,
+                       int m, void* stream) {
+  return update<double>(H, cs, sn, g, h1, h2, wnorm, j, res, active,
+                        target, j_max, m, stream);
 }
 
 }  // extern "C"

@@ -4,22 +4,27 @@
 ``lsq_update`` is one Arnoldi iteration's step of the small Hessenberg
 least-squares problem of ``solvers/krylov.gmres`` (m the restart length,
 T float32 or float64), in place and only while ``active``: the new column
-h (m+1,) with h[j+1] = wnorm, the j stored Givens rotations cs, sn (m,)
-applied to it, the rotation annihilating h[j+1] formed, the rotated
+h = h1 + h2 (m+1,), the sum of the two Gram-Schmidt passes'
+coefficients, with h[j+1] = wnorm, the j stored Givens rotations cs, sn
+(m,) applied to it, the rotation annihilating h[j+1] formed, the rotated
 right-hand side g (m+1,) updated, the column written to H[:, j] of
 H (m+1, m), res = |g[j+1]|, j += 1 and active = (j < j_max) and
-(res > target); j (int32), res (T), active (bool) and target (T) are 0-d
-tensors.  The arithmetic of the JAX package's ``rot_body`` and its
-rotation (navierstokes_tpu/solvers/krylov.py:108-126) and of the host
-code it replaces, each product, sum, quotient and square root rounded on
-its own: equal bits.
+(res > target); j and j_max (int32), res (T), active (bool) and target
+(T) are 0-d tensors.  Nothing that varies from cycle to cycle or from
+solve to solve is a launch argument, so one captured graph of an FGMRES
+block serves every cycle (models/step_graphs.py).  The arithmetic of the
+JAX package's ``rot_body`` and its rotation
+(navierstokes_tpu/solvers/krylov.py:108-126) and of the host code it
+replaces, each product, sum, quotient and square root rounded on its own:
+equal bits.
 
 It replaces no Pallas kernel: JAX runs the rotations inside its
 ``lax.while_loop`` (``fori_loop(rot_body)``).  In eager PyTorch they
 would cost O(j) tiny launches per iteration, or a host round trip; the
 kernel makes each iteration's step one launch.  It runs as one CTA: the
 algebra is serial and at most 65 values long, so the bound is the
-launch, not bytes or operations.
+launch, not bytes or operations; in the captured monolithic step, a
+graph node's launch (PERF.md gives its in-graph time).
 
 The cycle's triangular solve stays on the host at the cycle's end
 (solvers/krylov.py), by LAPACK's trsv as before: OpenBLAS sums in its
@@ -28,7 +33,8 @@ and one cycle-end solve in another rounding moves the fp32 ``inner_bf16``
 3D fixture by 1.7e-4 of |u| (``chip_smoke.py`` phase 9's gate is 1e-4).
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
-kernel or raise.  ``COUNTS`` records the launches.
+kernel or raise.  ``COUNTS`` records the launches (under capture through
+the graph's record, ``kernels/launches.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ import dataclasses
 import math
 
 import torch
+
+from navierstokes_tpu_torch.kernels.launches import count
 
 
 @dataclasses.dataclass
@@ -48,6 +56,11 @@ class Counts:
 
 
 COUNTS = Counts()
+
+
+def _count():
+    COUNTS.update += 1
+
 
 _TINY = 1e-30
 
@@ -61,14 +74,14 @@ def _sqrt_rn(x):
     return torch.tensor(math.sqrt(float(x)), dtype=x.dtype, device=x.device)
 
 
-def lsq_update_plain(H, cs, sn, g, h, wnorm, j, res, active, target,
-                     j_max: int):
+def lsq_update_plain(H, cs, sn, g, h1, h2, wnorm, j, res, active, target,
+                     j_max):
     """The plain version of ``lsq_update`` (see the module docstring), on
     0-d tensor arithmetic in the state's dtype."""
     if not bool(active):
         return
     J = int(j)
-    h = h.clone()
+    h = h1 + h2
     h[J + 1] = wnorm
     for i in range(J):
         hi = cs[i] * h[i] + sn[i] * h[i + 1]
@@ -117,27 +130,29 @@ def _entry(H):
     return lib, getattr(lib, f"nst_lsq_update_{suffix}")
 
 
-def lsq_update(H, cs, sn, g, h, wnorm, j, res, active, target, j_max: int):
+def lsq_update(H, cs, sn, g, h1, h2, wnorm, j, res, active, target, j_max):
     """One Arnoldi iteration's Givens step, in place (see the module
     docstring).  CPU tensors take ``lsq_update_plain``."""
     if H.device.type == "cpu":
-        return lsq_update_plain(H, cs, sn, g, h, wnorm, j, res, active,
+        return lsq_update_plain(H, cs, sn, g, h1, h2, wnorm, j, res, active,
                                 target, j_max)
     lib, fn = _entry(H)
     m, dt, dev = H.shape[1], H.dtype, H.device
     for name, t, dtype, shape in (
             ("H", H, dt, (m + 1, m)), ("cs", cs, dt, (m,)),
             ("sn", sn, dt, (m,)), ("g", g, dt, (m + 1,)),
-            ("h", h, dt, (m + 1,)), ("wnorm", wnorm, dt, ()),
-            ("j", j, torch.int32, ()), ("res", res, dt, ()),
-            ("active", active, torch.bool, ()), ("target", target, dt, ())):
+            ("h1", h1, dt, (m + 1,)), ("h2", h2, dt, (m + 1,)),
+            ("wnorm", wnorm, dt, ()), ("j", j, torch.int32, ()),
+            ("res", res, dt, ()), ("active", active, torch.bool, ()),
+            ("target", target, dt, ()), ("j_max", j_max, torch.int32, ())):
         _check(name, t, dtype, shape, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(H.data_ptr(), cs.data_ptr(), sn.data_ptr(), g.data_ptr(),
-                h.data_ptr(), wnorm.data_ptr(), j.data_ptr(), res.data_ptr(),
-                active.data_ptr(), target.data_ptr(), m, int(j_max), stream)
+                h1.data_ptr(), h2.data_ptr(), wnorm.data_ptr(), j.data_ptr(),
+                res.data_ptr(), active.data_ptr(), target.data_ptr(),
+                j_max.data_ptr(), m, stream)
     if rc != 0:
         raise RuntimeError(f"lsq_update launch failed ({rc}): "
                            f"{lib.nst_cuda_error_string(rc).decode()}")
-    COUNTS.update += 1
+    count(_count)

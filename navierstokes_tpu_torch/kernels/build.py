@@ -78,8 +78,14 @@ def build_info() -> dict:
         fn.restype = i
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"nst_lsq_update_{suffix}")
-        fn.argtypes = [p] * 10 + [i, i, p]
+        fn.argtypes = [p] * 12 + [i, p]
         fn.restype = i
+    lib.nst_if_begin.argtypes = [p, p, p, ctypes.POINTER(i)]
+    lib.nst_if_begin.restype = i
+    lib.nst_stream_create.argtypes = [ctypes.POINTER(p)]
+    lib.nst_stream_create.restype = i
+    lib.nst_if_end.argtypes = [p]
+    lib.nst_if_end.restype = i
     lib.nst_cuda_error_string.argtypes = [i]
     lib.nst_cuda_error_string.restype = ctypes.c_char_p
     return {"lib": lib, "path": str(lib_path), "seconds": seconds,

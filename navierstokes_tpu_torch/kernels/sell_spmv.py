@@ -27,18 +27,18 @@ column once, for all D components (2 flops per 8 bytes in fp32).
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.  ``COUNTS`` records the launches of each variant and
 any plain call made on CUDA tensors (which the main path must never make).
-Under CUDA graph capture (``record_launches``) a call launches nothing
-yet: its launch goes into the graph's ``LaunchRecord``, which adds it to
-``COUNTS`` at every replay (models/step_graphs.py).
+Under CUDA graph capture (``kernels/launches.record_launches``) a call
+launches nothing yet: its launch goes into the graph's ``LaunchRecord``,
+which adds it to ``COUNTS`` at every replay (models/step_graphs.py).
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import torch
 
+from navierstokes_tpu_torch.kernels.launches import count
 from navierstokes_tpu_torch.ops.sell import SellMatrix
 
 
@@ -63,41 +63,12 @@ class Counts:
 COUNTS = Counts()
 
 
-@dataclasses.dataclass
-class LaunchRecord:
-    """The launches a captured graph makes: (COUNTS field, (pattern,
-    dtype), (dtype, D)) per launch."""
-    launches: list = dataclasses.field(default_factory=list)
-
-    def replay(self):
-        """Add one replay's launches to ``COUNTS``."""
-        for launch in self.launches:
-            _count(*launch, into=COUNTS)
-
-
-_RECORDING: list = []      # the records of the captures in progress
-
-
-@contextlib.contextmanager
-def record_launches():
-    """Inside: launches go into the yielded LaunchRecord, not ``COUNTS``
-    (a graph being captured)."""
-    rec = LaunchRecord()
-    _RECORDING.append(rec)
-    try:
-        yield rec
-    finally:
-        _RECORDING.pop()
-
-
-def _count(counter, pattern, variant, into=None):
-    if into is None and _RECORDING:
-        _RECORDING[-1].launches.append((counter, pattern, variant))
-        return
-    c = into or COUNTS
-    setattr(c, counter, getattr(c, counter) + 1)
-    for table, key in ((c.by_pattern, pattern), (c.by_variant, variant)):
+def _count(counter, pattern, variant):
+    setattr(COUNTS, counter, getattr(COUNTS, counter) + 1)
+    for table, key in ((COUNTS.by_pattern, pattern),
+                       (COUNTS.by_variant, variant)):
         table[key] = table.get(key, 0) + 1
+
 
 # vals dtype -> (C entry point, dtype of x and y, COUNTS field)
 VARIANTS = {
@@ -187,5 +158,5 @@ def sell_spmv(mat: SellMatrix, vals, x):
         msg = (lib.nst_cuda_error_string(rc).decode() if rc > 0 else
                f"no instantiation for D={D} in csrc/sell_spmv.cu")
         raise RuntimeError(f"sell_spmv ({entry}) launch failed ({rc}): {msg}")
-    _count(counter, (mat.name, vals.dtype), (vals.dtype, D))
+    count(_count, counter, (mat.name, vals.dtype), (vals.dtype, D))
     return y

@@ -50,9 +50,11 @@ option (``check_config``).  Tensors live on the explicit ``device``; the
 compute dtype is ``SolverConfig.dtype``.  One step is plain tensor code
 plus, on ``bsr``, the SELL SpMV kernel on compact operator values
 (``ops/sell.py``), with its Krylov loops on the device
-(solvers/krylov.py).  On the card the one-device bsr projection step
-replays captured CUDA graphs (models/step_graphs.py; ``_step_projection``
-is their plain version); ``solve`` runs chunks of steps to the next
+(solvers/krylov.py).  On the card the one-device bsr step, in either
+scheme, replays captured CUDA graphs (models/step_graphs.py;
+``_step_projection`` and ``_step_monolithic`` are their plain versions);
+the row shards and the cells operator step eagerly
+(``_capture_refusal``).  ``solve`` runs chunks of steps to the next
 output boundary and reads their metrics once per chunk, as the JAX
 model's ``lax.scan`` chunks.
 """
@@ -96,15 +98,16 @@ from navierstokes_tpu_torch.ops.p1ell import (BJ_INVERSIONS, assemble_ap,
                                               block_jacobi_invert,
                                               build_block_jacobi_plan,
                                               coarse_from_ell, ell_matvec)
-from navierstokes_tpu_torch.solvers.krylov import (BicgstabLoop, CgLoop,
-                                                   fgmres)
+from navierstokes_tpu_torch.solvers.krylov import (HOST, BicgstabLoop,
+                                                   CgLoop, GmresLoop, Mode,
+                                                   iteration_mode)
 from navierstokes_tpu_torch.solvers.preconditioners import (
     InnerSolve, make_asimple, make_ayosida, make_cahouet_chabard,
     make_identity, make_pcd)
 from navierstokes_tpu_torch.parallel import sharded_bsr
 from navierstokes_tpu_torch.parallel.sharding import (cell_partitioning,
                                                       shard_devices)
-from navierstokes_tpu_torch.solvers.refine import refine_saddle, rhs_f64
+from navierstokes_tpu_torch.solvers.refine import Refinement, rhs_f64
 from navierstokes_tpu_torch.solvers.schur import (build_coarse_plan,
                                                   coarse_inverse,
                                                   coarse_matrix,
@@ -131,10 +134,15 @@ class StepMetrics:
     prec_seconds: float      # block-Jacobi tile rebuild of the step
     f_iterations: int = 0    # projection: BiCGStab iterations of u*
     p_iterations: int = 0    # projection: CG iterations of the Poisson
-    flag_reads: int = 0      # projection: host reads of the step (the tile
-    #                          guard and one flag per Krylov block)
-    masked_iterations: int = 0   # projection: iterations run masked after
-    #                              a solve stopped, inside its last block
+    flag_reads: int = 0      # host reads of the step: the tile guard, the
+    #                          loops' flags (projection: one per Krylov
+    #                          block; monolithic: one per iteration eager,
+    #                          one per FGMRES block captured) and the ends
+    #                          of FGMRES's cycles
+    masked_iterations: int = 0   # iterations run masked after a solve
+    #                              stopped, inside its last block
+    #                              (projection), or conditional bodies
+    #                              skipped (the captured monolithic step)
     exact_inverse: bool = False  # the tile rebuild took the exact inverse
 
 
@@ -147,11 +155,13 @@ _ROW = ("time", "iterations", "residual", "converged", "drag", "lift", "cd",
 class _StepInfo:
     """What the host knows of a step without reading its row: the span of
     its tile rebuild, whether that took the exact inverse, the flags it
-    read and the iteration slots of its blocks (BiCGStab + CG)."""
+    read, the iteration slots of its blocks (BiCGStab + CG) and the
+    conditional bodies it skipped."""
     span: object = None
     exact_inverse: bool = False
     flag_reads: int = 0
     slots: int = 0
+    skipped: int = 0
 
 
 class _Workspace:
@@ -810,27 +820,69 @@ class NavierStokes:
         block preconditioner, then ``refine`` passes of float64-residual
         refinement (fp32 runs, bsr; the cells operator's fallbacks are in
         the module docstring).  ``phi_prev`` passes through unchanged.
-        Returns (u_new, p_new, t_new, phi_prev, StepMetrics)."""
+
+        The plain (eager) version of the captured step
+        (models/step_graphs.py): the same segments in the same order, each
+        Krylov iteration run after a host read of its flag (krylov
+        ``HOST``), where the graphs put it under a conditional node.
+        Returns (u_new, p_new, t_new, phi_prev, metrics row, _StepInfo)."""
         cfg = self.config
-        ops, op, bc = self._ops, self._op, self.bc
-        mask = bc.mask
-        dt = cfg.deltat
-        t_new = t_prev + dt
-        f_cell = self.a0_cell + ops.convection(op, u)
-        d = ops.f_diag(op, f_cell)
-        mflat = mask[:, 0]
-        sigma = torch.sum(d * mflat) / torch.clamp(torch.sum(mflat), min=1.0)
-        dinv = (1.0 / (d * mflat + sigma * (1.0 - mflat)))[:, None]
-        zero_p = torch.zeros(self.space.n_p1, dtype=self.dtype,
-                             device=self.device)
+        ws = _Workspace()
+        with iteration_mode(Mode(HOST)) as mode:
+            self._mono_rebuild(ws, u, t_prev)
+            pre_f, span, exact = self._f_precond(ws.f_cell, ws.mflat,
+                                                 ws.sigma, ws.dinv)
+            self._mono_system(ws, u, p, u_prev, pre_f).run()
+            if self._refines():
+                self._mono_refine_start(ws, u)
+                for _ in range(cfg.refine):
+                    self._mono_correction(ws)
+                    ws.gloop.begin(cfg.refine_maxiter)
+                    ws.gloop.run()
+                    ws.refinement.add(ws.gloop.solution())
+            u_new, p_new, row = self._mono_finish(ws)
+        guard = self._bj_plan is not None and cfg.bj_newton > 0
+        info = _StepInfo(span=span, exact_inverse=exact,
+                         flag_reads=mode.reads + guard)
+        return u_new, p_new, ws.t_new, phi_prev, row, info
+
+    def _refines(self) -> bool:
+        """Whether the monolithic step refines (``refine`` passes on the
+        float64 tables)."""
+        return self._ell64 is not None and self.config.refine > 0
+
+    def _mono_rebuild(self, ws, u, t_prev):
+        """Segment (a) of the monolithic step: t_new, the F values
+        A0 + C(u), sigma, the diagonal scaling and the inner solves' F
+        values."""
+        ops, op, mask = self._ops, self._op, self.bc.mask
+        ws.t_new = t_prev + self.config.deltat
+        ws.f_cell = self.a0_cell + ops.convection(op, u)
+        d = ops.f_diag(op, ws.f_cell)
+        ws.mflat = mask[:, 0]
+        ws.sigma = (torch.sum(d * ws.mflat)
+                    / torch.clamp(torch.sum(ws.mflat), min=1.0))
+        ws.dinv = (1.0 / (d * ws.mflat + ws.sigma * (1.0 - ws.mflat)))[:, None]
+        ws.zero_p = torch.zeros(self.space.n_p1, dtype=self.dtype,
+                                device=self.device)
         # bf16 F values for the preconditioner's inner solves; the cells
         # operator's einsums take one dtype, so there the rounded values
         # stay fp32, as JAX's bf16-by-fp32 einsum promotes them
-        f_inner = f_cell
+        ws.f_inner = ws.f_cell
         if self._bf16_inner():
-            f_inner = f_cell.to(torch.bfloat16)
+            ws.f_inner = ws.f_cell.to(torch.bfloat16)
             if self._operator == "cells":
-                f_inner = f_inner.to(self.dtype)
+                ws.f_inner = ws.f_inner.to(self.dtype)
+
+    def _mono_system(self, ws, u, p, u_prev, pre_f):
+        """Segment (c): the RHS with the lift, the block preconditioner's
+        per-step set-up and FGMRES's set-up, its first cycle included
+        (the loop, not yet run)."""
+        cfg = self.config
+        ops, op, bc = self._ops, self._op, self.bc
+        mask, dt = bc.mask, cfg.deltat
+        f_cell, f_inner, sigma = ws.f_cell, ws.f_inner, ws.sigma
+        zero_p = ws.zero_p
 
         def apply_A(x):
             xu, xp = x
@@ -855,17 +907,36 @@ class NavierStokes:
             return yp
 
         # ---- RHS (cpp:240-278): M u^n / dt + Neumann + forcing, lifted ----
-        factor = self._time_factor(t_new)
-        g = bc.lift(factor)
-        f_extra = self._forcing_term(t_new)
+        ws.factor = self._time_factor(ws.t_new)
+        ws.g = g = bc.lift(ws.factor)
+        ws.f_extra = self._forcing_term(ws.t_new)
         b_u = _plus(_plus(ops.mass_apply(op, u) / dt, self.rhs_neumann),
-                    f_extra)
+                    ws.f_extra)
         ag_u, ag_p = ops.apply_blocks(op, f_cell, g, zero_p)
         b_u = (b_u - ag_u) * mask + sigma * g
         b_p = -ag_p
 
-        # ---- block preconditioner ----
-        pre_f, span, exact = self._f_precond(f_cell, mflat, sigma, dinv)
+        M = self._block_preconditioner(ws, u, pre_f, apply_F, apply_B,
+                                       apply_Bt)
+
+        # ---- outer FGMRES, warm-started by extrapolation ----
+        tol = cfg.outer_tol
+        if self.dtype == torch.float32:
+            tol = max(tol, 3.0e-6)      # the fp32 attainable-residual floor
+        x0 = ((2.0 * u - u_prev) * mask + g, p)
+        ws.gloop = GmresLoop(apply_A, (b_u, b_p), x0, tol=tol,
+                             restart=cfg.outer_restart,
+                             maxiter=cfg.outer_maxiter, precond=M,
+                             flexible=True)
+        return ws.gloop
+
+    def _block_preconditioner(self, ws, u, pre_f, apply_F, apply_B,
+                              apply_Bt):
+        """The step's block preconditioner M, with its per-step set-up:
+        the Schur V-cycle's coarse inverse and lambda_max (aSIMPLE,
+        aYosida) or the PCD convection."""
+        cfg, ops, op = self.config, self._ops, self._op
+        dinv, mflat = ws.dinv, ws.mflat
         _inner_f = InnerSolve(cfg.inner_tol, cfg.inner_maxiter_f,
                               method=cfg.f_solver)
         # the F solves take the step's F preconditioner whatever the block
@@ -904,80 +975,101 @@ class NavierStokes:
                                           lam_max=self._ap_lam, **vcycles)
             if pc == "pcd":
                 np_flat = ops.pressure_convection(self.ell, u)
-                M = make_pcd(apply_F, apply_Bt, solve_ap, apply_ap,
-                             lambda v: ops.apply_pp(self.ell, np_flat, v),
-                             self._mp_lumped, dinv, dt, self._nu_t, inner_f)
-            else:
-                M = make_cahouet_chabard(apply_F, apply_Bt, solve_ap,
-                                         self._mp_lumped, dinv, dt,
-                                         self._nu_t, inner_f)
-        elif pc in ("asimple", "ayosida"):
+                return make_pcd(apply_F, apply_Bt, solve_ap, apply_ap,
+                                lambda v: ops.apply_pp(self.ell, np_flat, v),
+                                self._mp_lumped, dinv, cfg.deltat,
+                                self._nu_t, inner_f)
+            return make_cahouet_chabard(apply_F, apply_Bt, solve_ap,
+                                        self._mp_lumped, dinv, cfg.deltat,
+                                        self._nu_t, inner_f)
+        if pc in ("asimple", "ayosida"):
             w = (dinv if pc == "asimple" else self.dt_mlump_inv)[:, 0] * mflat
             diag_s = ops.schur_diag(op, w)
             if pc == "asimple":
-                M = make_asimple(apply_F, apply_B, apply_Bt, dinv, diag_s,
-                                 cfg.alpha, inner_f, inner_s,
-                                 solve_s=vcycle_s(w, diag_s))
-            else:
-                M = make_ayosida(apply_F, apply_B, apply_Bt, dinv,
-                                 self.dt_mlump_inv, diag_s, inner_f, inner_s,
-                                 solve_s=vcycle_s(w, diag_s))
+                return make_asimple(apply_F, apply_B, apply_Bt, dinv, diag_s,
+                                    cfg.alpha, inner_f, inner_s,
+                                    solve_s=vcycle_s(w, diag_s))
+            return make_ayosida(apply_F, apply_B, apply_Bt, dinv,
+                                self.dt_mlump_inv, diag_s, inner_f, inner_s,
+                                solve_s=vcycle_s(w, diag_s))
+        return make_identity()
+
+    def _mono_refine_start(self, ws, u):
+        """Refinement's start: the outer solve's outcome kept, the float64
+        casts and RHS, and the float64 iterate from the outer solution."""
+        ops, mask = self._ops, self.bc.mask
+        ws.outer = ws.gloop.outcome()
+        ws.f64 = ws.f_cell.double()
+        m64, s64 = mask.double(), ws.sigma.double()
+        b64 = rhs_f64(ops, self._ell64, ws.f64, m64, s64, u, ws.g,
+                      self.config.deltat, self.rhs_neumann, ws.f_extra)
+        ws.refinement = Refinement(ops, self._ell64, ws.f64, m64, s64, b64,
+                                   ws.gloop.solution())
+
+    def _mono_correction(self, ws):
+        """A refinement pass's correction solve set up on FGMRES's buffers
+        (its right-hand side the float64 residual, rounded; x0 = 0)."""
+        cfg = self.config
+        ws.gloop.start(ws.refinement.residual(), tol=cfg.refine_tol,
+                       maxiter=cfg.refine_maxiter)
+
+    def _mono_finish(self, ws):
+        """Segment (g): the solution (refined or not) with exact boundary
+        values, the forces and the metrics row.  Returns (u_new, p_new,
+        row)."""
+        if self._refines():
+            iterations, _, converged = ws.outer
+            (u_new, p_new), residual = ws.refinement.result()
         else:
-            M = make_identity()
-
-        # ---- outer FGMRES, warm-started by extrapolation ----
-        tol = cfg.outer_tol
-        if self.dtype == torch.float32:
-            tol = max(tol, 3.0e-6)      # the fp32 attainable-residual floor
-        x0 = ((2.0 * u - u_prev) * mask + g, p)
-        res = fgmres(apply_A, (b_u, b_p), x0=x0, tol=tol,
-                     restart=cfg.outer_restart, maxiter=cfg.outer_maxiter,
-                     precond=M)
-        (u_new, p_new), true_res = res.x, res.residual
-        if self._ell64 is not None:
-            f64, m64, s64 = f_cell.double(), mask.double(), sigma.double()
-            b64 = rhs_f64(ops, self._ell64, f64, m64, s64, u, g, dt,
-                          self.rhs_neumann, f_extra)
-
-            def correction(r):
-                return fgmres(apply_A, r, tol=cfg.refine_tol,
-                              restart=cfg.outer_restart,
-                              maxiter=cfg.refine_maxiter, precond=M).x
-
-            (u_new, p_new), true_res = refine_saddle(
-                ops, self._ell64, f64, m64, s64, b64, (u_new, p_new),
-                correction, cfg.refine)
-        u_new = u_new * mask + g       # exact boundary values
-
-        row = self._metrics_row(t_new, res.iterations, true_res,
-                                res.converged,
-                                self._forces(u_new, p_new, factor))
-        info = _StepInfo(span=span, exact_inverse=exact)
-        return u_new, p_new, t_new, phi_prev, row, info
+            iterations, residual, converged = ws.gloop.outcome()
+            u_new, p_new = ws.gloop.solution()
+        u_new = u_new * self.bc.mask + ws.g       # exact boundary values
+        row = self._metrics_row(ws.t_new, iterations, residual, converged,
+                                self._forces(u_new, p_new, ws.factor))
+        return u_new, p_new, row
 
     # ------------------------------------------------------------------
     # reference-parity public API
     # ------------------------------------------------------------------
 
+    def _capture_refusal(self):
+        """Why this model steps eagerly, or None when its step runs from
+        captured CUDA graphs: one device, the bsr operator, on the card,
+        either scheme, every preconditioner, with or without
+        ``inner_bf16`` and ``refine``."""
+        if self._operator != "bsr":
+            return ("the cells operator steps eagerly: its step is not "
+                    "captured")
+        if self._sharded:
+            return "row shards step eagerly: their step is not captured"
+        if (self.config.scheme == "monolithic"
+                and self.config.f_solver == "gmres"):
+            return ("f_solver='gmres' steps eagerly: the inner GMRES solves "
+                    "its triangular system on the host at every cycle")
+        if self.device.type != "cuda":
+            return "CUDA graphs capture the step on the card only"
+        return None
+
     def _captures(self) -> bool:
-        """Whether the projection step runs from captured CUDA graphs: one
-        device, the bsr operator, the projection scheme, on the card."""
-        return (self.device.type == "cuda" and self._operator == "bsr"
-                and not self._sharded
-                and self.config.scheme == "projection")
+        """Whether the step runs from captured CUDA graphs
+        (``_capture_refusal``)."""
+        return self._capture_refusal() is None
 
     def capture_graphs(self):
-        """The projection step's CUDA graphs (models/step_graphs.py),
-        captured now if they are not yet (otherwise at the first captured
-        step).  Raises on a model that does not capture (``_captures``)."""
-        if not self._captures():
-            raise ValueError("CUDA graphs capture the one-device bsr "
-                             "projection step on the card only")
+        """The step's CUDA graphs (models/step_graphs.py), captured now if
+        they are not yet (otherwise at the first captured step).  Raises
+        ValueError, with the reason, on a model that steps eagerly."""
+        reason = self._capture_refusal()
+        if reason is not None:
+            raise ValueError(reason)
         if self._graphs is None:
-            from navierstokes_tpu_torch.models.step_graphs import StepGraphs
+            from navierstokes_tpu_torch.models import step_graphs
             if not hasattr(self, "_u"):
                 self._init_state(0)
-            self._graphs = StepGraphs(self)
+            cls = (step_graphs.MonolithicGraphs
+                   if self.config.scheme == "monolithic"
+                   else step_graphs.ProjectionGraphs)
+            self._graphs = cls(self)
         return self._graphs
 
     def _run_steps(self, n: int, eager: bool = False):
@@ -1016,7 +1108,7 @@ class NavierStokes:
                 f_iterations=f_its, p_iterations=p_its,
                 flag_reads=info.flag_reads,
                 masked_iterations=(info.slots - f_its - p_its
-                                   if info.slots else 0),
+                                   if info.slots else info.skipped),
                 exact_inverse=info.exact_inverse))
         last = out[-1]
         self.time = last.time
@@ -1042,7 +1134,7 @@ class NavierStokes:
     def solve_time_step(self, *, _eager: bool = False) -> StepMetrics:
         """Advance exactly one step (cpp:344-397); usable straight after
         setup() (state lazily zero-initialized).  On the card the
-        one-device projection step replays its captured CUDA graphs
+        one-device bsr step replays its captured CUDA graphs
         (models/step_graphs.py), as the JAX model's ``solve_time_step``
         runs its compiled one-step chunk; ``_eager`` takes the plain step
         instead (the comparisons of chip_smoke.py and the tests)."""

@@ -27,7 +27,8 @@ import torch
 
 
 # Plans whose targets have at most this many entries take the gather-add
-# passes, the others torch.segment_reduce.  At the bench point on an H100
+# passes, the others torch.segment_reduce on the CPU and length buckets on
+# the card.  At the bench point on an H100
 # (tools/segment_plan_timing.py): the convection plan (at most 9 entries
 # per F slot) 0.35 ms in passes against 6.20 ms, the PCD plan 0.18 against
 # 0.85 ms; the Schur coarse plan, whose largest target collects the
@@ -46,19 +47,34 @@ class SegmentPlan:
     pass k gathers every target's k-th entry and adds it in place, each
     target at most once per pass (``passes``: sequential sums in input
     order from zero, the same bits on the CPU and the card).  Plans with
-    longer targets (the Schur coarse pairs) take ``torch.segment_reduce``
-    (``order``/``lengths``), which sums in input order on the CPU and in
-    its own fixed order on the card (bit-identical on repeat there)."""
+    longer targets (the Schur coarse pairs) take, on the CPU,
+    ``torch.segment_reduce`` (``order``/``lengths``), which sums in input
+    order; on the card, whose segment_reduce reads the lengths on the host
+    (no CUDA graph can capture it), length buckets: the targets whose
+    entry count rounds up to the same power of two form one (targets,
+    2^k) gather of their entries in input order, padded with a zero, and
+    one row sum (``buckets``), a fixed order, bit-identical on repeat."""
     num_segments: int
     passes: tuple = ()       # ((src, dst), ...) int64, one pair per rank
     order: torch.Tensor | None = None     # stable argsort of the ids
     lengths: torch.Tensor | None = None   # entries per target
+    # ((entries (targets, 2^k) int64, targets (targets,) int64), ...); the
+    # entry -1 is the zero appended to the values
+    buckets: tuple = ()
 
     def __call__(self, flat_values: torch.Tensor) -> torch.Tensor:
         """(n_flat, ...) -> (num_segments, ...)."""
         if self.order is not None:
             return torch.segment_reduce(flat_values[self.order], "sum",
                                         lengths=self.lengths, axis=0)
+        if self.buckets:
+            vals = torch.cat([flat_values, flat_values.new_zeros(
+                (1,) + flat_values.shape[1:])])
+            out = flat_values.new_zeros((self.num_segments,)
+                                        + flat_values.shape[1:])
+            for entries, targets in self.buckets:
+                out[targets] = vals[entries].sum(dim=1)
+            return out
         out = flat_values.new_zeros((self.num_segments,)
                                     + flat_values.shape[1:])
         for k, (src, dst) in enumerate(self.passes):
@@ -70,9 +86,10 @@ class SegmentPlan:
 
 
 def segment_plan(ids, num_segments: int, device, passes=None,
-                 pos=None) -> SegmentPlan:
+                 pos=None, buckets=None) -> SegmentPlan:
     """The plan summing entry i into segment ``ids[i]``.  ``passes``
-    forces the method (True: gather-add passes, False: segment_reduce;
+    forces the method (True: gather-add passes, False: segment_reduce, or
+    length buckets where ``buckets`` is true, by default on the card;
     None: passes where no target has more than MAX_PASSES entries).
     ``pos`` places entry i at ``pos[i]`` of the flat values (default: i),
     for a plan over a subset of another plan's entries."""
@@ -83,11 +100,27 @@ def segment_plan(ids, num_segments: int, device, passes=None,
     pos = np.arange(len(flat)) if pos is None else np.asarray(pos, np.int64)
     if passes is None:
         passes = lengths.max(initial=0) <= MAX_PASSES
-    if not passes:
+    if buckets is None:
+        buckets = torch.device(device).type == "cuda"
+    if not passes and not buckets:
         return SegmentPlan(num_segments=int(num_segments), order=t(pos[order]),
                            lengths=t(lengths))
     start = np.zeros(num_segments + 1, np.int64)
     np.cumsum(lengths, out=start[1:])
+    if not passes:
+        live = np.flatnonzero(lengths)
+        width = 1 << np.ceil(np.log2(lengths[live])).astype(np.int64)
+        by_width = []
+        for w in np.unique(width):
+            targets = live[width == w]
+            k = np.arange(w)
+            rows = np.minimum(start[targets][:, None] + k, len(flat) - 1)
+            # entry -1 is the zero appended to the values
+            entries = np.where(k < lengths[targets][:, None],
+                               pos[order[rows]], -1)
+            by_width.append((t(entries), t(targets)))
+        return SegmentPlan(num_segments=int(num_segments),
+                           buckets=tuple(by_width))
     seg = flat[order]
     rank = np.arange(len(flat)) - start[seg]
     # pass k: the entries of rank k, in input order

@@ -220,9 +220,10 @@ def _inv(a):
 
 
 def _inv_capturable(a):
-    """``_inv`` of a tile batch that a CUDA graph can capture: on the card
-    through the cuSOLVER / cuBLAS backend (``_cusolver``), in the captured
-    step (models/step_graphs.py) and the eager one alike."""
+    """``_inv`` that a CUDA graph can capture (a tile batch, or the Schur
+    coarse matrix): on the card through the cuSOLVER / cuBLAS backend
+    (``_cusolver``), in the captured step (models/step_graphs.py) and the
+    eager one alike."""
     if not a.is_cuda:
         return _inv(a)
     with _cusolver():

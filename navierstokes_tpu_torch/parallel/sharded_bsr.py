@@ -137,7 +137,7 @@ def _sub_plan(plan: SegmentPlan, entry_nz, mat: SellMatrix, sub: SellMatrix,
     keep = (mat.nz_row[nz] >= row0) & (mat.nz_row[nz] < row1)
     nz0 = np.searchsorted(mat.nz_row, row0)
     return segment_plan(sub.nz_slot[nz[keep] - nz0], sub.n_slots, device,
-                        passes=plan.order is None, pos=e[keep])
+                        passes=bool(plan.passes), pos=e[keep])
 
 
 def _rows(mat: SellMatrix, row0: int, row1: int, device, name: str):

@@ -8,30 +8,47 @@ BiCGStab breakdown guard and the same iteration counting.
 The counterpart of JAX's ``lax.while_loop``: every loop keeps its whole
 state on the device in fixed-shape tensors, the iteration count and the
 loop predicate ``active`` (JAX's ``cond``: ``||r|| > target``, no
-breakdown, ``k < maxiter``) included.  Iterations run in blocks of
-``check_every`` (``BICGSTAB_CHECK_EVERY``, ``CG_CHECK_EVERY``,
-``GMRES_CHECK_EVERY``): each iteration computes its update and commits it
-under ``torch.where(active, new, old)``, adding ``active`` to the count,
-and the host reads the one flag ``active`` at the end of a block
-(``_host``).  Once a solve has stopped, a masked iteration changes no
-bit, so counts and results are those of a block size of 1 at every block
-size.  The state is updated in place, so a block can be captured as a
-CUDA graph and replayed (models/step_graphs.py).
+breakdown, ``k < maxiter``) included.  Each iteration computes its update
+and commits it under ``torch.where(active, new, old)``, adding ``active``
+to the count, so an iteration run after the stop changes no bit.  How an
+iteration runs under its flag is the ``Mode`` in force
+(``iteration_mode``):
+
+* ``MASKED`` (the default): blocks of ``check_every`` iterations
+  (``BICGSTAB_CHECK_EVERY``, ``CG_CHECK_EVERY``, ``GMRES_CHECK_EVERY``),
+  the flag read on the host after each block (``_host``); counts and
+  results equal a block size of 1 at every block size.  The projection
+  step, captured or not, and the standalone solvers.
+* ``HOST``: the flag read before each iteration, which runs only while
+  it is up.  The plain monolithic step: it launches exactly what its
+  captured version launches.
+* ``GRAPH``: each iteration captured under a CUDA graph conditional *if*
+  node on the flag; a loop is a fixed unroll of such nodes (the inner
+  BiCGStab: ``maxiter`` nodes, no host read at all; FGMRES:
+  ``GMRES_GRAPH_CHECK_EVERY`` nodes per block, the flag read after a
+  block).  The captured monolithic step (models/step_graphs.py).
+* ``DRY``: GRAPH rehearsed on any device, the node replaced by a look at
+  the flag that is not counted as a read (the CPU tests).
+
+The state is updated in place, so a block can be captured as a CUDA graph
+and replayed (models/step_graphs.py).
 
 GMRES keeps JAX's arithmetic: a two-pass modified Gram-Schmidt against
 the whole static (m+1, n) basis under an index mask, and the Givens
 rotations of the small Hessenberg least-squares problem on the device in
 the solve's precision (``kernels/arnoldi_lsq.py``: one hand-written CUDA
-kernel launch per iteration on the card).  Only the end of a restart
-cycle reads the host: (H, g, j, converged) in one transfer, and the
-identity-padded triangular solve there, by LAPACK's trsv as before (its
-bits, which no order on the card reproduces: see kernels/arnoldi_lsq.py).
-Vectors may be tensors or tuples of tensors (flattened in order, as
-``jax.flatten_util.ravel_pytree`` does).
+kernel launch per iteration on the card, its bounds read from the
+device).  Only the end of a restart cycle reads the host: (H, g, j,
+converged) in one transfer, and the identity-padded triangular solve
+there, by LAPACK's trsv as before (its bits, which no order on the card
+reproduces: see kernels/arnoldi_lsq.py).  Vectors may be tensors or
+tuples of tensors (flattened in order, as ``jax.flatten_util.ravel_pytree``
+does).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -39,6 +56,7 @@ import scipy.linalg
 import torch
 
 from navierstokes_tpu_torch.kernels.arnoldi_lsq import lsq_update
+from navierstokes_tpu_torch.kernels.launches import record_launches
 
 # Iterations per block between two host reads.  At the bench point of
 # chip_smoke.py (2D-2, 1,014,414 DoF) a projection step takes 3-6
@@ -46,6 +64,95 @@ from navierstokes_tpu_torch.kernels.arnoldi_lsq import lsq_update
 BICGSTAB_CHECK_EVERY = 2
 CG_CHECK_EVERY = 8
 GMRES_CHECK_EVERY = 4
+# FGMRES iterations per captured block of the monolithic step, each under
+# a conditional node.  An iteration past the stop costs its node (5 us on
+# an H100, tools/conditional_probe.py), not its work (a masked block pays
+# a whole preconditioner apply), so the block is sized for the host
+# reads: at the bench point (22-39 iterations a step) 8 read 3-5 flags a
+# step, 4.4 on average, where 4 would read 6-10.  Its capture holds
+# 8 x (1 + 10 inner) = 88 bodies under cc; the whole step captured in
+# 1.05-1.30 s with its warm-up step (PERF.md section 6).
+GMRES_GRAPH_CHECK_EVERY = 8
+
+MASKED, HOST, GRAPH, DRY = "masked", "host", "graph", "dry"
+
+
+class Mode:
+    """How the loops run an iteration under its flag (``kind``, see the
+    module docstring) and what they counted: ``reads``, the loops' host
+    reads; under DRY the conditional ``nodes`` visited and the bodies
+    ``runs``.  Under GRAPH, ``ifs`` (kernels/conditional.IfNodes) adds
+    the nodes to the capture in progress, and each body captured has its
+    launch record (``records``) and a device counter of its runs
+    (``hits``), read with the cycle's end."""
+
+    def __init__(self, kind: str = MASKED, ifs=None, capacity: int = 4096):
+        self.kind = kind
+        self.reads = self.nodes = self.runs = 0
+        self.ifs = ifs
+        self.records = []
+        self.hits = (torch.zeros(capacity, dtype=torch.int64,
+                                 device=ifs.device)
+                     if kind == GRAPH else None)
+
+    def under(self, flag, body):
+        """``body`` under an if node on ``flag`` (GRAPH), or run when the
+        flag is up (DRY)."""
+        if self.kind == DRY:
+            self.nodes += 1
+            if bool(flag):
+                self.runs += 1
+                body()
+            return
+        i = len(self.records)
+        if i >= self.hits.numel():
+            raise RuntimeError(f"more than {i} conditional bodies in one "
+                               "capture")
+        self.records.append(None)
+
+        def counted():
+            with record_launches() as rec:
+                self.hits[i].add_(1)
+                body()
+            self.records[i] = rec
+
+        self.ifs.body(flag, counted)
+
+
+_MODE = [Mode()]
+
+
+@contextlib.contextmanager
+def iteration_mode(mode: Mode):
+    """The loops inside run their iterations as ``mode`` says."""
+    _MODE.append(mode)
+    try:
+        yield mode
+    finally:
+        _MODE.pop()
+
+
+def _under_flag(loop, body) -> bool:
+    """One iteration ``body`` of ``loop`` under its flag, as the mode in
+    force says.  False only where the host read the flag down (HOST)."""
+    mode = _MODE[-1]
+    if mode.kind == MASKED:
+        body()
+    elif mode.kind == HOST:
+        if not _read(loop, loop.active):
+            return False
+        body()
+    else:
+        mode.under(loop.active, body)
+    return True
+
+
+def _read(loop, t):
+    """A host read made by ``loop``, counted in its ``reads`` and the
+    mode's."""
+    loop.reads += 1
+    _MODE[-1].reads += 1
+    return _host(t)
 
 
 class KrylovResult(NamedTuple):
@@ -99,13 +206,24 @@ class _Loop:
     check_every = 1
 
     def run(self):
-        """Blocks of ``check_every`` masked iterations until the flag read
-        after a block is down."""
-        while True:
-            self.block()
-            self.reads += 1
-            if not _host(self.active):
-                return self
+        """The loop to its stop, as the mode in force says: blocks of
+        ``check_every`` masked iterations until the flag read after a
+        block is down (MASKED); an iteration after each read of the flag
+        up (HOST); ``maxiter`` iterations under conditional nodes and no
+        read (GRAPH, DRY)."""
+        kind = _MODE[-1].kind
+        if kind == HOST:
+            while _under_flag(self, self._iteration):
+                pass
+        elif kind in (GRAPH, DRY):
+            for _ in range(self.maxiter):
+                _under_flag(self, self._iteration)
+        else:
+            while True:
+                self.block()
+                if not _read(self, self.active):
+                    break
+        return self
 
     def block(self):
         """``check_every`` masked iterations, in place; no host read."""
@@ -245,49 +363,96 @@ def cg(matvec: Callable, b, x0=None, *, tol=1e-6, atol=0.0, maxiter=100,
                   precond=precond).run().result()
 
 
-def gmres(matvec: Callable, b, x0=None, *, tol=1e-6, atol=0.0, restart=30,
-          maxiter=100, precond: Optional[Callable] = None,
-          flexible=False) -> KrylovResult:
-    """(F)GMRES with right preconditioning.
+class GmresLoop:
+    """(F)GMRES with right preconditioning as device state in static
+    buffers: the (m+1, n) basis V, the (m, n) Z of the preconditioned
+    vectors (``flexible``), the Hessenberg state H, cs, sn, g, the
+    solution x and the right-hand side b, and the 0-d ``j``, ``res``,
+    ``active``, ``target``, the budget ``maxiter``, the iterations of the
+    cycles before this one (``total``) and the cycle's bound ``j_max``.
+    ``start`` begins a solve on them (the corrections of solvers/refine.py
+    reuse the buffers of the outer solve), ``cycle`` begins a restart
+    cycle, ``iteration`` is one Arnoldi step, ``end_cycle`` the host's
+    part of a cycle's end and ``update`` x += y Z.  ``iterations`` and
+    ``converged`` are the host's view, from the cycle ends' reads."""
 
-    ``restart`` is the Krylov dimension m; ``maxiter`` caps the total
-    number of iterations across restart cycles.  ``flexible=True`` keeps
-    the preconditioned vectors Z_j (FGMRES), so the preconditioner may be
-    an iterative solve.  The (m+1, n) basis, the (m, n) Z and the
-    Hessenberg state are allocated once per solve and zeroed at each
-    cycle; a cycle's ``j``, ``res`` and ``active`` are device scalars.
-    The host reads the flag after each block of ``GMRES_CHECK_EVERY``
-    Arnoldi iterations, and (H, g, j, converged) once at the end of each cycle,
-    where it solves the triangular system."""
-    b_flat, unravel, mv, pc = _flat_system(b, matvec, precond)
-    n = b_flat.numel()
-    dtype, dev = b_flat.dtype, b_flat.device
-    npdt = np.float64 if dtype == torch.float64 else np.float32
-    ce = GMRES_CHECK_EVERY
-    x = torch.zeros_like(b_flat) if x0 is None else _ravel(x0)[0]
-    target = torch.clamp(tol * torch.linalg.norm(b_flat), min=atol)
-    m = restart
-    V = torch.empty((m + 1, n), dtype=dtype, device=dev)
-    Z = torch.empty((m, n), dtype=dtype, device=dev) if flexible else None
-    rows = torch.arange(m + 1, device=dev)
-    H = torch.empty((m + 1, m), dtype=dtype, device=dev)
-    cs = torch.empty(m, dtype=dtype, device=dev)
-    sn = torch.empty(m, dtype=dtype, device=dev)
-    g = torch.empty(m + 1, dtype=dtype, device=dev)
-    j = torch.zeros((), dtype=torch.int32, device=dev)
-    res = torch.full((), float("inf"), dtype=dtype, device=dev)
-    active = torch.zeros((), dtype=torch.bool, device=dev)
+    def __init__(self, matvec: Callable, b, x0=None, *, tol=1e-6, atol=0.0,
+                 restart=30, maxiter=100,
+                 precond: Optional[Callable] = None, flexible=False):
+        b_flat, self.unravel, self.mv, self.pc = _flat_system(b, matvec,
+                                                              precond)
+        n, m = b_flat.numel(), restart
+        dtype, dev = b_flat.dtype, b_flat.device
+        self.m, self.flexible, self.dtype = m, flexible, dtype
+        self.b, self.x = torch.empty_like(b_flat), torch.empty_like(b_flat)
+        self.V = torch.empty((m + 1, n), dtype=dtype, device=dev)
+        self.Z = (torch.empty((m, n), dtype=dtype, device=dev) if flexible
+                  else None)
+        self.rows = torch.arange(m + 1, device=dev)
+        self.H = torch.empty((m + 1, m), dtype=dtype, device=dev)
+        self.cs = torch.empty(m, dtype=dtype, device=dev)
+        self.sn = torch.empty(m, dtype=dtype, device=dev)
+        self.g = torch.empty(m + 1, dtype=dtype, device=dev)
+        self.y = torch.zeros(m, dtype=dtype, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.j, self.j_max = torch.zeros((), **i32), torch.zeros((), **i32)
+        self.maxiter, self.total = (torch.zeros((), **i32),
+                                    torch.zeros((), **i32))
+        self.res = torch.full((), float("inf"), dtype=dtype, device=dev)
+        self.target = torch.zeros((), dtype=dtype, device=dev)
+        self.active = torch.zeros((), dtype=torch.bool, device=dev)
+        self.blocks = self.reads = 0
+        self.start(b_flat, x0, tol=tol, atol=atol, maxiter=maxiter)
+        self.begin(maxiter)
 
-    def arnoldi(j_max):
+    def start(self, b, x0=None, *, tol, atol=0.0, maxiter):
+        """A new solve on the buffers, on the device: b, x0 (zero if
+        None), the target, the budget and the first cycle's set-up."""
+        self.b.copy_(_ravel(b)[0])
+        if x0 is None:
+            self.x.zero_()
+        else:
+            self.x.copy_(_ravel(x0)[0])
+        self.target.copy_(torch.clamp(tol * torch.linalg.norm(self.b),
+                                      min=atol))
+        self.maxiter.fill_(maxiter)
+        self.total.zero_()
+        self.cycle()
+
+    def begin(self, maxiter: int):
+        """The host's part of a new solve: its view of the count."""
+        self.budget, self.iterations, self.converged = maxiter, 0, False
+
+    def cycle(self):
+        """A restart cycle's set-up from x: r0, beta, V[0], zeroed Z, H,
+        cs, sn and g, g[0] = beta, j = 0, j_max and the flag."""
+        r0 = self.b - self.mv(self.x)
+        beta = torch.linalg.norm(r0)
+        self.V.zero_()
+        self.V[0] = torch.where(beta > 0, r0 / torch.clamp(beta, min=1e-30),
+                                torch.zeros_like(r0))
+        if self.flexible:
+            self.Z.zero_()
+        for t in (self.H, self.cs, self.sn, self.g):
+            t.zero_()
+        self.g[0] = beta
+        self.res.copy_(beta)
+        self.j.zero_()
+        self.j_max.copy_(torch.clamp(self.maxiter - self.total, max=self.m))
+        self.active.copy_((self.res > self.target) & (self.j_max > 0))
+
+    def iteration(self):
+        """One Arnoldi step, committed under the flag."""
+        V, Z, j, m, active = self.V, self.Z, self.j, self.m, self.active
         jl = j.long().view(1)
-        z = pc(V.index_select(0, jl)[0])
-        w = mv(z)
-        if flexible:
+        z = self.pc(V.index_select(0, jl)[0])
+        w = self.mv(z)
+        if self.flexible:
             jz = torch.clamp(jl, max=m - 1)
             Z.index_copy_(0, jz, torch.where(
                 active, z, Z.index_select(0, jz)[0])[None])
         # two-pass modified Gram-Schmidt over the whole basis, masked
-        mask = (rows <= j).to(dtype)
+        mask = (self.rows <= j).to(self.dtype)
         h1 = (V @ w) * mask
         w = w - h1 @ V
         h2 = (V @ w) * mask
@@ -297,50 +462,101 @@ def gmres(matvec: Callable, b, x0=None, *, tol=1e-6, atol=0.0, restart=30,
         V.index_copy_(0, j1, torch.where(
             active, w / torch.clamp(wnorm, min=1e-30),
             V.index_select(0, j1)[0])[None])
-        # the stored Givens rotations, the new one, g, H[:, j], res, j and
-        # the flag, under the flag
-        lsq_update(H, cs, sn, g, h1 + h2, wnorm, j, res, active, target,
-                   j_max)
+        # h1 + h2, the stored Givens rotations, the new one, g, H[:, j],
+        # res, j and the flag, under the flag
+        lsq_update(self.H, self.cs, self.sn, self.g, h1, h2, wnorm, j,
+                   self.res, active, self.target, self.j_max)
 
-    def cycle(x, total_iters):
-        r0 = b_flat - mv(x)
-        beta = torch.linalg.norm(r0)
-        V.zero_()
-        V[0] = torch.where(beta > 0, r0 / torch.clamp(beta, min=1e-30),
-                           torch.zeros_like(r0))
-        if flexible:
-            Z.zero_()
-        for t in (H, cs, sn, g):
-            t.zero_()
-        g[0] = beta
-        res.copy_(beta)
-        j.zero_()
-        j_max = min(m, maxiter - total_iters)
-        active.copy_((res > target) & (j_max > 0))
-        while True:
-            for _ in range(ce):
-                arnoldi(j_max)
-            if not _host(active):
-                break
-        # the j x j upper-triangular system, padded to m with the identity,
-        # on the host in the solve's precision
-        vals = np.asarray(_host(torch.cat([
-            H[:m].reshape(-1), g[:m], j.to(dtype)[None],
-            (res <= target).to(dtype)[None]])), npdt)
-        jj, conv = int(vals[-2]), bool(vals[-1])
+    def block(self, n: int):
+        """``n`` iterations under the flag, in place; no host read."""
+        for _ in range(n):
+            _under_flag(self, self.iteration)
+        self.blocks += 1
+
+    def end_cycle(self, extra=None):
+        """The host's part of a cycle's end: (H, g, j, converged) and
+        ``extra`` (a 1-d tensor, or None) read in one transfer, the j x j
+        upper-triangular system, padded to m with the identity, solved by
+        LAPACK in the solve's precision, and y written to its device
+        buffer.  Returns (whether the solve is done, extra's values)."""
+        m, dtype = self.m, self.dtype
+        npdt = np.float64 if dtype == torch.float64 else np.float32
+        parts = [self.H[:m].reshape(-1), self.g[:m], self.j.to(dtype)[None],
+                 (self.res <= self.target).to(dtype)[None]]
+        if extra is not None:
+            parts.append(extra.to(dtype))
+        vals = np.asarray(_read(self, torch.cat(parts)), npdt)
+        jj, conv = int(vals[m * m + m]), bool(vals[m * m + m + 1])
         act = np.arange(m) < jj
         R = np.where(act[None, :] & act[:, None],
                      vals[:m * m].reshape(m, m), np.eye(m, dtype=npdt))
         y = scipy.linalg.solve_triangular(
             R, np.where(act, vals[m * m:m * m + m], 0.0), lower=False)
-        yt = torch.as_tensor(y.astype(npdt), device=dev)
-        dx = yt @ Z if flexible else pc(yt @ V[:m])
-        return x + dx, total_iters + jj, conv
+        self.y.copy_(torch.as_tensor(y.astype(npdt)))
+        self.iterations += jj
+        self.converged = conv
+        done = conv or self.iterations >= self.budget
+        return done, vals[m * m + m + 2:]
 
-    iters, conv = 0, False
-    while not conv and iters < maxiter:
-        x, iters, conv = cycle(x, iters)
-    return KrylovResult(unravel(x), iters, res.clone(), conv)
+    def update(self):
+        """x += y Z (or the preconditioned y V) and the cycle's j added to
+        ``total``, on the device."""
+        if self.flexible:
+            dx = self.y @ self.Z
+        else:
+            dx = self.pc(self.y @ self.V[:self.m])
+        self.x.copy_(self.x + dx)
+        self.total.add_(self.j)
+
+    def run(self):
+        """Cycles to convergence or the budget, the host deciding at each
+        cycle's end: per cycle, blocks of GMRES_CHECK_EVERY iterations and
+        a read of the flag after each (MASKED), or an iteration after each
+        read of the flag up (HOST)."""
+        while True:
+            if _MODE[-1].kind == HOST:
+                while _under_flag(self, self.iteration):
+                    pass
+            else:
+                while True:
+                    self.block(GMRES_CHECK_EVERY)
+                    if not _read(self, self.active):
+                        break
+            done, _ = self.end_cycle()
+            self.update()
+            if done:
+                return self
+            self.cycle()
+
+    def solution(self):
+        """x, unravelled (views of the static buffer)."""
+        return self.unravel(self.x)
+
+    def outcome(self):
+        """(iterations, residual estimate |g[j]|, converged) of the solve,
+        on the device."""
+        return self.total.clone(), self.res.clone(), self.res <= self.target
+
+    def result(self) -> KrylovResult:
+        return KrylovResult(self.solution(), self.iterations,
+                            self.res.clone(), self.converged)
+
+
+def gmres(matvec: Callable, b, x0=None, *, tol=1e-6, atol=0.0, restart=30,
+          maxiter=100, precond: Optional[Callable] = None,
+          flexible=False) -> KrylovResult:
+    """(F)GMRES with right preconditioning (``GmresLoop``).
+
+    ``restart`` is the Krylov dimension m; ``maxiter`` caps the total
+    number of iterations across restart cycles.  ``flexible=True`` keeps
+    the preconditioned vectors Z_j (FGMRES), so the preconditioner may be
+    an iterative solve.  Under MASKED the host reads the flag after each
+    block of ``GMRES_CHECK_EVERY`` Arnoldi iterations, and (H, g, j,
+    converged) once at the end of each cycle, where it solves the
+    triangular system."""
+    return GmresLoop(matvec, b, x0, tol=tol, atol=atol, restart=restart,
+                     maxiter=maxiter, precond=precond,
+                     flexible=flexible).run().result()
 
 
 def fgmres(matvec: Callable, b, x0=None, **kw) -> KrylovResult:

@@ -45,25 +45,35 @@ def rhs_f64(ops, bsr64, f64, mask, sigma, u, g, dt: float, neumann=None,
     return b_u, -ops.apply_b(bsr64, g)
 
 
-def refine_saddle(ops, bsr64, f64, mask, sigma, b64, x, solve_fn,
-                  n_passes: int):
-    """``n_passes`` of refinement from the fp32 solution ``x`` = (u, p).
-    ``f64``, ``mask`` and ``sigma`` are float64 casts of the fp32 step's
-    values; ``solve_fn((ru, rp)) -> (du, dp)`` is the fp32 correction
-    solve.  Returns ((u, p) rounded to fp32, the fp32 norm of the final
-    true residual)."""
-    dtype = x[0].dtype
-    b_u, b_p = b64
-    xu, xp = x[0].double(), x[1].double()
+class Refinement:
+    """Refinement's state: the float64 iterate (xu, xp), started from the
+    fp32 solution ``x`` = (u, p), with ``residual`` (the fp32 right-hand
+    side of the next correction), ``add`` (a correction, in place) and
+    ``result``.  ``f64``, ``mask`` and ``sigma`` are float64 casts of the
+    fp32 step's values.  In place, so that the captured step
+    (models/step_graphs.py) keeps it in static buffers."""
 
-    def residual():
-        au, ap = apply_saddle_f64(ops, bsr64, f64, mask, sigma, xu, xp)
-        return (b_u - au).to(dtype), (b_p - ap).to(dtype)
+    def __init__(self, ops, bsr64, f64, mask, sigma, b64, x):
+        self.ops, self.bsr64 = ops, bsr64
+        self.f64, self.mask, self.sigma = f64, mask, sigma
+        self.b_u, self.b_p = b64
+        self.dtype = x[0].dtype
+        self.xu = x[0].to(torch.float64, copy=True)
+        self.xp = x[1].to(torch.float64, copy=True)
 
-    for _ in range(n_passes):
-        du, dp = solve_fn(residual())
-        xu = xu + du.double()
-        xp = xp + dp.double()
-    ru, rp = residual()
-    res = torch.sqrt(torch.sum(ru * ru) + torch.sum(rp * rp))
-    return (xu.to(dtype), xp.to(dtype)), res
+    def residual(self):
+        au, ap = apply_saddle_f64(self.ops, self.bsr64, self.f64, self.mask,
+                                  self.sigma, self.xu, self.xp)
+        return (self.b_u - au).to(self.dtype), (self.b_p - ap).to(self.dtype)
+
+    def add(self, d):
+        du, dp = d
+        self.xu.copy_(self.xu + du.double())
+        self.xp.copy_(self.xp + dp.double())
+
+    def result(self):
+        """((u, p) rounded to fp32, the fp32 norm of the true residual)."""
+        ru, rp = self.residual()
+        res = torch.sqrt(torch.sum(ru * ru) + torch.sum(rp * rp))
+        return (self.xu.to(self.dtype), self.xp.to(self.dtype)), res
+

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as Fn
 
 from navierstokes_tpu_torch.ops.operators import SegmentPlan, segment_plan
-from navierstokes_tpu_torch.ops.p1ell import _inv
+from navierstokes_tpu_torch.ops.p1ell import _inv_capturable
 
 
 @dataclasses.dataclass
@@ -68,12 +68,14 @@ def coarse_matrix(bsr, plan: CoarsePlan, dinv_masked):
 def coarse_inverse(s_c, reg: float = 1e-8):
     """Dense inverse with a tiny diagonal shift (aggregates touching only
     Dirichlet-masked velocity nodes could otherwise be singular), taken in
-    float32 whatever the dtype of ``s_c``, as the JAX package does."""
+    float32 whatever the dtype of ``s_c``, as the JAX package does; on the
+    card by a backend a CUDA graph can capture (``_inv_capturable``: the
+    monolithic step's segment (c) takes it every step)."""
     n = s_c.shape[0]
     scale = s_c.diagonal().abs().mean() + 1e-30
     a = s_c + (reg * scale) * torch.eye(n, dtype=s_c.dtype,
                                         device=s_c.device)
-    return _inv(a.to(torch.float32)).to(s_c.dtype)
+    return _inv_capturable(a.to(torch.float32)).to(s_c.dtype)
 
 
 def restrict(plan: CoarsePlan, r):

@@ -513,9 +513,9 @@ def test_stokes_solver_on_cuda_equals_cpu(cuda, kv, kp):
         assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max()
 
 
-def _projection_model(tmp, forcing=None, **fields):
+def _small_model(tmp, forcing=None, scheme="projection", **fields):
     from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
-    cfg = SolverConfig(dtype="float32", scheme="projection",
+    cfg = SolverConfig(dtype="float32", scheme=scheme,
                        output_dir=str(tmp / "out"),
                        cache_dir=str(tmp / "cache"),
                        csv_path=str(tmp / "forces.csv"))
@@ -545,8 +545,8 @@ def test_captured_steps_equal_eager_on_cuda(cuda, tmp_path, case, fields):
     synchronises (set_sync_debug_mode("error") around each)."""
     fields = dict(fields)
     forcing = fields.pop("forcing", None)
-    eager = _projection_model(tmp_path / "eager", forcing, **fields)
-    graphs = _projection_model(tmp_path / "graphs", forcing, **fields)
+    eager = _small_model(tmp_path / "eager", forcing, **fields)
+    graphs = _small_model(tmp_path / "graphs", forcing, **fields)
     graphs.capture_graphs().sync_check = True
     me = [eager.solve_time_step(_eager=True) for _ in range(5)]
     K.COUNTS.reset()
@@ -560,10 +560,52 @@ def test_captured_steps_equal_eager_on_cuda(cuda, tmp_path, case, fields):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case,fields", [
+    ("cc", {}), ("cc+refine=2", dict(refine=2, refine_tol=1e-3)),
+    ("asimple restart=8", dict(preconditioner="asimple", outer_restart=8)),
+    ("ayosida", dict(preconditioner="ayosida")),
+    ("pcd", dict(preconditioner="pcd")),
+    ("identity", dict(preconditioner="identity", outer_maxiter=60)),
+    ("cc+inner_bf16", dict(inner_bf16=True)),
+    ("cc diag", dict(f_precond="diag"))])
+def test_captured_monolithic_steps_equal_eager_on_cuda(cuda, tmp_path, case,
+                                                       fields):
+    """5 monolithic steps replayed from the captured CUDA graphs (FGMRES and
+    inner BiCGStab iterations under conditional nodes) equal 5 plain steps
+    bit for bit, with the same counts and the same SELL and Givens
+    launches; no replay synchronises; the captured step reads the host
+    less often."""
+    from navierstokes_tpu_torch.kernels import arnoldi_lsq as AL
+    eager = _small_model(tmp_path / "eager", scheme="monolithic",
+                              **fields)
+    graphs = _small_model(tmp_path / "graphs", scheme="monolithic",
+                               **fields)
+    graphs.capture_graphs().sync_check = True
+    counts = {}
+    for name, ns, kw in (("eager", eager, dict(_eager=True)),
+                         ("graphs", graphs, {})):
+        K.COUNTS.reset()
+        AL.COUNTS.reset()
+        ms = [ns.solve_time_step(**kw) for _ in range(5)]
+        counts[name] = (ms, dict(K.COUNTS.by_variant), AL.COUNTS.update,
+                        K.COUNTS.plain_cuda_calls)
+    (me, se, ge, pe), (mg, sg, gg, pg) = counts["eager"], counts["graphs"]
+    assert pe == pg == 0 and gg > 0
+    assert (se, ge) == (sg, gg)
+    assert torch.equal(eager._u, graphs._u)
+    assert torch.equal(eager._p, graphs._p)
+    for a, b in zip(me, mg):
+        assert (a.cd, a.cl, a.iterations, a.residual, a.converged) \
+            == (b.cd, b.cl, b.iterations, b.residual, b.converged)
+        assert b.flag_reads < a.flag_reads
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_givens_kernel_matches_plain_on_cuda(cuda, dtype):
-    """The Givens update on the card equals its plain version bit for bit
-    over a 40-column cycle (restart 64)."""
+    """The Givens update on the card, its bound j_max read from the
+    device, equals its plain version bit for bit over a 40-column cycle
+    (restart 64; the column the sum of two passes' coefficients)."""
     from navierstokes_tpu_torch.kernels import arnoldi_lsq as AL
     m, out = 64, {}
     for dev in ("cpu", "cuda"):
@@ -576,13 +618,16 @@ def test_givens_kernel_matches_plain_on_cuda(cuda, dtype):
         res = torch.full((), 3.0, **kw)
         act = torch.ones((), dtype=torch.bool, device=dev)
         target = torch.full((), 1e-12, **kw)
+        j_max = torch.tensor(m, dtype=torch.int32, device=dev)
         rng = np.random.default_rng(7)
         for _ in range(40):
-            col = rng.standard_normal(m + 1)
-            h = torch.as_tensor(col, **kw)
+            col, col2 = rng.standard_normal(m + 1), rng.standard_normal(m + 1)
+            h1 = torch.as_tensor(col, **kw)
+            h2 = torch.as_tensor(1e-3 * col2, **kw)
             # a dominant new entry keeps |g[j+1]| from decaying to target
             w = torch.as_tensor(10.0 * np.abs(col).max() + 1.0, **kw)
-            AL.lsq_update(H, cs, sn, g, h, w, j, res, act, target, m)
+            AL.lsq_update(H, cs, sn, g, h1, h2, w, j, res, act, target,
+                          j_max)
         out[dev] = [t.cpu() for t in (H, cs, sn, g, j, res, act)]
     assert int(out["cuda"][4]) == 40
     names = ("H", "cs", "sn", "g", "j", "res", "active")

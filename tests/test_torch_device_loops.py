@@ -35,7 +35,7 @@ from navierstokes_tpu_torch.kernels import arnoldi_lsq as AL
 from navierstokes_tpu_torch.mesh.generators import channel_with_cylinder_2d
 from navierstokes_tpu_torch.mesh.geometry import TAG_OUTLET, TAG_WALL_TOP
 from navierstokes_tpu_torch.models.navier_stokes import NavierStokes as TNS
-from navierstokes_tpu_torch.models.step_graphs import StepGraphs
+from navierstokes_tpu_torch.models.step_graphs import ProjectionGraphs
 from navierstokes_tpu_torch.ops import bsr as TB
 from navierstokes_tpu_torch.ops import p1ell as TP
 from navierstokes_tpu_torch.solvers import krylov as TK
@@ -209,21 +209,22 @@ def test_lsq_plain_matches_host_arithmetic(dtype):
     tH, tcs, tsn, tg = t(H), t(cs), t(sn), t(g)
     j = torch.zeros((), dtype=torch.int32)
     res, act = t(2.5), torch.ones((), dtype=torch.bool)
-    target = t(1e-30)
+    target, zero = t(1e-30), t(np.zeros(m + 1, npdt))
+    j_max = torch.tensor(m, dtype=torch.int32)
     for it in range(n_it):
         h = cols[it].copy()
         h[it + 1] = wn[it]
         r = _host_rotations(h, it, cs, sn, g, H, npdt)
-        AL.lsq_update(tH, tcs, tsn, tg, t(cols[it]), t(wn[it]), j, res, act,
-                      target, m)
+        AL.lsq_update(tH, tcs, tsn, tg, t(cols[it]), zero, t(wn[it]), j, res,
+                      act, target, j_max)
         assert int(j) == it + 1 and bool(act) == (it + 1 < n_it)
         assert res.numpy() == r
     for a, b in ((tH, H), (tcs, cs), (tsn, sn), (tg, g)):
         assert np.array_equal(a.numpy(), b)
     assert float(res) == 0.0
     before = [x.clone() for x in (tH, tcs, tsn, tg, j, res)]
-    AL.lsq_update(tH, tcs, tsn, tg, t(cols[0]), t(wn[0]), j, res, act,
-                  target, m)
+    AL.lsq_update(tH, tcs, tsn, tg, t(cols[0]), zero, t(wn[0]), j, res, act,
+                  target, j_max)
     assert all(torch.equal(a, b) for a, b in
                zip(before, (tH, tcs, tsn, tg, j, res)))
 
@@ -323,7 +324,7 @@ REPLAY_CASES = {
 
 @pytest.mark.parametrize("case", list(REPLAY_CASES))
 def test_replay_order_equals_the_plain_step(tmp_path, case):
-    """StepGraphs' replay order, rehearsed with its segment functions
+    """ProjectionGraphs' replay order, rehearsed with its segment functions
     (``_dry``) on its static buffers, against the plain step: 4 steps,
     the second and fourth from the plain step between replays, bit for
     bit, with the same counts, flag reads and masked iterations."""
@@ -335,7 +336,7 @@ def test_replay_order_equals_the_plain_step(tmp_path, case):
     assert b._captures() is False
     ma = [a.solve_time_step() for _ in range(4)]
     b._init_state(0)
-    sg = b._graphs = StepGraphs(b, _dry=True)
+    sg = b._graphs = ProjectionGraphs(b, _dry=True)
     mb = (b._read_rows(*sg.run(1)) + [b.solve_time_step(_eager=True)]
           + b._read_rows(*sg.run(1)) + [b.solve_time_step(_eager=True)])
     assert torch.equal(a._u, b._u) and torch.equal(a._p, b._p)

@@ -1,11 +1,12 @@
-"""The two paths of the presorted segment sum on the step's three plans.
+"""The paths of the presorted segment sum on the step's three plans.
 
     python3 tools/segment_plan_timing.py [--small]
 
 ``ops/operators.SegmentPlan`` sums each target's entries in input order
 either in gather-add passes (one pass per rank, for plans whose targets
-have at most ``MAX_PASSES`` entries) or with ``torch.segment_reduce``.
-This script builds each plan of the step both ways and times both on the
+have at most ``MAX_PASSES`` entries), with ``torch.segment_reduce`` or,
+on the card, in length buckets (a CUDA graph can capture them).
+This script builds each plan of the step all three ways and times them on the
 card at the bench point (``chip_smoke.py``'s configuration under
 ``scheme="monolithic"``, ``preconditioner="asimple"``, so that the Schur
 coarse assembly's plan exists): the convection plan (element entries ->
@@ -14,7 +15,7 @@ slots) and the Schur coarse plan (G block pairs -> coarse matrix
 entries).  For each it prints the entry count, the entries per target
 (max, 99th percentile, median), the number of passes, the median
 L2-cold device time of each path (CUDA events, a 128 MB read before each
-call), the largest difference between the two results and whether a
+call), the largest difference between the results and whether a
 repeated ``segment_reduce`` gives the same bits.  ``--small``
 uses the h=0.1 cylinder channel instead of the bench mesh.
 
@@ -128,7 +129,9 @@ def main():
         saved = operators.MAX_PASSES
         try:
             operators.MAX_PASSES = 0
-            reduce_plan = operators.segment_plan(ids, n_targets, "cuda")
+            reduce_plan = operators.segment_plan(ids, n_targets, "cuda",
+                                                 buckets=False)
+            bucket_plan = operators.segment_plan(ids, n_targets, "cuda")
             operators.MAX_PASSES = 1 << 62
             t0 = time.perf_counter()
             passes_plan = operators.segment_plan(ids, n_targets, "cuda")
@@ -139,8 +142,10 @@ def main():
         row["segment_reduce_ms"] = time_ms(lambda: reduce_plan(vals), 30)
         n = 30 if row["passes"] <= 1000 else 3
         row["passes_ms"] = time_ms(lambda: passes_plan(vals), n)
-        ya, yb = reduce_plan(vals), passes_plan(vals)
+        row["buckets_ms"] = time_ms(lambda: bucket_plan(vals), 30)
+        ya, yb, yc = reduce_plan(vals), passes_plan(vals), bucket_plan(vals)
         row["max_abs_diff"] = float((ya - yb).abs().max())
+        row["buckets_max_abs_diff"] = float((ya - yc).abs().max())
         row["max_abs"] = float(ya.abs().max())
         row["segment_reduce_repeat_equal"] = bool(
             torch.equal(ya, reduce_plan(vals)))
@@ -150,11 +155,15 @@ def main():
               f"median {row['median']:.0f}; segment_reduce "
               f"{row['segment_reduce_ms']:.4f} ms, {row['passes']} passes "
               f"{row['passes_ms']:.4f} ms (built in "
-              f"{row['passes_build_s']:.1f} s); max |diff| "
-              f"{row['max_abs_diff']:.3e} of max |y| {row['max_abs']:.3e}; "
+              f"{row['passes_build_s']:.1f} s), "
+              f"{len(bucket_plan.buckets)} buckets "
+              f"{row['buckets_ms']:.4f} ms; max |diff| of the passes "
+              f"{row['max_abs_diff']:.3e}, of the buckets "
+              f"{row['buckets_max_abs_diff']:.3e}, of max |y| "
+              f"{row['max_abs']:.3e}; "
               f"segment_reduce repeat bit-identical "
               f"{row['segment_reduce_repeat_equal']} on {card}", flush=True)
-        del passes_plan, reduce_plan
+        del passes_plan, reduce_plan, bucket_plan
     print(json.dumps({"card": card, "small": args.small, "plans": out}),
           flush=True)
     return 0

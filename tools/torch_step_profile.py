@@ -45,11 +45,16 @@ It prints, for the case:
   unprofiled step time, the SpMV kernels' part of it, and the kernels with
   the most time (name, calls, ms).
 
-On the card the one-device projection step replays its captured CUDA
-graphs (models/step_graphs.py); ``--eager`` steps it with the plain
-(eager) step instead (``solve_time_step(_eager=True)``), so the two can
-be compared in one call.  A ``--tree`` without captured graphs steps
-eagerly either way.
+On the card the one-device bsr step, in either scheme, replays its
+captured CUDA graphs (models/step_graphs.py; monolithic: FGMRES and its
+inner BiCGStab iterations under conditional nodes); ``--eager`` steps it
+with the plain (eager) step instead (``solve_time_step(_eager=True)``),
+so the two can be compared in one call.  The cells operator (``--case
+p3``, ``--operator cells``) steps eagerly either way, and so does a
+``--tree`` without captured graphs (or, before them, without captured
+monolithic graphs).  The capture seconds, and per step the host reads
+and the masked (projection) or skipped (monolithic) iterations, are
+printed beside the times.
 
 The last line is one JSON object with these numbers.
 """
@@ -201,6 +206,12 @@ def main():
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     step_ms = wall / args.steps * 1e3
+    timed = ms[args.warm:]
+    reads = statistics.mean(getattr(m, "flag_reads", 0) for m in timed)
+    masked = statistics.mean(getattr(m, "masked_iterations", 0)
+                             for m in timed)
+    graphs = getattr(ns, "_graphs", None)
+    capture_s = graphs.capture_seconds if graphs is not None else None
 
     u = torch.as_tensor(np.random.default_rng(1234).standard_normal(
         (ns.space.n_p2, ns.dim)), dtype=torch.float32, device="cuda")
@@ -234,6 +245,10 @@ def main():
     print(f"{tag} steps/s {args.steps / wall:.4f} ({args.steps} steps in "
           f"{wall:.3f} s, {step_ms:.1f} ms/step), peak {peak} bytes "
           f"({peak / 2**30:.2f} GiB) on {card}", flush=True)
+    print(f"{tag} host reads per step {reads:.2f}, masked or skipped "
+          f"iterations per step {masked:.2f}; capture "
+          f"{'not captured' if capture_s is None else f'{capture_s:.2f} s'}",
+          flush=True)
     print(f"{tag} F rebuild (a0 + convection) ms: cold {rebuild_cold:.4f}, "
           f"warm {rebuild_warm:.4f}", flush=True)
     if rows:
@@ -254,6 +269,8 @@ def main():
                                   and ns._captures()),
         "n_dofs": ns.space.n_dofs, "steps_per_s": args.steps / wall,
         "step_ms": step_ms, "cd": [m.cd for m in ms],
+        "flag_reads_per_step": reads, "masked_per_step": masked,
+        "capture_s": capture_s,
         "converged": all(m.converged for m in ms),
         "peak_bytes": peak, "iterations": [its(m) for m in ms],
         "rebuild_ms_cold": rebuild_cold, "rebuild_ms_warm": rebuild_warm,
