@@ -143,7 +143,19 @@ and checks them:
    iterations per step, the capture's seconds and memory, peak memory;
    then the conditional nodes' kernel (csrc/graph_cond.cu) against the
    host read it replaces on 64 seeded flags, and its device time per node
-   skipped and run (the record's ``set_condition`` entry).
+   skipped and run (the record's ``set_condition`` entry);
+23. the cells operator on cell shards (parallel/sharded_cells.py, two
+   shards of ``cuda:0``): the four configurations of phase 18 in float64,
+   1 step against phase 18's one-card step within 1e-9 with equal FGMRES
+   counts; every cells product on one shard bit for bit and on two
+   within 1e-12 of ``CellOps``; P3/P2 ``cc`` + ``inner_bf16`` in fp32
+   within 1e-3 of phase 18's float64 run; then the 2D-1 P3/P2 window of
+   phase 18 at 654,022 DoF on two shards, 1 step, converged with its Cd
+   within CD_2D1_P3_GATE of the float64 run's, no SELL launch, the bytes
+   per shard and the step's seconds beside phase 18's step 1; then
+   ``config.scheme`` changed after 2 steps of the small fixture, in both
+   directions: the captured model captures the new scheme's graphs and
+   equals the eager model bit for bit.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
@@ -1249,14 +1261,16 @@ def phase_if_nodes():
                 plain_ms=plain_ms, bound_ms=bound)
 
 
-def duct_model(device, tmp, dtype="float32", **overrides):
+def duct_model(device, tmp, dtype="float32", shard_devices=None,
+               **overrides):
     """The 3D small fixture: the h=0.15 square-column duct (6,954 DoF),
     biparabolic inlet, Re=20, dt=0.01."""
     from navierstokes_tpu_torch.scenarios.registry import build_solver
     cfg = _config(tmp, dtype, ref_length=0.1, force_formula="st",
                   **overrides)
     return build_solver("3d-test1", h=0.15, config=cfg, device=device,
-                        t_final=0.05, output_step=5).setup()
+                        shard_devices=shard_devices, t_final=0.05,
+                        output_step=5).setup()
 
 
 def _config(tmp, dtype, **fields):
@@ -1294,19 +1308,20 @@ def card_against_cpu(phase, tag, make, n_steps=5, gate=None):
     plain-version call on a CUDA tensor.  A fixed ``gate`` (the float64
     runs of phase 18) replaces the fp32 limits, and no noise run is made.
     ``make(device, name)`` builds a set-up model.  Returns the card run's
-    launches by (value dtype, D)."""
+    launches by (value dtype, D) and its StepMetrics."""
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     n_threads = torch.get_num_threads()
     alt_threads = 1 if n_threads > 1 else 4
     gpu, cpu = make("cuda", "gpu"), make("cpu", "cpu")
     alt = make("cpu", "alt") if gate is None else None
     worst = dict(cd=0.0, cl=0.0, u=0.0, its=0, noise=0.0)
-    counts = {}
+    counts, card_steps = {}, []
     for k in range(n_steps):
         torch.cuda.synchronize()
         COUNTS.reset()
         mg = gpu.solve_time_step()
         torch.cuda.synchronize()
+        card_steps.append(mg)
         check(COUNTS.plain_cuda_calls == 0,
               f"[{phase}] {tag}: no plain-version calls on CUDA tensors")
         for key, v in COUNTS.by_variant.items():
@@ -1349,7 +1364,7 @@ def card_against_cpu(phase, tag, make, n_steps=5, gate=None):
           f"[{phase}] {tag} Cd/Cl")
     check(worst["u"] <= gate, f"[{phase}] {tag} u")
     check(worst["its"] <= 1, f"[{phase}] {tag} iteration counts")
-    return counts
+    return counts, card_steps
 
 
 def phase_small_3d():
@@ -1360,7 +1375,7 @@ def phase_small_3d():
     for tag, kw, want in SMALL_3D:
         d = os.path.join(WORK, "duct_" + tag.replace(" ", "_")
                          .replace("+", "_").replace("=", ""))
-        counts = card_against_cpu(
+        counts, _ = card_against_cpu(
             9, tag, lambda dev, name: duct_model(dev, f"{d}_{name}", **kw))
         for dt in want:
             check(counts.get((dt, 3), 0) > 0,
@@ -1519,7 +1534,7 @@ def naca_small(device, tmp, dtype="float32"):
 
 def phase_naca_small():
     d = os.path.join(WORK, "naca_small")
-    counts = card_against_cpu(
+    counts, _ = card_against_cpu(
         13, "2d-naca h=0.1 8 deg", lambda dev, name: naca_small(
             dev, f"{d}_{name}"))
     check(counts.get((torch.float32, 2), 0) > 0,
@@ -1776,7 +1791,7 @@ RHS_SMALL = (("projection p_out", dict(scheme="projection", p_out=0.7)),
 def phase_rhs_terms():
     for tag, kw in RHS_SMALL:
         d = os.path.join(WORK, "rhs_" + tag.replace(" ", "_"))
-        counts = card_against_cpu(
+        counts, _ = card_against_cpu(
             16, tag, lambda dev, name: small_model(dev, f"{d}_{name}", **kw))
         check(counts.get((torch.float32, 2), 0) > 0,
               f"[16] {tag}: the fp32 kernel launched")
@@ -1873,7 +1888,8 @@ CELLS_TIGHT = dict(inner_tol=1e-10, inner_maxiter_f=1000,
                    inner_maxiter_s=1000)
 
 
-def cells_small(device, tmp, kv, kp, dtype="float64", **overrides):
+def cells_small(device, tmp, kv, kp, dtype="float64", shard_devices=None,
+                **overrides):
     """The cells small fixture: the cylinder channel at h=0.15,
     h_near=0.06 (P3/P2 4,916 DoF; P2/P1 with the cylinder snapped),
     parabolic U_m=0.3, Re=20, dt=0.01, monolithic."""
@@ -1886,22 +1902,31 @@ def cells_small(device, tmp, kv, kp, dtype="float64", **overrides):
                       inlet=InletConfig(kind="parabolic", u_m=0.3,
                                         height=0.41),
                       config=_config(tmp, dtype, scheme="monolithic",
-                                     **overrides), device=device)
+                                     **overrides), device=device,
+                      shard_devices=shard_devices)
     ns.set_re_number(20)
     return ns.setup()
 
 
-# the cells configurations held card against CPU in float64 (phase 18)
+# the cells configurations held card against CPU in float64 (phase 18) and
+# on cell shards against one card (phase 23, ``kw`` the shards)
 CELLS_SMALL = (
-    ("P2/P1 cells asimple", lambda dev, d: cells_small(
+    ("P2/P1 cells asimple", lambda dev, d, **kw: cells_small(
         dev, d, 2, 1, operator="cells", preconditioner="asimple",
-        **CELLS_TIGHT)),
-    ("P3/P2 cc", lambda dev, d: cells_small(dev, d, 3, 2, **CELLS_TIGHT)),
-    ("P3/P2 ayosida", lambda dev, d: cells_small(
-        dev, d, 3, 2, preconditioner="ayosida", **CELLS_TIGHT)),
-    ("3D P2/P1 cells", lambda dev, d: duct_model(
+        **CELLS_TIGHT, **kw)),
+    ("P3/P2 cc", lambda dev, d, **kw: cells_small(dev, d, 3, 2,
+                                                  **CELLS_TIGHT, **kw)),
+    ("P3/P2 ayosida", lambda dev, d, **kw: cells_small(
+        dev, d, 3, 2, preconditioner="ayosida", **CELLS_TIGHT, **kw)),
+    ("3D P2/P1 cells", lambda dev, d, **kw: duct_model(
         dev, d, "float64", operator="cells", preconditioner="asimple",
-        **CELLS_TIGHT)))
+        **CELLS_TIGHT, **kw)))
+
+
+# phase 18's runs that phase 23 reuses: per CELLS_SMALL configuration the
+# card model after its step and the step's metrics, and the CPU float64
+# P3/P2 ``cc`` run's (metrics, u) of steps 1-2
+CellsRuns = collections.namedtuple("CellsRuns", "one_card f64_ref")
 
 
 def phase_cells_small():
@@ -1913,9 +1938,11 @@ def phase_cells_small():
     force scale, the error of its fp32 solve).  The fp32 step (P3/P2
     ``cc``), plain and with ``inner_bf16``, is held, card and CPU alike,
     to the CPU float64 run within 1e-3 of |u| over 2 steps, every solve
-    converged.  No SELL kernel launches on the cells path."""
+    converged.  No SELL kernel launches on the cells path.  Returns the
+    runs phase 23 holds the cell shards to (``CellsRuns``)."""
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     t0 = time.perf_counter()
+    one_card = {}
     for tag, fn in CELLS_SMALL:
         d = os.path.join(WORK, "cells_" + tag.replace(" ", "_")
                          .replace("/", ""))
@@ -1925,9 +1952,11 @@ def phase_cells_small():
             built.append(fn(dev, f"{d}_{name}"))
             return built[-1]
 
-        counts = card_against_cpu(18, tag, make, n_steps=1, gate=1e-9)
+        counts, steps = card_against_cpu(18, tag, make, n_steps=1,
+                                         gate=1e-9)
         check(all(ns._operator == "cells" for ns in built),
               f"[18] {tag}: the cells operator")
+        one_card[tag] = (built[0], steps[0])
         check(sum(counts.values()) == 0, f"[18] {tag}: no SELL launch")
     d = os.path.join(WORK, "cells_fp32")
     ref = cells_small("cpu", d + "_f64", 3, 2, "float64")
@@ -1955,6 +1984,7 @@ def phase_cells_small():
         log(f"[18] P3/P2 {tag} fp32 worst u gap {worst:.2e} (limit 1e-3)")
         check(worst <= 1e-3, f"[18] {tag} fp32 within 1e-3 of float64")
     log(f"[18] small cells cases in {time.perf_counter() - t0:.1f} s")
+    return CellsRuns(one_card, ref_steps)
 
 
 def phase_2d1_p3(card):
@@ -1980,8 +2010,10 @@ def phase_2d1_p3(card):
         f"{setup_s:.1f} s with the mesh")
     n_warm, n_meas = 1, 2
     COUNTS.reset()
+    t0 = time.perf_counter()
     ms = [ns.solve_time_step() for _ in range(n_warm)]
     torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ms += [ns.solve_time_step() for _ in range(n_meas)]
     torch.cuda.synchronize()
@@ -2010,7 +2042,7 @@ def phase_2d1_p3(card):
           f"[18] 2D-1 P3/P2: SELL launches {launches}, plain-version CUDA "
           f"calls {plain_cuda} (0 each)")
     out = dict(n_dofs=n_dofs, steps_per_s=sps, setup_s=setup_s,
-               peak_bytes=peak, iterations=its,
+               step1_s=warm_s, peak_bytes=peak, iterations=its,
                iterations_timed=sum(its[n_warm:]) / n_meas,
                cd_gap_float64=max(cd_gaps), sell_launches=launches)
     log(f"[18] 2D-1 P3/P2 window: {json.dumps(out)} on {card}; phase "
@@ -2058,6 +2090,219 @@ def phase_validate(card):
           "[19] the fp32 SELL kernel launched (D=1 and D=2)")
     check(res["card"] == card, "[19] the card's line in the record")
     return res
+
+
+# phase 23: the cells operator on two cell shards of one card
+CELL_SHARDS = ("cuda:0", "cuda:0")
+CELL_SHARD_STEPS = 1
+
+
+def cell_products_on_card(ns):
+    """Every cells product on seeded float64 inputs: ``CellOps`` of the
+    one-device model ``ns`` (float64, on the card) against one shard (bit
+    for bit) and two shards of cuda:0 (within 1e-12 of max|y|).  Returns
+    the worst gap of two shards.  tests/test_torch_cuda.py runs it too."""
+    from navierstokes_tpu_torch.parallel.sharded_bsr import ShardVals
+    from navierstokes_tpu_torch.parallel.sharded_cells import (
+        ShardedCellOps, ShardedCells)
+    rng = np.random.default_rng(23)
+    sp = ns.space
+    nc, nv = np.asarray(sp.cell_p2).shape
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")
+    u, xp = t(rng.standard_normal((sp.n_p2, sp.dim))), t(
+        rng.standard_normal(sp.n_p1))
+    w, f = t(rng.random(sp.n_p2)), rng.standard_normal((nc, nv, nv))
+
+    def products(ops, op, fv):
+        out = [ops.f_diag(op, fv), ops.mass_apply(op, u),
+               ops.schur_diag(op, w)]
+        for c in ((True, True, True), (True, False, False),
+                  (False, True, False), (False, False, True)):
+            out += list(ops.apply_blocks(op, fv, u, xp, *c))
+        return out
+
+    ref = products(ns._ops, ns.cells, t(f))
+    ref_c = ns._ops.convection(ns.cells, u)
+    worst = 0.0
+    for devs in (CELL_SHARDS[:1], CELL_SHARDS):
+        sc = ShardedCells(sp, ns._cells_host, sp.rs.T_hat, torch.float64,
+                          "cuda", list(devs))
+        fv = ShardVals(t(f[s.cells[0]:s.cells[1]]) for s in sc.shards)
+        got = products(ShardedCellOps(), sc, fv)
+        got_c = sc.unshard(ShardedCellOps().convection(sc, u))
+        if len(devs) == 1:
+            check(all(torch.equal(a, b) for a, b in zip(got, ref))
+                  and torch.equal(got_c, ref_c),
+                  "[23] one cell shard equals CellOps bit for bit")
+        else:
+            worst = max(_rel(a, b) for a, b in zip(got + [got_c],
+                                                   ref + [ref_c]))
+            check(worst <= 1e-12, f"[23] two cell shards' products within "
+                  f"1e-12 ({worst:.2e})")
+    return worst
+
+
+def phase_cell_shards_small(runs):
+    """The four CELLS_SMALL configurations in float64 on two cell shards
+    of cuda:0 against phase 18's one-card run (``runs``, a CellsRuns),
+    1 step: equal FGMRES counts,
+    u, p, Cd and Cl within 1e-9 (the CPU parity tests' limit);
+    the products per operator (``cell_products_on_card``); P3/P2 ``cc`` +
+    ``inner_bf16`` in fp32 on two shards within 1e-3 of u of phase 18's
+    CPU float64 run over 2 steps; no SELL launch."""
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    t0 = time.perf_counter()
+    shards = dict(n_devices=len(CELL_SHARDS), shard_devices=CELL_SHARDS)
+    out = {}
+    for tag, fn in CELLS_SMALL:
+        d = os.path.join(WORK, "cell_shards_" + tag.replace(" ", "_")
+                         .replace("/", ""))
+        one, m1 = runs.one_card[tag]
+        sh = fn("cuda", d + "_sh", **shards)
+        check(sh._cell_sharded and len(sh.cells.shards) == 2,
+              f"[23] {tag}: two cell shards")
+        torch.cuda.synchronize()
+        COUNTS.reset()
+        m2 = sh.solve_time_step()
+        torch.cuda.synchronize()
+        check(COUNTS.launches == 0 and COUNTS.plain_cuda_calls == 0,
+              f"[23] {tag}: no SELL launch")
+        scale = max(abs(m1.cd), abs(m1.cl), 1e-30)
+        gap = max(_rel(sh._u, one._u), _rel(sh._p, one._p),
+                  abs(m2.cd - m1.cd) / scale, abs(m2.cl - m1.cl) / scale)
+        log(f"[23] {tag} on two cell shards of cuda:0 against one card: "
+            f"FGMRES {m2.iterations} ({m1.iterations}); worst of u, p, Cd, "
+            f"Cl {gap:.2e} (limit 1e-9); bytes per shard "
+            f"{sh.cells.shard_bytes()}")
+        check(m1.converged and m2.converged, f"[23] {tag}: converged")
+        check(m2.iterations == m1.iterations, f"[23] {tag}: FGMRES counts")
+        check(gap <= 1e-9, f"[23] {tag}: within 1e-9 of one card")
+        out[tag] = gap
+        if tag == "P3/P2 cc":
+            out["ops"] = cell_products_on_card(one)
+            log(f"[23] P3/P2 products: one shard bit for bit, two shards "
+                f"within {out['ops']:.2e} of CellOps")
+    bf = cells_small("cuda", os.path.join(WORK, "cell_shards_bf16"), 3, 2,
+                     "float32", inner_bf16=True, **shards)
+    worst = 0.0
+    for k, (mr, u_ref) in enumerate(runs.f64_ref):
+        mb = bf.solve_time_step()
+        check(mr.converged and mb.converged,
+              f"[23] P3/P2 cc+inner_bf16 fp32 shards converged, step {k + 1}")
+        worst = max(worst, _rel(bf._u, u_ref))
+    log(f"[23] P3/P2 cc+inner_bf16 fp32 on two cell shards: u within "
+        f"{worst:.2e} of the float64 run (limit 1e-3)")
+    check(worst <= 1e-3, "[23] inner_bf16 on cell shards")
+    log(f"[23] small cell-shard cases in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_2d1_p3_shards(card, p18):
+    """The 2D-1 P3/P2 window of phase 18 on two cell shards of cuda:0,
+    CELL_SHARD_STEPS steps: every step converged, the Cd of each within
+    CD_2D1_P3_GATE of the float64 run's, no SELL launch; the bytes each
+    shard holds against the one-device cell arrays, and the seconds of
+    step 1 beside phase 18's step 1."""
+    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    from navierstokes_tpu_torch.parallel.sharded_bsr import operator_bytes
+    from navierstokes_tpu_torch.scenarios.validate import build_case
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ns = build_case("2d1", device="cuda", h=0.010, h_near=0.0033, degree=3,
+                    n_devices=len(CELL_SHARDS), shard_devices=CELL_SHARDS,
+                    out=os.path.join(WORK, "st2d1_p3_shards"))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(ns.space.n_dofs == EXPECTED_DOFS_2D1_P3,
+          f"[23] 2D-1 P3/P2 DoF {ns.space.n_dofs}")
+    check(ns._cell_sharded and len(ns.cells.shards) == 2,
+          "[23] 2D-1 P3/P2 on two cell shards")
+    per_shard = ns.cells.shard_bytes()
+    whole = sum(operator_bytes(s.arrays) for s in ns.cells.shards)
+    log(f"[23] 2D-1 P3/P2 on cell shards {list(CELL_SHARDS)}: "
+        f"{ns.space.n_dofs} DoF, cells {[s.cells for s in ns.cells.shards]}"
+        f", setup {setup_s:.1f} s; bytes per shard {per_shard} "
+        f"({', '.join(f'{b / sum(per_shard):.3f}' for b in per_shard)} of "
+        f"their sum; cell arrays {whole} bytes in all)")
+    torch.cuda.synchronize()
+    COUNTS.reset()
+    ms, walls = [], []
+    for _ in range(CELL_SHARD_STEPS):
+        t0 = time.perf_counter()
+        ms.append(ns.solve_time_step())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches, plain_cuda = COUNTS.launches, COUNTS.plain_cuda_calls
+    peak = torch.cuda.max_memory_allocated()
+    cd_gaps = [abs(m.cd - ref) / abs(ref)
+               for m, ref in zip(ms, CD_2D1_P3_FLOAT64)]
+    sps = 1.0 / walls[0]
+    log(f"[23] FGMRES per step {[m.iterations for m in ms]} (one card "
+        f"{p18['iterations'][:CELL_SHARD_STEPS]}); Cd "
+        + " ".join(f"{m.cd:.5f}" for m in ms) + "; relative to float64 "
+        + " ".join(f"{g:.2e}" for g in cd_gaps)
+        + f" (limit {CD_2D1_P3_GATE:g}); s per step "
+        + " ".join(f"{w:.2f}" for w in walls))
+    log(f"[23] step 1: {walls[0]:.2f} s ({sps:.4f} steps/s) on two cell "
+        f"shards against phase 18's {p18['step1_s']:.2f} s on one card "
+        f"(its steps 2-3: {p18['steps_per_s']:.4f} steps/s); peak {peak} "
+        f"bytes (phase 18 {p18['peak_bytes']}); "
+        f"SELL launches {launches}; on {card}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for m in ms:
+        check(m.converged and all(np.isfinite([m.cd, m.cl, m.residual])),
+              f"[23] 2D-1 P3/P2 on shards converged, finite at t={m.time}")
+    check(max(cd_gaps) <= CD_2D1_P3_GATE,
+          "[23] 2D-1 P3/P2 on shards: Cd against the float64 run")
+    check(launches == 0 and plain_cuda == 0,
+          f"[23] 2D-1 P3/P2 on shards: SELL launches {launches}, "
+          f"plain-version CUDA calls {plain_cuda} (0 each)")
+    return dict(steps_per_s=sps, setup_s=setup_s, peak_bytes=peak,
+                shard_bytes=per_shard, iterations=[m.iterations for m in ms],
+                cd_gap_float64=max(cd_gaps), seconds=walls)
+
+
+def phase_scheme_flip():
+    """``config.scheme`` changed after setup, as bench.py's monolithic
+    window changes it, on the small fixture (fp32, ``cc``): in each
+    direction, a model stepping from its captured graphs and one stepping
+    eagerly take 2 steps, flip, and take 2 more; the captured model
+    captures the new scheme's graphs and its steps equal the eager ones
+    bit for bit (u, p, Cd, Cl, counts)."""
+    from navierstokes_tpu_torch.models import step_graphs
+    t0 = time.perf_counter()
+    for start, to, cls in (("projection", "monolithic",
+                            step_graphs.MonolithicGraphs),
+                           ("monolithic", "projection",
+                            step_graphs.ProjectionGraphs)):
+        d = os.path.join(WORK, f"flip_{start}")
+        cap = small_model("cuda", d + "_cap", scheme=start)
+        eag = small_model("cuda", d + "_eager", scheme=start)
+        rows = {"captured": [], "eager": []}
+        for k in range(4):
+            if k == 2:
+                cap.config.scheme = eag.config.scheme = to
+            rows["captured"].append(cap.solve_time_step())
+            rows["eager"].append(eag.solve_time_step(_eager=True))
+            if k == 1:
+                check(cap._graphs is not None, f"[23] {start}: captured")
+        check(isinstance(cap._graphs, cls), f"[23] {start} -> {to}: the "
+              f"captured model replays {cls.__name__}")
+        same = torch.equal(cap._u, eag._u) and torch.equal(cap._p, eag._p)
+        for a, b in zip(rows["captured"], rows["eager"]):
+            same = same and (a.cd, a.cl, a.iterations, a.converged) == (
+                b.cd, b.cl, b.iterations, b.converged)
+        log(f"[23] {start} -> {to} after 2 steps: captured against eager "
+            f"{'bit for bit' if same else 'DIFFER'}; iterations "
+            f"{[m.iterations for m in rows['captured']]}")
+        check(same, f"[23] {start} -> {to}: captured equals eager")
+        check(all(m.converged for m in rows["captured"]),
+              f"[23] {start} -> {to}: converged")
+    log(f"[23] scheme flips in {time.perf_counter() - t0:.1f} s")
 
 
 # phase 20: steps of the sharded bench point held to phase 5's first ones
@@ -2253,9 +2498,12 @@ def main():
     stokes = phase_stokes()
     gc.collect()
     torch.cuda.empty_cache()
-    phase_cells_small()
+    cells_runs = phase_cells_small()
     cells_2d1 = phase_2d1_p3(card)
     phase_validate(card)
+    cell_shards_small = phase_cell_shards_small(cells_runs)
+    cell_shards = phase_2d1_p3_shards(card, cells_2d1)
+    phase_scheme_flip()
     paths = {"projection": bench["per_step"], "monolithic": mono["per_step"],
              "sharded": sharded["per_step"]}
     # F and the mass share the F pattern, so one count covers both
@@ -2357,6 +2605,13 @@ def main():
     log(f"2D-1 P3/P2 cells window: {cells_2d1['steps_per_s']:.4f} steps/s, "
         f"FGMRES {cells_2d1['iterations_timed']:.1f} per timed step, setup "
         f"{cells_2d1['setup_s']:.1f} s, peak {cells_2d1['peak_bytes']} bytes")
+    log(f"2D-1 P3/P2 on two cell shards of cuda:0: step 1 "
+        f"{cell_shards['steps_per_s']:.4f} steps/s (one card "
+        f"{1.0 / cells_2d1['step1_s']:.4f}), "
+        f"FGMRES {cell_shards['iterations']}, bytes per shard "
+        f"{cell_shards['shard_bytes']}, peak {cell_shards['peak_bytes']} "
+        f"bytes; small cases' worst gap to one card "
+        f"{max(cell_shards_small.values()):.2e}")
     log(card)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,21 +42,47 @@ restart, ``output``, ``export_data`` / ``import_data``,
 ``compute_forces``, ``post_process``, ``measured_cfl`` and ``.cd`` /
 ``.cl``.
 
-``SolverConfig.n_devices`` > 1 splits the bsr operator by rows over
-several devices in one process (``parallel/``, ``shard_devices``), the
-vectors staying on ``device``; the run equals the one-device run bit for
-bit.  Options outside this port raise ``NotImplementedError`` naming the
-option (``check_config``).  Tensors live on the explicit ``device``; the
+``SolverConfig.n_devices`` > 1 splits the operator over several devices
+in one process (``parallel/``, ``shard_devices``), the vectors staying on
+``device``: the bsr operator by rows (parallel/sharded_bsr.py; the run
+equals the one-device run bit for bit), the cells operator by contiguous
+blocks of cells (parallel/sharded_cells.py, the JAX package's shard_map
+cells path; the shards' node sums are added in shard order, so the run
+agrees with one device to round-off, as JAX's does).  Options outside
+this port raise ``NotImplementedError`` naming the option
+(``check_config``).  Tensors live on the explicit ``device``; the
 compute dtype is ``SolverConfig.dtype``.  One step is plain tensor code
 plus, on ``bsr``, the SELL SpMV kernel on compact operator values
 (``ops/sell.py``), with its Krylov loops on the device
 (solvers/krylov.py).  On the card the one-device bsr step, in either
 scheme, replays captured CUDA graphs (models/step_graphs.py;
 ``_step_projection`` and ``_step_monolithic`` are their plain versions);
-the row shards and the cells operator step eagerly
+the row shards, the cell shards and the cells operator step eagerly
 (``_capture_refusal``).  ``solve`` runs chunks of steps to the next
 output boundary and reads their metrics once per chunk, as the JAX
 model's ``lax.scan`` chunks.
+
+``config.scheme`` may change after ``setup()``, in either direction, as
+in the JAX model: the next ``solve_time_step``/``solve`` builds what the
+new scheme needs and setup did not (the Cahouet-Chabard operator Ap with
+its coarse data, the Schur coarse G pairs under ``asimple``/``ayosida``,
+refinement's float64 tables), keeps A0 as setup built it (JAX's flipped
+step takes ``params.a0_cell`` as it is: a projection BDF2 setup leaves
+c_t = 3/2 in the monolithic step's A0) and drops the captured graphs.
+Monolithic to projection on the cells operator raises ValueError, as
+setup does.  Differences from JAX:
+
+* a change of any other field that setup reads (``_SETUP_FIELDS``:
+  ``dtype``, ``operator``, ``n_devices``, ``preconditioner``,
+  ``f_precond``, ``refine``, ``inner_bf16``, ...) raises ValueError
+  naming the field at the next step; call ``setup()`` again;
+* projection to monolithic under ``asimple``/``ayosida``: the port builds
+  the whole-row Schur coarse G pairs, as a monolithic setup does; JAX's
+  flipped step takes its Schur coarse matrix from the projection setup's
+  split G table (``bsr_gb_kmax`` "auto" is -1 under projection), which
+  leaves the spilled blocks out.  On the tests' h=0.1 channel that costs
+  JAX 2 FGMRES iterations (19 against 17 under ``asimple``) and moves u
+  by 1.4e-5; with ``bsr_gb_kmax=0`` the two agree to 8e-11.
 """
 
 from __future__ import annotations
@@ -105,6 +131,8 @@ from navierstokes_tpu_torch.solvers.preconditioners import (
     InnerSolve, make_asimple, make_ayosida, make_cahouet_chabard,
     make_identity, make_pcd)
 from navierstokes_tpu_torch.parallel import sharded_bsr
+from navierstokes_tpu_torch.parallel.sharded_cells import (ShardedCellOps,
+                                                           ShardedCells)
 from navierstokes_tpu_torch.parallel.sharding import (cell_partitioning,
                                                       shard_devices)
 from navierstokes_tpu_torch.solvers.refine import Refinement, rhs_f64
@@ -115,6 +143,13 @@ from navierstokes_tpu_torch.solvers.schur import (build_coarse_plan,
                                                   make_vcycle_solver)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# The SolverConfig fields that setup() reads (and inner_bf16, which the
+# captured graphs bake in): a change after setup raises at the next step
+# (``_sync_config``).  ``scheme`` may change (the module docstring).
+_SETUP_FIELDS = ("dtype", "operator", "n_devices", "preconditioner",
+                 "f_precond", "refine", "inner_bf16", "mass_format",
+                 "bsr_block", "schur_agg_blocks", "bj_tile_blocks",
+                 "curved_boundary", "p_out", "deltat", "proj_bdf2")
 
 
 @dataclasses.dataclass
@@ -242,9 +277,10 @@ class NavierStokes:
     required.  ``forcing``: the ForcingTerm hook
     (src/NavierStokes.hpp:56-65), a torch ``f(x (m, dim), t 0-d) ->
     (m, dim)``, or None (the reference's zero forcing).
-    ``shard_devices``: the devices of the ``SolverConfig.n_devices`` row
-    shards (parallel/sharding.shard_devices; default ``cuda:0 ..`` on a
-    CUDA ``device``, the CPU on a CPU one); ``device`` is the home of the
+    ``shard_devices``: the devices of the ``SolverConfig.n_devices``
+    shards, row shards on bsr and cell shards on cells
+    (parallel/sharding.shard_devices; default ``cuda:0 ..`` on a CUDA
+    ``device``, the CPU on a CPU one); ``device`` is the home of the
     vectors."""
 
     def __init__(self, mesh, degree_velocity: int = 2,
@@ -322,15 +358,11 @@ class NavierStokes:
                   "the generic 'cells' operator")
             cfg.operator = "cells"
         self._operator = cfg.operator
+        # bsr row shards and cells shards (parallel/), each its own flag
         self._sharded = cfg.operator == "bsr" and cfg.n_devices > 1
+        self._cell_sharded = cfg.operator == "cells" and cfg.n_devices > 1
         if self._operator == "cells" and cfg.scheme == "projection":
             raise ValueError("scheme='projection' requires operator='bsr'")
-        if self._operator == "cells" and cfg.n_devices > 1:
-            raise NotImplementedError(
-                f"SolverConfig.n_devices={cfg.n_devices} on the cells "
-                "operator is not ported to navierstokes_tpu_torch: the port "
-                "shards the bsr operator by rows (parallel/), not the JAX "
-                "package's shard_map cells path (parallel/sharded_ops.py)")
 
         cells_host = cell_arrays_numpy(sp)
         self._cells_host = cells_host
@@ -348,7 +380,16 @@ class NavierStokes:
         np.add.at(lm, np.asarray(sp.cell_p2).reshape(-1), rows.reshape(-1))
         self._lumped_host = lm
 
-        if self._operator == "cells":
+        if self._cell_sharded:
+            # the cells split into blocks over the shard devices (the JAX
+            # model's shard_map cells path)
+            self.cells = ShardedCells(
+                sp, cells_host, sp.rs.T_hat, self.dtype, dev,
+                shard_devices(dev, cfg.n_devices, self._shard_devices))
+            self._op = self.cells
+            self._ops = ShardedCellOps()
+            self._bj_plan = self._ell64 = None
+        elif self._operator == "cells":
             # the element operator: no compact patterns, tiles, coarse
             # plan or pressure statics (the JAX model's cells branch)
             self.cells = build_cell_arrays(sp, self.dtype, dev,
@@ -377,6 +418,8 @@ class NavierStokes:
                               if self.forcing is not None else None)
         self._build_static()
         self._is_setup = True
+        self._scheme = cfg.scheme
+        self._setup_values = {f: getattr(cfg, f) for f in _SETUP_FIELDS}
 
         # equilateral-equivalent cell size
         vols = np.abs(self.mesh.cell_volumes())
@@ -423,8 +466,8 @@ class NavierStokes:
                       * self._cfl_dt_over_h).max())
 
     def _build_bsr(self, cells_host):
-        """The compact operators, the Schur coarse plan, refinement's
-        float64 tables and the pressure-side statics (``operator="bsr"``).
+        """The compact operators, the pressure-side statics and what the
+        scheme needs (``_build_scheme_statics``) (``operator="bsr"``).
         With ``n_devices`` > 1 the operators are built on the CPU and split
         by rows over the shard devices (parallel/sharded_bsr.py); the rest
         stays on the home device."""
@@ -444,22 +487,41 @@ class NavierStokes:
             self._ops = BsrOps()
         self._op = self.ell
         self._agg_blocks = cfg.schur_agg_blocks or max(1, 64 // self.ell.bp)
-        schur_coarse = (cfg.scheme == "monolithic"
-                        and cfg.preconditioner in ("asimple", "ayosida"))
-        h = self.ell.host
-        self._coarse_plan = build_coarse_plan(
-            sp.n_p1, self.ell.bp, self._agg_blocks,
-            g_cols=h.g_cols_full if schur_coarse else None,
-            g_agg=h.g_agg if schur_coarse else None, dtype=self.dtype,
-            device=dev)
+        self._coarse_plan = self._ap = self._ell64 = None
+        self._build_cc_statics()
+        self._build_scheme_statics()
+
+    def _build_scheme_statics(self):
+        """What ``config.scheme`` needs on bsr and is not built yet: the
+        Schur coarse plan (with the G block pairs under monolithic
+        ``asimple``/``ayosida``), refinement's float64 tables and the
+        Cahouet-Chabard operator Ap = B diag(mask/M_lumped) B^T with its
+        coarse inverse and lambda_max (monolithic).  Run by setup and by
+        the first step after a change of scheme (``_sync_config``)."""
+        cfg, sp = self.config, self.space
+        mono = cfg.scheme == "monolithic"
+        schur_coarse = mono and cfg.preconditioner in ("asimple", "ayosida")
+        plan = self._coarse_plan
+        if plan is None or (schur_coarse and plan.pair_plan is None):
+            h = self.ell.host
+            self._coarse_plan = build_coarse_plan(
+                sp.n_p1, self.ell.bp, self._agg_blocks,
+                g_cols=h.g_cols_full if schur_coarse else None,
+                g_agg=h.g_agg if schur_coarse else None, dtype=self.dtype,
+                device=self.device)
         # refinement's float64 copies of the static values: fp32 runs, and
         # only where the JAX model refines, i.e. where it keeps a blocked
         # mass (2D, or mass_format="blocked"; "auto" is its node mass in 3D)
-        refines = (cfg.scheme == "monolithic" and cfg.refine > 0
-                   and self.dtype == torch.float32
+        refines = (mono and cfg.refine > 0 and self.dtype == torch.float32
                    and (self.dim == 2 or cfg.mass_format == "blocked"))
-        self._ell64 = self._ops.float64_tables(self.ell) if refines else None
-        self._build_cc_statics()
+        if refines and self._ell64 is None:
+            self._ell64 = self._ops.float64_tables(self.ell)
+        if mono and self._ap is None:
+            mask_flat = self.bc.host_mask[:, 0]
+            self._ap = assemble_ap(sp, self._cells_host,
+                                   mask_flat / self._lumped_host, self.dtype,
+                                   self.device, b=self.ell.bp)
+            self._ap_sc_inv, self._ap_lam = self._coarse_statics(self._ap)
 
     def _bj_tile_blocks(self, bu: int) -> int:
         """S, the node blocks per block-Jacobi tile."""
@@ -468,9 +530,9 @@ class NavierStokes:
     def _devices(self):
         """The home device and every shard device."""
         devs = [self.device]
-        if self._sharded:
-            devs += [s.device for s in self.ell.shards
-                     if s.device not in devs]
+        shards = (self.ell.shards if self._sharded else
+                  self.cells.shards if self._cell_sharded else [])
+        devs += [s.device for s in shards if s.device not in devs]
         return devs
 
     def _coarse_statics(self, op):
@@ -488,23 +550,17 @@ class NavierStokes:
         return sc_inv, lam
 
     def _build_cc_statics(self):
-        """Static pressure-side data: the masked velocity-correction
-        weights, the block-Jacobi plan, the outlet-pinned P1 Laplacian
-        with its coarse inverse and lambda_max, the lumped pressure mass
-        and, under monolithic, the Cahouet-Chabard operator
-        Ap = B diag(mask/M_lumped) B^T with its coarse inverse and
-        lambda_max.  The block-Jacobi plan exists under f_precond="bj"
-        only."""
+        """Static pressure-side data of either scheme: the masked
+        velocity-correction weights, the block-Jacobi plan, the
+        outlet-pinned P1 Laplacian with its coarse inverse and lambda_max
+        and the lumped pressure mass (Ap, monolithic only, is built by
+        ``_build_scheme_statics``).  The block-Jacobi plan exists under
+        f_precond="bj" only."""
         sp, dev, dt_ = self.space, self.device, self.dtype
         cfg = self.config
         mask_flat = self.bc.host_mask[:, 0]
         self._ap_w = torch.as_tensor(mask_flat / self._lumped_host,
                                      dtype=dt_, device=dev)
-        if cfg.scheme == "monolithic":
-            self._ap = assemble_ap(sp, self._cells_host,
-                                   mask_flat / self._lumped_host, dt_, dev,
-                                   b=self.ell.bp)
-            self._ap_sc_inv, self._ap_lam = self._coarse_statics(self._ap)
         S = self._bj_tile_blocks(self.ell.bu)
         self._bj_plan = None
         if cfg.f_precond == "bj" and self._sharded:
@@ -545,7 +601,9 @@ class NavierStokes:
         Newton seed follows A0 (``_bj_seed``)."""
         cfg = self.config
         ct = 1.5 if cfg.scheme == "projection" and cfg.proj_bdf2 else 1.0
-        if self._operator == "cells":
+        if self._cell_sharded:
+            self.a0_cell = self.cells.static(ct / cfg.deltat, self.nu)
+        elif self._operator == "cells":
             self.a0_cell = ((ct / cfg.deltat) * self.cells.mass
                             + self.nu * self.cells.stiff)
         else:
@@ -1037,6 +1095,8 @@ class NavierStokes:
         captured CUDA graphs: one device, the bsr operator, on the card,
         either scheme, every preconditioner, with or without
         ``inner_bf16`` and ``refine``."""
+        if self._cell_sharded:
+            return "cell shards step eagerly: their step is not captured"
         if self._operator != "bsr":
             return ("the cells operator steps eagerly: its step is not "
                     "captured")
@@ -1059,6 +1119,7 @@ class NavierStokes:
         """The step's CUDA graphs (models/step_graphs.py), captured now if
         they are not yet (otherwise at the first captured step).  Raises
         ValueError, with the reason, on a model that steps eagerly."""
+        self._sync_config()
         reason = self._capture_refusal()
         if reason is not None:
             raise ValueError(reason)
@@ -1072,10 +1133,33 @@ class NavierStokes:
             self._graphs = cls(self)
         return self._graphs
 
+    def _sync_config(self):
+        """Hold the config to what setup built: a changed scheme gets what
+        it needs built (``_build_scheme_statics``; A0 is kept, as the JAX
+        model keeps it) and the captured graphs dropped; a changed field of
+        ``_SETUP_FIELDS`` raises ValueError."""
+        cfg = self.config
+        check_config(cfg)
+        for name, value in self._setup_values.items():
+            if getattr(cfg, name) != value:
+                raise ValueError(
+                    f"SolverConfig.{name} changed from {value!r} to "
+                    f"{getattr(cfg, name)!r} after setup(): call setup() "
+                    "again")
+        if cfg.scheme == self._scheme:
+            return
+        if self._operator == "cells" and cfg.scheme == "projection":
+            raise ValueError("scheme='projection' requires operator='bsr'")
+        if self._operator == "bsr":
+            self._build_scheme_statics()
+        self._scheme = cfg.scheme
+        self._graphs = None
+
     def _run_steps(self, n: int, eager: bool = False):
         """Advance ``n`` steps with no metric read: from the captured
         graphs (``_captures``, unless ``eager``) or the plain step.
         Returns (rows (n, len(_ROW)) float64 on the device, [_StepInfo])."""
+        self._sync_config()
         if self._captures() and not eager:
             return self.capture_graphs().run(n)
         step = (self._step_monolithic if self.config.scheme == "monolithic"
@@ -1129,7 +1213,9 @@ class NavierStokes:
         self._t = torch.tensor(self.time, dtype=self.dtype,
                                device=self.device)
         f_vals = self.a0_cell + self._ops.convection(self._op, self._u)
-        return self.ell.unshard(f_vals) if self._sharded else f_vals
+        if self._sharded:
+            return self.ell.unshard(f_vals)
+        return self.cells.unshard(f_vals) if self._cell_sharded else f_vals
 
     def solve_time_step(self, *, _eager: bool = False) -> StepMetrics:
         """Advance exactly one step (cpp:344-397); usable straight after

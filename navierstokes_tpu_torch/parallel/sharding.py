@@ -1,13 +1,18 @@
 """Devices and row ranges of a sharded run.
 
-Port of ``navierstokes_tpu/parallel/sharding.py``.  The JAX package
-shards its bsr operator over a 1-D device mesh by block rows and keeps
-the DoF vectors replicated (GSPMD, ``models/navier_stokes.py``
-``_apply_gspmd_sharding``).  The port does the same in one process: the
-operators' rows are split into contiguous ranges, one per device of
-``shard_devices``, and the vectors stay on the model's home device
-(``parallel/sharded_bsr.py``).  The reference's counterpart is its MPI
-domain decomposition over mesh cells (src/NavierStokes.cpp:19-23).
+Port of ``navierstokes_tpu/parallel/sharding.py``.  The JAX package has
+two multi-device paths over a 1-D device mesh, both with the DoF vectors
+replicated: the bsr operator sharded by block rows (GSPMD,
+``models/navier_stokes.py`` ``_apply_gspmd_sharding``), and the generic
+element ("cells") operator sharded by cells under ``shard_map``, one
+``psum`` per product (``parallel/sharded_ops.py``; every Taylor-Hood pair
+but P2/P1).  The port does both in one process, one shard per device of
+``shard_devices``, the vectors on the model's home device: the bsr
+operators' rows split into contiguous ranges (``parallel/sharded_bsr.py``)
+and the cells into contiguous blocks whose node sums the home device adds
+in shard order (``parallel/sharded_cells.py``).  The reference's
+counterpart is its MPI domain decomposition over mesh cells
+(src/NavierStokes.cpp:19-23).
 """
 
 from __future__ import annotations

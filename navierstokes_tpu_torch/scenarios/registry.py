@@ -140,9 +140,10 @@ def get_scenario(name: str) -> Scenario:
 def build_solver(name: str, h: float | None = None,
                  config: SolverConfig | None = None, mesh=None,
                  mesh_kwargs: dict | None = None, device="cuda",
-                 **overrides):
+                 shard_devices=None, **overrides):
     """A configured NavierStokes solver for a named scenario, on
-    ``device`` (the card unless the caller asks for "cpu").
+    ``device`` (the card unless the caller asks for "cpu"), its
+    ``config.n_devices`` shards on ``shard_devices`` (NavierStokes).
 
     ``overrides``: deltat / t_final / output_step / re (what the
     reference sets in each scenario's source, here at run time).
@@ -157,7 +158,8 @@ def build_solver(name: str, h: float | None = None,
     ns = NavierStokes(mesh, 2, 1, deltat=overrides.get("deltat", sc.deltat),
                       T=overrides.get("t_final", sc.t_final),
                       step=overrides.get("output_step", sc.output_step),
-                      inlet=sc.inlet, config=cfg, device=device)
+                      inlet=sc.inlet, config=cfg, device=device,
+                      shard_devices=shard_devices)
     re = overrides.get("re", sc.re)
     if re is not None:
         ns.set_re_number(re)

@@ -5,6 +5,7 @@
 
   case: 2d1 (Re=20 steady) | 2d2 (Re=100 vortex shedding)
       | 3d1 (3D-1Z square column, Re=20 steady)
+      | bench (2D-2 on the 1,014,414-DoF bench mesh)
 
 The port's copy of the JAX repo's ``scripts/validate_st.py``: the same
 three cases with the same meshes, inlets, time steps and solver settings
@@ -15,7 +16,24 @@ steps), and the same statistics against the published intervals
 3.22-3.24, Cl_max 0.99-1.01 over the last 40%, St 0.295-0.305; 3D-1Z:
 Cd 7.5-7.7, Cl 0.06-0.08 over the last 40%).
 
-Differences from the JAX script:
+The case ``bench`` is the port of the JAX repo's
+``scripts/validate_bench.py``: the physics-validated scheme (projection
+BDF2, rotational pressure update) on the committed bench mesh
+``.bench_mesh.npz`` (1,014,414 DoF) with true 2D-2 physics (nu=1e-3,
+parabolic U_m=1.5 with a ramp of 0.1, ``ref_length=0.1``, the
+Schaefer-Turek force formula), fp32 on the card, dt=0.00125 to T=8, a
+checkpoint every 1,600 steps and the SolverConfig defaults otherwise (not
+the budgets above); its statistics are Cd_max and Cl_max over t > 0.75 T
+and St from the FFT of Cl over the last 25% of the rows
+(``u_mean=1.0``), against 3.22-3.24 / 0.99-1.01 / 0.295-0.305.  Its
+environment variables map to the flags: DT to ``--dt``, T to ``--T``,
+RESTART to ``--restart-step``, OUT_EVERY to ``--output-step``, CSV to
+``--csv``, CACHE to ``--out``; RAMP stays 0.1, and NS_OVERRIDES (a JSON
+of SolverConfig fields) is left out.  ``--projection``, ``--h`` and the
+mesh and solver flags do not apply to it (the driver refuses them; its
+record's ``h`` is null).
+
+Differences from the JAX scripts:
 
 * ``--device`` (default ``cuda``, fp32; raises without a card) takes the
   place of ``--cpu``; ``--device cpu`` runs in float64 as ``--cpu`` did,
@@ -59,7 +77,7 @@ import time
 
 import numpy as np
 
-CASES = ("2d1", "2d2", "3d1")
+CASES = ("2d1", "2d2", "3d1", "bench")
 # FGMRES budget and restart length of 2D-1 on the cells operator: P3/P2 at
 # 654,022 DoF does not converge within 400 iterations at the default restart
 # of 64, in fp32 or float64; unrestarted it takes 202 and 290 at steps 1-2
@@ -67,6 +85,15 @@ CASES = ("2d1", "2d2", "3d1")
 OUTER_MAXITER_2D1 = 400
 REF_LENGTH = 0.1
 U_MEAN_2D2 = 2.0 * 1.5 / 3.0
+# the bench case: the committed mesh, its checkpoint interval (OUT_EVERY)
+# and the start of its statistics window (as a fraction of T)
+BENCH_MESH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                          "..", ".bench_mesh.npz")
+BENCH_OUTPUT_STEP = 1600
+BENCH_TAIL = 0.75
+# the driver's mesh and solver flags, which the bench case refuses
+BENCH_FIXED = ("h", "hnear", "projection", "refine", "no_curved",
+               "wake_levels", "bsr_block", "f_precond")
 
 
 def case_defaults(case):
@@ -83,14 +110,22 @@ def case_defaults(case):
     if case == "2d2":
         return InletConfig(kind="parabolic", u_m=1.5, height=0.41), \
             0.0025, 8.0
+    if case == "bench":
+        return InletConfig(kind="parabolic", u_m=1.5, height=0.41,
+                           ramp=0.1), 0.00125, 8.0
     raise ValueError(f"unknown case {case!r}; one of {CASES}")
 
 
 def case_mesh(case, h=0.015, h_near=None, h_z=None, wake_levels=None):
-    """The case's mesh: the 3D-1Z duct, or the 2D cylinder channel with
-    h_near = h/3 and one wake level for 2d2 unless given."""
+    """The case's mesh: the committed bench mesh, the 3D-1Z duct, or the
+    2D cylinder channel with h_near = h/3 and one wake level for 2d2
+    unless given."""
     from navierstokes_tpu_torch.mesh import (channel_with_cylinder_2d,
                                              duct_with_box_obstacle_3d)
+    if case == "bench":
+        from navierstokes_tpu_torch.mesh.geometry import Mesh
+        with np.load(BENCH_MESH) as z:
+            return Mesh(2, z["points"], z["cells"], z["bfaces"], z["btags"])
     if case == "3d1":
         return duct_with_box_obstacle_3d(h=h, h_near=h_near, h_z=h_z)
     wl = wake_levels if wake_levels is not None else (
@@ -102,13 +137,17 @@ def case_mesh(case, h=0.015, h_near=None, h_z=None, wake_levels=None):
 def build_case(case, *, device="cuda", dtype=None, h=0.015, h_near=None,
                h_z=None, T=None, dt=None, projection=False, refine=0,
                curved=True, wake_levels=None, bsr_block=0, f_precond="bj",
-               degree=2, out=None, csv_name="forces_0.csv", output_step=400,
-               setup=True, **fields):
+               degree=2, out=None, csv_name="forces_0.csv", output_step=None,
+               setup=True, shard_devices=None, **fields):
     """The NavierStokes model of ``case`` as validate_st.py builds it, set
     up (unless ``setup=False``) on ``device``: nu=1e-3 set directly (no
     ``set_re_number``), float64 on the CPU and fp32 on the card unless
-    ``dtype`` says otherwise; checkpoints every ``output_step`` steps into
-    ``<out>/cache``, VTUs into ``<out>/out`` and the csv ``<out>/csv_name``.
+    ``dtype`` says otherwise; checkpoints every ``output_step`` steps
+    (default 400, the bench case 1,600) into ``<out>/cache``, VTUs into
+    ``<out>/out`` and the csv ``<out>/csv_name``; ``shard_devices`` places
+    the ``n_devices`` shards (NavierStokes).  The bench case is
+    validate_bench.py's configuration (the module docstring) and takes
+    none of the mesh and solver arguments.
     ``degree=3`` (2d1 only) is P3/P2, which runs on the cells operator
     with FGMRES unrestarted within OUTER_MAXITER_2D1, as does 2d1 with
     ``operator="cells"``.  ``fields`` set further SolverConfig fields."""
@@ -120,14 +159,24 @@ def build_case(case, *, device="cuda", dtype=None, h=0.015, h_near=None,
     if dtype is None:
         dtype = "float64" if str(device) == "cpu" else "float32"
     out = out or os.path.join("build", "validate", case)
-    cfg = dict(dtype=dtype, nu=1.0e-3, ref_length=REF_LENGTH,
-               force_formula="st",
-               scheme="projection" if projection else "monolithic",
-               refine=refine, f_precond=f_precond, proj_f_maxiter=100,
-               proj_p_maxiter=50, curved_boundary=curved,
-               bsr_block=bsr_block, output_dir=os.path.join(out, "out"),
-               cache_dir=os.path.join(out, "cache"),
-               csv_path=os.path.join(out, csv_name), inner_maxiter_f=10)
+    paths = dict(output_dir=os.path.join(out, "out"),
+                 cache_dir=os.path.join(out, "cache"),
+                 csv_path=os.path.join(out, csv_name))
+    if case == "bench":
+        cfg = dict(dtype=dtype, nu=1.0e-3, ref_length=REF_LENGTH,
+                   force_formula="st", scheme="projection", proj_bdf2=True,
+                   **paths)
+        if output_step is None:
+            output_step = BENCH_OUTPUT_STEP
+    else:
+        cfg = dict(dtype=dtype, nu=1.0e-3, ref_length=REF_LENGTH,
+                   force_formula="st",
+                   scheme="projection" if projection else "monolithic",
+                   refine=refine, f_precond=f_precond, proj_f_maxiter=100,
+                   proj_p_maxiter=50, curved_boundary=curved,
+                   bsr_block=bsr_block, inner_maxiter_f=10, **paths)
+    if output_step is None:
+        output_step = 400
     if case == "2d1" and (degree != 2 or fields.get("operator") == "cells"):
         cfg.update(outer_maxiter=OUTER_MAXITER_2D1,
                    outer_restart=OUTER_MAXITER_2D1)
@@ -135,7 +184,8 @@ def build_case(case, *, device="cuda", dtype=None, h=0.015, h_near=None,
     ns = NavierStokes(case_mesh(case, h, h_near, h_z, wake_levels), degree,
                       degree - 1, deltat=dt0 if dt is None else dt,
                       T=T0 if T is None else T, step=output_step,
-                      inlet=inlet, config=SolverConfig(**cfg), device=device)
+                      inlet=inlet, config=SolverConfig(**cfg), device=device,
+                      shard_devices=shard_devices)
     return ns.setup() if setup else ns
 
 
@@ -177,13 +227,21 @@ def merge_legs(out, n_total, dst=None):
     return dst
 
 
-def statistics(case, csv_path):
+def statistics(case, csv_path, T=None):
     """validate_st.py's figures of a trace: 2d1 the settled mean of the
     last 10% (cd, cl); 3d1 the mean of the last 40% (cd, cl); 2d2 the
     maxima of the last 40% (cd_max, cl_max) and the Strouhal number
-    (st)."""
+    (st).  bench: validate_bench.py's, the maxima over t > 0.75 ``T`` and
+    St from the last 25% of the rows."""
     from navierstokes_tpu_torch.utils.analysis import load_forces, strouhal
     d = load_forces(csv_path)
+    if case == "bench":
+        tail = d[d["time"] > BENCH_TAIL * T]
+        st = strouhal(csv_path, skip_fraction=BENCH_TAIL,
+                      ref_length=REF_LENGTH, u_mean=1.0)
+        return dict(cd_max=float(tail["Cd"].max()),
+                    cl_max=float(tail["Cl"].max()),
+                    st=None if math.isnan(st) else st)
     n = len(d)
     tail = d[int(n * 0.6):]
     if case == "2d1":
@@ -207,10 +265,12 @@ def stats_line(case, s):
     if case == "3d1":
         return (f"[standard ST 3D-1Z] Cd = {s['cd']:.4f} (target 7.5-7.7), "
                 f"Cl = {s['cl']:.4f} (target 0.06-0.08)")
+    window = " [t > 0.75 T]" if case == "bench" else ""
     return (f"[standard ST] Cd_max = {s['cd_max']:.4f} (target 3.22-3.24), "
             f"Cl_max = {s['cl_max']:.4f} (target 0.99-1.01), "
             + (f"St = {s['st']:.4f}" if s["st"] is not None else
-               "St = n/a (under 16 rows)") + " (target 0.295-0.305)")
+               "St = n/a (under 16 rows)") + " (target 0.295-0.305)"
+            + window)
 
 
 def card_line():
@@ -267,8 +327,9 @@ def parse_args(argv=None):
                     help="velocity degree (3: P3/P2 on cells, 2d1 only)")
     ap.add_argument("--restart-step", type=int, default=0,
                     help="continue from the checkpoint of this step")
-    ap.add_argument("--output-step", type=int, default=400,
-                    help="checkpoint and VTU every this many steps")
+    ap.add_argument("--output-step", type=int, default=None,
+                    help="checkpoint and VTU every this many steps "
+                         "(default 400, bench 1600)")
     ap.add_argument("--out", default=None,
                     help="run directory (default build/validate/<case>)")
     args = ap.parse_args(argv)
@@ -277,6 +338,15 @@ def parse_args(argv=None):
         args.hz = None
     if args.degree != 2 and args.case != "2d1":
         ap.error("--degree 3 is defined for 2d1 only")
+    if args.case == "bench":
+        given = [f for f in BENCH_FIXED
+                 if getattr(args, f) != ap.get_default(f)]
+        if given:
+            ap.error("the bench case fixes its mesh and solver: "
+                     + ", ".join("--" + f.replace("_", "-") for f in given)
+                     + " do not apply to it")
+    if args.output_step is None:
+        args.output_step = BENCH_OUTPUT_STEP if args.case == "bench" else 400
     return args
 
 
@@ -333,7 +403,7 @@ def main(argv=None):
     if merged is not None:
         if args.csv:
             merge_legs(out, n_total, args.csv)
-        stats = statistics(args.case, merged)
+        stats = statistics(args.case, merged, cfg.t_final)
         print(stats_line(args.case, stats), flush=True)
     else:
         print(f"[validate] steps 1-{n_total} not all in {out} yet: no "
@@ -349,7 +419,7 @@ def main(argv=None):
         "case": args.case, "scheme": cfg.scheme, "dtype": cfg.dtype,
         "device": str(ns.device), "n_dofs": ns.space.n_dofs,
         "degree": ns.degree_velocity, "operator": cfg.operator,
-        "h": args.h, "dt": cfg.deltat, "T": cfg.t_final,
+        "h": None if args.case == "bench" else args.h, "dt": cfg.deltat, "T": cfg.t_final,
         "restart_step": args.restart_step, "steps": n_run,
         "setup_s": setup_s, "seconds": wall,
         "steps_per_s": n_run / wall if wall > 0 else None,

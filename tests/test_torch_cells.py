@@ -139,7 +139,7 @@ def test_projection_on_cells_refused(mesh, tmp_path, kv, kp, kw):
         jns.solve_time_step()
 
 
-@pytest.mark.parametrize("option,value", [("n_devices", 4),
+@pytest.mark.parametrize("option,value", [("bj_tiles", "rows"),
                                           ("operator", "ell")])
 def test_unported_options_raise_on_cells(mesh, tmp_path, option, value):
     kw = {"operator": "cells", option: value}

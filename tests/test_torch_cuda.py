@@ -14,11 +14,14 @@ so that it also runs where only the port's dependencies are installed:
 
 (``--noconftest`` because tests/conftest.py configures jax).  The CUDA
 cases carry the ``cuda`` marker and skip where there is no card.
+Also the cells operator on cell shards of one card against one device,
+and a change of ``config.scheme`` after setup, captured against eager.
 Fixtures: the h=0.12 cylinder channel of tests/test_pallas_matvec.py;
 in 3D the h=0.15 square-column duct of tests/test_torch_3d.py.
 """
 
 import dataclasses
+import importlib.util
 import os
 import subprocess
 import sys
@@ -634,3 +637,75 @@ def test_givens_kernel_matches_plain_on_cuda(cuda, dtype):
     differ = [n for n, a, b in zip(names, out["cuda"], out["cpu"])
               if not torch.equal(a, b)]
     assert differ == []
+
+
+def _cells_model(tmp, kv, kp, n=1, **fields):
+    """The h=0.12 channel on the cells operator, float64, monolithic, the
+    inner solves at 1e-10 (tests/test_torch_cells.py says why), on the
+    card; ``n`` cell shards of cuda:0."""
+    from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
+    cfg = SolverConfig(dtype="float64", scheme="monolithic",
+                       operator="cells", n_devices=n, inner_tol=1e-10,
+                       inner_maxiter_f=1000, inner_maxiter_s=1000,
+                       output_dir=str(tmp / "out"),
+                       cache_dir=str(tmp / "cache"),
+                       csv_path=str(tmp / "forces.csv"), **fields)
+    ns = NavierStokes(channel_with_cylinder_2d(h=0.12), kv, kp, deltat=0.01,
+                      T=0.05, step=5, device="cuda", config=cfg,
+                      shard_devices=["cuda:0"] * n if n > 1 else None,
+                      inlet=InletConfig(kind="parabolic", u_m=0.3,
+                                        height=0.41))
+    ns.set_re_number(20)
+    return ns.setup()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,kp", [(2, 1), (3, 2)])
+def test_cell_shards_on_one_card_match_one_device(cuda, tmp_path, kv, kp):
+    """Cell shards of cuda:0 (parallel/sharded_cells.py) against the
+    one-device cells model on the card, float64: every product on one
+    shard equals ``CellOps`` bit for bit and on two agrees within 1e-12 of
+    max|y| (a shard's einsum may round differently from the whole-cell
+    one; chip_smoke.cell_products_on_card, phase 23's check); 2 steps on
+    two shards with equal FGMRES counts, u and p within 1e-9; no SELL
+    launch."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    one = _cells_model(tmp_path / "one", kv, kp)
+    assert smoke.cell_products_on_card(one) <= 1e-12
+    sh = _cells_model(tmp_path / "sh", kv, kp, n=2)
+    assert sh._cell_sharded and len(sh.cells.shards) == 2
+    K.COUNTS.reset()
+    for _ in range(2):
+        m1, m2 = one.solve_time_step(), sh.solve_time_step()
+        assert m1.converged and m2.converged
+        assert m1.iterations == m2.iterations
+        for a, b in ((sh._u, one._u), (sh._p, one._p)):
+            assert (a - b).abs().max() <= 1e-9 * b.abs().max()
+    assert K.COUNTS.launches == 0 and K.COUNTS.plain_cuda_calls == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start,to", [("projection", "monolithic"),
+                                      ("monolithic", "projection")])
+def test_captured_scheme_flip_equals_eager_flip(cuda, tmp_path, start, to):
+    """``config.scheme`` changed after 2 steps, as bench.py's monolithic
+    window changes it: the captured model drops its graphs and captures
+    the new scheme's, and its next 2 steps equal the eager model's bit for
+    bit."""
+    from navierstokes_tpu_torch.models import step_graphs
+    cap = _small_model(tmp_path / "cap", scheme=start)
+    eag = _small_model(tmp_path / "eager", scheme=start)
+    for k in range(4):
+        if k == 2:
+            old = cap._graphs
+            cap.config.scheme = eag.config.scheme = to
+        a, b = cap.solve_time_step(), eag.solve_time_step(_eager=True)
+        assert (a.cd, a.cl, a.iterations, a.converged) == \
+            (b.cd, b.cl, b.iterations, b.converged)
+    cls = (step_graphs.MonolithicGraphs if to == "monolithic"
+           else step_graphs.ProjectionGraphs)
+    assert isinstance(cap._graphs, cls) and cap._graphs is not old
+    assert torch.equal(cap._u, eag._u) and torch.equal(cap._p, eag._p)

@@ -163,11 +163,13 @@ def test_givens_with_device_bounds_equals_the_host_bound(tmp_path, mesh,
 @pytest.mark.parametrize("fields,reason", [
     (dict(operator="cells"), "cells operator steps eagerly"),
     (dict(n_devices=2), "row shards step eagerly"),
+    (dict(operator="cells", n_devices=2), "cell shards step eagerly"),
     (dict(f_solver="gmres"), "inner GMRES solves its triangular system"),
 ])
 def test_models_that_step_eagerly_refuse_capture(tmp_path, mesh, fields,
                                                  reason):
-    """Row shards, the cells operator and f_solver="gmres" step eagerly by
+    """Row shards, cell shards, the cells operator and f_solver="gmres"
+    step eagerly by
     a stated rule: ``capture_graphs`` raises with the reason, and a step
     runs the plain way."""
     ns = _model(mesh, str(tmp_path), **fields)

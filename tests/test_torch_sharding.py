@@ -22,7 +22,8 @@ float64 unless a case says fp32:
   conftest's 8 virtual devices) within tests/test_sharding.py's
   tolerances (u 2e-4, p 2e-3); a checkpoint written on 3 shards restarts
   on one device bit for bit; the CLI's ``--n-devices 2`` writes the csv
-  of ``--n-devices 1``; the cells operator refuses ``n_devices`` > 1.
+  of ``--n-devices 1``.  The cells operator's shards are held in
+  tests/test_torch_sharded_cells*.py.
 
 No op broke bit equality on the CPU, so no case carries a tolerance in
 place of ``torch.equal``.
@@ -292,15 +293,3 @@ def test_cli_n_devices_two_writes_the_one_device_csv(tmp_path):
                           "--cache-dir", os.path.join(tmp, "cache"),
                           "--csv", csvs[-1]]) == 0
     assert_same_csv(csvs[1], csvs[0])
-
-
-@pytest.mark.parametrize("kv,kp,kw", [(2, 1, dict(operator="cells")),
-                                      (3, 2, {})])
-def test_cells_refuses_n_devices(tmp_path, kv, kp, kw):
-    cfg = SolverConfig(n_devices=2, scheme="monolithic", dtype="float64",
-                       output_dir=str(tmp_path), cache_dir=str(tmp_path),
-                       csv_path=str(tmp_path / "f.csv"), **kw)
-    ns = TNS(mesh(), kv, kp, deltat=0.01, T=0.03, step=3, config=cfg,
-             device="cpu")
-    with pytest.raises(NotImplementedError, match="n_devices=2.*shard_map"):
-        ns.setup()
