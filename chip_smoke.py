@@ -155,7 +155,23 @@ and checks them:
    per shard and the step's seconds beside phase 18's step 1; then
    ``config.scheme`` changed after 2 steps of the small fixture, in both
    directions: the captured model captures the new scheme's graphs and
-   equals the eager model bit for bit.
+   equals the eager model bit for bit;
+24. the block-Jacobi tile-apply kernel (csrc/bj_apply.cu; its launches
+   are counted on every path above that applies tiles: phases 5, 7, 8,
+   14, 20, 21, 22, each path's tiles in its own dtype only, no plain
+   call): right after phase 22, against its plain version at the fp32
+   tiles of the captured projection (phase 21's last replay) and
+   monolithic (phase 22's) bench steps, the same tiles in bf16 (``bj_bf16``)
+   and, for the monolithic step, in fp64, within 1e-5 (fp32), one bf16
+   ulp (bf16) and 1e-12 (fp64) of max|y|, bit-identical on repeat, the
+   tail tile alone equal to the batch's rows, with its ms per call in
+   bursts, the plain version's, the bound (tile rows read + r + y bytes
+   over 3.35 TB/s) and the library's batched GEMM (``torch.matmul``);
+   the launches per step of each path; 2 captured float64 steps of the
+   phase 4 small fixture on the card (the fp64 variant) against the CPU
+   within 1e-9; then the same check and times, d=3, at the exact tile
+   inverses of 3D-1Z's F (right after phase 11, fp32 and bf16) and, d=2,
+   of the NACA model's static operator (phase 14's kernel model).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
@@ -214,6 +230,7 @@ def log(*a):
     print(*a, flush=True)
 
 
+@functools.lru_cache(maxsize=1)
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -585,6 +602,7 @@ def phase_small_fixture():
 
 
 def phase_bench(ns, card):
+    from navierstokes_tpu_torch.kernels import bj_apply
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     cfg = ns.config
     n_warm, n_meas = 10, 10
@@ -597,6 +615,7 @@ def phase_bench(ns, card):
         f"{capture_peak} bytes")
     torch.cuda.reset_peak_memory_stats()
     COUNTS.reset()
+    bj_apply.COUNTS.reset()
     ms_all, first = [], dict(ms=[])
     for k in range(n_warm):
         t1 = time.perf_counter()
@@ -616,6 +635,7 @@ def phase_bench(ns, card):
     wall = time.perf_counter() - t0
     launches, plain_cuda = COUNTS.launches, COUNTS.plain_cuda_calls
     per_step = per_step_launches(n_warm + n_meas)
+    bj, bj_plain = bj_snapshot()
     peak = torch.cuda.max_memory_allocated()
     sps = n_meas / wall
     log(f"[5] iterations BiCGStab+CG per step: "
@@ -644,13 +664,15 @@ def phase_bench(ns, card):
           "finite u, p")
     check(launches > 0, "kernel launched on the main path")
     check(plain_cuda == 0, "no plain-version calls on CUDA tensors")
+    check_bj_path(5, bj, bj_plain, n_warm + n_meas, torch.float32, 2)
     log(f"[5] all {len(ms_all)} solves converged (rel tol {tol:g})")
     end = {a: getattr(ns, a).clone() for a in ("_u", "_p", "_u_prev",
                                                "_phi", "_t")}
     end["time"] = ns.time
     return dict(launches=launches, steps_per_s=sps, peak_bytes=peak,
                 per_step=per_step, first=first, metrics=ms_all, end=end,
-                capture_s=sg.capture_seconds)
+                capture_s=sg.capture_seconds, bj=bj,
+                bj_per_step=bj_per_step(bj, n_warm + n_meas))
 
 
 # phase 21: steps of each mode from phase 5's end state, and the chunked
@@ -674,6 +696,7 @@ def phase_graphs(ns, bench, card):
     """Phase 21: eager against captured at the bench point, the exact
     tile inverse, the chunked solve, the Givens kernel.  Leaves ``ns`` in
     phase 5's end state."""
+    from navierstokes_tpu_torch.kernels import bj_apply
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     from navierstokes_tpu_torch.ops import p1ell
     t_phase = time.perf_counter()
@@ -686,6 +709,7 @@ def phase_graphs(ns, bench, card):
         sg.sync_check = mode == "captured" and not any(
             r["mode"] == "captured" for r in runs)
         COUNTS.reset()
+        bj_apply.COUNTS.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ms = [ns.solve_time_step(_eager=mode == "eager")
@@ -696,7 +720,8 @@ def phase_graphs(ns, bench, card):
             mode=mode, sync_check=sg.sync_check, steps_per_s=GRAPH_STEPS / wall,
             metrics=ms, u=ns._u.clone(), p=ns._p.clone(),
             launches=per_step_launches(GRAPH_STEPS),
-            plain_cuda=COUNTS.plain_cuda_calls,
+            bj=bj_per_step(bj_snapshot()[0], GRAPH_STEPS),
+            plain_cuda=COUNTS.plain_cuda_calls + bj_snapshot()[1],
             flag_reads=sum(m.flag_reads for m in ms) / GRAPH_STEPS,
             masked=sum(m.masked_iterations for m in ms) / GRAPH_STEPS))
         log(f"[21] {mode}{' (sync-checked replays)' if sg.sync_check else ''}"
@@ -718,16 +743,18 @@ def phase_graphs(ns, bench, card):
                         for a, b in zip(r["metrics"], ref["metrics"])))
         check(same, f"[21] the {r['mode']} run equals the first eager run "
               "bit for bit (u, p, Cd, Cl, counts)")
-        check(r["launches"] == ref["launches"],
-              f"[21] {r['mode']}: SELL launches per step equal the eager "
-              f"run's ({r['launches']} against {ref['launches']})")
+        check((r["launches"], r["bj"]) == (ref["launches"], ref["bj"]),
+              f"[21] {r['mode']}: SELL and tile-apply launches per step "
+              f"equal the eager run's ({r['launches']}, {r['bj']} against "
+              f"{ref['launches']}, {ref['bj']})")
     check(all(r["plain_cuda"] == 0 for r in runs),
           "[21] no plain-version calls on CUDA tensors")
     sps = {m: [r["steps_per_s"] for r in runs if r["mode"] == m]
            for m in ("eager", "captured")}
     log(f"[21] captured equals eager bit for bit in all four runs; SELL "
         f"launches per step (captured, from the replay records) "
-        f"{runs[1]['launches']}")
+        f"{runs[1]['launches']}; tile-apply launches per step "
+        f"{runs[1]['bj']}")
     log(f"[21] capture {bench['capture_s']:.2f} s (phase 5), peak device "
         f"memory over the four runs {peak} bytes ({peak / 2**30:.2f} GiB); "
         f"steps/s eager {sps['eager']}, captured {sps['captured']} on "
@@ -783,7 +810,7 @@ def phase_graphs(ns, bench, card):
     log(f"[21] phase {time.perf_counter() - t_phase:.1f} s")
     return dict(runs=[{k: r[k] for k in ("mode", "sync_check",
                                          "steps_per_s", "flag_reads",
-                                         "masked", "launches")}
+                                         "masked", "launches", "bj")}
                       for r in runs],
                 peak_bytes=peak, capture_s=bench["capture_s"],
                 inverse_gap=gap, givens=givens)
@@ -912,7 +939,7 @@ def phase_monolithic_small():
     configuration, and the captured steps against eager ones on the card,
     bit for bit with the same launches; every kernel the configuration's
     path runs must launch."""
-    from navierstokes_tpu_torch.kernels import arnoldi_lsq
+    from navierstokes_tpu_torch.kernels import arnoldi_lsq, bj_apply
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     launches = {}
 
@@ -920,10 +947,12 @@ def phase_monolithic_small():
         torch.cuda.synchronize()
         COUNTS.reset()
         arnoldi_lsq.COUNTS.reset()
+        bj_apply.COUNTS.reset()
         m = ns.solve_time_step(**kw)
         torch.cuda.synchronize()
-        return m, (dict(COUNTS.by_variant), arnoldi_lsq.COUNTS.update,
-                   COUNTS.plain_cuda_calls), {
+        bj, bj_plain = bj_snapshot()
+        return m, (dict(COUNTS.by_variant), arnoldi_lsq.COUNTS.update, bj,
+                   COUNTS.plain_cuda_calls + bj_plain), {
                        f: getattr(COUNTS, f) for f in (
                            "launches", "launches_bf16", "launches_f64")}
 
@@ -938,21 +967,23 @@ def phase_monolithic_small():
         gpu.capture_graphs()
         worst = dict(cd=0.0, cl=0.0, u=0.0, its=0, u64=0.0)
         counts = dict(launches=0, launches_bf16=0, launches_f64=0)
+        bj = collections.Counter()
         for k in range(5):
             mg, cg, fields = step(gpu)
             me, ce, _ = step(eag, _eager=True)
-            check(cg[2] == 0 and ce[2] == 0,
+            check(cg[3] == 0 and ce[3] == 0,
                   f"[7] {tag}: no plain-version calls on CUDA tensors")
             for f in counts:
                 counts[f] += fields[f]
+            bj.update(cg[2])
             same = (torch.equal(gpu._u, eag._u)
                     and torch.equal(gpu._p, eag._p)
                     and (mg.cd, mg.cl, mg.iterations, mg.residual)
                     == (me.cd, me.cl, me.iterations, me.residual))
             check(same, f"[7] {tag} step {k + 1}: captured equals eager "
                   "bit for bit")
-            check(cg[:2] == ce[:2], f"[7] {tag} step {k + 1}: captured "
-                  f"launches {cg[:2]} equal eager {ce[:2]}")
+            check(cg[:3] == ce[:3], f"[7] {tag} step {k + 1}: captured "
+                  f"launches {cg[:3]} equal eager {ce[:3]}")
             mc = cpu.solve_time_step()
             mr = ref.solve_time_step()
             scale = max(abs(mc.cd), abs(mc.cl), 1e-30)
@@ -985,13 +1016,18 @@ def phase_monolithic_small():
             f"to {worst['u64']:.2e}), iteration diff {worst['its']} (limit "
             f"1); launches over 5 captured steps: fp32 "
             f"{counts['launches']}, bf16 {counts['launches_bf16']}, fp64 "
-            f"{counts['launches_f64']}; captured equal to eager bit for bit "
+            f"{counts['launches_f64']}; tile apply by (tiles dtype, d) "
+            f"{bj_per_step(bj, 1)}; captured equal to eager bit for bit "
             "at every step")
         check(worst["cd"] <= gate and worst["cl"] <= gate, f"{tag} Cd/Cl")
         check(worst["u"] <= gate, f"{tag} u")
         check(worst["its"] <= 1, f"{tag} iteration counts")
         check(counts[field] > 0, f"{tag}: {field} > 0 on its path")
         check(counts["launches"] > 0, f"{tag}: fp32 launches > 0")
+        want = torch.bfloat16 if "inner_bf16" in tag else torch.float32
+        check(set(bj) == {(want, 2)},
+              f"[7] {tag}: the tile apply launched with {want} tiles only")
+        counts["bj"] = dict(bj)
         launches[tag] = counts
     return launches
 
@@ -1012,7 +1048,8 @@ def phase_monolithic_bench(card):
     check(ns.space.n_dofs == EXPECTED_DOFS, "monolithic DoF count")
     log(f"[8] monolithic bench point: {ns.space.n_dofs} DoF, setup "
         f"{setup_s:.1f} s")
-    from navierstokes_tpu_torch.kernels import arnoldi_lsq, conditional
+    from navierstokes_tpu_torch.kernels import (arnoldi_lsq, bj_apply,
+                                                conditional)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reserved0 = torch.cuda.memory_reserved()
@@ -1033,6 +1070,7 @@ def phase_monolithic_bench(card):
     COUNTS.reset()
     arnoldi_lsq.COUNTS.reset()
     conditional.COUNTS.reset()
+    bj_apply.COUNTS.reset()
     ms_all, step_s = [], []
     n_warm = n_meas = 5
     k = 0
@@ -1055,6 +1093,7 @@ def phase_monolithic_bench(card):
     per_step = per_step_launches(n_warm + n_meas)
     givens = dataclasses.asdict(arnoldi_lsq.COUNTS)
     nodes = conditional.COUNTS.set_condition
+    bj, bj_plain = bj_snapshot()
     peak = torch.cuda.max_memory_allocated()
     sps = n_meas / wall
     log(f"[8] Givens kernel launches over {n_warm + n_meas} steps: "
@@ -1094,6 +1133,7 @@ def phase_monolithic_bench(card):
           "[8] the Givens kernel launched once per FGMRES iteration")
     check(nodes > 0, "[8] the conditional nodes' kernel launched")
     check(plain_cuda == 0, "[8] no plain-version calls on CUDA tensors")
+    check_bj_path(8, bj, bj_plain, n_warm + n_meas, torch.float32, 2)
     log(f"[8] all {len(ms_all)} FGMRES solves converged (rel tol {tol:g})")
     end = {a: getattr(ns, a).clone() for a in ("_u", "_p", "_u_prev",
                                                "_phi", "_t")}
@@ -1101,7 +1141,8 @@ def phase_monolithic_bench(card):
     return dict(launches=launches, steps_per_s=sps, peak_bytes=peak,
                 setup_s=setup_s, per_step=per_step, givens=givens,
                 set_condition=nodes, n_steps=n_warm + n_meas, ns=ns,
-                end=end, capture=capture)
+                end=end, capture=capture, bj=bj,
+                bj_per_step=bj_per_step(bj, n_warm + n_meas))
 
 
 # phase 22: bench-point monolithic steps of each run from phase 8's end
@@ -1119,7 +1160,8 @@ def phase_monolithic_graphs(mono, card):
     bit with the same SELL, Givens launches per step, the first captured
     run under set_sync_debug_mode("error"); then the conditional nodes'
     kernel against its plain version (a host read of the flag)."""
-    from navierstokes_tpu_torch.kernels import arnoldi_lsq, conditional
+    from navierstokes_tpu_torch.kernels import (arnoldi_lsq, bj_apply,
+                                                conditional)
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     t_phase = time.perf_counter()
     ns, n = mono["ns"], MONO_GRAPH_STEPS
@@ -1133,6 +1175,7 @@ def phase_monolithic_graphs(mono, card):
         COUNTS.reset()
         arnoldi_lsq.COUNTS.reset()
         conditional.COUNTS.reset()
+        bj_apply.COUNTS.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ms = [ns.solve_time_step(_eager=mode == "eager") for _ in range(n)]
@@ -1144,7 +1187,8 @@ def phase_monolithic_graphs(mono, card):
             launches=per_step_launches(n),
             givens=arnoldi_lsq.COUNTS.update / n,
             set_condition=conditional.COUNTS.set_condition / n,
-            plain_cuda=COUNTS.plain_cuda_calls,
+            bj=bj_per_step(bj_snapshot()[0], n),
+            plain_cuda=COUNTS.plain_cuda_calls + bj_snapshot()[1],
             flag_reads=sum(m.flag_reads for m in ms) / n,
             masked=sum(m.masked_iterations for m in ms) / n))
         r = runs[-1]
@@ -1172,10 +1216,12 @@ def phase_monolithic_graphs(mono, card):
                         for a, b in zip(r["metrics"], ref["metrics"])))
         check(same, f"[22] the {r['mode']} run equals the first captured "
               "run bit for bit (u, p, Cd, Cl, FGMRES counts)")
-        check((r["launches"], r["givens"]) == (ref["launches"], ref["givens"]),
-              f"[22] {r['mode']}: SELL and Givens launches per step "
-              f"({r['launches']}, {r['givens']}) equal the captured run's "
-              f"({ref['launches']}, {ref['givens']})")
+        check((r["launches"], r["givens"], r["bj"])
+              == (ref["launches"], ref["givens"], ref["bj"]),
+              f"[22] {r['mode']}: SELL, Givens and tile-apply launches per "
+              f"step ({r['launches']}, {r['givens']}, {r['bj']}) equal the "
+              f"captured run's ({ref['launches']}, {ref['givens']}, "
+              f"{ref['bj']})")
     check(all(r["plain_cuda"] == 0 for r in runs),
           "[22] no plain-version calls on CUDA tensors")
     check(all(m.flag_reads < e.flag_reads for m, e in
@@ -1188,7 +1234,7 @@ def phase_monolithic_graphs(mono, card):
     cap = mono["capture"]
     log(f"[22] captured equals eager bit for bit in all four runs, with the "
         f"same launches per step (SELL {ref['launches']}, Givens "
-        f"{ref['givens']:.2f}); capture {cap['capture_s']:.2f} s (phase 8), "
+        f"{ref['givens']:.2f}, tile apply {ref['bj']}); capture {cap['capture_s']:.2f} s (phase 8), "
         f"{cap['nodes_per_block']} bodies per block; peak device memory "
         f"over the four runs {peak} bytes ({peak / 2**30:.2f} GiB); steps/s "
         f"captured {sps['captured']}, eager {sps['eager']} on {card}")
@@ -1196,7 +1242,7 @@ def phase_monolithic_graphs(mono, card):
     log(f"[22] phase {time.perf_counter() - t_phase:.1f} s")
     return dict(runs=[{k: r[k] for k in ("mode", "sync_check", "steps_per_s",
                                          "flag_reads", "masked", "launches",
-                                         "givens", "set_condition")}
+                                         "givens", "set_condition", "bj")}
                       for r in runs],
                 peak_bytes=peak, nodes=nodes)
 
@@ -1259,6 +1305,190 @@ def phase_if_nodes():
     bound = max(1 / HBM_BYTES_PER_S, 1 / FP32_OPS_PER_S) * 1e3
     return dict(max_abs_err=err, ms=skip_ms, run_ms=run_ms,
                 plain_ms=plain_ms, bound_ms=bound)
+
+
+# phase 24: the block-Jacobi tile apply (csrc/bj_apply.cu) at the real tiles
+BJ_SOURCE = "navierstokes_tpu_torch/csrc/bj_apply.cu"
+# the Pallas kernels it replaces: bj_kern (fp32 tiles), bj_kern16 (bf16)
+BJ_REPLACES = "scripts/exp_fused.py:237"
+BJ_REPLACES_BF16 = "scripts/exp_fused.py:265"
+FP64_OPS_PER_S = 34e12        # published H100 SXM fp64 rate, no tensor core
+# tiles dtype -> (record name, kernel-vs-plain limit over max|y|; None:
+# one bf16 ulp of max|y|, since both round a fp32 sum to bf16 in their own
+# order)
+BJ_VARIANTS = {torch.float32: ("bj_apply", 1e-5),
+               torch.bfloat16: ("bj_apply_bf16", None),
+               torch.float64: ("bj_apply_f64", 1e-12)}
+
+
+def bj_snapshot():
+    """The tile-apply kernel's launches by (tiles dtype, d) and its
+    plain-version calls on CUDA tensors since its counts were last reset."""
+    from navierstokes_tpu_torch.kernels import bj_apply
+    return (dict(bj_apply.COUNTS.by_variant),
+            bj_apply.COUNTS.plain_cuda_calls)
+
+
+def bj_per_step(by_variant, n_steps):
+    return {f"{str(dt).replace('torch.', '')} d={d}": v / n_steps
+            for (dt, d), v in sorted(by_variant.items(), key=str)}
+
+
+def check_bj_path(phase, by_variant, plain, n_steps, dtype, d):
+    """The path's tile applies went through the kernel, in ``dtype`` tiles
+    with ``d`` components only, never through the plain version."""
+    log(f"[{phase}] tile-apply kernel launches per step "
+        f"{bj_per_step(by_variant, n_steps)}; plain-version CUDA calls "
+        f"{plain}")
+    check(set(by_variant) == {(dtype, d)} and by_variant[(dtype, d)] > 0,
+          f"[{phase}] the tile apply launched, {dtype} tiles, d={d}")
+    check(plain == 0, f"[{phase}] no plain tile apply on CUDA tensors")
+
+
+def _bf16_ulp(y):
+    return 2.0 ** (np.floor(np.log2(float(y.abs().max()))) - 7)
+
+
+def check_and_time_bj(use, tiles, r):
+    """The tile-apply kernel against its plain version at one use's tiles
+    and a seeded r: the stated limit, a bit-identical repeat, the tail
+    tile alone equal to the batch's rows; then its ms per call in bursts
+    (the tiles exceed the L2, so each call reads them from HBM) beside the
+    plain version, the bound and the library's batched GEMM
+    (``torch.matmul`` on r padded to whole tiles, today's yardstick, which
+    the port no longer calls)."""
+    from navierstokes_tpu_torch.kernels.bj_apply import (
+        bj_apply, block_jacobi_apply_plain)
+    name, limit = BJ_VARIANTS[tiles.dtype]
+    yk = bj_apply(tiles, r)
+    yk2 = bj_apply(tiles, r)
+    yp = block_jacobi_apply_plain(tiles, r)
+    n_tiles, sb = tiles.shape[0], tiles.shape[1]
+    t = n_tiles - 1
+    alone = bj_apply(tiles[t:], r[t * sb:])
+    torch.cuda.synchronize()
+    check(yk.shape == yp.shape == r.shape and yk.dtype == r.dtype,
+          f"[24] {use} {name}: shape/dtype")
+    check(torch.equal(yk, yk2), f"[24] {use} {name}: bit-identical repeat")
+    check(torch.equal(alone, yk[t * sb:]),
+          f"[24] {use} {name}: the tail tile alone equals the batch's rows")
+    abs_err = float((yk - yp).abs().max())
+    differ = int((yk != yp).sum())
+    lim = (_bf16_ulp(yp) if limit is None
+           else limit * float(yp.abs().max()))
+    check(abs_err <= lim, f"[24] {use} {name}: kernel vs plain max abs err "
+          f"{abs_err:.3e} (limit {lim:.3e})")
+    n_p2, d = r.shape
+    nbytes = (n_p2 * sb * tiles.element_size()
+              + 2 * n_p2 * d * r.element_size())
+    ops = 2 * n_p2 * sb * d
+    rate = FP64_OPS_PER_S if tiles.dtype == torch.float64 else FP32_OPS_PER_S
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    rb = torch.nn.functional.pad(r, (0, 0, 0, n_tiles * sb - n_p2)).reshape(
+        n_tiles, sb, d).to(tiles.dtype)
+    out = dict(use=use, tiles=list(tiles.shape), d=d, max_abs_err=abs_err,
+               limit=lim, differing=differ,
+               ms=_burst_ms([lambda: bj_apply(tiles, r)]),
+               plain_ms=_burst_ms(
+                   [lambda: block_jacobi_apply_plain(tiles, r)]),
+               library_ms=_burst_ms([lambda: torch.matmul(tiles, rb)]),
+               bound_bytes=nbytes, bound_ops=ops,
+               bound_ms=max(by_bytes, by_ops),
+               bound_by="bytes" if by_bytes >= by_ops else "operations")
+    del rb
+    log(f"[24] {use} {name}: tiles {tuple(tiles.shape)}, r ({n_p2}, {d}); "
+        f"max abs err {abs_err:.3e} (limit {lim:.3e}), {differ} of "
+        f"{yk.numel()} values differ; ms {out['ms']:.4f} "
+        f"({nbytes / out['ms'] / 1e6:.0f} GB/s) plain {out['plain_ms']:.4f} "
+        f"library {out['library_ms']:.4f}; bound {out['bound_ms']:.4f} "
+        f"({out['bound_by']}: {nbytes} B, {ops} flop) on {card_line()}")
+    return out
+
+
+def _r(n_p2, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal((n_p2, d)), dtype=dtype,
+                           device="cuda")
+
+
+def phase_tile_apply_bench(proj_tiles, mono, paths, card):
+    """Phase 24 at the bench point (right after phase 22): the kernel
+    against its plain version at the fp32 tiles of the captured projection
+    step (its graphs' last replay, in phase 21: ``proj_tiles``) and
+    monolithic step (phase 22's), and at the same tiles in bf16
+    (``bj_bf16`` / ``inner_bf16``) and fp64, timed (``check_and_time_bj``); the launches per step of each
+    path (``paths``: path -> the tile apply's launches per step by
+    variant); then the fp64 variant on its path, 2 captured float64 steps
+    of the phase 4 small fixture against the CPU within 1e-9."""
+    from navierstokes_tpu_torch.kernels import bj_apply
+    t_phase = time.perf_counter()
+    ns = mono["ns"]
+    check(ns._graphs is not None and ns._graphs.tiles is not None,
+          "[24] the monolithic graphs' tiles")
+    mono_tiles = ns._graphs.tiles
+    n_p2 = ns.space.n_p2
+    r32 = _r(n_p2, 2, torch.float32, 24)
+    out = {dt: [] for dt in BJ_VARIANTS}
+    for use, tiles in (("bench projection", proj_tiles),
+                       ("bench monolithic", mono_tiles)):
+        out[torch.float32].append(check_and_time_bj(use, tiles, r32))
+        out[torch.bfloat16].append(check_and_time_bj(
+            use, tiles.to(torch.bfloat16), r32))
+    out[torch.float64].append(check_and_time_bj(
+        "bench monolithic", mono_tiles.double(), r32.double()))
+    for path, per_step in paths.items():
+        log(f"[24] tile-apply launches per step, {path}: {per_step}")
+    # the fp64 variant on its path: a float64 model on the card
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = small_model(dev, os.path.join(WORK, f"bj_f64_{dev}"), "float64",
+                        proj_tol=1e-10)
+        bj_apply.COUNTS.reset()
+        ms = [m.solve_time_step() for _ in range(2)]
+        runs[dev] = (m, ms, bj_snapshot())
+    (g, mg, (bj, plain)), (c, mc, _) = runs["cuda"], runs["cpu"]
+    gap = _rel(g._u, c._u)
+    log(f"[24] float64 small fixture, 2 captured steps on the card against "
+        f"the CPU: u rel {gap:.2e} (limit 1e-9), Cd {mg[-1].cd!r} "
+        f"({mc[-1].cd!r})")
+    check_bj_path(24, bj, plain, 2, torch.float64, 2)
+    check(gap <= 1e-9 and all(m.converged for m in mg),
+          "[24] float64 card steps equal the CPU's within 1e-9")
+    out["f64_launches"] = bj[(torch.float64, 2)]
+    log(f"[24] bench part {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
+
+
+def tiles_of(ns, f, name):
+    """The exact tile inverses of the BC-masked F values ``f`` on the
+    model's velocity nodes (the fallback branch's tiles), through the
+    model's own plan, or one of 256-node tiles where the model runs
+    another F preconditioner (3D-1Z: ``diag``)."""
+    from navierstokes_tpu_torch.ops import p1ell
+    plan = ns._bj_plan
+    if plan is None:
+        plan = p1ell.build_block_jacobi_plan(
+            ns.ell.f, ns.ell.bu, ns.space.n_p2, max(1, 256 // ns.ell.bu),
+            ns.device)
+    mflat = ns.bc.mask[:, 0]
+    d = ns._ops.f_diag(ns.ell, f)
+    sigma = torch.sum(d * mflat) / torch.clamp(torch.sum(mflat), min=1.0)
+    tiles = p1ell.block_jacobi_inverse(plan, f, mflat, sigma).contiguous()
+    check(bool(torch.isfinite(tiles).all()), f"[24] {name}: finite tiles")
+    return tiles
+
+
+def phase_tile_apply_3d1(ns):
+    """Phase 24 on 3D-1Z (right after phase 11): the kernel (d=3) against
+    its plain version at the exact tile inverses of the model's F at its
+    state, fp32 and bf16, timed as at the bench point."""
+    f = ns.a0_cell + ns._ops.convection(ns.ell, ns._u)
+    tiles = tiles_of(ns, f, "3D-1Z")
+    r = _r(ns.space.n_p2, 3, torch.float32, 2403)
+    out = [check_and_time_bj("3D-1Z", tiles, r),
+           check_and_time_bj("3D-1Z", tiles.to(torch.bfloat16), r)]
+    del tiles
+    return out
 
 
 def duct_model(device, tmp, dtype="float32", shard_devices=None,
@@ -1563,10 +1793,13 @@ def thin_airfoil_fit(angles, cl):
 def _take_counts(into):
     """Add the launch counts by pattern and the plain-version CUDA calls
     to the Counter ``into`` and set the counts to 0."""
+    from navierstokes_tpu_torch.kernels import bj_apply
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     into.update(COUNTS.by_pattern)
-    into["plain"] += COUNTS.plain_cuda_calls
+    into["plain"] += COUNTS.plain_cuda_calls + bj_apply.COUNTS.plain_cuda_calls
+    into["bj"] += bj_apply.COUNTS.launches
     COUNTS.reset()
+    bj_apply.COUNTS.reset()
 
 
 def phase_naca_sweep(card):
@@ -1576,7 +1809,6 @@ def phase_naca_sweep(card):
     build_solver is wrapped for the run only, to time each angle's mesh
     and setup and to count the setup's launches apart from the steps'."""
     from navierstokes_tpu_torch.config import SolverConfig
-    from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     from navierstokes_tpu_torch.scenarios import cli
     d = os.path.join(WORK, "naca")
     os.makedirs(d, exist_ok=True)
@@ -1604,7 +1836,7 @@ def phase_naca_sweep(card):
     cwd = os.getcwd()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    COUNTS.reset()
+    _take_counts(collections.Counter())
     t0 = time.perf_counter()
     cli.build_solver = timed_build
     os.chdir(d)
@@ -1618,6 +1850,8 @@ def phase_naca_sweep(card):
     peak = torch.cuda.max_memory_allocated()
     _take_counts(steps_c)
     plain_cuda = steps_c.pop("plain") + setup_c.pop("plain")
+    bj_launches = steps_c.pop("bj")
+    setup_c.pop("bj")
     launches = sum(v for (_, dt), v in steps_c.items()
                    if dt == torch.float32)
     setup_launches = sum(v for (_, dt), v in setup_c.items()
@@ -1661,15 +1895,18 @@ def phase_naca_sweep(card):
         f"{peak} bytes ({peak / 2**30:.2f} GiB); fp32 kernel launches "
         f"{launches} (F {f_launches}) over {n_steps} steps, and "
         f"{setup_launches} in the four setups; plain-version CUDA calls "
-        f"{plain_cuda}; per step by operator {per_step}")
+        f"{plain_cuda}; per step by operator {per_step}; tile-apply "
+        f"launches {bj_launches} ({bj_launches / n_steps:.2f} per step)")
     check(ok, "[14] thin-airfoil criteria (monotone, slope 0.55-1.0 x "
           "2 pi, R^2 > 0.98, 0 < Cl(0) < 2 pi 2.5 deg)")
     check(f_launches >= n_steps, "[14] the F product launched every step")
+    check(bj_launches >= n_steps, "[14] the tile apply launched every step")
     check(plain_cuda == 0, "[14] no plain-version calls on CUDA tensors")
     eager = naca_eager_angle(build, d)
     return dict(launches=launches, setup_launches=setup_launches,
                 per_step=per_step, peak_bytes=peak, runs=runs, final=final,
-                eager=eager)
+                eager=eager, bj_launches=bj_launches,
+                bj_per_step=bj_launches / n_steps)
 
 
 # the sweep's angle run again with the plain step (phase 14)
@@ -1725,15 +1962,20 @@ NACA_USES = ("F", "mass", "P1 Laplacian", "Ap", "G", "B")
 def phase_kernel_naca():
     """The fp32 kernel against its plain version in every use of the NACA
     step, on the 2d-naca operators at the scenario's h (0 degrees), timed
-    as in phase 3."""
+    as in phase 3; then (phase 24) the tile-apply kernel at the exact tile
+    inverses of the model's static operator (the Newton-Schulz seed)."""
     from navierstokes_tpu_torch.scenarios.registry import build_solver
     ns = build_solver("2d-naca", config=_config(os.path.join(
         WORK, "naca_kernel"), "float32"), device="cuda").setup()
     check(ns.space.n_dofs == NACA_DOFS[0],
           f"[14] 2d-naca model DoF count {ns.space.n_dofs}")
     uses = spmv_uses(ns, np.random.default_rng(5678))
-    return [check_and_time(use, mat, vals, x, "14")
+    spmv = [check_and_time(use, mat, vals, x, "14")
             for use, mat, vals, x in uses if use in NACA_USES]
+    tiles = tiles_of(ns, ns.a0_cell, "NACA")
+    bj = check_and_time_bj("NACA", tiles, _r(ns.space.n_p2, 2,
+                                              torch.float32, 2414))
+    return spmv, bj
 
 
 def phase_postprocess():
@@ -2316,6 +2558,7 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
     the pressure side on the home device ``cuda:0``) against the
     unsharded model ``ns`` of phase 5, bit for bit; then the small
     fixture on ``small_devices`` against one device."""
+    from navierstokes_tpu_torch.kernels import bj_apply
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     from navierstokes_tpu_torch.ops import p1ell
     from navierstokes_tpu_torch.ops.bsr import BsrOps
@@ -2341,6 +2584,7 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
     check(len(sh.ell.shards) == len(devices), "[20] one shard per device")
     first = bench["first"]
     COUNTS.reset()
+    bj_apply.COUNTS.reset()
     torch.cuda.reset_peak_memory_stats()
     ms, walls = [], []
     for _ in range(SHARD_STEPS):
@@ -2351,6 +2595,7 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
         walls.append((time.perf_counter() - t1) * 1e3)
     launches, plain_cuda = COUNTS.launches, COUNTS.plain_cuda_calls
     per_step = per_step_launches(SHARD_STEPS)
+    bj, bj_plain = bj_snapshot()
     peak = torch.cuda.max_memory_allocated()
     for k, (a, b) in enumerate(zip(ms, first["metrics"])):
         log(f"[20] step {k + 1}: its {a.f_iterations}+{a.p_iterations} "
@@ -2369,6 +2614,7 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
     check(eq_u and eq_p, "[20] u and p equal phase 5's bit for bit")
     check(launches > 0, "[20] kernel launched on the sharded path")
     check(plain_cuda == 0, "[20] no plain-version calls on CUDA tensors")
+    check_bj_path(20, bj, bj_plain, SHARD_STEPS, torch.float32, 2)
     log(f"[20] kernel launches: {launches} over {SHARD_STEPS} steps; per "
         f"step by operator {per_step}")
 
@@ -2445,7 +2691,8 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
     return dict(launches=launches, per_step=per_step, setup_s=setup_s,
                 shard_bytes=shard_bytes, one_device_bytes=one_bytes,
                 model_bytes=model_bytes, peak_bytes=peak, ms=walls,
-                one_device_ms=first["ms"])
+                one_device_ms=first["ms"], bj=bj,
+                bj_per_step=bj_per_step(bj, SHARD_STEPS))
 
 
 def main():
@@ -2472,25 +2719,37 @@ def main():
     variants = phase_kernel_vs_plain(ns, (torch.bfloat16, torch.float64),
                                      "6")
     sharded = phase_sharded(ns, bench, card)
+    proj_tiles = ns._graphs.tiles.clone()     # phase 24's projection tiles
     del ns
     gc.collect()
     torch.cuda.empty_cache()
     small = phase_monolithic_small()
     mono = phase_monolithic_bench(card)
     mono_graphs = phase_monolithic_graphs(mono, card)
-    del mono["ns"]
+    bj_bench = phase_tile_apply_bench(proj_tiles, mono, {
+        "projection captured (phase 5)": bench["bj_per_step"],
+        "projection eager / captured (phase 21)": [
+            r["bj"] for r in graphs["runs"]],
+        "row shards (phase 20)": sharded["bj_per_step"],
+        "monolithic captured (phase 8)": mono["bj_per_step"],
+        "monolithic captured / eager (phase 22)": [
+            r["bj"] for r in mono_graphs["runs"]]}, card)
+    del mono["ns"], proj_tiles
     gc.collect()
     torch.cuda.empty_cache()
     small3d = phase_small_3d()
     ns3, st3d1 = phase_3d1(card)
     uses3d = phase_kernel_3d(ns3)
+    bj_3d1 = phase_tile_apply_3d1(ns3)
     del ns3
     gc.collect()
     torch.cuda.empty_cache()
     phase_cli()
     phase_naca_small()
     naca = phase_naca_sweep(card)
-    uses_naca = phase_kernel_naca()
+    uses_naca, bj_naca = phase_kernel_naca()
+    log(f"[24] tile-apply launches per step, NACA sweep (phase 14, "
+        f"captured): {naca['bj_per_step']:.2f}")
     gc.collect()
     torch.cuda.empty_cache()
     phase_postprocess()
@@ -2599,6 +2858,34 @@ def main():
     kernels[0]["monolithic_graphs"] = {
         "runs": mono_graphs["runs"], "peak_bytes": mono_graphs["peak_bytes"],
         **mono["capture"]}
+    # the tile apply: launches on the main paths (phases 5, 8, 20; bf16 on
+    # phase 7's inner_bf16 path; fp64 on phase 24's float64 steps), the
+    # uses at the bench point (headline: the monolithic step's tiles),
+    # 3D-1Z and NACA
+    f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
+    bj_uses = {f32: bj_bench[f32] + [bj_3d1[0], bj_naca],
+               bf16: bj_bench[bf16] + [bj_3d1[1]], f64: bj_bench[f64]}
+    bj_launches = {
+        f32: sum(p["bj"].get((f32, 2), 0) for p in (bench, mono, sharded)),
+        bf16: small["cc+inner_bf16"]["bj"].get((bf16, 2), 0),
+        f64: bj_bench["f64_launches"]}
+    bj_paths = {"projection": bench["bj_per_step"],
+                "monolithic": mono["bj_per_step"],
+                "sharded": sharded["bj_per_step"],
+                "naca": naca["bj_per_step"]}
+    for dt, replaces in ((f32, BJ_REPLACES), (bf16, BJ_REPLACES_BF16),
+                         (f64, None)):
+        uses = bj_uses[dt]
+        head = uses[1] if dt != f64 else uses[0]
+        kernels.append({
+            "name": BJ_VARIANTS[dt][0], "route": "cuda",
+            "source": BJ_SOURCE, "replaces": replaces,
+            "launches": bj_launches[dt],
+            "max_abs_err": max(u["max_abs_err"] for u in uses),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "bound_bytes", "library_ms")},
+            "launches_per_step": bj_paths if dt == f32 else None,
+            "uses": uses})
     record = {"kernels": kernels}
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -76,6 +76,10 @@ def build_info() -> dict:
         fn = getattr(lib, entry)
         fn.argtypes = [p, p, p, p, p, p, i, i, p]
         fn.restype = i
+    for suffix in ("f32", "bf16", "f64"):
+        fn = getattr(lib, f"nst_bj_apply_{suffix}")
+        fn.argtypes = [p, p, p, i, i, i, i, p]
+        fn.restype = i
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"nst_lsq_update_{suffix}")
         fn.argtypes = [p] * 12 + [i, p]

@@ -12,8 +12,8 @@ on triangles and tetrahedra), in the compact SELL layout of
 * Block-Jacobi — the 256x256 tile diagonals of the BC-masked F, scattered
   per step from the compact F values by a static plan, inverted by
   Newton-Schulz from the static-operator seed with an exact-inverse
-  fallback, applied as batched matmuls (the reference's ILU(0) stand-in,
-  src/NavierStokes.cpp:958).
+  fallback, applied by the tile-apply kernel (``kernels/bj_apply.py``;
+  the reference's ILU(0) stand-in, src/NavierStokes.cpp:958).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
+from navierstokes_tpu_torch.kernels.bj_apply import bj_apply
 from navierstokes_tpu_torch.kernels.sell_spmv import sell_spmv
 from navierstokes_tpu_torch.ops.sell import SellMatrix, sell_from_coo
 
@@ -303,30 +304,36 @@ def block_jacobi_guard(parts, iters: int = 3) -> BjGuard:
 
 def block_jacobi_exact(g: BjGuard):
     """The exact tile inverses (the guard's fallback branch), capturable
-    (``_inv_capturable``)."""
+    (``_inv_capturable``), row-major: the card's batched inverse comes out
+    column-major, and the tile-apply kernel reads rows."""
     BJ_INVERSIONS["exact"] += 1
-    return [_inv_capturable(a).to(g.out_dtype) for a in g.tiles]
+    return [_inv_capturable(a).to(g.out_dtype).contiguous() for a in g.tiles]
 
 
 def block_jacobi_newton(g: BjGuard, iters: int):
     """``iters`` Newton-Schulz steps X <- X (2I - A X) from the seed (the
-    guard's main branch)."""
+    guard's main branch), row-major (the seed, an exact inverse, is
+    column-major on the card, and so are the steps' sums)."""
     out = []
     for a, x, ax in zip(g.tiles, g.xs, g.axs):
         for i in range(iters):
             x = 2.0 * x - torch.matmul(x, ax)
             if i + 1 < iters:
                 ax = torch.matmul(a, x)
-        out.append(x.to(g.out_dtype))
+        out.append(x.to(g.out_dtype).contiguous())
     return out
 
 
 def block_jacobi_apply(plan: BlockJacobiPlan, inv_tiles, r):
-    """x = blockdiag(F_t)^-1 r for r (n_p2, d): batched matmuls in the
-    tiles' dtype (bf16 tiles under ``inner_bf16`` / ``bj_bf16``: r is
-    rounded to bf16 and the product is bf16), cast back to r's dtype."""
-    n = plan.n_tiles * plan.S * plan.bu
-    rb = Fn.pad(r, (0, 0, 0, n - plan.n_p2)).reshape(
-        plan.n_tiles, plan.S * plan.bu, -1)
-    y = torch.matmul(inv_tiles, rb.to(inv_tiles.dtype))
-    return y.reshape(n, -1)[:plan.n_p2].to(r.dtype)
+    """x = blockdiag(F_t)^-1 r for r (n_p2, d): the tile apply of
+    ``kernels/bj_apply.py`` (csrc/bj_apply.cu on the card, batched matmuls
+    on the CPU) in the tiles' dtype (bf16 tiles under ``inner_bf16`` /
+    ``bj_bf16``: r is rounded to bf16 and the product is bf16), cast back
+    to r's dtype."""
+    SB = plan.S * plan.bu
+    if inv_tiles.shape[:2] != (plan.n_tiles, SB) or r.shape[0] != plan.n_p2:
+        raise ValueError(f"block_jacobi_apply: tiles {tuple(inv_tiles.shape)}"
+                         f" and r {tuple(r.shape)} for a plan of "
+                         f"{plan.n_tiles} tiles of {SB} rows over "
+                         f"{plan.n_p2} nodes")
+    return bj_apply(inv_tiles, r)

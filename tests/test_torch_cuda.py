@@ -15,7 +15,10 @@ so that it also runs where only the port's dependencies are installed:
 (``--noconftest`` because tests/conftest.py configures jax).  The CUDA
 cases carry the ``cuda`` marker and skip where there is no card.
 Also the cells operator on cell shards of one card against one device,
-and a change of ``config.scheme`` after setup, captured against eager.
+a change of ``config.scheme`` after setup, captured against eager, and
+the block-Jacobi tile-apply kernel (fp32, bf16 and fp64 tiles) against
+its plain version, batch invariant, refusing what it does not take, and
+launched by captured, eager, float64 and row-sharded steps.
 Fixtures: the h=0.12 cylinder channel of tests/test_pallas_matvec.py;
 in 3D the h=0.15 square-column duct of tests/test_torch_3d.py.
 """
@@ -405,7 +408,8 @@ def _channel_model(device, tmp_path, **cfg_fields):
 def test_row_shards_on_one_card_equal_one_device(cuda, tmp_path, fields, n):
     """``n_devices`` row shards, all on cuda:0, step bit for bit like the
     unsharded model on the card (fp32, the curved cylinder), and launch
-    the kernel per shard."""
+    the kernels per shard."""
+    from navierstokes_tpu_torch.kernels import bj_apply as BJ
     from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
     runs = []
     for k, devs in ((1, None), (n, ["cuda:0"] * n)):
@@ -422,8 +426,11 @@ def test_row_shards_on_one_card_equal_one_device(cuda, tmp_path, fields, n):
         ns.set_re_number(20)
         ns.setup()
         K.COUNTS.reset()
+        BJ.COUNTS.reset()
         ms = [ns.solve_time_step() for _ in range(3)]
         assert K.COUNTS.launches > 0 and K.COUNTS.plain_cuda_calls == 0
+        # every shard's tiles through the tile-apply kernel
+        assert BJ.COUNTS.launches > 0 and BJ.COUNTS.plain_cuda_calls == 0
         runs.append((ns, [(m.iterations, m.cd, m.cl) for m in ms]))
     (one, m1), (sh, mn) = runs
     # the h=0.12 channel has 4 tiles: no shard takes a single one
@@ -709,3 +716,174 @@ def test_captured_scheme_flip_equals_eager_flip(cuda, tmp_path, start, to):
            else step_graphs.ProjectionGraphs)
     assert isinstance(cap._graphs, cls) and cap._graphs is not old
     assert torch.equal(cap._u, eag._u) and torch.equal(cap._p, eag._p)
+
+
+# the block-Jacobi tile apply (kernels/bj_apply.py, csrc/bj_apply.cu):
+# tiles dtype -> kernel-vs-plain limit over max|y| (fp32: both sum the
+# exact products in float64 and round once, so they agree but where a sum
+# lies within 1e-16 of an fp32 tie; fp64: only the summation order
+# differs; bf16: both round a fp32 sum to bf16, so a sum near a rounding
+# boundary may land one bf16 ulp apart)
+BJ_LIMITS = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _bj_inputs(dev, dtype, d, n_tiles=5, sb=256, tail=77, seed=12):
+    """Seeded tiles (n_tiles, sb, sb) and r (n_p2, d) with a tail tile of
+    ``tail`` rows (the tiles scaled like an inverse near the identity)."""
+    from navierstokes_tpu_torch.kernels import bj_apply as BJ
+    rng = np.random.default_rng(seed)
+    n_p2 = (n_tiles - 1) * sb + tail
+    tiles = (np.eye(sb)[None] + 0.05 * rng.standard_normal(
+        (n_tiles, sb, sb)))
+    rdt = BJ.VARIANTS[dtype][1]
+    r = torch.as_tensor(rng.standard_normal((n_p2, d)), dtype=rdt,
+                        device=dev)
+    return torch.as_tensor(tiles, dtype=torch.float32).to(
+        device=dev, dtype=dtype), r
+
+
+def _bf16_ulp(y):
+    """One bf16 ulp of max|y| (8 significant bits)."""
+    m = float(y.abs().max())
+    return 2.0 ** (np.floor(np.log2(m)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sb", [128, 256, 512])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_bj_apply_kernel_matches_plain_on_cuda(cuda, dtype, d, sb):
+    """The tile-apply kernel against its plain version (batched matmuls)
+    on the card, with a tail tile of 77 live rows; a repeat is
+    bit-identical; one launch counted, no plain call."""
+    from navierstokes_tpu_torch.kernels import bj_apply as BJ
+    tiles, r = _bj_inputs(cuda, dtype, d, sb=sb)
+    BJ.COUNTS.reset()
+    y = BJ.bj_apply(tiles, r)
+    y2 = BJ.bj_apply(tiles, r)
+    assert BJ.COUNTS.launches == 2 and BJ.COUNTS.plain_cuda_calls == 0
+    assert BJ.COUNTS.by_variant == {(dtype, d): 2}
+    yp = BJ.block_jacobi_apply_plain(tiles, r)
+    torch.cuda.synchronize()
+    assert y.shape == yp.shape == r.shape and y.dtype == r.dtype
+    assert torch.equal(y, y2)
+    if dtype == torch.bfloat16:
+        # the kernel's outputs are bf16 values
+        assert torch.equal(y, y.to(torch.bfloat16).float())
+        assert float((y - yp).abs().max()) <= _bf16_ulp(yp)
+    else:
+        assert float((y - yp).abs().max()) <= (BJ_LIMITS[dtype]
+                                               * float(yp.abs().max()))
+    if dtype == torch.float32:
+        # the correctly rounded products: no tie within reach on this seed
+        assert torch.equal(y, yp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_bj_apply_is_batch_invariant_on_cuda(cuda, dtype):
+    """A tile's rows come out the same bit for bit alone, inside the
+    batch, and at another place in another batch (the tail tile too), so
+    row shards equal one device."""
+    from navierstokes_tpu_torch.kernels import bj_apply as BJ
+    tiles, r = _bj_inputs(cuda, dtype, 2, n_tiles=6, tail=100)
+    sb = tiles.shape[1]
+    y = BJ.bj_apply(tiles, r)
+    for t in (0, 3, 5):
+        rows = slice(t * sb, min((t + 1) * sb, r.shape[0]))
+        alone = BJ.bj_apply(tiles[t:t + 1].contiguous(),
+                            r[rows].contiguous())
+        assert torch.equal(alone, y[rows])
+    # tiles 2..5 as a batch of their own
+    tail = BJ.bj_apply(tiles[2:].contiguous(), r[2 * sb:].contiguous())
+    assert torch.equal(tail, y[2 * sb:])
+
+
+@pytest.mark.cuda
+def test_bj_apply_refuses_what_the_kernel_does_not_take(cuda):
+    from navierstokes_tpu_torch.kernels import bj_apply as BJ
+    tiles, r = _bj_inputs(cuda, torch.float32, 2)
+    with pytest.raises(TypeError, match="no other variant"):
+        BJ.bj_apply(tiles.half(), r)
+    with pytest.raises(TypeError, match="r must be torch.float32"):
+        BJ.bj_apply(tiles.to(torch.bfloat16), r.double())
+    with pytest.raises(TypeError, match="r must be torch.float64"):
+        BJ.bj_apply(tiles.double(), r)
+    with pytest.raises(ValueError, match="tiles on"):
+        BJ.bj_apply(tiles, r.cpu())
+    with pytest.raises(ValueError, match="no instantiation"):
+        BJ.bj_apply(tiles[:, :192, :192].contiguous(), r[:900])
+    with pytest.raises(ValueError, match="SB, SB"):
+        BJ.bj_apply(tiles[:, :, :128].contiguous(), r)
+    with pytest.raises(ValueError, match=r"\(n_p2, 2\) or \(n_p2, 3\)"):
+        BJ.bj_apply(tiles, r[:, :1].contiguous())
+    with pytest.raises(ValueError, match="rows of r"):
+        BJ.bj_apply(tiles, r[:4 * 256])
+    with pytest.raises(ValueError, match="contiguous"):
+        BJ.bj_apply(tiles, r.t().contiguous().t())
+    with pytest.raises(ValueError, match="contiguous"):
+        BJ.bj_apply(tiles.transpose(1, 2), r)
+    buf = torch.empty(tiles.numel() + 1, device=cuda)
+    off = buf[1:].view(tiles.shape)
+    off.copy_(tiles)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        BJ.bj_apply(off, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields", [
+    dict(scheme="projection"), dict(scheme="projection", bj_newton=0),
+    dict(scheme="monolithic"), dict(scheme="monolithic", inner_bf16=True),
+    dict(scheme="monolithic", refine=2, refine_tol=1e-3)])
+def test_captured_and_eager_steps_launch_bj_apply(cuda, tmp_path, fields):
+    """Captured and eager steps of the small fixture (both branches of the
+    tile rebuild: Newton-Schulz and, with ``bj_newton=0``, the exact
+    inverse) apply every tile through the kernel, in the tiles' dtype,
+    with the same launches per step, and never through the plain
+    version."""
+    from navierstokes_tpu_torch.kernels import bj_apply as BJ
+    eager = _small_model(tmp_path / "eager", **fields)
+    graphs = _small_model(tmp_path / "graphs", **fields)
+    graphs.capture_graphs()
+    want = torch.bfloat16 if fields.get("inner_bf16") else torch.float32
+    counts = []
+    for ns, kw in ((eager, dict(_eager=True)), (graphs, {})):
+        BJ.COUNTS.reset()
+        for _ in range(3):
+            ns.solve_time_step(**kw)
+        assert BJ.COUNTS.plain_cuda_calls == 0
+        counts.append(dict(BJ.COUNTS.by_variant))
+    assert counts[0] == counts[1]
+    assert set(counts[0]) == {(want, 2)} and counts[0][(want, 2)] > 0
+    assert torch.equal(eager._u, graphs._u)
+
+
+@pytest.mark.cuda
+def test_float64_steps_on_cuda_launch_bj_apply_f64(cuda, tmp_path):
+    """A float64 model on the card applies its float64 tiles through the
+    kernel's fp64 variant and steps within 1e-9 of the CPU."""
+    from navierstokes_tpu_torch.kernels import bj_apply as BJ
+    from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        cfg = SolverConfig(dtype="float64", scheme="projection",
+                           proj_tol=1e-10, output_dir=str(tmp_path / dev),
+                           cache_dir=str(tmp_path / dev / "cache"),
+                           csv_path=str(tmp_path / dev / "forces.csv"))
+        ns = NavierStokes(channel_with_cylinder_2d(h=0.12), 2, 1,
+                          deltat=0.01, T=0.02, step=2, device=dev,
+                          config=cfg, inlet=InletConfig(
+                              kind="parabolic", u_m=0.3, height=0.41))
+        ns.set_re_number(20)
+        ns.setup()
+        BJ.COUNTS.reset()
+        for _ in range(2):
+            ns.solve_time_step(_eager=True)
+        runs[dev] = (ns, dict(BJ.COUNTS.by_variant),
+                     BJ.COUNTS.plain_cuda_calls)
+    (cpu, c_cpu, _), (gpu, c_gpu, plain) = runs["cpu"], runs["cuda"]
+    assert c_cpu == {} and plain == 0
+    assert set(c_gpu) == {(torch.float64, 2)}
+    assert (gpu._u.cpu() - cpu._u).abs().max() <= 1e-9 * cpu._u.abs().max()
