@@ -12,10 +12,11 @@ The port covers P2/P1 on triangles (2D) and tetrahedra (3D) on the BSR
 operator in both time schemes (monolithic FGMRES with its five block
 preconditioners, and projection), with the block-Jacobi or the diagonal F
 preconditioner, row sharding of that operator over several devices in
-one process (``parallel/``), and the scenario registry with its CLI
-(``python -m navierstokes_tpu_torch list|run``); see
-``models/navier_stokes.py`` ``check_config`` for what raises
-``NotImplementedError``.
+one process (``parallel/``), any Taylor-Hood pair on the generic element
+operator, and the scenario registry with its CLI (``python -m
+navierstokes_tpu_torch list|run``).  It takes every option value of the
+JAX package's ``SolverConfig``; ``models/navier_stokes.py``
+``check_config`` raises ``ValueError`` on any other.
 """
 
 import torch

@@ -2,9 +2,10 @@
 
 The JAX package's ``navierstokes_tpu/config.py`` schema without its TPU
 layout knobs (``bsr_f_kmax``, ``bsr_gb_kmax``, ``f_matvec``,
-``steps_per_chunk``); options outside the port raise in
-``models/navier_stokes.check_config``, which reads a configuration by its
-field names, so a JAX package config object is taken as it is.
+``steps_per_chunk``); a value that no option of the JAX package takes
+raises in ``models/navier_stokes.check_config``, which reads a
+configuration by its field names, so a JAX package config object is
+taken as it is.
 
 The reference configures everything at compile time (macro ``DIM``,
 ``NS_INPUT`` inlet injection, hard-coded constants nu/p_out/Diameter —
@@ -119,8 +120,8 @@ class InletConfig:
 class SolverConfig:
     """All solver knobs.  Defaults mirror the reference's hard-coded values.
 
-    ``models/navier_stokes.check_config`` rejects the options this port
-    does not run."""
+    ``models/navier_stokes.check_config`` rejects a value that is none of
+    the JAX package's."""
 
     # Physics (src/NavierStokes.hpp:254-256)
     nu: float = 1.0e-3
@@ -160,13 +161,21 @@ class SolverConfig:
     # (projection); the extrapolation is explicit, so it needs a moderate
     # CFL (the JAX package's VALIDATION.md: stable at CFL <~ 2).
     proj_bdf2: bool = True
-    # Explicit-pressure extrapolation weight; only 0 is ported (the JAX
-    # package measured theta=1 divergent).
+    # Explicit-pressure extrapolation weight theta: the u* solve about
+    # p* = p^n + theta (p^n - p^{n-1}) instead of p^n (0).  The JAX package
+    # measured theta=1 divergent on its manufactured open channel
+    # (VALIDATION.md); default 0.
     proj_p_extrap: float = 0.0
-    # Pressure-Poisson operator of the projection step; only "laplacian"
-    # (the assembled P1 stiffness) is ported.
+    # Pressure-Poisson operator of the projection step: "laplacian" (the
+    # assembled consistent P1 stiffness, an approximate projection) or
+    # "schur" (CG on the compatible B W B^T with the Laplacian V-cycle as
+    # its preconditioner, pinned at the outlet and at the nodes below
+    # proj_schur_pin_ratio: the projection exact to the CG tolerance; the
+    # JAX package measured it long-horizon unstable, VALIDATION.md).
     proj_poisson: str = "laplacian"
-    proj_schur_pin_ratio: float = 0.95   # for proj_poisson="schur" only
+    # "schur" pins phi=0 where the masked diag(B W B^T) keeps less than
+    # this fraction of its unmasked weight
+    proj_schur_pin_ratio: float = 0.95
     proj_tol: float = 1.0e-4      # relative tolerance of both sub-solves
 
     # Outer Krylov (src/NavierStokes.cpp:344-397)
@@ -197,13 +206,16 @@ class SolverConfig:
     # scaling, no tiles: the JAX package's choice for 3D-1Z, where F is
     # mass-dominated).
     f_precond: str = "bj"
-    # F solve: "bicgstab" or "gmres"; "richardson" is not ported.
+    # F solve of the monolithic preconditioners: "bicgstab", "gmres" or
+    # "richardson" (inner_maxiter_f preconditioned sweeps; the JAX package
+    # measured FGMRES stalling with it at the CFL~8 bench point).
     f_solver: str = "bicgstab"
     # Node blocks per block-Jacobi tile (tile = this * bsr_block nodes);
     # 0 => auto = max(1, 256 // bu), 256-node tiles.
     bj_tile_blocks: int = 0
-    # The JAX package's tile-gather formulation: "auto" and "blocked" are
-    # accepted (the port scatters the tiles from its compact F values).
+    # The JAX package's tile-gather formulation ("auto", "blocked", "rows",
+    # "scatter"): all give the same tile values, which the port takes from
+    # its compact F values whatever this says.
     bj_tiles: str = "auto"
     # bf16 F values inside the preconditioner's inner solves (fp32 runs;
     # vectors and sums stay fp32).
@@ -215,11 +227,10 @@ class SolverConfig:
     # static-operator seed; an exact inverse where the seed is outside the
     # contraction region.  0 = exact inverse every step.
     bj_newton: int = 3
-    # Mass realization of the JAX package: "auto" and "blocked" are
-    # accepted ("node" is not ported).  The port's mass always sits in the
-    # F slots; as in the JAX model, refinement runs only where the JAX
-    # model keeps a blocked mass: 2D, or "blocked" ("auto" is the node mass
-    # in 3D there).
+    # Mass realization of the JAX package ("auto", "blocked", "node"): the
+    # same product, which the port always takes from the F slots; as in the
+    # JAX model, refinement runs only where the JAX model keeps a blocked
+    # mass: "blocked", or "auto" in 2D ("auto" is the node mass in 3D).
     mass_format: str = "auto"
 
     # Curved (superparametric P2) geometry on boundaries with analytic
@@ -231,7 +242,8 @@ class SolverConfig:
     # Numerics
     dtype: str = "float32"        # compute dtype on the device
     # "bsr" (P2/P1, compact operators) or "cells" (the generic element
-    # operator, any degree pair, monolithic only); "ell" is not ported
+    # operator, any degree pair, monolithic only); "ell" (the JAX package's
+    # node-graph operator) runs on "cells" with the assembled Schur diagonal
     operator: str = "bsr"
     # Node-block size of the block-Jacobi tiles and the Schur aggregates;
     # 0 => 16.

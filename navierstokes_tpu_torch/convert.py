@@ -26,7 +26,9 @@ class State:
     p: torch.Tensor          # (n_p1,)
     u_prev: torch.Tensor     # (n_p2, dim) velocity at the previous step
     phi: torch.Tensor        # (n_p1,) last pressure increment (projection;
-    #                          the monolithic step passes it through)
+    #                          under proj_p_extrap the whole change
+    #                          p^n - p^{n-1}; the monolithic step passes
+    #                          it through)
     time: float
 
 

@@ -9,11 +9,19 @@ and tetrahedra (3D), on one of two operators:
 
   - ``scheme="monolithic"`` (the reference's scheme, cpp:344-397): the
     saddle-point system per step by FGMRES with the ``cc``, ``pcd``,
-    ``asimple``, ``ayosida`` or ``identity`` block preconditioner,
-    optional float64-residual refinement (``refine``) and bf16 inner F
-    values (``inner_bf16`` / ``bj_bf16``);
+    ``asimple``, ``ayosida`` or ``identity`` block preconditioner, its
+    inner F solves by BiCGStab, GMRES or Richardson sweeps
+    (``f_solver``), optional float64-residual refinement (``refine``) and
+    bf16 inner F values (``inner_bf16`` / ``bj_bf16``);
   - ``scheme="projection"`` (BDF1 or BDF2) with the consistent P1
-    Laplacian Poisson solve;
+    Laplacian Poisson solve or the exact projection on the compatible
+    B W B^T (``proj_poisson``), and the explicit pressure extrapolated
+    (``proj_p_extrap``);
+
+  The JAX package's layouts of the same operators, ``mass_format`` (its
+  node-graph mass) and ``bj_tiles`` (how it gathers the tiles), are
+  accepted: the port's mass sits in the F slots and its tiles come from
+  the compact F values, the same values in one layout;
 
 * ``operator="cells"``, the generic element operator (ops/operators.py:
   per-cell element matrices, batched einsums and fixed-order segment
@@ -27,7 +35,11 @@ and tetrahedra (3D), on one of two operators:
   their Schur systems by Jacobi-BiCGStab (no V-cycle), ``refine`` does
   nothing and ``inner_bf16`` rounds the F values of the inner solves to
   bf16 (kept in the compute dtype).  Curved-boundary snapping is P2
-  geometry: P3 and higher keep straight cells.
+  geometry: P3 and higher keep straight cells.  ``operator="ell"`` (the
+  JAX package's node-graph operator) runs on it too, with the same
+  fallbacks (JAX's every ``operator == "bsr"`` test is false under
+  ``ell``); its inner Schur solves take the assembled diag(B W B^T) of
+  JAX's graph (ops/operators.EllCellOps).
 
 Both schemes take the outlet pressure ``p_out`` (the Neumann RHS,
 src/NavierStokes.cpp:257-278) and an optional forcing term ``forcing``
@@ -48,8 +60,8 @@ in one process (``parallel/``, ``shard_devices``), the vectors staying on
 equals the one-device run bit for bit), the cells operator by contiguous
 blocks of cells (parallel/sharded_cells.py, the JAX package's shard_map
 cells path; the shards' node sums are added in shard order, so the run
-agrees with one device to round-off, as JAX's does).  Options outside
-this port raise ``NotImplementedError`` naming the option
+agrees with one device to round-off, as JAX's does).  A value that no
+option of the JAX package takes raises ``ValueError`` naming the option
 (``check_config``).  Tensors live on the explicit ``device``; the
 compute dtype is ``SolverConfig.dtype``.  One step is plain tensor code
 plus, on ``bsr``, the SELL SpMV kernel on compact operator values
@@ -116,7 +128,8 @@ from navierstokes_tpu_torch.ops.boundary import build_dirichlet
 from navierstokes_tpu_torch.ops.bsr import BsrOps, build_bsr
 from navierstokes_tpu_torch.ops.forces import (drag_lift, force_coefficients,
                                                neumann_rhs)
-from navierstokes_tpu_torch.ops.operators import CellOps, segment_plan
+from navierstokes_tpu_torch.ops.operators import (CellOps, EllCellOps,
+                                                  segment_plan)
 from navierstokes_tpu_torch.ops.p1ell import (BJ_INVERSIONS, assemble_ap,
                                               assemble_p1_stiffness,
                                               block_jacobi_apply,
@@ -143,13 +156,16 @@ from navierstokes_tpu_torch.solvers.schur import (build_coarse_plan,
                                                   make_vcycle_solver)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
-# The SolverConfig fields that setup() reads (and inner_bf16, which the
-# captured graphs bake in): a change after setup raises at the next step
-# (``_sync_config``).  ``scheme`` may change (the module docstring).
+# The SolverConfig fields that setup() reads (and those the captured
+# graphs bake in: inner_bf16, proj_p_extrap, f_solver): a change after
+# setup raises at the next step (``_sync_config``).  ``scheme`` may change
+# (the module docstring).
 _SETUP_FIELDS = ("dtype", "operator", "n_devices", "preconditioner",
                  "f_precond", "refine", "inner_bf16", "mass_format",
                  "bsr_block", "schur_agg_blocks", "bj_tile_blocks",
-                 "curved_boundary", "p_out", "deltat", "proj_bdf2")
+                 "curved_boundary", "p_out", "deltat", "proj_bdf2",
+                 "proj_poisson", "proj_schur_pin_ratio", "proj_p_extrap",
+                 "f_solver")
 
 
 @dataclasses.dataclass
@@ -243,27 +259,30 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+# the values each option takes in the JAX package; anything else raises
+_CHOICES = {
+    "scheme": ("projection", "monolithic"),
+    "operator": ("bsr", "ell", "cells"),
+    "preconditioner": ("cc", "pcd", "asimple", "ayosida", "identity"),
+    "proj_poisson": ("laplacian", "schur"),
+    "f_precond": ("bj", "jacobi", "diag"),
+    "f_solver": ("bicgstab", "gmres", "richardson"),
+    "bj_tiles": ("auto", "blocked", "rows", "scatter"),
+    "mass_format": ("auto", "blocked", "node"),
+    "dtype": tuple(_DTYPES),
+}
+
+
 def check_config(cfg: SolverConfig):
-    """Raise NotImplementedError for every option outside this port."""
-    unsupported = [
-        ("scheme", cfg.scheme not in ("projection", "monolithic")),
-        ("operator", cfg.operator not in ("bsr", "cells")),
-        ("proj_poisson", cfg.proj_poisson != "laplacian"),
-        ("f_precond", cfg.f_precond not in ("bj", "jacobi", "diag")),
-        ("f_solver", cfg.scheme == "monolithic"
-         and cfg.f_solver == "richardson"),
-        ("bj_tiles", cfg.bj_tiles not in ("auto", "blocked")),
-        ("mass_format", cfg.mass_format not in ("auto", "blocked")),
-        ("proj_p_extrap", cfg.proj_p_extrap != 0.0),
-    ]
-    for name, bad in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"SolverConfig.{name}={getattr(cfg, name)!r} is not ported "
-                "to navierstokes_tpu_torch")
-    if cfg.dtype not in _DTYPES:
-        raise ValueError(f"SolverConfig.dtype={cfg.dtype!r}: use one of "
-                         f"{sorted(_DTYPES)}")
+    """Raise ValueError, naming the option, for a value that is none of
+    the JAX package's (``_CHOICES``): the JAX model would take it for one
+    of its branches without a word.  Every value the JAX model runs is
+    accepted."""
+    for name, choices in _CHOICES.items():
+        value = getattr(cfg, name)
+        if value not in choices:
+            raise ValueError(f"SolverConfig.{name}={value!r}: use one of "
+                             f"{list(choices)}")
 
 
 def _plus(b, term):
@@ -360,8 +379,14 @@ class NavierStokes:
         self._operator = cfg.operator
         # bsr row shards and cells shards (parallel/), each its own flag
         self._sharded = cfg.operator == "bsr" and cfg.n_devices > 1
-        self._cell_sharded = cfg.operator == "cells" and cfg.n_devices > 1
-        if self._operator == "cells" and cfg.scheme == "projection":
+        self._cell_sharded = cfg.operator != "bsr" and cfg.n_devices > 1
+        if self._cell_sharded:
+            self._operator = "cells"    # as JAX shards ell: by cells
+        elif cfg.operator == "ell":
+            print("operator 'ell' (the node-graph operator) runs on the "
+                  "generic 'cells' operator: the same products, with the "
+                  "assembled Schur diagonal")
+        if self._operator != "bsr" and cfg.scheme == "projection":
             raise ValueError("scheme='projection' requires operator='bsr'")
 
         cells_host = cell_arrays_numpy(sp)
@@ -389,13 +414,15 @@ class NavierStokes:
             self._op = self.cells
             self._ops = ShardedCellOps()
             self._bj_plan = self._ell64 = None
-        elif self._operator == "cells":
+        elif self._operator != "bsr":
             # the element operator: no compact patterns, tiles, coarse
-            # plan or pressure statics (the JAX model's cells branch)
+            # plan or pressure statics (the JAX model's cells and ell
+            # branches)
             self.cells = build_cell_arrays(sp, self.dtype, dev,
                                            host=cells_host)
             self._op = self.cells
-            self._ops = CellOps(sp, torch.as_tensor(
+            ops = EllCellOps if self._operator == "ell" else CellOps
+            self._ops = ops(sp, torch.as_tensor(
                 sp.rs.T_hat, dtype=self.dtype, device=dev), dev)
             self._bj_plan = self._ell64 = None
         else:
@@ -511,9 +538,11 @@ class NavierStokes:
                 device=self.device)
         # refinement's float64 copies of the static values: fp32 runs, and
         # only where the JAX model refines, i.e. where it keeps a blocked
-        # mass (2D, or mass_format="blocked"; "auto" is its node mass in 3D)
+        # mass ("blocked", or "auto" in 2D; "auto" is its node mass in 3D)
+        blocked = cfg.mass_format == "blocked" or (
+            cfg.mass_format == "auto" and self.dim == 2)
         refines = (mono and cfg.refine > 0 and self.dtype == torch.float32
-                   and (self.dim == 2 or cfg.mass_format == "blocked"))
+                   and blocked)
         if refines and self._ell64 is None:
             self._ell64 = self._ops.float64_tables(self.ell)
         if mono and self._ap is None:
@@ -552,8 +581,9 @@ class NavierStokes:
     def _build_cc_statics(self):
         """Static pressure-side data of either scheme: the masked
         velocity-correction weights, the block-Jacobi plan, the
-        outlet-pinned P1 Laplacian with its coarse inverse and lambda_max
-        and the lumped pressure mass (Ap, monolithic only, is built by
+        outlet-pinned P1 Laplacian with its coarse inverse and lambda_max,
+        the pin set of ``proj_poisson="schur"`` and the lumped pressure
+        mass (Ap, monolithic only, is built by
         ``_build_scheme_statics``).  The block-Jacobi plan exists under
         f_precond="bj" only."""
         sp, dev, dt_ = self.space, self.device, self.dtype
@@ -576,6 +606,19 @@ class NavierStokes:
         if self._ap_dir_pinned:
             pin[out_nodes] = 0.0
         self._ap_dir_pin = torch.as_tensor(pin, dtype=dt_, device=dev)
+        self._ap_schur_pin = None
+        if cfg.proj_poisson == "schur":
+            # the exact projection's pin set (JAX's _build_cc_statics): phi
+            # = 0 at the outlet and where the masked diag(B W B^T) keeps
+            # less than proj_schur_pin_ratio of its unmasked weight (nodes
+            # whose velocity stencil is mostly Dirichlet: exact zero
+            # divergence there grows a boundary pressure mode)
+            d_m = self._ops.schur_diag(self.ell, self._ap_w)
+            d_r = self._ops.schur_diag(self.ell, torch.as_tensor(
+                1.0 / self._lumped_host, dtype=dt_, device=dev))
+            crippled = (d_m < cfg.proj_schur_pin_ratio * d_r).cpu().numpy()
+            self._ap_schur_pin = torch.as_tensor(pin * ~crippled, dtype=dt_,
+                                                 device=dev)
         self._ap_dir = assemble_p1_stiffness(sp, self._cells_host, dt_, dev,
                                              b=self.ell.bp,
                                              dirichlet_nodes=out_nodes)
@@ -603,7 +646,7 @@ class NavierStokes:
         ct = 1.5 if cfg.scheme == "projection" and cfg.proj_bdf2 else 1.0
         if self._cell_sharded:
             self.a0_cell = self.cells.static(ct / cfg.deltat, self.nu)
-        elif self._operator == "cells":
+        elif self._operator != "bsr":
             self.a0_cell = ((ct / cfg.deltat) * self.cells.mass
                             + self.nu * self.cells.stiff)
         else:
@@ -722,10 +765,17 @@ class NavierStokes:
         Minev & Shen 2006); BDF2 with C(2u^n - u^{n-1}) and
         dt_eff = 2 dt / 3 under ``proj_bdf2``:
 
-            (c_t M/dt + nu K + C(u_adv)) u* = M u_t - G p^n   [+ BCs]
+            (c_t M/dt + nu K + C(u_adv)) u* = M u_t - G p*   [+ BCs]
             Lp phi = B u* / dt_eff     (consistent P1 Laplacian)
             u^{n+1} = u* - dt_eff W G phi   (W = diag(mask / M_lumped))
-            p^{n+1} = p^n + phi + nu Mp^-1 (B u*)   [rotational]
+            p^{n+1} = p* + phi + nu Mp^-1 (B u*)   [rotational]
+
+        p* = p^n, or p^n + theta phi_prev under ``proj_p_extrap`` = theta
+        (phi then carries the whole pressure change p^{n+1} - p^n, and the
+        CG starts from zero).  ``proj_poisson="schur"`` takes for Lp the
+        compatible S = B W B^T, pinned at the outlet and at the nodes of
+        ``_ap_schur_pin``: the projection is then exact to the CG
+        tolerance at the other nodes (JAX's ``_step_projection``).
 
         The plain (eager) version of the captured step
         (models/step_graphs.py): the same segments in the same order, with
@@ -735,7 +785,7 @@ class NavierStokes:
         self._proj_rebuild(ws, u, u_prev, t_prev)
         pre_f, span, exact = self._f_precond(ws.f_cell, ws.mflat, ws.sigma,
                                              ws.dinv)
-        floop = self._proj_momentum(ws, u, p, u_prev, pre_f)
+        floop = self._proj_momentum(ws, u, p, u_prev, phi_prev, pre_f)
         floop.run()
         ploop = self._proj_poisson(ws, phi_prev)
         ploop.run()
@@ -775,9 +825,9 @@ class NavierStokes:
         ws.f_inner = (ws.f_cell.to(torch.bfloat16) if self._bf16_inner()
                       else ws.f_cell)
 
-    def _proj_momentum(self, ws, u, p, u_prev, pre_f):
-        """Segment (c): the u* right-hand side and the BiCGStab set-up
-        (the loop, not yet run)."""
+    def _proj_momentum(self, ws, u, p, u_prev, phi_prev, pre_f):
+        """Segment (c): the explicit pressure p*, the u* right-hand side
+        and the BiCGStab set-up (the loop, not yet run)."""
         cfg = self.config
         ops, ell, bc = self._ops, self.ell, self.bc
         mask, sigma, zero_p = bc.mask, ws.sigma, ws.zero_p
@@ -789,11 +839,13 @@ class NavierStokes:
                                      with_g=False, with_gt=False)
             return (yu * mask + sigma * (xu - xum)).to(self.dtype)
 
+        theta = cfg.proj_p_extrap
+        ws.p_ref = p + theta * phi_prev if theta != 0.0 else p
         ws.factor = self._time_factor(ws.t_new)
         ws.g = bc.lift(ws.factor)
-        # the JAX model's order: M u + Neumann - B^T p + forcing
+        # the JAX model's order: M u + Neumann - B^T p* + forcing
         b_u = _plus(_plus(ops.mass_apply(ell, ws.u_t), self.rhs_neumann)
-                    - self._apply_bt_raw(ws, p),
+                    - self._apply_bt_raw(ws, ws.p_ref),
                     self._forcing_term(ws.t_new))
         fg, _ = ops.apply_blocks(ell, ws.f_cell, ws.g, zero_p, with_g=False,
                                  with_gt=False)
@@ -817,7 +869,8 @@ class NavierStokes:
 
     def _proj_poisson(self, ws, phi_prev):
         """Segment (e): u*, its divergence and the CG set-up of the
-        pressure Poisson Lp phi = B u* / dt_eff (the loop, not yet run)."""
+        pressure Poisson Lp phi = B u* / dt_eff, or S phi = B u* / dt_eff
+        under ``proj_poisson="schur"`` (the loop, not yet run)."""
         cfg = self.config
         ws.u_star = ws.floop.x.reshape(ws.u_t.shape) * self.bc.mask + ws.g
         pinned = self._ap_dir_pinned
@@ -836,11 +889,29 @@ class NavierStokes:
             with_g=False)
         dt_eff = cfg.deltat / ws.alpha
         rhs_p = ws.div_star / dt_eff
-        if pinned:
+        ws.pin_phi = self._ap_dir_pin
+        apply_p = apply_ap
+        if cfg.proj_poisson == "schur":
+            # S = B W B^T with W the masked weights of the correction, the
+            # Laplacian V-cycle as its preconditioner
+            ws.pin_phi = pin_phi = self._ap_schur_pin
+            w_col = self._ap_w[:, None]
+
+            def apply_p(xp):
+                xm = xp * pin_phi
+                _, y = self._ops.apply_blocks(
+                    self.ell, ws.f_cell, w_col * self._apply_bt_raw(ws, xm),
+                    ws.zero_p, with_f=False, with_g=False)
+                return y * pin_phi + (xp - xm)
+
+            rhs_p = rhs_p * pin_phi
+        elif pinned:
             rhs_p = rhs_p * self._ap_dir_pin
         else:
             rhs_p = rhs_p - torch.mean(rhs_p)
-        ws.ploop = CgLoop(apply_ap, rhs_p, x0=phi_prev, tol=ws.tol,
+        # under proj_p_extrap phi is the change of the increments: from 0
+        x0 = None if cfg.proj_p_extrap != 0.0 else phi_prev
+        ws.ploop = CgLoop(apply_p, rhs_p, x0=x0, tol=ws.tol,
                           maxiter=cfg.proj_p_maxiter, precond=solve_ap)
         return ws.ploop
 
@@ -850,15 +921,20 @@ class NavierStokes:
         cfg = self.config
         floop, ploop = ws.floop, ws.ploop
         x_p = ploop.x
-        phi = (x_p * self._ap_dir_pin if self._ap_dir_pinned
+        phi = (x_p * ws.pin_phi
+               if self._ap_dir_pinned or cfg.proj_poisson == "schur"
                else x_p - torch.mean(x_p))
         dt_eff = cfg.deltat / ws.alpha
         u_new = ws.u_star - dt_eff * (self._ap_w[:, None]
                                       * self._apply_bt_raw(ws, phi))
         u_new = u_new * self.bc.mask + ws.g
-        p_new = p + phi
+        p_new = ws.p_ref + phi
         if cfg.proj_rotational:
             p_new = p_new + self._nu_t * (ws.div_star / self._mp_lumped)
+        if cfg.proj_p_extrap != 0.0:
+            # the whole change, rotational term included: the next step's
+            # p* = p + theta (p^n - p^{n-1})
+            phi = p_new - p
         res_f, res_p = floop.residual(), ploop.residual()
         converged = (res_f <= floop.target) & (res_p <= ploop.target)
         row = self._metrics_row(
@@ -929,7 +1005,7 @@ class NavierStokes:
         ws.f_inner = ws.f_cell
         if self._bf16_inner():
             ws.f_inner = ws.f_cell.to(torch.bfloat16)
-            if self._operator == "cells":
+            if self._operator != "bsr":
                 ws.f_inner = ws.f_inner.to(self.dtype)
 
     def _mono_system(self, ws, u, p, u_prev, pre_f):
@@ -992,14 +1068,24 @@ class NavierStokes:
                               apply_Bt):
         """The step's block preconditioner M, with its per-step set-up:
         the Schur V-cycle's coarse inverse and lambda_max (aSIMPLE,
-        aYosida) or the PCD convection."""
+        aYosida) or the PCD convection.  The inner F solves are
+        ``f_solver``'s: BiCGStab or GMRES to ``inner_tol``, or
+        ``inner_maxiter_f`` preconditioned Richardson sweeps."""
         cfg, ops, op = self.config, self._ops, self._op
         dinv, mflat = ws.dinv, ws.mflat
-        _inner_f = InnerSolve(cfg.inner_tol, cfg.inner_maxiter_f,
-                              method=cfg.f_solver)
-        # the F solves take the step's F preconditioner whatever the block
-        # preconditioner hands them, as the JAX model's inner_f
-        inner_f = lambda op, rhs, pre=None: _inner_f(op, rhs, pre_f)
+        # the F solves take the step's apply_F and F preconditioner
+        # whatever the block preconditioner hands them, as the JAX model's
+        # inner_f
+        if cfg.f_solver == "richardson":
+            def inner_f(op, rhs, pre=None):
+                x = pre_f(rhs)
+                for _ in range(cfg.inner_maxiter_f - 1):
+                    x = x + pre_f(rhs - apply_F(x))
+                return x
+        else:
+            _inner_f = InnerSolve(cfg.inner_tol, cfg.inner_maxiter_f,
+                                  method=cfg.f_solver)
+            inner_f = lambda op, rhs, pre=None: _inner_f(op, rhs, pre_f)
         inner_s = InnerSolve(cfg.inner_tol, cfg.inner_maxiter_s)
         vcycles = dict(n_cycles=cfg.schur_vcycles,
                        smooth_k=cfg.schur_smooth_k)
@@ -1008,7 +1094,7 @@ class NavierStokes:
             """Two-level V-cycle on S = B diag(w) B^T: per-step coarse
             matrix (inverted in fp32) and lambda_max estimate.  None on
             the cells operator (Jacobi-BiCGStab instead), as in JAX."""
-            if self._operator == "cells":
+            if self._operator != "bsr":
                 return None
             sc_inv = coarse_inverse(coarse_matrix(self.ell, self._coarse_plan,
                                                   node_weights))
@@ -1024,7 +1110,7 @@ class NavierStokes:
                                       sc_inv, lam_max=lam, **vcycles)
 
         pc = cfg.preconditioner
-        if pc in ("cc", "pcd") and self._operator == "cells":
+        if pc in ("cc", "pcd") and self._operator != "bsr":
             pc = "asimple"      # the JAX model's fallback off the bsr path
         if pc in ("cc", "pcd"):
             apply_ap = lambda v: ell_matvec(self._ap, v)
@@ -1098,8 +1184,8 @@ class NavierStokes:
         if self._cell_sharded:
             return "cell shards step eagerly: their step is not captured"
         if self._operator != "bsr":
-            return ("the cells operator steps eagerly: its step is not "
-                    "captured")
+            return (f"the {self._operator} operator steps eagerly: its step "
+                    "is not captured")
         if self._sharded:
             return "row shards step eagerly: their step is not captured"
         if (self.config.scheme == "monolithic"
@@ -1148,7 +1234,7 @@ class NavierStokes:
                     "again")
         if cfg.scheme == self._scheme:
             return
-        if self._operator == "cells" and cfg.scheme == "projection":
+        if self._operator != "bsr" and cfg.scheme == "projection":
             raise ValueError("scheme='projection' requires operator='bsr'")
         if self._operator == "bsr":
             self._build_scheme_statics()

@@ -346,7 +346,7 @@ class ProjectionGraphs(_StepGraphs):
             ws, lambda ws: ns._proj_rebuild(ws, self.u, self.u_prev, self.t))
         seg.update(
             c=lambda: ns._proj_momentum(ws, self.u, self.p, self.u_prev,
-                                        self._pre_f(ws)),
+                                        self.phi, self._pre_f(ws)),
             d=lambda: ws.floop.block(),
             e=lambda: ns._proj_poisson(ws, self.phi),
             f=lambda: ws.ploop.block(),

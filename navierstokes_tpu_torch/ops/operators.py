@@ -15,7 +15,8 @@ Port of ``navierstokes_tpu/ops/operators.py``:
   ``mass_apply``, ``lumped_mass``).  ``cells`` is an
   ops/assembly.CellArrays of tensors (``build_cell_arrays``);
 * ``CellOps``: those products as the NavierStokes model's operator
-  interface (``operator="cells"``).
+  interface (``operator="cells"``), and ``EllCellOps`` for
+  ``operator="ell"``.
 """
 
 from __future__ import annotations
@@ -248,3 +249,29 @@ class CellOps:
 
     def schur_diag(self, cells, node_weights):
         return schur_diag(cells, node_weights, self.scat_p)
+
+
+class EllCellOps(CellOps):
+    """CellOps under ``operator="ell"``, the JAX package's node-graph
+    operator (its ops/ell.py): the same products, and for the Jacobi scale
+    of the inner Schur solves the assembled diag(B W B^T) that JAX's graph
+    gives, sum_{n,d} B[j,n,d]^2 w[n], where the cells path sums squares of
+    the per-cell terms (``schur_diag``).  B's assembled entries are the
+    per-cell terms summed per (velocity node, pressure node) pair."""
+
+    def __init__(self, space, t_hat: torch.Tensor, device):
+        super().__init__(space, t_hat, device)
+        n_p1 = space.n_p1
+        cp2 = np.asarray(space.cell_p2, np.int64)
+        cp1 = np.asarray(space.cell_p1, np.int64)
+        key = cp2[:, :, None] * n_p1 + cp1[:, None, :]     # (nc, n_v, n_p)
+        pairs, pair_of = np.unique(key.reshape(-1), return_inverse=True)
+        self.scat_pair = segment_plan(pair_of, len(pairs), device)
+        self.pair_node = torch.as_tensor(pairs // n_p1, device=device)
+        self.scat_pair_p = segment_plan(pairs % n_p1, n_p1, device)
+
+    def schur_diag(self, cells, node_weights):
+        dim = cells.grad.shape[2]
+        b = self.scat_pair(cells.grad.permute(0, 1, 3, 2).reshape(-1, dim))
+        return self.scat_pair_p((b * b).sum(dim=1)
+                                * node_weights[self.pair_node])

@@ -38,7 +38,8 @@ def _add_common(p):
                    choices=["identity", "asimple", "ayosida", "cc", "pcd"])
     p.add_argument("--operator", type=str, default=SolverConfig.operator,
                    choices=["bsr", "ell", "cells"],
-                   help="bsr and cells are ported, ell is not")
+                   help="ell runs on the generic cells operator "
+                        "(monolithic only, as cells)")
     p.add_argument("--scheme", type=str, default=SolverConfig.scheme,
                    choices=["monolithic", "projection"],
                    help="monolithic = reference-parity coupled solve; "

@@ -44,8 +44,6 @@ Differences from the JAX scripts:
   captured CUDA graphs under ``--projection``), as the JAX script does
   without the cap; each step's line comes after its chunk, with the
   chunk's wall time per step.
-* ``--proj-poisson`` is dropped: only the Laplacian Poisson operator is
-  ported (``schur`` is unstable in the JAX package, VALIDATION.md).
 * ``--degree 3`` (2d1 only) runs the case in P3/P2 on the generic element
   ("cells") operator, with FGMRES unrestarted within OUTER_MAXITER_2D1.
 * ``--restart-step N`` continues from the checkpoint of step N in
@@ -93,7 +91,7 @@ BENCH_OUTPUT_STEP = 1600
 BENCH_TAIL = 0.75
 # the driver's mesh and solver flags, which the bench case refuses
 BENCH_FIXED = ("h", "hnear", "projection", "refine", "no_curved",
-               "wake_levels", "bsr_block", "f_precond")
+               "wake_levels", "bsr_block", "f_precond", "proj_poisson")
 
 
 def case_defaults(case):
@@ -137,8 +135,9 @@ def case_mesh(case, h=0.015, h_near=None, h_z=None, wake_levels=None):
 def build_case(case, *, device="cuda", dtype=None, h=0.015, h_near=None,
                h_z=None, T=None, dt=None, projection=False, refine=0,
                curved=True, wake_levels=None, bsr_block=0, f_precond="bj",
-               degree=2, out=None, csv_name="forces_0.csv", output_step=None,
-               setup=True, shard_devices=None, **fields):
+               proj_poisson="laplacian", degree=2, out=None,
+               csv_name="forces_0.csv", output_step=None, setup=True,
+               shard_devices=None, **fields):
     """The NavierStokes model of ``case`` as validate_st.py builds it, set
     up (unless ``setup=False``) on ``device``: nu=1e-3 set directly (no
     ``set_re_number``), float64 on the CPU and fp32 on the card unless
@@ -150,7 +149,9 @@ def build_case(case, *, device="cuda", dtype=None, h=0.015, h_near=None,
     none of the mesh and solver arguments.
     ``degree=3`` (2d1 only) is P3/P2, which runs on the cells operator
     with FGMRES unrestarted within OUTER_MAXITER_2D1, as does 2d1 with
-    ``operator="cells"``.  ``fields`` set further SolverConfig fields."""
+    ``operator="cells"``.  ``proj_poisson`` is the projection's Poisson
+    operator (``--proj-poisson``).  ``fields`` set further SolverConfig
+    fields."""
     from navierstokes_tpu_torch.config import SolverConfig
     from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
     inlet, dt0, T0 = case_defaults(case)
@@ -174,7 +175,8 @@ def build_case(case, *, device="cuda", dtype=None, h=0.015, h_near=None,
                    scheme="projection" if projection else "monolithic",
                    refine=refine, f_precond=f_precond, proj_f_maxiter=100,
                    proj_p_maxiter=50, curved_boundary=curved,
-                   bsr_block=bsr_block, inner_maxiter_f=10, **paths)
+                   bsr_block=bsr_block, proj_poisson=proj_poisson,
+                   inner_maxiter_f=10, **paths)
     if output_step is None:
         output_step = 400
     if case == "2d1" and (degree != 2 or fields.get("operator") == "cells"):
@@ -323,6 +325,10 @@ def parse_args(argv=None):
     ap.add_argument("--f-precond", default="bj", choices=["bj", "diag"],
                     help="momentum-solve preconditioner (diag avoids the "
                          "block-Jacobi tiles)")
+    ap.add_argument("--proj-poisson", default="laplacian",
+                    choices=["laplacian", "schur"],
+                    help="projection Poisson operator (schur = exact "
+                         "discrete projection via the compatible B W B^T)")
     ap.add_argument("--degree", type=int, default=2, choices=[2, 3],
                     help="velocity degree (3: P3/P2 on cells, 2d1 only)")
     ap.add_argument("--restart-step", type=int, default=0,
@@ -364,7 +370,9 @@ def main(argv=None):
                     dt=args.dt, projection=args.projection,
                     refine=args.refine, curved=not args.no_curved,
                     wake_levels=args.wake_levels, bsr_block=args.bsr_block,
-                    f_precond=args.f_precond, degree=args.degree, out=out,
+                    f_precond=args.f_precond,
+                    proj_poisson=args.proj_poisson, degree=args.degree,
+                    out=out,
                     csv_name=f"forces_{args.restart_step}.csv",
                     output_step=args.output_step)
     if on_card:

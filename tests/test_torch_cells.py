@@ -17,7 +17,8 @@ step 1 only, to 1e-5 and one iteration.
 
 Also: the fallbacks of the JAX model (``cc`` and ``pcd`` run aSIMPLE, the
 diagonal F preconditioner, no refinement, no V-cycle), projection refused
-at setup, and the options that stay outside the port.
+at setup, and the options once refused on this path (``bj_tiles``,
+``operator="ell"``) against JAX.
 """
 
 import os
@@ -142,6 +143,12 @@ def test_projection_on_cells_refused(mesh, tmp_path, kv, kp, kw):
 @pytest.mark.parametrize("option,value", [("bj_tiles", "rows"),
                                           ("operator", "ell")])
 def test_unported_options_raise_on_cells(mesh, tmp_path, option, value):
-    kw = {"operator": "cells", option: value}
-    with pytest.raises(NotImplementedError, match=option):
-        make(TNS, mesh, str(tmp_path), 3, 2, device="cpu", **kw)
+    """Options the port once refused on the cells path now run: P2/P1
+    under each, one step against JAX under the same value (``bj_tiles``
+    does nothing off bsr; ``ell`` is JAX's node-graph operator) with the
+    equal FGMRES count and STEP_TOL."""
+    kw = {"operator": "cells", option: value, **TIGHT}
+    jns = make(JaxNS, mesh, str(tmp_path / "j"), **kw)
+    tns = make(TNS, mesh, str(tmp_path / "t"), device="cpu", **kw)
+    assert tns._operator == kw["operator"]
+    assert_steps_match(jns, tns, n=1)

@@ -4,9 +4,10 @@ in float64 on the CPU:
 * the h=0.15 square-column duct (tests/test_torch_3d.py, 6,954 DoF) in
   P2/P1 with ``operator="cells"`` and aSIMPLE: 2 steps with equal FGMRES
   counts and u, p, Cd and Cl within 1e-9;
-* ``run 2d-test1 --operator cells`` through both CLIs at h=0.1: the port's
-  csv equals the JAX CLI's to 1e-9 of each column's largest value (all
-  columns but the wall-clock ones);
+* ``run 2d-test1 --operator cells`` and ``--operator ell`` (JAX's
+  node-graph operator, run on cells by the port) through both CLIs at
+  h=0.1: the port's csv equals the JAX CLI's to 1e-9 of each column's
+  largest value (all columns but the wall-clock ones);
 * within the port, P2/P1 on cells at the default inner tolerance on the
   tests/test_torch_model.py channel: ``solve`` with restart reproduces the
   continuous run bit for bit and ``post_process`` replays the live csv's
@@ -93,7 +94,9 @@ def _tight(config_cls):
                                       bases=(config_cls,))
 
 
-def test_run_operator_cells_writes_the_jax_csv(tmp_path, monkeypatch):
+def _run_writes_the_jax_csv(tmp_path, monkeypatch, operator):
+    """``run 2d-test1 --operator <operator>`` through both CLIs at the
+    inner solves' 1e-10: the port's csv equals JAX's within 1e-9."""
     import jax
     jax.config.update("jax_enable_x64", True)
     monkeypatch.setattr(jcli, "_enable_cache", lambda: None)
@@ -102,7 +105,7 @@ def test_run_operator_cells_writes_the_jax_csv(tmp_path, monkeypatch):
 
     def args(tag):
         d = str(tmp_path / tag)
-        return ["run", "2d-test1", "--h", "0.1", "--operator", "cells",
+        return ["run", "2d-test1", "--h", "0.1", "--operator", operator,
                 "--T", "0.03", "--output-step", "3", "--dtype", "float64",
                 "--output-dir", os.path.join(d, "out"), "--cache-dir",
                 os.path.join(d, "cache"), "--csv", os.path.join(d, "f.csv")]
@@ -123,8 +126,17 @@ def test_run_operator_cells_writes_the_jax_csv(tmp_path, monkeypatch):
     assert os.path.exists(tmp_path / "t" / "out" / "output-stokes_000003.vtu")
 
 
+def test_run_operator_cells_writes_the_jax_csv(tmp_path, monkeypatch):
+    _run_writes_the_jax_csv(tmp_path, monkeypatch, "cells")
+
+
+def test_run_operator_ell_writes_the_jax_csv(tmp_path, monkeypatch):
+    """JAX's node-graph operator; the port runs it on cells."""
+    _run_writes_the_jax_csv(tmp_path, monkeypatch, "ell")
+
+
 def test_cli_operator_help_names_the_ported_operators(capsys):
     with pytest.raises(SystemExit):
         tcli.main(["run", "--help"])
-    assert "bsr and cells are ported, ell is not" in " ".join(
+    assert "ell runs on the generic cells operator" in " ".join(
         capsys.readouterr().out.split())

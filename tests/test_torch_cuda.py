@@ -15,7 +15,10 @@ so that it also runs where only the port's dependencies are installed:
 (``--noconftest`` because tests/conftest.py configures jax).  The CUDA
 cases carry the ``cuda`` marker and skip where there is no card.
 Also the cells operator on cell shards of one card against one device,
-a change of ``config.scheme`` after setup, captured against eager, and
+a change of ``config.scheme`` after setup, captured against eager, the
+solver options ``proj_poisson="schur"``, ``proj_p_extrap`` and
+``f_solver="richardson"`` captured against eager (a change of them after
+capture raises), and
 the block-Jacobi tile-apply kernel (fp32, bf16 and fp64 tiles) against
 its plain version, batch invariant, refusing what it does not take, and
 launched by captured, eager, float64 and row-sharded steps.
@@ -548,7 +551,9 @@ def _forcing(x, t):
 @pytest.mark.parametrize("case,fields", [
     ("bj", {}), ("jacobi", dict(f_precond="jacobi")),
     ("bdf1", dict(proj_bdf2=False)), ("exact tiles", dict(bj_newton=0)),
-    ("bj_bf16", dict(bj_bf16=True)), ("forcing", dict(forcing=_forcing))])
+    ("bj_bf16", dict(bj_bf16=True)), ("forcing", dict(forcing=_forcing)),
+    ("schur", dict(proj_poisson="schur")),
+    ("p_extrap", dict(proj_p_extrap=0.5))])
 def test_captured_steps_equal_eager_on_cuda(cuda, tmp_path, case, fields):
     """5 projection steps replayed from the captured CUDA graphs equal 5
     plain (eager) steps bit for bit, with the same counts; no replay
@@ -564,6 +569,7 @@ def test_captured_steps_equal_eager_on_cuda(cuda, tmp_path, case, fields):
     assert K.COUNTS.launches > 0 and K.COUNTS.plain_cuda_calls == 0
     assert torch.equal(eager._u, graphs._u)
     assert torch.equal(eager._p, graphs._p)
+    assert torch.equal(eager._phi, graphs._phi)
     for a, b in zip(me, mg):
         assert (a.cd, a.cl, a.f_iterations, a.p_iterations, a.converged) \
             == (b.cd, b.cl, b.f_iterations, b.p_iterations, b.converged)
@@ -577,7 +583,11 @@ def test_captured_steps_equal_eager_on_cuda(cuda, tmp_path, case, fields):
     ("pcd", dict(preconditioner="pcd")),
     ("identity", dict(preconditioner="identity", outer_maxiter=60)),
     ("cc+inner_bf16", dict(inner_bf16=True)),
-    ("cc diag", dict(f_precond="diag"))])
+    ("cc diag", dict(f_precond="diag")),
+    ("cc richardson", dict(f_solver="richardson")),
+    ("asimple jacobi richardson", dict(preconditioner="asimple",
+                                       f_precond="jacobi",
+                                       f_solver="richardson"))])
 def test_captured_monolithic_steps_equal_eager_on_cuda(cuda, tmp_path, case,
                                                        fields):
     """5 monolithic steps replayed from the captured CUDA graphs (FGMRES and
@@ -608,6 +618,24 @@ def test_captured_monolithic_steps_equal_eager_on_cuda(cuda, tmp_path, case,
         assert (a.cd, a.cl, a.iterations, a.residual, a.converged) \
             == (b.cd, b.cl, b.iterations, b.residual, b.converged)
         assert b.flag_reads < a.flag_reads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,field,value", [
+    ("projection", "proj_poisson", "schur"),
+    ("projection", "proj_schur_pin_ratio", 0.5),
+    ("projection", "proj_p_extrap", 0.5),
+    ("monolithic", "f_solver", "richardson")])
+def test_option_change_after_capture_raises_on_cuda(cuda, tmp_path, scheme,
+                                                    field, value):
+    """Each option the captured graphs or setup read joins _SETUP_FIELDS:
+    changed after a captured step, the next step raises naming it."""
+    ns = _small_model(tmp_path, scheme=scheme)
+    ns.capture_graphs()
+    ns.solve_time_step()
+    setattr(ns.config, field, value)
+    with pytest.raises(ValueError, match=f"SolverConfig.{field} changed"):
+        ns.solve_time_step()
 
 
 @pytest.mark.cuda

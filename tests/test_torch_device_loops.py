@@ -319,6 +319,8 @@ REPLAY_CASES = {
     "forcing": dict(forcing=_forcing),
     "fp32 inner_bf16": dict(dtype="float32", inner_bf16=True),
     "fp32 bj_bf16": dict(dtype="float32", bj_bf16=True),
+    "schur": dict(proj_poisson="schur"),
+    "p_extrap": dict(proj_p_extrap=0.5),
 }
 
 

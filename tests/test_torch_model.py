@@ -3,8 +3,9 @@ float64 on the tests/test_e2e.py cylinder channel (h=0.1, h_near=0.04):
 per-step iteration counts equal, p to 1e-9 relative, u, Cd and Cl to 1e-8
 (the limits' derivation is at ``U_TOL``); the csv
 schema and checkpoints; restart equivalence within the port; a JAX
-checkpoint restarted in the port; the options outside the port raise;
-and chip_smoke.py refuses to run without a card.  The monolithic scheme
+checkpoint restarted in the port; the options the port once refused
+against JAX, and unknown option values raise; and chip_smoke.py refuses
+to run without a card.  The monolithic scheme
 is in tests/test_torch_monolithic*.py.
 """
 
@@ -157,11 +158,47 @@ def test_jax_checkpoint_restarts_port(mesh, tmp_path):
     ("proj_poisson", "schur"), ("bj_tiles", "scatter"), ("bj_tiles", "rows"),
     ("mass_format", "node"), ("proj_p_extrap", 1.0)])
 def test_unported_options_raise(mesh, tmp_path, option, value):
-    # Richardson inner F solves are a monolithic-scheme option
-    scheme = "monolithic" if option == "f_solver" else "projection"
-    with pytest.raises(NotImplementedError, match=option):
-        _make(TNS, mesh, str(tmp_path), device="cpu", scheme=scheme,
-              **{option: value})
+    """The options the port once refused now build and step: 2 steps of
+    the port under each against JAX under the same value, equal iteration
+    counts and this file's limits (``U_TOL``).  ``f_solver`` and
+    ``operator`` are monolithic options (projection needs the bsr
+    operator); ``ell`` runs with the inner solves at 1e-10, where its
+    round-off sensitivity (tests/test_torch_cells.py) is below 1e-9.
+    ``schur`` runs as tests/test_e2e.py runs it (BDF1) at proj_tol 1e-8:
+    at the default 1e-4 its CG on B W B^T stops where the two packages'
+    last-bit differences still move p by 5e-8 relative (measured), at
+    1e-8 by 4e-10 (tests/test_torch_solver_options.py)."""
+    kw = {option: value}
+    if option in ("f_solver", "operator"):
+        kw["scheme"] = "monolithic"
+    if option == "operator":
+        kw.update(inner_tol=1e-10, inner_maxiter_f=1000,
+                  inner_maxiter_s=1000)
+    if option == "proj_poisson":
+        kw.update(proj_tol=1e-8, proj_bdf2=False)
+    jns = _make(JaxNS, mesh, str(tmp_path / "j"), **kw).setup()
+    tns = _make(TNS, mesh, str(tmp_path / "t"), device="cpu", **kw).setup()
+    assert getattr(tns.config, option) == value
+    for _ in range(2):
+        jm, tm = jns.solve_time_step(), tns.solve_time_step()
+        assert tm.iterations == int(jm.iterations) and tm.converged
+        assert _rel(tns._u.numpy(), jns._u) < U_TOL
+        assert _rel(tns._p.numpy(), jns._p) < P_TOL
+        scale = max(abs(float(jm.cd)), abs(float(jm.cl)))
+        assert abs(tm.cd - float(jm.cd)) <= FORCE_TOL * scale
+        assert abs(tm.cl - float(jm.cl)) <= FORCE_TOL * scale
+
+
+@pytest.mark.parametrize("option,value", [
+    ("scheme", "implicit"), ("operator", "csr"), ("preconditioner", "ilu"),
+    ("proj_poisson", "exact"), ("f_precond", "ilu"), ("f_solver", "cg"),
+    ("bj_tiles", "dense"), ("mass_format", "lumped")])
+def test_unknown_option_values_raise(mesh, tmp_path, option, value):
+    """A value that no option of the JAX package takes raises ValueError
+    naming the option (the JAX model would run one of its branches
+    instead)."""
+    with pytest.raises(ValueError, match=f"SolverConfig.{option}="):
+        _make(TNS, mesh, str(tmp_path), device="cpu", **{option: value})
 
 
 def test_unported_model_features_raise(mesh, tmp_path):

@@ -60,6 +60,11 @@ CASES = {
     # a second cycle and refinement's corrections reuse the block
     "cc fp32 refine=2 restart=8": dict(dtype="float32", refine=2,
                                        refine_tol=1e-3, outer_restart=8),
+    # Richardson inner F sweeps: a fixed count, no conditional node
+    "cc richardson": dict(f_solver="richardson"),
+    "asimple jacobi richardson": dict(preconditioner="asimple",
+                                      f_precond="jacobi",
+                                      f_solver="richardson"),
 }
 FIELDS = ("time", "iterations", "residual", "converged", "drag", "lift",
           "cd", "cl", "exact_inverse")

@@ -45,7 +45,8 @@ WALL_CLOCK = (3, 4)
 
 
 def jax_case(case, tmp, h, h_near=None, h_z=None, projection=False,
-             f_precond="bj", refine=0, dtype="float64", T=None, **fields):
+             f_precond="bj", refine=0, dtype="float64", T=None,
+             proj_poisson="laplacian", **fields):
     """The JAX model as scripts/validate_st.py:60-126 builds it (the
     script's ``--cpu`` run in float64), set up; ``fields`` set further
     SolverConfig fields."""
@@ -64,7 +65,7 @@ def jax_case(case, tmp, h, h_near=None, h_z=None, projection=False,
                   scheme="projection" if projection else "monolithic",
                   refine=refine, f_precond=f_precond, proj_f_maxiter=100,
                   proj_p_maxiter=50, curved_boundary=True, bsr_block=0,
-                  proj_poisson="laplacian", steps_per_chunk=0,
+                  proj_poisson=proj_poisson, steps_per_chunk=0,
                   output_dir=os.path.join(tmp, "out"),
                   cache_dir=os.path.join(tmp, "cache"),
                   csv_path=os.path.join(tmp, "forces.csv"),
@@ -100,6 +101,26 @@ def test_build_case_is_the_jax_scripts_configuration(tmp_path, case,
         "2d1": (0.01, 6.0), "2d2": (0.0025, 8.0), "3d1": (0.01, 3.0)}[case]
     assert tns.config.output_step == 400
     assert tns.device == torch.device("cpu")
+
+
+def test_proj_poisson_flag_is_the_jax_scripts(tmp_path):
+    """``--proj-poisson schur`` (scripts/validate_st.py:49,118) reaches the
+    model: the configuration and the exact projection's pin set equal the
+    JAX script's; the bench case, which fixes its solver, refuses it."""
+    args = validate.parse_args(["2d2", "--projection", "--proj-poisson",
+                                "schur", "--device", "cpu"])
+    assert args.proj_poisson == "schur"
+    jns = jax_case("2d2", str(tmp_path / "j"), projection=True,
+                   proj_poisson="schur", **COARSE["2d2"])
+    tns = validate.build_case("2d2", device="cpu", dtype="float64",
+                              projection=True,
+                              proj_poisson=args.proj_poisson,
+                              out=str(tmp_path / "t"), **COARSE["2d2"])
+    assert tns.config.proj_poisson == jns.config.proj_poisson == "schur"
+    np.testing.assert_array_equal(tns._ap_schur_pin.numpy(),
+                                  np.asarray(jns._ap_schur_pin))
+    with pytest.raises(SystemExit):
+        validate.parse_args(["bench", "--proj-poisson", "schur"])
 
 
 def test_wake_levels_and_p3_case():

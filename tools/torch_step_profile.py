@@ -1,7 +1,7 @@
 """Per-step profile of the PyTorch port at a full-size point, on one GPU.
 
     python3 tools/torch_step_profile.py [--tree DIR] [--case C] [--scheme S]
-        [--operator O] [--eager]
+        [--operator O] [--eager] [--set FIELD=VALUE ...]
 
 Builds, with the ``navierstokes_tpu_torch`` package found under ``--tree``
 (default: this checkout), so that two versions of the port can be
@@ -9,7 +9,9 @@ measured in one run on the same card, one of five cases:
 
 * ``--case bench`` (default): the ``chip_smoke.py`` bench configuration
   (Schaefer-Turek 2D-2, ``.bench_mesh.npz``, 1,014,414 DoF, fp32, Poisson
-  CG budget 100) in ``--scheme`` monolithic or projection;
+  CG budget 100) in ``--scheme`` monolithic or projection, with the
+  ``SolverConfig`` fields of ``--set`` on top (e.g. ``--set
+  proj_poisson=schur``, ``--set f_solver=richardson``);
 * ``--case 3d1``: Schaefer-Turek 3D-1Z as ``python -m
   navierstokes_tpu_torch.scenarios.validate 3d1 --projection --f-precond
   diag --h 0.023 --hnear 0.007`` builds it (3,393,382 DoF, biparabolic
@@ -107,7 +109,7 @@ def model_2d1(work, degree=3, operator="bsr"):
                       degree=degree, operator=operator, out=work)
 
 
-def bench_model(scheme, work):
+def bench_model(scheme, work, fields=()):
     import navierstokes_tpu_torch as pkg
     from navierstokes_tpu_torch.models import navier_stokes as M
     z = np.load(os.path.join(ROOT, ".bench_mesh.npz"))
@@ -120,6 +122,8 @@ def bench_model(scheme, work):
         outer_maxiter=128, proj_p_maxiter=100)
     if scheme == "monolithic":
         cfg.scheme, cfg.preconditioner = "monolithic", "cc"
+    for name, value in fields:
+        setattr(cfg, name, value)
     inlet = pkg.InletConfig(kind="parabolic", u_m=1.5, height=0.41,
                             ramp=0.05)
     ns = M.NavierStokes(mesh, 2, 1, deltat=0.00125, T=1.0, step=10,
@@ -170,7 +174,19 @@ def main():
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--eager", action="store_true",
                     help="the plain step, not the captured graphs")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="FIELD=VALUE",
+                    help="a SolverConfig field of --case bench (a number, "
+                         "or else a string)")
     args = ap.parse_args()
+    fields = []
+    for item in args.set:
+        name, _, value = item.partition("=")
+        try:
+            value = float(value) if "." in value else int(value)
+        except ValueError:
+            pass
+        fields.append((name, value))
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -181,6 +197,7 @@ def main():
              "2d1": f"2d1 {args.operator}"}.get(args.case, args.scheme)
     if args.eager:
         label += " eager"
+    label += "".join(f" {n}={v}" for n, v in fields)
     tag = f"[{os.path.basename(tree)} {label}]"
     work = os.path.join(tree, "build", "step_profile")
     t0 = time.perf_counter()
@@ -188,7 +205,7 @@ def main():
           else model_naca(work) if args.case == "naca"
           else model_2d1(work) if args.case == "p3"
           else model_2d1(work, 2, args.operator) if args.case == "2d1"
-          else bench_model(args.scheme, work))
+          else bench_model(args.scheme, work, fields))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     print(f"{tag} setup {setup_s:.1f} s, {ns.space.n_dofs} DoF", flush=True)
