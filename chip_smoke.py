@@ -25,8 +25,12 @@ and checks them:
    CPU fp32 run in another thread count as the measure of fp32 noise;
 5. 20 bench-point projection steps (10 warm-up + 10 timed) through
    ``NavierStokes.solve_time_step``, replayed from the step's captured
-   CUDA graphs (models/step_graphs.py, captured first), with the kernel's
-   launch count per operator (from the graphs' replay records);
+   CUDA graphs (models/step_graphs.py, captured first: BiCGStab and CG
+   each one while node), with the kernel's launch count per operator
+   (from the graphs' replay records); per step one host read (the tile
+   guard), two loops entered, one body per iteration, no masked
+   iteration and no skipped body, set_condition launches, beside PR 10's
+   figures; the capture's seconds, peak and reserved-memory growth;
 6. the bf16-values and fp64 kernel variants against their plain versions
    in every use, timed as in phase 3;
 7. the small fixture under ``scheme="monolithic"``: 5 steps on the card
@@ -36,11 +40,14 @@ and checks them:
    bit with the same SELL and Givens launches;
 8. the monolithic bench point (FGMRES + Cahouet-Chabard, BDF1), after the
    projection model is freed: the step captured (models/step_graphs.py
-   ``MonolithicGraphs``: FGMRES and inner BiCGStab iterations under
-   conditional nodes; capture seconds, graphs, bodies per block, peak and
-   reserved-memory growth), then 5 warm-up and 5 timed steps through
-   ``solve_time_step``; host reads and skipped bodies per step, one
-   Givens launch per FGMRES iteration;
+   ``MonolithicGraphs``: each FGMRES cycle one while node, the inner
+   BiCGStab a while node nested in its body; capture seconds, graphs,
+   while nodes, peak and reserved-memory growth beside PR 10's, bytes by
+   pool), then 5
+   warm-up and 5 timed steps through ``solve_time_step``; host reads
+   (the guard and one per cycle's end), loops entered, bodies run, no
+   masked iteration and no skipped body, set_condition launches per
+   step beside PR 10's; one Givens launch per FGMRES iteration;
 9. a 3D small fixture (the h=0.15 square-column duct, 6,954 DoF): 5 steps
    on the card against the CPU, fp32, under phase 4's rule, for projection
    with ``bj`` and with ``jacobi``, monolithic ``cc``, ``cc`` +
@@ -125,8 +132,10 @@ and checks them:
    run equal bit for bit (u, p, Cd, Cl, BiCGStab + CG counts) and with the
    same SELL launches per step, the first captured run with
    ``set_sync_debug_mode("error")`` around each replay; steps/s of each
-   run, flag reads and masked iterations per step, capture seconds, peak
-   memory; the exact tile inverse at the bench point's 1,760 tiles
+   run, host reads, masked iterations, skipped bodies, loops entered,
+   bodies run and set_condition launches per step (captured: one read,
+   none masked or skipped, set_condition the eager run's plus one per
+   loop entered), capture seconds, peak memory; the exact tile inverse at the bench point's 1,760 tiles
    (``inv_ex`` gives ``inv``'s bits; the capturable cuSOLVER LU against
    it); one chunked ``solve`` of 16 steps from the initial state (chunks
    of 8) whose csv equals phase 5's first 16 steps; the Givens kernel
@@ -139,11 +148,15 @@ and checks them:
    run equal bit for bit (u, p, Cd, Cl, FGMRES counts, residuals) with
    the same SELL and Givens launches per step, the first captured run
    with ``set_sync_debug_mode("error")`` around each replay; steps/s of
-   each run, host reads and skipped (captured) or masked (eager)
-   iterations per step, the capture's seconds and memory, peak memory;
-   then the conditional nodes' kernel (csrc/graph_cond.cu) against the
-   host read it replaces on 64 seeded flags, and its device time per node
-   skipped and run (the record's ``set_condition`` entry);
+   each run, host reads, masked iterations, skipped bodies, loops entered,
+   bodies run and set_condition launches per step (captured: none masked
+   or skipped, set_condition the eager run's plus one per loop entered),
+   the capture's seconds and memory, peak memory (each run's, with bytes
+   by pool), beside PR 10's; then the while node (csrc/graph_cond.cu)
+   against the host loop at 64 seeded trip counts 0..64, its predicate
+   kernel against its plain version, its device time per iteration (a
+   one-add body, and a body ending in the Givens kernel) and alone (the
+   record's ``set_condition`` entry);
 23. the cells operator on cell shards (parallel/sharded_cells.py, two
    shards of ``cuda:0``): the four configurations of phase 18 in float64,
    1 step against phase 18's one-card step within 1e-9 with equal FGMRES
@@ -166,8 +179,9 @@ and checks them:
    ulp (bf16) and 1e-12 (fp64) of max|y|, bit-identical on repeat, the
    tail tile alone equal to the batch's rows, with its ms per call in
    bursts, the plain version's, the bound (tile rows read + r + y bytes
-   over 3.35 TB/s) and the library's batched GEMM (``torch.matmul``);
-   the launches per step of each path; 2 captured float64 steps of the
+   over 3.35 TB/s) and the library's batched GEMM (``torch.matmul``),
+   the fp64 apply and ``torch.matmul`` again in 8 rounds of alternating
+   bursts (medians); the launches per step of each path; 2 captured float64 steps of the
    phase 4 small fixture on the card (the fp64 variant) against the CPU
    within 1e-9; then the same check and times, d=3, at the exact tile
    inverses of 3D-1Z's F (right after phase 11, fp32 and bf16) and, d=2,
@@ -179,7 +193,8 @@ and checks them:
    8's, 5 steps captured (replays sync-checked), eager and captured
    again, every run equal bit for bit (u, p, phi, Cd, Cl, counts,
    residuals) with the same SELL and tile-apply launches per step, every
-   step finite; the converged flags and counts (Richardson's FGMRES may
+   step finite, no captured step with a masked iteration or a skipped
+   body; the converged flags and counts (Richardson's FGMRES may
    stall at this CFL, as the JAX package measured, so no convergence
    gate), steps/s, setup and capture seconds; schur's max |B u| over its
    unpinned nodes after one step below the Laplacian step's from the
@@ -325,6 +340,43 @@ def per_step_launches(n_steps, by_pattern=None):
     by_pattern = COUNTS.by_pattern if by_pattern is None else by_pattern
     return {f"{name} {str(dt).replace('torch.', '')}": v / n_steps
             for (name, dt), v in by_pattern.items()}
+
+
+# PR 10's figures of the captured steps, printed beside this run's
+# (PERF.md section 6: H100 (700 W), calls AX and BN): the projection step's
+# host reads and masked iterations per step, the monolithic step's host
+# reads and set_condition launches per step, its capture's seconds,
+# reserved-memory growth and phase 22's peak
+PR10 = dict(proj_reads="8.00", proj_masked="5.20", mono_reads="4.8-5.4",
+            mono_set_condition="310.2 (phase 8), 226.4 (phase 22)",
+            capture_s="1.05-1.30", reserved_growth=4_370_464_768,
+            peak_22=6_680_577_024)
+WHILE_FIELDS = ("flag_reads", "masked_iterations", "skipped_bodies",
+                "loops_entered", "bodies_run")
+
+
+def while_counts(phase, tag, ms, captured):
+    """Per step over ``ms``: host reads, masked iterations, skipped bodies,
+    while loops entered and bodies run; a captured run must show no masked
+    iteration and no skipped body at any step."""
+    out = {f: sum(getattr(m, f) for m in ms) / len(ms) for f in WHILE_FIELDS}
+    if captured:
+        check(all(m.masked_iterations == 0 and m.skipped_bodies == 0
+                  for m in ms),
+              f"[{phase}] {tag}: no masked iteration and no skipped body in "
+              "any captured step")
+    return out
+
+
+def while_line(w, set_condition=None):
+    """The per-step figures of ``while_counts`` as a log phrase."""
+    return (f"host reads {w['flag_reads']:.2f}, masked iterations "
+            f"{w['masked_iterations']:.2f}, skipped bodies "
+            f"{w['skipped_bodies']:.2f}, loops entered "
+            f"{w['loops_entered']:.2f}, bodies run {w['bodies_run']:.2f}"
+            + ("" if set_condition is None
+               else f", set_condition launches {set_condition:.2f}")
+            + " per step")
 
 
 def _time_ms(fn, cold, n=30):
@@ -619,20 +671,24 @@ def phase_small_fixture():
 
 
 def phase_bench(ns, card):
-    from navierstokes_tpu_torch.kernels import bj_apply
+    from navierstokes_tpu_torch.kernels import bj_apply, conditional
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     cfg = ns.config
     n_warm, n_meas = 10, 10
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
     sg = ns.capture_graphs()
     capture_peak = torch.cuda.max_memory_allocated()
-    log(f"[5] captured the projection step: {len(sg.graphs)} graphs in "
-        f"{sg.capture_seconds:.2f} s (with a warm-up step), peak "
-        f"{capture_peak} bytes")
+    growth = torch.cuda.memory_reserved() - reserved0
+    log(f"[5] captured the projection step: {len(sg.graphs)} graphs, "
+        f"{sg.nodes} while nodes, in {sg.capture_seconds:.2f} s (with a "
+        f"warm-up step), peak {capture_peak} bytes, reserved memory grew by "
+        f"{growth} bytes")
     torch.cuda.reset_peak_memory_stats()
     COUNTS.reset()
     bj_apply.COUNTS.reset()
+    conditional.COUNTS.reset()
     ms_all, first = [], dict(ms=[])
     for k in range(n_warm):
         t1 = time.perf_counter()
@@ -655,6 +711,17 @@ def phase_bench(ns, card):
     bj, bj_plain = bj_snapshot()
     peak = torch.cuda.max_memory_allocated()
     sps = n_meas / wall
+    whiles = while_counts(5, "projection", ms_all, captured=True)
+    conds = conditional.COUNTS.set_condition / (n_warm + n_meas)
+    log(f"[5] captured steps: {while_line(whiles, conds)} (PR 10: host "
+        f"reads {PR10['proj_reads']}, masked iterations "
+        f"{PR10['proj_masked']} per step, AX) on {card}")
+    check(all(m.flag_reads == 1 for m in ms_all),
+          "[5] one host read per step, the tile guard's")
+    check(all(m.loops_entered == 2
+              and m.bodies_run == m.f_iterations + m.p_iterations
+              for m in ms_all),
+          "[5] two while loops per step, one body per iteration")
     log(f"[5] iterations BiCGStab+CG per step: "
         + " ".join(f"{m.f_iterations}+{m.p_iterations}" for m in ms_all))
     log(f"[5] tile rebuild ms per step: "
@@ -688,7 +755,9 @@ def phase_bench(ns, card):
     end["time"] = ns.time
     return dict(launches=launches, steps_per_s=sps, peak_bytes=peak,
                 per_step=per_step, first=first, metrics=ms_all, end=end,
-                capture_s=sg.capture_seconds, bj=bj,
+                capture_s=sg.capture_seconds, capture_peak_bytes=capture_peak,
+                reserved_growth_bytes=growth, whiles=whiles,
+                set_condition_per_step=conds, bj=bj,
                 bj_per_step=bj_per_step(bj, n_warm + n_meas))
 
 
@@ -713,7 +782,7 @@ def phase_graphs(ns, bench, card):
     """Phase 21: eager against captured at the bench point, the exact
     tile inverse, the chunked solve, the Givens kernel.  Leaves ``ns`` in
     phase 5's end state."""
-    from navierstokes_tpu_torch.kernels import bj_apply
+    from navierstokes_tpu_torch.kernels import bj_apply, conditional
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     from navierstokes_tpu_torch.ops import p1ell
     t_phase = time.perf_counter()
@@ -727,25 +796,29 @@ def phase_graphs(ns, bench, card):
             r["mode"] == "captured" for r in runs)
         COUNTS.reset()
         bj_apply.COUNTS.reset()
+        conditional.COUNTS.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ms = [ns.solve_time_step(_eager=mode == "eager")
               for _ in range(GRAPH_STEPS)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        w = while_counts(21, mode, ms, captured=mode == "captured")
         runs.append(dict(
             mode=mode, sync_check=sg.sync_check, steps_per_s=GRAPH_STEPS / wall,
             metrics=ms, u=ns._u.clone(), p=ns._p.clone(),
             launches=per_step_launches(GRAPH_STEPS),
             bj=bj_per_step(bj_snapshot()[0], GRAPH_STEPS),
             plain_cuda=COUNTS.plain_cuda_calls + bj_snapshot()[1],
-            flag_reads=sum(m.flag_reads for m in ms) / GRAPH_STEPS,
-            masked=sum(m.masked_iterations for m in ms) / GRAPH_STEPS))
+            flag_reads=w["flag_reads"], masked=w["masked_iterations"],
+            whiles=w, set_condition=(conditional.COUNTS.set_condition
+                                     / GRAPH_STEPS)))
         log(f"[21] {mode}{' (sync-checked replays)' if sg.sync_check else ''}"
             f": {runs[-1]['steps_per_s']:.4f} steps/s ({GRAPH_STEPS} steps "
-            f"in {wall:.3f} s), flag reads per step "
-            f"{runs[-1]['flag_reads']:.2f}, masked iterations per step "
-            f"{runs[-1]['masked']:.2f}, on {card}")
+            f"in {wall:.3f} s), "
+            f"{while_line(w, runs[-1]['set_condition'])} (PR 10 captured: "
+            f"host reads {PR10['proj_reads']}, masked iterations "
+            f"{PR10['proj_masked']}), on {card}")
     sg.sync_check = False
     peak = torch.cuda.max_memory_allocated()
     ref = runs[0]
@@ -764,6 +837,17 @@ def phase_graphs(ns, bench, card):
               f"[21] {r['mode']}: SELL and tile-apply launches per step "
               f"equal the eager run's ({r['launches']}, {r['bj']} against "
               f"{ref['launches']}, {ref['bj']})")
+        # the graph adds one set_condition per loop entered: the test
+        # before each while node
+        extra = r["whiles"]["loops_entered"] if r["mode"] == "captured" \
+            else 0.0
+        check(abs(r["set_condition"] - ref["set_condition"] - extra) < 1e-9,
+              f"[21] {r['mode']}: set_condition launches per step "
+              f"{r['set_condition']:.2f} = the eager run's "
+              f"{ref['set_condition']:.2f} + loops entered {extra:.2f}")
+    check(all(m.flag_reads == 1 for r in runs if r["mode"] == "captured"
+              for m in r["metrics"]),
+          "[21] the captured step reads the host once, for the tile guard")
     check(all(r["plain_cuda"] == 0 for r in runs),
           "[21] no plain-version calls on CUDA tensors")
     sps = {m: [r["steps_per_s"] for r in runs if r["mode"] == m]
@@ -827,7 +911,8 @@ def phase_graphs(ns, bench, card):
     log(f"[21] phase {time.perf_counter() - t_phase:.1f} s")
     return dict(runs=[{k: r[k] for k in ("mode", "sync_check",
                                          "steps_per_s", "flag_reads",
-                                         "masked", "launches", "bj")}
+                                         "masked", "whiles", "set_condition",
+                                         "launches", "bj")}
                       for r in runs],
                 peak_bytes=peak, capture_s=bench["capture_s"],
                 inverse_gap=gap, givens=givens)
@@ -851,10 +936,10 @@ def phase_givens():
     calls = 0
     kept = {}
 
-    def update(*args):
+    def update(*args, cond=None):
         nonlocal calls
         state = [a.clone() for a in args]
-        AL.lsq_update(*args)
+        AL.lsq_update(*args, cond=cond)
         plain = [a.cpu().clone() for a in state]
         AL.lsq_update_plain(*plain)
         for k in (0, 1, 2, 3, 7, 8, 9):
@@ -1071,18 +1156,20 @@ def phase_monolithic_bench(card):
     torch.cuda.reset_peak_memory_stats()
     reserved0 = torch.cuda.memory_reserved()
     sg = ns.capture_graphs()
+    from tools.torch_step_profile import pool_bytes
     capture = dict(
         capture_s=sg.capture_seconds,
         capture_peak_bytes=torch.cuda.max_memory_allocated(),
         reserved_growth_bytes=torch.cuda.memory_reserved() - reserved0,
-        graphs=len(sg.graphs), nodes_per_block=sg.nodes_per_block,
-        block=sg.ce)
+        graphs=len(sg.graphs), while_nodes=sg.nodes, pools=pool_bytes(ns))
     log(f"[8] captured the monolithic step: {len(sg.graphs)} graphs, "
-        f"{sg.nodes_per_block} conditional bodies per FGMRES block of "
-        f"{sg.ce}, in {sg.capture_seconds:.2f} s (with a warm-up step); "
-        f"peak {capture['capture_peak_bytes']} bytes, reserved memory grew "
-        f"by {capture['reserved_growth_bytes']} bytes (the graph pool and "
-        f"the body pool) on {card}")
+        f"{sg.nodes} while nodes (each FGMRES cycle's, the inner BiCGStab's "
+        f"nested in its body), in {sg.capture_seconds:.2f} s (with a warm-up "
+        f"step; PR 10: {PR10['capture_s']} s with 88 if-node bodies per "
+        f"block); peak {capture['capture_peak_bytes']} bytes, reserved "
+        f"memory grew by {capture['reserved_growth_bytes']} bytes (PR 10: "
+        f"{PR10['reserved_growth']}); bytes (allocated, reserved) by pool "
+        f"{capture['pools']} on {card}")
     torch.cuda.reset_peak_memory_stats()
     COUNTS.reset()
     arnoldi_lsq.COUNTS.reset()
@@ -1113,12 +1200,19 @@ def phase_monolithic_bench(card):
     bj, bj_plain = bj_snapshot()
     peak = torch.cuda.max_memory_allocated()
     sps = n_meas / wall
+    whiles = while_counts(8, "monolithic", ms_all, captured=True)
     log(f"[8] Givens kernel launches over {n_warm + n_meas} steps: "
         f"{givens}; set_condition launches {nodes}")
+    log(f"[8] captured steps: "
+        f"{while_line(whiles, nodes / (n_warm + n_meas))} (PR 10: host "
+        f"reads {PR10['mono_reads']}, set_condition "
+        f"{PR10['mono_set_condition']} per step, BN) on {card}")
     log(f"[8] host reads per step: "
         + " ".join(str(m.flag_reads) for m in ms_all)
-        + "; skipped conditional bodies per step: "
-        + " ".join(str(m.masked_iterations) for m in ms_all))
+        + "; loops entered per step: "
+        + " ".join(str(m.loops_entered) for m in ms_all)
+        + "; bodies run per step: "
+        + " ".join(str(m.bodies_run) for m in ms_all))
     log(f"[8] FGMRES iterations per step: "
         + " ".join(str(m.iterations) for m in ms_all))
     log(f"[8] residual per step: "
@@ -1148,7 +1242,14 @@ def phase_monolithic_bench(card):
     check(launches > 0, "[8] kernel launched on the monolithic path")
     check(givens["update"] == sum(m.iterations for m in ms_all),
           "[8] the Givens kernel launched once per FGMRES iteration")
-    check(nodes > 0, "[8] the conditional nodes' kernel launched")
+    check(nodes > 0, "[8] the while nodes' kernel launched")
+    if not sg.refine:
+        # the guard, and one read per restart cycle's end (a cycle but the
+        # last runs the whole restart length)
+        m_r = cfg.outer_restart
+        check(all(m.flag_reads == 1 + -(-m.iterations // m_r)
+                  for m in ms_all),
+              "[8] host reads per step: the guard and the cycles' ends")
     check(plain_cuda == 0, "[8] no plain-version calls on CUDA tensors")
     check_bj_path(8, bj, bj_plain, n_warm + n_meas, torch.float32, 2)
     log(f"[8] all {len(ms_all)} FGMRES solves converged (rel tol {tol:g})")
@@ -1158,14 +1259,15 @@ def phase_monolithic_bench(card):
     return dict(launches=launches, steps_per_s=sps, peak_bytes=peak,
                 setup_s=setup_s, per_step=per_step, givens=givens,
                 set_condition=nodes, n_steps=n_warm + n_meas, ns=ns,
-                end=end, capture=capture, bj=bj,
+                end=end, capture=capture, whiles=whiles, bj=bj,
                 bj_per_step=bj_per_step(bj, n_warm + n_meas))
 
 
 # phase 22: bench-point monolithic steps of each run from phase 8's end
-# state, and the conditional-node check's node count
+# state, the while-node check's trip counts and the timed loop's length
 MONO_GRAPH_STEPS = 5
 NODE_CHECK = 64
+WHILE_TIMED = 256
 COND_SOURCE = "navierstokes_tpu_torch/csrc/graph_cond.cu"
 # JAX's loop predicate: the cond of FGMRES's lax.while_loop
 COND_REPLACES = "navierstokes_tpu/solvers/krylov.py:132"
@@ -1180,11 +1282,11 @@ def phase_monolithic_graphs(mono, card):
     from navierstokes_tpu_torch.kernels import (arnoldi_lsq, bj_apply,
                                                 conditional)
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
+    from tools.torch_step_profile import pool_bytes
     t_phase = time.perf_counter()
     ns, n = mono["ns"], MONO_GRAPH_STEPS
     sg = ns.capture_graphs()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     runs = []
     for mode in ("captured", "eager", "captured", "eager"):
         _load_state(ns, mono["end"])
@@ -1194,11 +1296,13 @@ def phase_monolithic_graphs(mono, card):
         conditional.COUNTS.reset()
         bj_apply.COUNTS.reset()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         ms = [ns.solve_time_step(_eager=mode == "eager") for _ in range(n)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        runs.append(dict(
+        w = while_counts(22, mode, ms, captured=mode == "captured")
+        runs.append(dict(whiles=w,
             mode=mode, sync_check=sg.sync_check, steps_per_s=n / wall,
             metrics=ms, u=ns._u.clone(), p=ns._p.clone(),
             launches=per_step_launches(n),
@@ -1207,19 +1311,20 @@ def phase_monolithic_graphs(mono, card):
             bj=bj_per_step(bj_snapshot()[0], n),
             plain_cuda=COUNTS.plain_cuda_calls + bj_snapshot()[1],
             flag_reads=sum(m.flag_reads for m in ms) / n,
-            masked=sum(m.masked_iterations for m in ms) / n))
+            masked=sum(m.masked_iterations for m in ms) / n,
+            peak=torch.cuda.max_memory_allocated(), pools=pool_bytes(ns)))
         r = runs[-1]
         checked = " (sync-checked replays)" if r["sync_check"] else ""
         log(f"[22] {mode}{checked}"
             f": {r['steps_per_s']:.4f} steps/s ({n} steps in {wall:.3f} s), "
-            f"host reads per step {r['flag_reads']:.2f}, "
-            + ("skipped conditional bodies" if mode == "captured"
-               else "masked iterations")
-            + f" per step {r['masked']:.2f}, Givens launches per step "
-            f"{r['givens']:.2f}, set_condition per step "
-            f"{r['set_condition']:.2f}, on {card}")
+            f"{while_line(w, r['set_condition'])}, Givens launches per step "
+            f"{r['givens']:.2f} (PR 10 captured: host reads "
+            f"{PR10['mono_reads']}, set_condition "
+            f"{PR10['mono_set_condition']}), on {card}")
+        log(f"[22] {mode}: peak {r['peak']} bytes; bytes (allocated, "
+            f"reserved) by pool after the run {r['pools']}")
     sg.sync_check = False
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(r["peak"] for r in runs)
     ref = runs[0]
     log(f"[22] FGMRES iterations per step: "
         + " ".join(str(m.iterations) for m in ref["metrics"])
@@ -1244,6 +1349,14 @@ def phase_monolithic_graphs(mono, card):
     check(all(m.flag_reads < e.flag_reads for m, e in
               zip(ref["metrics"], runs[1]["metrics"])),
           "[22] the captured step reads the host less often")
+    for r in runs:
+        extra = r["whiles"]["loops_entered"] if r["mode"] == "captured" \
+            else 0.0
+        check(abs(r["set_condition"] - runs[1]["set_condition"] - extra)
+              < 1e-9,
+              f"[22] {r['mode']}: set_condition launches per step "
+              f"{r['set_condition']:.2f} = the eager run's "
+              f"{runs[1]['set_condition']:.2f} + loops entered {extra:.2f}")
     check(ref["givens"] * n == sum(m.iterations for m in ref["metrics"]),
           "[22] one Givens launch per FGMRES iteration")
     sps = {m: [r["steps_per_s"] for r in runs if r["mode"] == m]
@@ -1251,77 +1364,223 @@ def phase_monolithic_graphs(mono, card):
     cap = mono["capture"]
     log(f"[22] captured equals eager bit for bit in all four runs, with the "
         f"same launches per step (SELL {ref['launches']}, Givens "
-        f"{ref['givens']:.2f}, tile apply {ref['bj']}); capture {cap['capture_s']:.2f} s (phase 8), "
-        f"{cap['nodes_per_block']} bodies per block; peak device memory "
-        f"over the four runs {peak} bytes ({peak / 2**30:.2f} GiB); steps/s "
-        f"captured {sps['captured']}, eager {sps['eager']} on {card}")
-    nodes = phase_if_nodes()
+        f"{ref['givens']:.2f}, tile apply {ref['bj']}); capture "
+        f"{cap['capture_s']:.2f} s (phase 8; PR 10: {PR10['capture_s']} s), "
+        f"{cap['while_nodes']} while nodes; peak device memory over the "
+        f"four runs {peak} bytes ({peak / 2**30:.2f} GiB; PR 10: "
+        f"{PR10['peak_22']}); steps/s captured {sps['captured']}, eager "
+        f"{sps['eager']} on {card}")
+    nodes = phase_while_nodes()
     log(f"[22] phase {time.perf_counter() - t_phase:.1f} s")
     return dict(runs=[{k: r[k] for k in ("mode", "sync_check", "steps_per_s",
-                                         "flag_reads", "masked", "launches",
-                                         "givens", "set_condition", "bj")}
+                                         "flag_reads", "masked", "whiles",
+                                         "launches", "givens",
+                                         "set_condition", "bj", "peak",
+                                         "pools")}
                       for r in runs],
                 peak_bytes=peak, nodes=nodes)
 
 
-def phase_if_nodes():
-    """The conditional nodes (csrc/graph_cond.cu's set_condition and the
-    if node it feeds) against their plain version, a host read of the
-    flag deciding the body: NODE_CHECK nodes on seeded flags, each body
-    adding one to its slot, the slots equal to the flags; then the device
-    time per node skipped and run (a body of one add) from bursts of
-    replays, and the host read's time."""
-    from navierstokes_tpu_torch.kernels.conditional import IfNodes
+def _while_graph(whiles, fn):
+    """A graph of ``fn()`` captured with the port's while nodes."""
     from navierstokes_tpu_torch.kernels.launches import record_launches
-    gen = torch.Generator().manual_seed(22)
-    want = torch.rand(NODE_CHECK, generator=gen) < 0.5
-    flags = want.cuda()
-    slots = torch.zeros(NODE_CHECK, dtype=torch.int32, device="cuda")
-    ifs = IfNodes("cuda")
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()
     with record_launches(), torch.cuda.graph(graph, stream=stream), \
-            ifs.routed():
-        for i in range(NODE_CHECK):
-            ifs.body(flags[i], lambda i=i: slots[i].add_(1))
-    graph.replay()
-    got = slots.cpu()
-    err = int((got - want.int()).abs().max())
-    check(err == 0, "[22] set_condition and its if node against the host "
-          "read of the flag")
+            whiles.routed():
+        fn()
+    torch.cuda.synchronize()
+    return graph
 
-    def per_node_ms(value):
-        flags.fill_(value)
-        times = []
-        for _ in range(10):
-            torch.cuda._sleep(2_000_000)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
+
+def _replay_ms(run, per, reps=10):
+    """Median device time of ``run()`` over ``reps`` calls, each between
+    two CUDA events after a spin, divided by ``per``."""
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per)
+    return statistics.median(times)
+
+
+def phase_while_nodes():
+    """Phase 22's kernel part: csrc/graph_cond.cu's while node against its
+    plain version, the host loop that reads the flag before each
+    iteration, for NODE_CHECK seeded trip counts from 0 to 64 (a body
+    x += r, r -= 1, k += 1 ending in the predicate kernel), bit for bit
+    with the node's device tally n + 1 evaluations, n bodies, none masked;
+    the predicate kernel against its plain version (torch operations) on
+    256 seeded fp32 scalar sets, ties and breakdown flags among them;
+    then device times: per while iteration of WHILE_TIMED iterations with
+    a body of one add and a count ending in the predicate kernel, and the
+    same launches in a plain graph without a node; per iteration of an
+    FGMRES-like body ending in the Givens kernel (m=64), which sets the
+    node's condition itself; the predicate kernel alone in bursts, its
+    plain version's launches, and the host read."""
+    from navierstokes_tpu_torch.kernels import arnoldi_lsq as AL
+    from navierstokes_tpu_torch.kernels.conditional import (
+        WhileNodes, set_condition, set_condition_plain)
+    whiles = WhileNodes("cuda")
+    f32 = dict(dtype=torch.float32, device="cuda")
+    i64 = dict(dtype=torch.int64, device="cuda")
+    half = torch.tensor(0.5, **f32)
+    r, x = torch.zeros((), **f32), torch.zeros((), **f32)
+    k = torch.zeros((), **i64)
+    active = torch.zeros((), dtype=torch.bool, device="cuda")
+    tally = torch.zeros(3, **i64)
+
+    def body(cond):
+        x.add_(r)
+        r.sub_(1.0)
+        k.add_(1)
+        return set_condition(active, r, half, k, 1000, cond=cond)
+
+    def start(n):
+        r.fill_(float(n))
+        x.zero_()
+        k.zero_()
+        tally.zero_()
+        set_condition(active, r, half, k, 1000)
+
+    graph = _while_graph(whiles, lambda: whiles.loop(active, body, tally))
+    gen = torch.Generator().manual_seed(22)
+    trips = [0, 64] + torch.randint(0, 65, (NODE_CHECK - 2,),
+                                    generator=gen).tolist()
+    err = 0
+    for n in trips:
+        start(n)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
             graph.replay()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b) / NODE_CHECK)
-        return statistics.median(times)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = (int(k), float(x), tally.tolist())
+        start(n)
+        while bool(active):
+            body(None)
+        want = (int(k), float(x), [n + 1, n, 0])
+        err = max(err, abs(got[0] - want[0]), abs(got[1] - want[1]),
+                  max(abs(a - b) for a, b in zip(got[2], want[2])))
+    check(err == 0, "[22] the while node against the host loop at "
+          f"{len(trips)} seeded trip counts 0..64 (max |error| {err})")
+    del graph
 
-    skip_ms, run_ms = per_node_ms(False), per_node_ms(True)
-    flag = flags[0]
+    # the predicate kernel against its plain version
+    rng = np.random.default_rng(22)
+    n_sets, maxiter = 256, 3
+    res = rng.standard_normal(n_sets).astype(np.float32)
+    tgt = np.where(rng.random(n_sets) < 0.25, res,
+                   rng.standard_normal(n_sets).astype(np.float32))
+    ks = rng.integers(0, maxiter + 2, n_sets)
+    stags = rng.random(n_sets) < 0.25
+    differ = 0
+    for i in range(n_sets):
+        flags = []
+        for dev in ("cpu", "cuda"):
+            a = torch.tensor(not stags[i], device=dev)
+            set_condition(a, torch.tensor(res[i], device=dev),
+                          torch.tensor(tgt[i], device=dev),
+                          torch.tensor(int(ks[i]), device=dev), maxiter,
+                          torch.tensor(bool(stags[i]), device=dev))
+            flags.append(bool(a))
+        differ += flags[0] != flags[1]
+    check(differ == 0, f"[22] the predicate kernel against its plain "
+          f"version on {n_sets} seeded scalar sets")
+
+    # device time per while iteration, a body of one add and a count
+    z = torch.zeros(1024, **f32)
+    c = torch.zeros((), **i64)
+    up = torch.ones((), dtype=torch.bool, device="cuda")
+    big, zero = torch.tensor(1e30, **f32), torch.tensor(0.0, **f32)
+    t_loop = torch.zeros(3, **i64)
+
+    def add_pred(cond):
+        z.add_(1.0)
+        c.add_(1)
+        return set_condition(up, big, zero, c, WHILE_TIMED, cond=cond)
+
+    g = _while_graph(whiles, lambda: whiles.loop(up, add_pred, t_loop))
+
+    def run():
+        c.zero_()
+        up.fill_(True)
+        g.replay()
+    pred_ms = _replay_ms(run, WHILE_TIMED)
+    check(int(c) == WHILE_TIMED, "[22] a timed while loop ran its "
+          f"{WHILE_TIMED} iterations")
+    del g
+    plain_graph = _while_graph(whiles, lambda: [
+        add_pred(None) for _ in range(WHILE_TIMED)])
+    plain_graph_ms = _replay_ms(plain_graph.replay, WHILE_TIMED)
+    del plain_graph
+
+    # an FGMRES-like body: the Givens kernel setting the node's condition
+    m, n_cols = 64, 40
+    gen = torch.Generator().manual_seed(21)
+    H = torch.zeros((m + 1, m), **f32)
+    cs, sn = torch.zeros(m, **f32), torch.zeros(m, **f32)
+    gv = torch.zeros(m + 1, **f32)
+    h1 = torch.randn(m + 1, generator=gen).cuda()
+    h2 = 1e-3 * torch.randn(m + 1, generator=gen).cuda()
+    wn = torch.tensor(10.0 * float(h1.abs().max()) + 1.0, **f32)
+    j = torch.zeros((), dtype=torch.int32, device="cuda")
+    res_g = torch.tensor(3.0, **f32)
+    ga = torch.ones((), dtype=torch.bool, device="cuda")
+    j_max = torch.tensor(n_cols, dtype=torch.int32, device="cuda")
+    work = (H, cs, sn, gv, j, res_g, ga)
+    init = [t.clone() for t in work]
+    init[3][0] = 3.0
+
+    def givens(cond):
+        return AL.lsq_update(H, cs, sn, gv, h1, h2, wn, j, res_g, ga, zero,
+                             j_max, cond=cond)
+    g = _while_graph(whiles, lambda: whiles.loop(ga, givens, t_loop))
+
+    def run_givens():
+        _restore(work, init)
+        g.replay()
+    lsq_handle_ms = _replay_ms(run_givens, n_cols)
+    check(int(j) == n_cols, f"[22] the Givens while loop ran {n_cols} "
+          "iterations")
+    del g
+
+    # the predicate kernel alone, its plain version, the host read
+    res1, tgt1 = torch.tensor(1.0, **f32), torch.tensor(0.5, **f32)
+    kernel_ms = _burst_ms([lambda: set_condition(up, res1, tgt1, c, 1000)])
+    plain_ms = _burst_ms([lambda: set_condition_plain(up, res1, tgt1, c,
+                                                      1000)])
     t0 = time.perf_counter()
     for _ in range(200):
-        bool(flag)
-    plain_ms = (time.perf_counter() - t0) / 200 * 1e3
-    del graph
-    ifs.close()
-    log(f"[22] if nodes: {NODE_CHECK} nodes on seeded flags, bodies run "
-        f"where the flag is up, max |error| {err}; per node {skip_ms:.5f} ms "
-        f"skipped, {run_ms:.5f} ms with a body of one add (device time), "
-        f"the plain version's host read {plain_ms:.5f} ms (host clock)")
-    # set_condition reads one flag byte and sets the handle: a 1-byte
-    # read and one operation
-    bound = max(1 / HBM_BYTES_PER_S, 1 / FP32_OPS_PER_S) * 1e3
-    return dict(max_abs_err=err, ms=skip_ms, run_ms=run_ms,
-                plain_ms=plain_ms, bound_ms=bound)
+        bool(up)
+    read_ms = (time.perf_counter() - t0) / 200 * 1e3
+    whiles.close()
+    log(f"[22] while nodes: {len(trips)} seeded trip counts 0..64 against "
+        f"the host loop, max |error| {err}; the predicate kernel against "
+        f"its plain version on {n_sets} scalar sets, {differ} differ")
+    log(f"[22] per while iteration (a body of one add and a count, "
+        f"{WHILE_TIMED} iterations, device time, ending in the predicate "
+        f"kernel) {pred_ms:.5f} ms; the same launches in a plain graph "
+        f"without a node {plain_graph_ms:.5f} ms (PR 10's if node: 0.00533 "
+        f"ms skipped, 0.00931 ms run with a one-add body); an FGMRES-like "
+        f"body (ending in the Givens kernel, m={m}, {n_cols} iterations) "
+        f"{lsq_handle_ms:.5f} ms per iteration")
+    log(f"[22] the predicate kernel alone {kernel_ms:.5f} ms per launch in "
+        f"bursts, its plain version (torch operations) {plain_ms:.5f} ms, "
+        f"the host read of the flag {read_ms:.5f} ms (host clock)")
+    # set_condition reads ||r||, the target (fp32), the breakdown flag, k
+    # (int64) and the flag, and writes the flag: 18 bytes, 3 comparisons
+    bound = max(18 / HBM_BYTES_PER_S, 3 / FP32_OPS_PER_S) * 1e3
+    return dict(max_abs_err=err + differ, ms=kernel_ms, plain_ms=plain_ms,
+                host_read_ms=read_ms, bound_ms=bound,
+                while_iteration_ms=pred_ms, plain_graph_ms=plain_graph_ms,
+                givens_sets_condition_ms=lsq_handle_ms)
 
 
 # phase 24: the block-Jacobi tile apply (csrc/bj_apply.cu) at the real tiles
@@ -1422,6 +1681,43 @@ def check_and_time_bj(use, tiles, r):
     return out
 
 
+BJ_F64_ROUNDS = 8
+
+
+def retime_f64(use, tiles, r):
+    """Phase 24: the fp64 tile apply against ``torch.matmul`` at the same
+    tiles in BJ_F64_ROUNDS rounds of alternating bursts (kernel, library,
+    then library, kernel), their medians set as the use's ``ms`` and
+    ``library_ms`` (the single figures kept as ``ms_single``,
+    ``library_ms_single``)."""
+    from navierstokes_tpu_torch.kernels.bj_apply import bj_apply
+    n_tiles, sb = tiles.shape[0], tiles.shape[1]
+    n_p2, d = r.shape
+    rb = torch.nn.functional.pad(r, (0, 0, 0, n_tiles * sb - n_p2)).reshape(
+        n_tiles, sb, d)
+    fns = {"kernel": lambda: bj_apply(tiles, r),
+           "library": lambda: torch.matmul(tiles, rb)}
+    times = {"kernel": [], "library": []}
+    for i in range(BJ_F64_ROUNDS):
+        for name in (("kernel", "library") if i % 2 == 0
+                     else ("library", "kernel")):
+            times[name].append(_burst_ms([fns[name]], reps=5))
+    del rb
+    med = {k: statistics.median(v) for k, v in times.items()}
+    use.update(ms_single=use["ms"], library_ms_single=use["library_ms"],
+               ms=med["kernel"], library_ms=med["library"],
+               ms_rounds=times["kernel"], library_ms_rounds=times["library"])
+    verdict = ("slower than" if med["kernel"] > med["library"]
+               else "not slower than")
+    log(f"[24] fp64 tile apply against torch.matmul at the bench tiles, "
+        f"{BJ_F64_ROUNDS} rounds of alternating bursts: medians "
+        f"{med['kernel']:.4f} ms against {med['library']:.4f} ms (the kernel "
+        f"{verdict} the library); rounds kernel "
+        + " ".join(f"{t:.4f}" for t in times["kernel"]) + ", library "
+        + " ".join(f"{t:.4f}" for t in times["library"])
+        + f"; bound {use['bound_ms']:.4f} ms on {card_line()}")
+
+
 def _r(n_p2, d, dtype, seed):
     rng = np.random.default_rng(seed)
     return torch.as_tensor(rng.standard_normal((n_p2, d)), dtype=dtype,
@@ -1431,8 +1727,9 @@ def _r(n_p2, d, dtype, seed):
 def phase_tile_apply_bench(proj_tiles, mono, paths, card):
     """Phase 24 at the bench point (right after phase 22): the kernel
     against its plain version at the fp32 tiles of the captured projection
-    step (its graphs' last replay, in phase 21: ``proj_tiles``) and
-    monolithic step (phase 22's), and at the same tiles in bf16
+    step (its graphs' last replay, in phase 21: ``proj_tiles``, kept on
+    the host through phases 7, 8 and 22) and monolithic step (phase
+    22's), and at the same tiles in bf16
     (``bj_bf16`` / ``inner_bf16``) and fp64, timed (``check_and_time_bj``); the launches per step of each
     path (``paths``: path -> the tile apply's launches per step by
     variant); then the fp64 variant on its path, 2 captured float64 steps
@@ -1446,13 +1743,14 @@ def phase_tile_apply_bench(proj_tiles, mono, paths, card):
     n_p2 = ns.space.n_p2
     r32 = _r(n_p2, 2, torch.float32, 24)
     out = {dt: [] for dt in BJ_VARIANTS}
-    for use, tiles in (("bench projection", proj_tiles),
+    for use, tiles in (("bench projection", proj_tiles.cuda()),
                        ("bench monolithic", mono_tiles)):
         out[torch.float32].append(check_and_time_bj(use, tiles, r32))
         out[torch.bfloat16].append(check_and_time_bj(
             use, tiles.to(torch.bfloat16), r32))
     out[torch.float64].append(check_and_time_bj(
         "bench monolithic", mono_tiles.double(), r32.double()))
+    retime_f64(out[torch.float64][-1], mono_tiles.double(), r32.double())
     for path, per_step in paths.items():
         log(f"[24] tile-apply launches per step, {path}: {per_step}")
     # the fp64 variant on its path: a float64 model on the card
@@ -1519,13 +1817,14 @@ def laplacian_divergence(ns, bench):
 
 def _option_run(ns, end, mode, sync_check=False):
     """OPTION_STEPS steps from ``end``, captured or eager, with the SELL and
-    tile-apply launches per step."""
-    from navierstokes_tpu_torch.kernels import bj_apply
+    tile-apply launches per step and the while loops' counts per step."""
+    from navierstokes_tpu_torch.kernels import bj_apply, conditional
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     _load_state(ns, end)
     ns._graphs.sync_check = sync_check
     COUNTS.reset()
     bj_apply.COUNTS.reset()
+    conditional.COUNTS.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ms = [ns.solve_time_step(_eager=mode == "eager")
@@ -1535,6 +1834,9 @@ def _option_run(ns, end, mode, sync_check=False):
     ns._graphs.sync_check = False
     bj, bj_plain = bj_snapshot()
     return dict(mode=mode, sync_check=sync_check, metrics=ms,
+                whiles=while_counts(25, f"{ns.config.scheme} {mode}", ms,
+                                    captured=mode == "captured"),
+                set_condition=conditional.COUNTS.set_condition / OPTION_STEPS,
                 steps_per_s=OPTION_STEPS / wall, launches=COUNTS.launches,
                 per_step=per_step_launches(OPTION_STEPS),
                 bj=bj, bj_per_step=bj_per_step(bj, OPTION_STEPS),
@@ -1603,13 +1905,17 @@ def phase_options_bench(bench, mono, lap_div, card):
             f"{ref['per_step']}; tile-apply launches per step "
             f"{ref['bj_per_step']}; Cd {ms[-1].cd:.6f}, Cl {ms[-1].cl:.6f}"
             f" on {card}")
+        for r in runs:
+            log(f"[25] {tag} {r['mode']}: "
+                f"{while_line(r['whiles'], r['set_condition'])}")
         res = dict(setup_s=setup_s, capture_s=sg.capture_seconds,
                    steps_per_s={r["mode"] + str(i): r["steps_per_s"]
                                 for i, r in enumerate(runs)},
                    launches=ref["launches"], per_step=ref["per_step"],
                    bj=ref["bj"], bj_per_step=ref["bj_per_step"],
                    iterations=[m.iterations for m in ms],
-                   converged=[m.converged for m in ms])
+                   converged=[m.converged for m in ms],
+                   whiles=ref["whiles"], set_condition=ref["set_condition"])
         if tag == "schur":
             _load_state(ns, end)
             ns.solve_time_step()
@@ -2925,7 +3231,8 @@ def main():
     variants = phase_kernel_vs_plain(ns, (torch.bfloat16, torch.float64),
                                      "6")
     sharded = phase_sharded(ns, bench, card)
-    proj_tiles = ns._graphs.tiles.clone()     # phase 24's projection tiles
+    # phase 24's projection tiles, on the host until then
+    proj_tiles = ns._graphs.tiles.cpu()
     del ns
     gc.collect()
     torch.cuda.empty_cache()
@@ -3060,16 +3367,23 @@ def main():
                                        / mono["n_steps"]),
         "launches_per_step_phase22": {r["mode"]: r["givens"]
                                       for r in mono_graphs["runs"]}})
-    # the conditional nodes' kernel: launches on the same path
+    # the while nodes' predicate kernel: launches on the same path
     nd = mono_graphs["nodes"]
     kernels.append({
         "name": "set_condition", "route": "cuda", "source": COND_SOURCE,
         "replaces": COND_REPLACES, "launches": mono["set_condition"],
-        "max_abs_err": float(nd["max_abs_err"]), "ms": nd["ms"],
-        "run_node_ms": nd["run_ms"], "plain_ms": nd["plain_ms"],
-        "bound_ms": nd["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "max_abs_err": float(nd["max_abs_err"]),
+        **{k: nd[k] for k in ("ms", "plain_ms", "bound_ms", "host_read_ms",
+                              "while_iteration_ms", "plain_graph_ms",
+                              "givens_sets_condition_ms")},
+        "bound_by": "bytes", "library_ms": None,
         "launches_per_captured_step": mono["set_condition"] / mono["n_steps"],
-        "capture": {k: v for k, v in mono["capture"].items()}})
+        "launches_per_step_projection": bench["set_condition_per_step"],
+        "whiles_per_step": {"projection": bench["whiles"],
+                            "monolithic": mono["whiles"]},
+        "capture": {k: v for k, v in mono["capture"].items()},
+        "capture_projection": {k: bench[k] for k in (
+            "capture_s", "capture_peak_bytes", "reserved_growth_bytes")}})
     kernels[0]["graphs"] = {k: graphs[k] for k in ("runs", "peak_bytes",
                                                    "capture_s",
                                                    "inverse_gap")}

@@ -7,10 +7,13 @@
 // O(j) tiny launches per iteration on it, or a round trip to the host;
 // here each step is one launch that reads everything that varies from
 // device memory: j, the flag, the target and the cycle's bound j_max.  So
-// one captured graph of an FGMRES block serves every cycle of every solve
-// (the outer solve and refinement's corrections), under a conditional
-// node per iteration (models/step_graphs.py).  The cycle's triangular
-// solve stays on the host (kernels/arnoldi_lsq.py says why).
+// one captured while node serves every cycle of every solve (the outer
+// solve and refinement's corrections; models/step_graphs.py).  Given the
+// node's handle, it also sets the node's condition from the flag it
+// writes, and counts the evaluation in the node's tally, as
+// csrc/graph_cond.cu's set_condition does: FGMRES's body then needs no
+// launch of its own for its predicate.  The cycle's triangular solve
+// stays on the host (kernels/arnoldi_lsq.py says why).
 //
 // Bound: the launch, now a node inside a CUDA graph (PERF.md gives its
 // in-graph time per launch).  The algebra is serial (rotation i changes
@@ -51,7 +54,9 @@ template <> struct Rn<double> {
 // Gram-Schmidt passes' coefficients; while *active: h = h1 + h2,
 // h[j+1] = *wnorm, rotations 0..j-1, the new rotation j, g rotated,
 // H[:, j] = h, *res = |g[j+1]|, *j += 1,
-// *active = (*j < *j_max) && (*res > *target).
+// *active = (*j < *j_max) && (*res > *target); with use_handle, the
+// while node's condition set to the new flag, and tally (null, or the
+// node's three counters) advanced as set_condition advances it.
 template <typename T>
 __global__ void lsq_update_kernel(T* __restrict__ H, T* __restrict__ cs,
                                   T* __restrict__ sn, T* __restrict__ g,
@@ -62,11 +67,23 @@ __global__ void lsq_update_kernel(T* __restrict__ H, T* __restrict__ cs,
                                   T* __restrict__ res,
                                   bool* __restrict__ active,
                                   const T* __restrict__ target,
-                                  const int* __restrict__ j_max, int m) {
+                                  const int* __restrict__ j_max, int m,
+                                  cudaGraphConditionalHandle handle,
+                                  int use_handle,
+                                  long long* __restrict__ tally) {
   using R = Rn<T>;
   extern __shared__ unsigned char smem_raw[];
   T* col = reinterpret_cast<T*>(smem_raw);
-  if (!*active) return;            // the same for every thread
+  if (!*active) {                  // the same for every thread
+    if (threadIdx.x == 0) {
+      if (use_handle) cudaGraphSetConditional(handle, 0u);
+      if (tally != nullptr) {
+        tally[0] += 1;
+        tally[2] += 1;             // a body run under a down flag
+      }
+    }
+    return;
+  }
   const int j = *j_ptr;
   for (int i = threadIdx.x; i <= m; i += blockDim.x)
     col[i] = R::add(h1[i], h2[i]);
@@ -97,7 +114,13 @@ __global__ void lsq_update_kernel(T* __restrict__ H, T* __restrict__ cs,
     const T r = fabs(g[j + 1]);
     *res = r;
     *j_ptr = j + 1;
-    *active = (j + 1 < *j_max) && (r > *target);
+    const bool up = (j + 1 < *j_max) && (r > *target);
+    *active = up;
+    if (use_handle) cudaGraphSetConditional(handle, up ? 1u : 0u);
+    if (tally != nullptr) {
+      tally[0] += 1;
+      tally[1] += up ? 1 : 0;
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i <= m; i += blockDim.x) H[i * m + j] = col[i];
@@ -107,14 +130,15 @@ template <typename T>
 int update(void* H, void* cs, void* sn, void* g, const void* h1,
            const void* h2, const void* wnorm, int* j, void* res,
            bool* active, const void* target, const int* j_max, int m,
-           void* stream) {
+           void* stream, unsigned long long handle, int use_handle,
+           long long* tally) {
   const size_t smem = static_cast<size_t>(m + 1) * sizeof(T);
   lsq_update_kernel<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(H), static_cast<T*>(cs), static_cast<T*>(sn),
       static_cast<T*>(g), static_cast<const T*>(h1),
       static_cast<const T*>(h2), static_cast<const T*>(wnorm), j,
       static_cast<T*>(res), active, static_cast<const T*>(target), j_max,
-      m);
+      m, static_cast<cudaGraphConditionalHandle>(handle), use_handle, tally);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -125,17 +149,19 @@ extern "C" {
 int nst_lsq_update_f32(void* H, void* cs, void* sn, void* g, const void* h1,
                        const void* h2, const void* wnorm, int* j, void* res,
                        bool* active, const void* target, const int* j_max,
-                       int m, void* stream) {
+                       int m, void* stream, unsigned long long handle,
+                       int use_handle, long long* tally) {
   return update<float>(H, cs, sn, g, h1, h2, wnorm, j, res, active, target,
-                     j_max, m, stream);
+                       j_max, m, stream, handle, use_handle, tally);
 }
 
 int nst_lsq_update_f64(void* H, void* cs, void* sn, void* g, const void* h1,
                        const void* h2, const void* wnorm, int* j, void* res,
                        bool* active, const void* target, const int* j_max,
-                       int m, void* stream) {
+                       int m, void* stream, unsigned long long handle,
+                       int use_handle, long long* tally) {
   return update<double>(H, cs, sn, g, h1, h2, wnorm, j, res, active,
-                        target, j_max, m, stream);
+                        target, j_max, m, stream, handle, use_handle, tally);
 }
 
 }  // extern "C"

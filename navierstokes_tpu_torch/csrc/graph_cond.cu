@@ -1,33 +1,69 @@
-// CUDA graph conditional "if" nodes inside a stream capture (sm_90a).
+// CUDA graph conditional *while* nodes inside a stream capture, and the
+// loop predicate that drives them (sm_90a).
 //
-// The captured monolithic step (models/step_graphs.py) runs every FGMRES
-// iteration under an if node on the solve's flag `active`, and inside it
-// every iteration of the preconditioner's inner BiCGStab under an if node
-// on that loop's flag: JAX's `lax.while_loop` (navierstokes_tpu/solvers/
-// krylov.py:132,159,227) as a fixed unroll of guarded iterations.  The
-// torch of the card's host has no API for conditional nodes, so the port
-// adds them here, called through kernels/conditional.py:
+// The counterpart of JAX's `lax.while_loop` (navierstokes_tpu/solvers/
+// krylov.py:132,159,227,270): the captured step (models/step_graphs.py)
+// runs each Krylov loop, BiCGStab, CG and a restart cycle of FGMRES, as one
+// while node whose body is one iteration, and the preconditioner's inner
+// BiCGStab as a while node nested in FGMRES's body.  The body runs exactly
+// as many times as the loop iterates; no body is skipped and no iteration
+// runs masked.  The torch of the card's host has no API for conditional
+// nodes, so the port adds them here, called through kernels/conditional.py:
 //
-//   nst_if_begin(stream, flag, body_stream): on the graph that `stream`
-//     is capturing into, create a conditional handle, capture the kernel
-//     `set_condition` that sets it from the device flag, add an if node
-//     after it, make the node the capture's only dependency, and begin
-//     capturing `body_stream` into the node's body graph;
-//   nst_if_end(body_stream): end that body's capture;
+//   nst_while_begin(stream, flag, body_stream, tally, handle, step): on the
+//     graph that `stream` is capturing into, create a conditional handle,
+//     capture `set_condition` from the loop's flag (JAX's first test of
+//     `cond_fun`: a loop whose flag is already down runs no body), add a
+//     while node after it, make the node the capture's only dependency, and
+//     begin capturing `body_stream` into the node's body graph;
+//   nst_while_end(body_stream): end the body's capture; the body's last
+//     launch, the loop's predicate, has set the handle again;
+//   nst_set_condition_f32/_f64(stream, handle, use_handle, res, target,
+//     stag, k, maxiter, active, tally): the predicate launch itself;
 //   nst_stream_create(out): a body stream, outside torch's stream pool.
 //
-// Nested bodies work the same way: the parent stream is then the outer
-// body's stream, capturing into the outer body graph.  The one kernel,
-// set_condition, reads one byte and sets the handle; an if node whose
-// flag is down costs that kernel and the node, not its body.
+// `set_condition` is the loop's predicate, JAX's `cond_fun`: one thread
+// reads the device scalars the loop's stop rule reads, ||r|| (`res`)
+// against `target`, the breakdown flag `stag` (null for CG) and the count
+// `k` against `maxiter`, writes `active` and, inside a graph, sets the
+// node's handle from it.  With `res` null it reads `active` instead (the
+// test before the node).  FGMRES's body ends in its Givens kernel
+// (csrc/arnoldi_lsq.cu), which sets the handle itself.  Eager steps
+// launch it without a handle, so a plain step launches what its graph
+// launches.  `tally` (null, or
+// three int64 per node) counts on the device the evaluations, those that
+// let the body run, and the bodies that ran with the flag already down
+// (zero under while semantics).
+//
+// It replaces no Pallas kernel.  Its bound is one node per evaluation, not
+// bytes: it reads at most 26 bytes and writes one.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+template <typename T>
 __global__ void set_condition(cudaGraphConditionalHandle handle,
-                              const bool* __restrict__ flag) {
-  cudaGraphSetConditional(handle, *flag ? 1u : 0u);
+                              int use_handle, const T* __restrict__ res,
+                              const T* __restrict__ target,
+                              const bool* __restrict__ stag,
+                              const long long* __restrict__ k,
+                              long long maxiter, bool* __restrict__ active,
+                              long long* __restrict__ tally) {
+  const bool was = *active;
+  bool up = was;
+  if (res != nullptr) {
+    up = (*res > *target) && !(stag != nullptr && *stag) && (*k < maxiter);
+    *active = up;
+  }
+  if (use_handle) cudaGraphSetConditional(handle, up ? 1u : 0u);
+  if (tally != nullptr) {
+    tally[0] += 1;
+    tally[1] += up ? 1 : 0;
+    // a body's predicate sees the flag the body ran under: only this
+    // kernel writes a BiCGStab or CG loop's flag
+    tally[2] += (res != nullptr && !was) ? 1 : 0;
+  }
 }
 
 cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph,
@@ -46,12 +82,43 @@ cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph,
              : cudaErrorStreamCaptureInvalidated;
 }
 
+template <typename T>
+int launch(void* stream, unsigned long long handle, int use_handle,
+           const void* res, const void* target, const bool* stag,
+           const long long* k, long long maxiter, bool* active,
+           long long* tally) {
+  set_condition<T><<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<cudaGraphConditionalHandle>(handle), use_handle,
+      static_cast<const T*>(res), static_cast<const T*>(target), stag, k,
+      maxiter, active, tally);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-int nst_if_begin(void* stream, const bool* flag, void* body_stream,
-                 int* step) {
+int nst_set_condition_f32(void* stream, unsigned long long handle,
+                          int use_handle, const void* res,
+                          const void* target, const bool* stag,
+                          const long long* k, long long maxiter,
+                          bool* active, long long* tally) {
+  return launch<float>(stream, handle, use_handle, res, target, stag, k,
+                       maxiter, active, tally);
+}
+
+int nst_set_condition_f64(void* stream, unsigned long long handle,
+                          int use_handle, const void* res,
+                          const void* target, const bool* stag,
+                          const long long* k, long long maxiter,
+                          bool* active, long long* tally) {
+  return launch<double>(stream, handle, use_handle, res, target, stag, k,
+                        maxiter, active, tally);
+}
+
+int nst_while_begin(void* stream, bool* flag, void* body_stream,
+                    long long* tally, unsigned long long* handle_out,
+                    int* step) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *step = 0;                       // an error left by an earlier call
   cudaError_t e = cudaGetLastError();
@@ -66,8 +133,10 @@ int nst_if_begin(void* stream, const bool* flag, void* body_stream,
   *step = 2;
   e = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
   if (e != cudaSuccess) return e;
+  *handle_out = static_cast<unsigned long long>(handle);
   *step = 3;
-  set_condition<<<1, 1, 0, s>>>(handle, flag);
+  set_condition<float><<<1, 1, 0, s>>>(handle, 1, nullptr, nullptr, nullptr,
+                                       nullptr, 0, flag, tally);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   *step = 4;
@@ -76,7 +145,7 @@ int nst_if_begin(void* stream, const bool* flag, void* body_stream,
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
   params.conditional.handle = handle;
-  params.conditional.type = cudaGraphCondTypeIf;
+  params.conditional.type = cudaGraphCondTypeWhile;
   params.conditional.size = 1;
   cudaGraphNode_t node;
   *step = 5;
@@ -100,6 +169,11 @@ int nst_if_begin(void* stream, const bool* flag, void* body_stream,
       nullptr, nullptr, 0, cudaStreamCaptureModeRelaxed);
 }
 
+int nst_while_end(void* body_stream) {
+  cudaGraph_t body;
+  return cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream), &body);
+}
+
 // A stream of its own for capturing bodies: torch's streams come from a
 // pool of a few per device, and one of them may be the stream whose
 // capture the body belongs to.
@@ -108,11 +182,6 @@ int nst_stream_create(void** out) {
   cudaError_t e = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
   *out = s;
   return e;
-}
-
-int nst_if_end(void* body_stream) {
-  cudaGraph_t body;
-  return cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream), &body);
 }
 
 }  // extern "C"

@@ -11,8 +11,12 @@ right-hand side g (m+1,) updated, the column written to H[:, j] of
 H (m+1, m), res = |g[j+1]|, j += 1 and active = (j < j_max) and
 (res > target); j and j_max (int32), res (T), active (bool) and target
 (T) are 0-d tensors.  Nothing that varies from cycle to cycle or from
-solve to solve is a launch argument, so one captured graph of an FGMRES
-block serves every cycle (models/step_graphs.py).  The arithmetic of the
+solve to solve is a launch argument, so one captured while node of an
+FGMRES cycle serves every cycle (models/step_graphs.py).  As the last
+launch of FGMRES's body under a while node (``cond``, a
+kernels/conditional.Condition), it also sets the node's condition from
+the flag it writes and counts the evaluation in the node's tally, as the
+predicate kernel ``set_condition`` would in a launch of its own.  The arithmetic of the
 JAX package's ``rot_body`` and its rotation
 (navierstokes_tpu/solvers/krylov.py:108-126) and of the host code it
 replaces, each product, sum, quotient and square root rounded on its own:
@@ -130,12 +134,15 @@ def _entry(H):
     return lib, getattr(lib, f"nst_lsq_update_{suffix}")
 
 
-def lsq_update(H, cs, sn, g, h1, h2, wnorm, j, res, active, target, j_max):
+def lsq_update(H, cs, sn, g, h1, h2, wnorm, j, res, active, target, j_max,
+               cond=None) -> bool:
     """One Arnoldi iteration's Givens step, in place (see the module
-    docstring).  CPU tensors take ``lsq_update_plain``."""
+    docstring).  CPU tensors take ``lsq_update_plain``.  Returns whether it
+    set a while node's condition (``cond``)."""
     if H.device.type == "cpu":
-        return lsq_update_plain(H, cs, sn, g, h1, h2, wnorm, j, res, active,
-                                target, j_max)
+        lsq_update_plain(H, cs, sn, g, h1, h2, wnorm, j, res, active, target,
+                         j_max)
+        return False
     lib, fn = _entry(H)
     m, dt, dev = H.shape[1], H.dtype, H.device
     for name, t, dtype, shape in (
@@ -151,8 +158,11 @@ def lsq_update(H, cs, sn, g, h1, h2, wnorm, j, res, active, target, j_max):
         rc = fn(H.data_ptr(), cs.data_ptr(), sn.data_ptr(), g.data_ptr(),
                 h1.data_ptr(), h2.data_ptr(), wnorm.data_ptr(), j.data_ptr(),
                 res.data_ptr(), active.data_ptr(), target.data_ptr(),
-                j_max.data_ptr(), m, stream)
+                j_max.data_ptr(), m, stream,
+                0 if cond is None else cond.handle, int(cond is not None),
+                None if cond is None else cond.tally.data_ptr())
     if rc != 0:
         raise RuntimeError(f"lsq_update launch failed ({rc}): "
                            f"{lib.nst_cuda_error_string(rc).decode()}")
     count(_count)
+    return cond is not None

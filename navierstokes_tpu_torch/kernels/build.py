@@ -80,16 +80,21 @@ def build_info() -> dict:
         fn = getattr(lib, f"nst_bj_apply_{suffix}")
         fn.argtypes = [p, p, p, i, i, i, i, p]
         fn.restype = i
+    u64, i64 = ctypes.c_ulonglong, ctypes.c_longlong
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"nst_lsq_update_{suffix}")
-        fn.argtypes = [p] * 12 + [i, p]
+        fn.argtypes = [p] * 12 + [i, p, u64, i, p]
         fn.restype = i
-    lib.nst_if_begin.argtypes = [p, p, p, ctypes.POINTER(i)]
-    lib.nst_if_begin.restype = i
+        fn = getattr(lib, f"nst_set_condition_{suffix}")
+        fn.argtypes = [p, u64, i, p, p, p, p, i64, p, p]
+        fn.restype = i
+    lib.nst_while_begin.argtypes = [p, p, p, p, ctypes.POINTER(u64),
+                                    ctypes.POINTER(i)]
+    lib.nst_while_begin.restype = i
+    lib.nst_while_end.argtypes = [p]
+    lib.nst_while_end.restype = i
     lib.nst_stream_create.argtypes = [ctypes.POINTER(p)]
     lib.nst_stream_create.restype = i
-    lib.nst_if_end.argtypes = [p]
-    lib.nst_if_end.restype = i
     lib.nst_cuda_error_string.argtypes = [i]
     lib.nst_cuda_error_string.restype = ctypes.c_char_p
     return {"lib": lib, "path": str(lib_path), "seconds": seconds,

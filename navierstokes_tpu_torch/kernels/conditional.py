@@ -1,31 +1,46 @@
-"""CUDA graph conditional *if* nodes during a torch stream capture.
+"""CUDA graph conditional *while* nodes during a torch stream capture, and
+the loop predicate that drives them.
 
-The captured monolithic step puts each FGMRES iteration, and inside it
-each inner BiCGStab iteration, under an if node on its loop's device flag
-(solvers/krylov.py ``GRAPH``, models/step_graphs.py).  torch on the card's
-host (2.11) has no API for conditional nodes, so they come from the port's
-CUDA library (csrc/graph_cond.cu): ``nst_if_begin`` adds the node to the
-graph the current stream is capturing, after a one-thread kernel that sets
-the node's condition from the flag, and begins capturing a body stream
-into the node's body graph; ``nst_if_end`` ends it.
+The counterpart of JAX's ``lax.while_loop``: the captured step puts each
+Krylov loop under one while node whose body is one iteration
+(solvers/krylov.py ``GRAPH``, models/step_graphs.py), the inner BiCGStab
+of the preconditioner nested in FGMRES's body.  torch on the card's host
+(2.11) has no API for conditional nodes, so they come from the port's
+CUDA library (csrc/graph_cond.cu): ``nst_while_begin`` adds the node to
+the graph the current stream is capturing, after the predicate kernel
+``set_condition`` has set the node's condition from the loop's flag (a
+loop whose flag is down runs no body), and begins capturing a body
+stream into the node's body graph; ``nst_while_end`` ends it.  A body
+ends in the loop's predicate, which sets the node's condition again.
 
-``IfNodes`` captures on one body stream per nesting depth, created apart
-from torch's stream pool (a pooled stream may be the capturing one) and
-shared by every instance on a device (so that cuBLAS keeps one workspace
-per stream), and keeps a private memory pool of its own for the tensors
-allocated inside bodies: torch routes the capturing stream's allocations
-to the graph's pool and allows one route per pool, so while ``routed()``
-is open every other stream's allocations (the bodies') go to ``pool``.
-A body's blocks are reused by the next body on the same stream, which
-runs after it in the graph.  The pool lives as long as the object;
-``close`` releases it after the graphs that use it are gone.
-A body's tensors are read only inside it: a tensor a skipped body would
-have written holds stale values, so state crosses bodies only through
-buffers allocated outside them.
+``set_condition`` is the loop's predicate, JAX's ``cond_fun``: one launch
+reads ||r|| against the target, the breakdown flag and the count against
+the budget, writes the loop's flag ``active`` and, as a body's last
+launch, sets the node's condition (``Condition``), so the body runs again
+exactly while the loop iterates.  Its plain version (``set_condition_plain``,
+CPU tensors) is the same predicate in torch operations; the plain loop
+reads the flag on the host before each iteration (krylov ``HOST``).
+
+``WhileNodes`` captures on one body stream per nesting depth, created
+apart from torch's stream pool (a pooled stream may be the capturing one)
+and shared by every instance on a device (so that cuBLAS keeps one
+workspace per stream), and keeps a private memory pool of its own: while
+``routed()`` is open, every allocation on the device goes to ``pool``,
+the bodies' and the capturing stream's alike (torch takes the newest
+route, so the pool of ``torch.cuda.graph`` stays empty; measured with
+tools/torch_step_profile.py).  The allocator reuses a freed block only
+on the stream that freed it: a body's blocks are reused by the next run
+of the body and by later bodies on the same stream, which run after it
+in the graph, and the capturing stream's as in torch's own graph pool.
+So a body's tensors are read only inside one run of it, and state
+crosses iterations only through buffers allocated outside the node.
+The pool lives as long as the object; ``close`` releases it after the
+graphs that use it are gone.
 
 ``COUNTS.set_condition`` counts the launches of csrc/graph_cond.cu's
-kernel, one per node each time the graph reaches it (through the record
-of the graph or body that holds the node, kernels/launches.py).
+kernel: the predicate of every loop iteration, eager or captured, and the
+test before each while node each time the graph reaches it (through the
+record of the graph or body that holds the launch, kernels/launches.py).
 """
 
 from __future__ import annotations
@@ -36,12 +51,12 @@ import dataclasses
 
 import torch
 
-from navierstokes_tpu_torch.kernels.launches import count
+from navierstokes_tpu_torch.kernels.launches import count, record_launches
 
 
 @dataclasses.dataclass
 class Counts:
-    set_condition: int = 0   # set_condition launches (one per node reached)
+    set_condition: int = 0   # set_condition launches
 
     def reset(self):
         self.set_condition = 0
@@ -54,16 +69,77 @@ def _count():
     COUNTS.set_condition += 1
 
 
+@dataclasses.dataclass(frozen=True)
+class Condition:
+    """The while node a body is being captured into: its conditional
+    handle and its ``tally`` (3 int64 on the device: evaluations, those
+    that let the body run, bodies run under a down flag)."""
+    handle: int
+    tally: torch.Tensor
+
+
+def set_condition_plain(active, res, target, k, maxiter, stag=None):
+    """The plain version of ``set_condition``: active <- (res > target)
+    & ~stag & (k < maxiter) in torch operations."""
+    up = (res > target) & (k < maxiter)
+    if stag is not None:
+        up = ~stag & up
+    active.copy_(up)
+
+
+def _check_scalar(name, t, dtypes, dev):
+    if t.dtype not in dtypes or t.dim() != 0:
+        raise ValueError(f"set_condition: {name} must be a 0-d "
+                         f"{' or '.join(map(str, dtypes))} tensor (got "
+                         f"{t.dtype} {tuple(t.shape)})")
+    if t.device != dev:
+        raise ValueError(f"set_condition: {name} on {t.device}, active on "
+                         f"{dev}")
+
+
+def set_condition(active, res, target, k, maxiter: int, stag=None,
+                  cond: Condition | None = None) -> bool:
+    """The loop predicate in one launch (see the module docstring):
+    ``active`` <- (res > target) & ~stag & (k < maxiter) and, under a
+    while node's body, ``cond``'s condition set from it.  CPU tensors take
+    ``set_condition_plain``; CUDA tensors launch the kernel or raise.
+    Returns whether it set a node's condition."""
+    dev = active.device
+    if dev.type == "cpu":
+        set_condition_plain(active, res, target, k, maxiter, stag)
+        return False
+    _check_scalar("active", active, (torch.bool,), dev)
+    _check_scalar("res", res, (torch.float32, torch.float64), dev)
+    _check_scalar("target", target, (res.dtype,), dev)
+    _check_scalar("k", k, (torch.int64,), dev)
+    if stag is not None:
+        _check_scalar("stag", stag, (torch.bool,), dev)
+    from navierstokes_tpu_torch.kernels.build import library
+    lib = library()
+    suffix = "f64" if res.dtype == torch.float64 else "f32"
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = getattr(lib, f"nst_set_condition_{suffix}")(
+            stream, 0 if cond is None else cond.handle, int(cond is not None),
+            res.data_ptr(), target.data_ptr(),
+            None if stag is None else stag.data_ptr(), k.data_ptr(),
+            int(maxiter), active.data_ptr(),
+            None if cond is None else cond.tally.data_ptr())
+    _check(lib, "set_condition launch", rc)
+    count(_count)
+    return cond is not None
+
+
 _STREAMS = {}          # device -> body streams, one per nesting depth
-# nst_if_begin's steps, for the error of a failed one
+# nst_while_begin's steps, for the error of a failed one
 _BEGIN_STEPS = ("an error left by an earlier call", "the capture's state",
                 "the conditional handle", "set_condition's launch",
-                "the capture's state", "the if node",
+                "the capture's state", "the while node",
                 "the capture's dependencies", "the body's capture")
 
 
-class IfNodes:
-    """If nodes in the captures of one model's graphs on ``device``."""
+class WhileNodes:
+    """While nodes in the captures of one model's graphs on ``device``."""
 
     def __init__(self, device, depth: int = 4):
         self.device = torch.device(device)
@@ -79,9 +155,9 @@ class IfNodes:
 
     @contextlib.contextmanager
     def routed(self):
-        """Allocations of every stream but the capturing one go to
-        ``pool`` (open inside ``torch.cuda.graph``, after its own
-        route)."""
+        """Every allocation on the device goes to ``pool``, the
+        capturing stream's too (open inside ``torch.cuda.graph``, after
+        its own route, which the newer one overrides)."""
         index = self.device.index
         torch._C._cuda_beginAllocateToPool(index, self.pool)
         self._routes += 1
@@ -90,34 +166,44 @@ class IfNodes:
         finally:
             torch._C._cuda_endAllocateToPool(index, self.pool)
 
-    def body(self, flag, fn):
-        """Capture ``fn`` under an if node on the 0-d bool CUDA tensor
-        ``flag`` (read when the graph reaches the node)."""
+    def loop(self, flag, body, tally):
+        """Capture a while node on the 0-d bool CUDA tensor ``flag``:
+        ``body(cond)`` is captured as the node's body graph; its last
+        launch, the loop's predicate, sets the node's condition (``cond``)
+        and it returns True, else the capture raises.  ``tally`` (3 int64
+        on the device) counts the node's evaluations.  Returns the body's
+        launch record (kernels/launches.py)."""
         from navierstokes_tpu_torch.kernels.build import library
         if (flag.dtype != torch.bool or flag.numel() != 1
                 or flag.device != self.device):
-            raise ValueError(f"an if node's flag must be one bool on "
+            raise ValueError(f"a while node's flag must be one bool on "
                              f"{self.device} (got {flag.dtype} "
                              f"{tuple(flag.shape)} on {flag.device})")
         if self.depth == len(self.streams):
-            raise RuntimeError(f"if nodes nested deeper than {self.depth}")
+            raise RuntimeError(f"while nodes nested deeper than {self.depth}")
         lib = library()
-        count(_count)               # in the record of the node's parent
+        count(_count)               # the first test, in the parent's record
         parent = torch.cuda.current_stream(self.device)
         stream = self.streams[self.depth]
-        step = ctypes.c_int(0)
-        rc = lib.nst_if_begin(parent.cuda_stream, flag.data_ptr(),
-                              stream.cuda_stream, ctypes.byref(step))
-        _check(lib, f"nst_if_begin (step {step.value}, "
+        step, handle = ctypes.c_int(0), ctypes.c_ulonglong(0)
+        rc = lib.nst_while_begin(parent.cuda_stream, flag.data_ptr(),
+                                 stream.cuda_stream, tally.data_ptr(),
+                                 ctypes.byref(handle), ctypes.byref(step))
+        _check(lib, f"nst_while_begin (step {step.value}, "
                f"{_BEGIN_STEPS[step.value]})", rc)
         self.depth += 1
         try:
-            with torch.cuda.stream(stream):
-                fn()
+            with torch.cuda.stream(stream), record_launches() as rec:
+                closed = body(Condition(handle.value, tally))
         finally:
             self.depth -= 1
-            rc = lib.nst_if_end(stream.cuda_stream)
-        _check(lib, "nst_if_end", rc)
+            rc = lib.nst_while_end(stream.cuda_stream)
+        _check(lib, "nst_while_end", rc)
+        if not closed:
+            raise RuntimeError("a while body's last launch must set its "
+                               "node's condition (the loop's predicate "
+                               "given the body's cond)")
+        return rec
 
     def close(self):
         """Release the body pool (its blocks are freed once no graph holds

@@ -137,8 +137,9 @@ from navierstokes_tpu_torch.ops.p1ell import (BJ_INVERSIONS, assemble_ap,
                                               block_jacobi_invert,
                                               build_block_jacobi_plan,
                                               coarse_from_ell, ell_matvec)
-from navierstokes_tpu_torch.solvers.krylov import (HOST, BicgstabLoop,
-                                                   CgLoop, GmresLoop, Mode,
+from navierstokes_tpu_torch.solvers.krylov import (HOST, MASKED,
+                                                   BicgstabLoop, CgLoop,
+                                                   GmresLoop, Mode,
                                                    iteration_mode)
 from navierstokes_tpu_torch.solvers.preconditioners import (
     InnerSolve, make_asimple, make_ayosida, make_cahouet_chabard,
@@ -186,14 +187,20 @@ class StepMetrics:
     f_iterations: int = 0    # projection: BiCGStab iterations of u*
     p_iterations: int = 0    # projection: CG iterations of the Poisson
     flag_reads: int = 0      # host reads of the step: the tile guard, the
-    #                          loops' flags (projection: one per Krylov
-    #                          block; monolithic: one per iteration eager,
-    #                          one per FGMRES block captured) and the ends
+    #                          loops' flags (eager: one per Krylov block
+    #                          of a row-sharded projection step, else one
+    #                          per iteration; captured: none) and the ends
     #                          of FGMRES's cycles
     masked_iterations: int = 0   # iterations run masked after a solve
-    #                              stopped, inside its last block
-    #                              (projection), or conditional bodies
-    #                              skipped (the captured monolithic step)
+    #                              stopped, inside its last block (a
+    #                              row-sharded projection step), or bodies
+    #                              a while node ran under a down flag
+    #                              (captured, counted on the device)
+    skipped_bodies: int = 0  # captured: evaluations of the while nodes'
+    #                          conditions that neither ran a body nor
+    #                          ended a loop (0 under while semantics)
+    loops_entered: int = 0   # captured: while loops entered
+    bodies_run: int = 0      # captured: while bodies run (iterations)
     exact_inverse: bool = False  # the tile rebuild took the exact inverse
 
 
@@ -206,13 +213,20 @@ _ROW = ("time", "iterations", "residual", "converged", "drag", "lift", "cd",
 class _StepInfo:
     """What the host knows of a step without reading its row: the span of
     its tile rebuild, whether that took the exact inverse, the flags it
-    read, the iteration slots of its blocks (BiCGStab + CG) and the
-    conditional bodies it skipped."""
+    read, the iteration slots of its blocks (BiCGStab + CG, masked
+    blocks) and, captured, its while loops: the loops entered, the bodies
+    run, the bodies run under a down flag and the skipped evaluations.
+    ``settle``, when set, takes the values the step appended to its row
+    and fills those (``_read_rows``)."""
     span: object = None
     exact_inverse: bool = False
     flag_reads: int = 0
     slots: int = 0
+    loops: int = 0
+    bodies: int = 0
+    masked: int = 0
     skipped: int = 0
+    settle: object = None
 
 
 class _Workspace:
@@ -779,17 +793,21 @@ class NavierStokes:
 
         The plain (eager) version of the captured step
         (models/step_graphs.py): the same segments in the same order, with
-        the tile guard and the loops' flags read as they come.  Returns
+        the tile guard read as it comes and each Krylov iteration run after
+        a host read of its flag (krylov ``HOST``), where the graphs put the
+        loop under a while node; row shards, which step eagerly by rule,
+        run masked blocks (krylov ``MASKED``: the same bits).  Returns
         (u_new, p_new, t_new, phi, metrics row, _StepInfo)."""
         ws = _Workspace()
-        self._proj_rebuild(ws, u, u_prev, t_prev)
-        pre_f, span, exact = self._f_precond(ws.f_cell, ws.mflat, ws.sigma,
-                                             ws.dinv)
-        floop = self._proj_momentum(ws, u, p, u_prev, phi_prev, pre_f)
-        floop.run()
-        ploop = self._proj_poisson(ws, phi_prev)
-        ploop.run()
-        u_new, p_new, phi, row = self._proj_finish(ws, p)
+        with iteration_mode(Mode(MASKED if self._sharded else HOST)):
+            self._proj_rebuild(ws, u, u_prev, t_prev)
+            pre_f, span, exact = self._f_precond(ws.f_cell, ws.mflat,
+                                                 ws.sigma, ws.dinv)
+            floop = self._proj_momentum(ws, u, p, u_prev, phi_prev, pre_f)
+            floop.run()
+            ploop = self._proj_poisson(ws, phi_prev)
+            ploop.run()
+            u_new, p_new, phi, row = self._proj_finish(ws, p)
         info = _StepInfo(span=span, exact_inverse=exact,
                          flag_reads=floop.reads + ploop.reads
                          + (self._bj_plan is not None
@@ -958,7 +976,7 @@ class NavierStokes:
         The plain (eager) version of the captured step
         (models/step_graphs.py): the same segments in the same order, each
         Krylov iteration run after a host read of its flag (krylov
-        ``HOST``), where the graphs put it under a conditional node.
+        ``HOST``), where the graphs put each loop under a while node.
         Returns (u_new, p_new, t_new, phi_prev, metrics row, _StepInfo)."""
         cfg = self.config
         ws = _Workspace()
@@ -1263,10 +1281,13 @@ class NavierStokes:
 
     def _read_rows(self, rows, infos) -> list:
         """The StepMetrics of a run of steps: its rows in one transfer,
-        the rebuild spans (read after it), and the model's time and
-        forces set from the last step."""
+        the rebuild spans (read after it), the captured steps' while-loop
+        counts (appended to their rows, ``_StepInfo.settle``), and the
+        model's time and forces set from the last step."""
         out = []
         for v, info in zip(rows.cpu().tolist(), infos):
+            if info.settle is not None:
+                info.settle(info, v[len(_ROW):])
             m = dict(zip(_ROW, v))
             f_its, p_its = int(m["f_iterations"]), int(m["p_iterations"])
             out.append(StepMetrics(
@@ -1278,8 +1299,9 @@ class NavierStokes:
                 f_iterations=f_its, p_iterations=p_its,
                 flag_reads=info.flag_reads,
                 masked_iterations=(info.slots - f_its - p_its
-                                   if info.slots else info.skipped),
-                exact_inverse=info.exact_inverse))
+                                   if info.slots else info.masked),
+                skipped_bodies=info.skipped, loops_entered=info.loops,
+                bodies_run=info.bodies, exact_inverse=info.exact_inverse))
         last = out[-1]
         self.time = last.time
         self.drag, self.lift, self.cd, self.cl = (last.drag, last.lift,

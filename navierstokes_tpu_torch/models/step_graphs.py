@@ -3,9 +3,13 @@
 The counterpart of the JAX model's compiled step (``_chunk_fn``: the step
 under ``lax.scan``, its Krylov loops under ``lax.while_loop`` and the
 tile guard under ``lax.cond``).  The step of ``NavierStokes`` on the bsr
-operator, one device, is cut into the segments of its plain version, each
-captured once per model and replayed every step.  Both schemes share
-segments (a) and (b):
+operator, one device, is cut into segments where the host must read,
+each captured once per model and replayed every step.  Each Krylov loop
+is one CUDA graph conditional *while* node inside its segment, whose body
+is one iteration ending in the loop's predicate (solvers/krylov.py
+``GRAPH``, kernels/conditional.py): the body runs exactly as often as the
+plain step iterates, and no body is skipped or masked.  Both schemes
+share segments (a) and (b):
 
     (a)  t_new, the F rebuild A0 + C(u_adv), sigma and the diagonal
          scaling, and under ``f_precond="bj"`` the tiles, A X0 and the
@@ -16,64 +20,69 @@ segments (a) and (b):
 ``ProjectionGraphs`` (``scheme="projection"``, plain version
 ``NavierStokes._step_projection``):
 
-    (c)  the u* right-hand side and the BiCGStab set-up;
-    (d)  one block of BICGSTAB_CHECK_EVERY masked BiCGStab iterations,
-         replayed until the flag read after it is down;
-    (e)  u*, its divergence and the CG set-up;
-    (f)  one block of CG_CHECK_EVERY masked CG iterations (V-cycle
-         inside), replayed like (d);
-    (g)  the correction, the rotational update, the forces and the
-         metrics row.
+    (s)  the u* right-hand side, BiCGStab under a while node, u*, its
+         divergence, CG (V-cycle inside) under a while node, the
+         correction, the rotational update, the forces and the metrics
+         row: no host read, so one graph.
 
 ``MonolithicGraphs`` (``scheme="monolithic"``, plain version
 ``NavierStokes._step_monolithic``):
 
     (c)  the RHS and the lift, the block preconditioner's per-step set-up
          (the Schur V-cycle's coarse inverse and lambda_max, the PCD
-         convection), x0 and FGMRES's set-up with its first cycle;
-    (d)  one block of GMRES_GRAPH_CHECK_EVERY FGMRES iterations, each
-         under a conditional if node on the FGMRES flag, and inside each
-         the preconditioner, whose inner BiCGStab runs inner_maxiter_f
-         iterations each under an if node on its own flag: no host read
-         inside; the host reads the FGMRES flag after each replay;
-    (e)  after the host's cycle end (H, g, j, the flag and the bodies'
-         run counts in one transfer, the triangular solve by LAPACK, y
-         written to its device buffer): x += y Z;
-    (cycle) the set-up of a restart cycle, when another follows;
-    (r0, r, r_add) refinement: its float64 start, each pass's residual
-         and correction set-up on FGMRES's buffers (the correction
-         replays (d), (e) and (cycle) with its own target and budget
+         convection), x0, FGMRES's set-up and its first cycle: one while
+         node on the FGMRES flag whose body is one Arnoldi iteration, the
+         preconditioner's inner BiCGStab a while node nested in it;
+    (e)  after the host's cycle end (H, g, j and the flag in one
+         transfer, the triangular solve by LAPACK, y written to its device
+         buffer): x += y Z;
+    (next) (e), then the set-up of the next restart cycle and its
+         iterations under the while node, when another cycle follows;
+    (r0, r, r_add) refinement: its float64 start, each pass's residual,
+         correction set-up and first cycle under the while node (the
+         correction replays (next) and (e) with its own target and budget
          in device scalars), and the correction added;
-    (g)  the exact boundary values, the forces and the metrics row.
+    (g)  the exact boundary values, the forces and the metrics row;
+    (eg) (e) then (g): the end of a step without refinement.
 
-Each ends with u_prev <- u, u <- u_new, p (and phi) and t updated in
+A step without refinement whose FGMRES converges in one cycle replays
+(a), (b), (c) and (eg), and reads the host twice.
+
+Each step ends with u_prev <- u, u <- u_new, p (and phi) and t updated in
 their static buffers.  The state (u, p, u_prev, phi, t), the tile
 inverses and the metrics row live in static buffers allocated outside
 the graphs; the model's ``_u`` and the others point at them after a run
 (``run`` copies a state set from elsewhere in first).  The graphs share
-one memory pool, where a capture may take the blocks of an earlier
-capture's temporaries, never of its live outputs; so a graph that
-replays out of capture order must not clobber a later graph's outputs
-while they are still read.  Each graph rewrites its live outputs at every
-replay before they are read, and the monolithic graphs that replay inside
-refinement's corrections, (d), (e) and (cycle), are captured after (r0),
-whose outputs the corrections read, and have no live outputs of their
-own.  Tensors allocated inside conditional bodies go to a pool of their
-own (kernels/conditional.py).  Every result equals the plain step's bit for
-bit: the same functions run, on the same inputs, in the same order.
+one memory pool (the while nodes' pool, kernels/conditional.py, which
+takes every allocation of a capture), where a capture may take the
+blocks of an earlier capture's temporaries, never of its live outputs;
+so a graph that replays out of capture order must not clobber a later
+graph's outputs while they are still read.  Each graph rewrites its live
+outputs at every replay before they are read, and the monolithic graphs
+that replay inside refinement's corrections, (r), (e) and (next), are
+captured after (r0), whose outputs the corrections read, and have no
+live outputs of their own.  Tensors allocated inside while bodies live
+on the body streams, whose freed blocks only later bodies on the same
+stream take.  Every result equals the plain step's bit for bit: the same
+functions run, on the same inputs, in the same order.
 ``set_sync_debug_mode("error")`` around each replay (``sync_check``)
-shows that no replay synchronises; the host waits only at its reads.
+shows that no replay synchronises; the host waits only at its reads: the
+guard, and the ends of FGMRES's cycles.
 
 A capture that fails raises, naming the segment; the model never falls
-back to eager stepping behind the caller's back.  A forcing callable
-must be pure torch to be captured.  Kernel launches are recorded per
-graph at capture and added to the kernels' counts at each replay; a
-conditional body's launches are added once per run of the body, counted
-on the device (kernels/launches.py).
+back to eager stepping, masked blocks or unrolled nodes behind the
+caller's back.  A forcing callable must be pure torch to be captured.
+Kernel launches are recorded per graph at capture and added to the
+kernels' counts at each replay.  A while body's launches are added once
+per run of the body: each node's condition kernels count its evaluations
+on the device (``Mode.tally``), (a) zeroes the counts and (g) appends
+them to the step's metrics row, which the host reads with the row
+(``_StepInfo.settle``, kernels/launches.py).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import time
@@ -105,14 +114,17 @@ class _StepGraphs:
     """The captured step of one model (see the module docstring): the
     static state, capture, replay and the shared segments (a) and (b).
     ``capture_seconds``: the warm-up step and the captures;
-    ``sync_check``: replay under ``set_sync_debug_mode("error")``.
-    ``_dry`` calls the segment functions where the graphs would replay,
-    on any device, with the same static buffers and order: the CPU
-    tests' rehearsal of the replay."""
+    ``sync_check``: replay under ``set_sync_debug_mode("error")``;
+    ``mode``: the loops' krylov ``Mode`` (GRAPH, its while nodes and their
+    device counts).  ``_dry`` calls the segment functions where the graphs
+    would replay, on any device, with the same static buffers and order,
+    the loops under krylov ``DRY``: the CPU tests' rehearsal of the
+    replay."""
 
     SEGMENTS = SEGMENTS
 
     def __init__(self, ns, *, _dry: bool = False):
+        from navierstokes_tpu_torch.kernels.conditional import WhileNodes
         self.ns = ns
         cfg = ns.config
         self.device = ns.device
@@ -122,10 +134,20 @@ class _StepGraphs:
         self.guarded = self.bj and cfg.bj_newton > 0
         for name, attr in _STATE:
             setattr(self, name, getattr(ns, attr).clone())
-        self.row = torch.zeros(len(_ROW), dtype=torch.float64,
-                               device=self.device)
+        self.whiles = None
+        if _dry:
+            self.mode = krylov.Mode(krylov.DRY)
+        else:
+            self.whiles = WhileNodes(self.device)
+            self.mode = krylov.Mode(krylov.GRAPH, self.whiles)
+        tally = self.mode.tally
+        # the metrics row, and (captured) the while nodes' counts after it
+        self.row = torch.zeros(len(_ROW) + (0 if tally is None
+                                            else tally.numel()),
+                               dtype=torch.float64, device=self.device)
         self.tiles = None
         self.graphs = {}
+        self.replays = collections.Counter()
         self.ws = _Workspace()
         self._setup()
         if _dry:
@@ -163,6 +185,11 @@ class _StepGraphs:
     def _setup(self):
         """The scheme's own state, before the segments exist."""
 
+    @property
+    def nodes(self) -> int:
+        """The while nodes captured (every loop site of every segment)."""
+        return len(self.mode.records)
+
     # ---- segments -----------------------------------------------------
 
     def _segments(self, ws) -> dict:
@@ -176,6 +203,8 @@ class _StepGraphs:
         iters = ns.config.bj_newton
 
         def a():
+            if self.mode.tally is not None:
+                self.mode.tally.zero_()     # the step's while-node counts
             rebuild(ws)
             if self.bj:
                 ws.guard = block_jacobi_guard(
@@ -212,10 +241,16 @@ class _StepGraphs:
         for (name, _), v in zip(_STATE, saved):
             getattr(self, name).copy_(v)
 
+    @contextlib.contextmanager
     def _context(self, name):
         """The context a segment runs in when it is captured or rehearsed
-        (not in the warm-up)."""
-        return contextlib.nullcontext()
+        (not in the warm-up): its loops under the mode (while nodes, or
+        their rehearsal), the bodies' allocations routed to their pool."""
+        self.mode.segment = name
+        with krylov.iteration_mode(self.mode), (
+                self.whiles.routed() if self.whiles is not None
+                else contextlib.nullcontext()):
+            yield
 
     def _in_context(self, name, fn):
         def run():
@@ -233,8 +268,8 @@ class _StepGraphs:
         except Exception as e:
             hint = (" (a forcing callable must be pure torch on the "
                     "model's device to be captured)"
-                    if self.ns.forcing is not None and name in ("c", "g")
-                    else "")
+                    if self.ns.forcing is not None
+                    and name in ("s", "c", "g") else "")
             raise RuntimeError(
                 f"CUDA graph capture of the {self.ns.config.scheme} step "
                 f"failed in segment ({name}), {self.SEGMENTS[name]}: "
@@ -245,6 +280,7 @@ class _StepGraphs:
 
     def _replay(self, name):
         graph, rec = self.graphs[name]
+        self.replays[name] += 1
         if rec is None:                 # _dry
             graph()
             return
@@ -256,16 +292,6 @@ class _StepGraphs:
             if self.sync_check:
                 torch.cuda.set_sync_debug_mode(0)
         rec.replay()
-
-    def _blocks(self, name, loop) -> int:
-        """Replay a loop's block until the flag read after it is down;
-        returns the blocks replayed."""
-        n = 0
-        while True:
-            self._replay(name)
-            n += 1
-            if not krylov._host(loop.active):
-                return n
 
     def _tiles_step(self):
         """Segments (a) and (b): (host reads, exact inverse, span)."""
@@ -282,6 +308,48 @@ class _StepGraphs:
                 BJ_INVERSIONS["exact"] += 1
         return reads, exact, span
 
+    def _info(self, span, exact, reads) -> _StepInfo:
+        """The step's _StepInfo: rehearsed, the DRY mode's counts since
+        the step began; captured, a ``settle`` of the counts the step
+        appends to its row."""
+        info = _StepInfo(span=span, exact_inverse=self.bj and exact,
+                         flag_reads=reads)
+        mode = self.mode
+        if self.dry:
+            entered, runs, tests = self._dry0
+            info.loops = mode.entered - entered
+            info.bodies = mode.runs - runs
+            info.skipped = mode.tests - tests - info.bodies - info.loops
+        else:
+            replays = dict(self.replays)
+            info.settle = lambda info, tail: self._settle(replays, info,
+                                                          tail)
+        return info
+
+    def _settle(self, replays, info, tail):
+        """The while nodes' counts of a step (``tail``: 3 per node, from
+        its row) into ``info``, and each body's launches added once per
+        run of the body.  A node at the top of a segment is entered once
+        per replay of the segment, a nested one once per run of its
+        parent's body."""
+        mode = self.mode
+        t = [[int(x) for x in tail[3 * i:3 * i + 3]]
+             for i in range(len(mode.records))]
+        for (_, runs, _), rec in zip(t, mode.records):
+            rec.replay(runs)
+        entered = [replays.get(seg, 0) if parent < 0 else t[parent][1]
+                   for parent, seg in zip(mode.parents, mode.segments)]
+        info.loops = sum(entered)
+        info.bodies = sum(x[1] for x in t)
+        info.masked = sum(x[2] for x in t)
+        info.skipped = sum(x[0] for x in t) - info.bodies - info.loops
+        info.settle = None
+
+    def _begin_step(self):
+        self.replays.clear()
+        mode = self.mode
+        self._dry0 = (mode.entered, mode.runs, mode.tests)
+
     def _adopt(self):
         """Copy a state set from elsewhere (an eager step, a restart) into
         the static buffers."""
@@ -296,28 +364,38 @@ class _StepGraphs:
             setattr(ns, attr, getattr(self, name))
 
     def _advance(self, ws, u_new, p_new, row, phi=None):
-        """u_prev <- u, u <- u_new, p, phi, t and the row, in place."""
+        """u_prev <- u, u <- u_new, p, phi, t and the row (and, captured,
+        the while nodes' counts after it), in place."""
         self.u_prev.copy_(self.u)
         self.u.copy_(u_new)
         self.p.copy_(p_new)
         if phi is not None:
             self.phi.copy_(phi)
         self.t.copy_(ws.t_new)
-        self.row.copy_(row)
+        self.row[:len(_ROW)].copy_(row)
+        if self.mode.tally is not None:
+            self.row[len(_ROW):].copy_(self.mode.tally.view(-1))
 
     def run(self, n: int):
-        """``n`` steps from the graphs.  Returns (rows (n, len(_ROW))
-        float64 on the device, [_StepInfo]) as ``NavierStokes._run_steps``;
-        reads only the guard, the loops' flags and (monolithic) the ends
-        of FGMRES's cycles."""
+        """``n`` steps from the graphs.  Returns (rows (n, len(_ROW) + the
+        while nodes' counts) float64 on the device, [_StepInfo]) as
+        ``NavierStokes._run_steps``; reads only the guard and
+        (monolithic) the ends of FGMRES's cycles."""
         self._adopt()
-        rows = torch.empty((n, len(_ROW)), dtype=torch.float64,
+        rows = torch.empty((n, self.row.numel()), dtype=torch.float64,
                            device=self.device)
         infos = []
         for i in range(n):
+            self._begin_step()
             infos.append(self._step())
             rows[i].copy_(self.row)
         return rows, infos
+
+    def __del__(self):
+        whiles = getattr(self, "whiles", None)
+        if whiles is not None:
+            self.graphs.clear()
+            whiles.close()
 
 
 class ProjectionGraphs(_StepGraphs):
@@ -325,97 +403,67 @@ class ProjectionGraphs(_StepGraphs):
 
     SEGMENTS = dict(
         SEGMENTS,
-        c="the u* right-hand side and the BiCGStab set-up",
-        d="a block of BiCGStab iterations",
-        e="the CG set-up of the pressure Poisson",
-        f="a block of CG iterations",
-        g="the correction, the pressure update, the forces and the metrics")
-
-    def _setup(self):
-        self.ce_f = krylov.BicgstabLoop.check_every
-        self.ce_p = krylov.CgLoop.check_every
+        s="the u* solve and the pressure Poisson, each under a while node, "
+          "the correction, the pressure update, the forces and the metrics")
 
     def _segments(self, ws) -> dict:
         ns = self.ns
 
-        def g():
+        def s():
+            ns._proj_momentum(ws, self.u, self.p, self.u_prev, self.phi,
+                              self._pre_f(ws)).run()
+            ns._proj_poisson(ws, self.phi).run()
             u_new, p_new, phi, row = ns._proj_finish(ws, self.p)
             self._advance(ws, u_new, p_new, row, phi)
 
         seg = self._tile_segments(
             ws, lambda ws: ns._proj_rebuild(ws, self.u, self.u_prev, self.t))
-        seg.update(
-            c=lambda: ns._proj_momentum(ws, self.u, self.p, self.u_prev,
-                                        self.phi, self._pre_f(ws)),
-            d=lambda: ws.floop.block(),
-            e=lambda: ns._proj_poisson(ws, self.phi),
-            f=lambda: ws.ploop.block(),
-            g=g)
+        seg["s"] = s
         return seg
 
     def _step(self) -> _StepInfo:
-        ws = self.ws
         reads, exact, span = self._tiles_step()
-        self._replay("c")
-        fb = self._blocks("d", ws.floop)
-        self._replay("e")
-        pb = self._blocks("f", ws.ploop)
-        self._replay("g")
-        return _StepInfo(span=span, exact_inverse=self.bj and exact,
-                         flag_reads=reads + fb + pb,
-                         slots=fb * self.ce_f + pb * self.ce_p)
+        self._replay("s")
+        return self._info(span, exact, reads)
 
 
 class MonolithicGraphs(_StepGraphs):
-    """The captured monolithic step (see the module docstring).
-    ``nodes_per_block``: the conditional bodies of segment (d)."""
+    """The captured monolithic step (see the module docstring)."""
 
     SEGMENTS = dict(
         SEGMENTS,
-        c="the RHS, the preconditioner's set-up and FGMRES's set-up",
-        d="a block of FGMRES iterations under conditional nodes",
+        c="the RHS, the preconditioner's set-up, FGMRES's set-up and its "
+          "first cycle under a while node",
         e="the cycle's update x += y Z",
-        cycle="the set-up of a restart cycle",
+        next="the cycle's update, the next restart cycle's set-up and its "
+             "iterations under a while node",
         r0="refinement's float64 start",
-        r="a refinement residual and its correction's set-up",
+        r="a refinement residual, its correction's set-up and first cycle "
+          "under a while node",
         r_add="a refinement correction added",
-        g="the boundary values, the forces and the metrics")
+        g="the boundary values, the forces and the metrics",
+        eg="the cycle's update, the boundary values, the forces and the "
+           "metrics")
 
     def _setup(self):
-        from navierstokes_tpu_torch.kernels.conditional import IfNodes
         cfg = self.ns.config
-        self.ce = krylov.GMRES_GRAPH_CHECK_EVERY
         self.refine = cfg.refine if self.ns._refines() else 0
-        self.ifs = None
-        if self.dry:
-            self.mode = krylov.Mode(krylov.DRY)
-        else:
-            self.ifs = IfNodes(self.device)
-            self.mode = krylov.Mode(krylov.GRAPH, self.ifs)
-        self.nodes_per_block = 0
-
-    def _context(self, name):
-        """Each loop iteration under its node (the capture) or its look at
-        the flag (the rehearsal); the bodies' allocations routed to their
-        pool while (d) is captured."""
-        stack = contextlib.ExitStack()
-        stack.enter_context(krylov.iteration_mode(self.mode))
-        if name == "d" and self.ifs is not None:
-            stack.enter_context(self.ifs.routed())
-        return stack
-
-    def _capture(self, name, fn):
-        super()._capture(name, fn)
-        if name == "d":
-            self.nodes_per_block = len(self.mode.records)
 
     def _segments(self, ws) -> dict:
         ns = self.ns
 
-        def e():
-            if self.mode.hits is not None:
-                self.mode.hits.zero_()
+        def c():
+            ns._mono_system(ws, self.u, self.p, self.u_prev,
+                            self._pre_f(ws)).iterate()
+
+        def r():
+            ns._mono_correction(ws)
+            ws.gloop.iterate()
+
+        def next_cycle():
             ws.gloop.update()
+            ws.gloop.cycle()
+            ws.gloop.iterate()
 
         def g():
             u_new, p_new, row = ns._mono_finish(ws)
@@ -423,62 +471,46 @@ class MonolithicGraphs(_StepGraphs):
 
         seg = self._tile_segments(
             ws, lambda ws: ns._mono_rebuild(ws, self.u, self.t))
-        seg["c"] = lambda: ns._mono_system(ws, self.u, self.p, self.u_prev,
-                                           self._pre_f(ws))
-        # captured before (d), (e) and (cycle), which replay inside the
-        # corrections, after (r0): see the module docstring on the pool
+        seg["c"] = c
+        # (r), (e) and (next) replay inside the corrections, after (r0):
+        # captured after it (see the module docstring on the pool)
         if self.refine:
             seg.update(
-                r0=lambda: ns._mono_refine_start(ws, self.u),
-                r=lambda: ns._mono_correction(ws),
-                r_add=lambda: ws.refinement.add(ws.gloop.solution()))
-        seg.update(d=lambda: ws.gloop.block(self.ce), e=e,
-                   cycle=lambda: ws.gloop.cycle(), g=g)
+                r0=lambda: ns._mono_refine_start(ws, self.u), r=r,
+                r_add=lambda: ws.refinement.add(ws.gloop.solution()),
+                e=lambda: ws.gloop.update(), next=next_cycle, g=g)
+        else:
+            seg.update(next=next_cycle,
+                       eg=lambda: (ws.gloop.update(), g()))
         return seg
 
-    def _solve(self, loop, maxiter: int) -> int:
-        """One FGMRES solve from its set-up: blocks (d) until the flag
-        read after one is down, the cycle's end on the host, (e), and
-        (cycle) while another follows.  Returns the host reads."""
+    def _solve(self, loop, maxiter: int, last: str) -> int:
+        """The rest of an FGMRES solve whose first cycle ran in (c) or
+        (r): at each cycle's end the host's read and solve, then (next)
+        while another cycle follows, else ``last`` ((e) or (eg)).
+        Returns the host reads."""
         loop.begin(maxiter)
-        mode, reads = self.mode, 0
+        reads = 0
         while True:
-            nb = self._blocks("d", loop)
-            extra = (mode.hits[:self.nodes_per_block]
-                     if mode.hits is not None else None)
-            done, hits = loop.end_cycle(extra)
-            reads += nb + 1
-            self._replay("e")
-            if extra is not None:
-                self.nodes += nb * self.nodes_per_block
-                for k, rec in zip(hits, mode.records):
-                    self.runs += int(k)
-                    rec.replay(int(k))
+            done = loop.end_cycle()
+            reads += 1
             if done:
+                self._replay(last)
                 return reads
-            self._replay("cycle")
+            self._replay("next")
 
     def _step(self) -> _StepInfo:
-        cfg, ws, mode = self.ns.config, self.ws, self.mode
-        self.nodes = self.runs = 0
-        nodes0, runs0 = mode.nodes, mode.runs       # DRY's own tally
+        cfg, ws = self.ns.config, self.ws
         reads, exact, span = self._tiles_step()
         self._replay("c")
-        reads += self._solve(ws.gloop, cfg.outer_maxiter)
-        if self.refine:
-            self._replay("r0")
-            for _ in range(self.refine):
-                self._replay("r")
-                reads += self._solve(ws.gloop, cfg.refine_maxiter)
-                self._replay("r_add")
+        if not self.refine:
+            reads += self._solve(ws.gloop, cfg.outer_maxiter, "eg")
+            return self._info(span, exact, reads)
+        reads += self._solve(ws.gloop, cfg.outer_maxiter, "e")
+        self._replay("r0")
+        for _ in range(self.refine):
+            self._replay("r")
+            reads += self._solve(ws.gloop, cfg.refine_maxiter, "e")
+            self._replay("r_add")
         self._replay("g")
-        nodes = self.nodes + mode.nodes - nodes0
-        runs = self.runs + mode.runs - runs0
-        return _StepInfo(span=span, exact_inverse=self.bj and exact,
-                         flag_reads=reads, skipped=nodes - runs)
-
-    def __del__(self):
-        ifs = getattr(self, "ifs", None)
-        if ifs is not None:
-            self.graphs.clear()
-            ifs.close()
+        return self._info(span, exact, reads)

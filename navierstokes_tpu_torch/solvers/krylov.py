@@ -10,25 +10,28 @@ state on the device in fixed-shape tensors, the iteration count and the
 loop predicate ``active`` (JAX's ``cond``: ``||r|| > target``, no
 breakdown, ``k < maxiter``) included.  Each iteration computes its update
 and commits it under ``torch.where(active, new, old)``, adding ``active``
-to the count, so an iteration run after the stop changes no bit.  How an
-iteration runs under its flag is the ``Mode`` in force
-(``iteration_mode``):
+to the count, so an iteration run after the stop changes no bit; its last
+launch is the predicate (kernels/conditional.set_condition: one launch on
+the card, which also sets a while node's condition; FGMRES's Givens
+kernel writes its flag itself).  How a loop runs its iterations under its
+flag is the ``Mode`` in force (``iteration_mode``):
 
 * ``MASKED`` (the default): blocks of ``check_every`` iterations
   (``BICGSTAB_CHECK_EVERY``, ``CG_CHECK_EVERY``, ``GMRES_CHECK_EVERY``),
   the flag read on the host after each block (``_host``); counts and
-  results equal a block size of 1 at every block size.  The projection
-  step, captured or not, and the standalone solvers.
+  results equal a block size of 1 at every block size.  The standalone
+  solvers and the models that step eagerly by rule (row shards).
 * ``HOST``: the flag read before each iteration, which runs only while
-  it is up.  The plain monolithic step: it launches exactly what its
-  captured version launches.
-* ``GRAPH``: each iteration captured under a CUDA graph conditional *if*
-  node on the flag; a loop is a fixed unroll of such nodes (the inner
-  BiCGStab: ``maxiter`` nodes, no host read at all; FGMRES:
-  ``GMRES_GRAPH_CHECK_EVERY`` nodes per block, the flag read after a
-  block).  The captured monolithic step (models/step_graphs.py).
-* ``DRY``: GRAPH rehearsed on any device, the node replaced by a look at
-  the flag that is not counted as a read (the CPU tests).
+  it is up.  The plain step of a model whose step is captured, in both
+  schemes: it launches exactly what its captured version launches.
+* ``GRAPH``: the loop captured as one CUDA graph conditional *while*
+  node on its flag, whose body is one iteration (``Mode.loop``): the body
+  runs exactly as often as the loop iterates, no host read inside.  The
+  captured step (models/step_graphs.py); FGMRES's host reads only at the
+  end of each restart cycle.
+* ``DRY``: GRAPH rehearsed on any device: the flag looked at before the
+  first body and after each (not counted as a read), the loops entered,
+  bodies run and tests counted (the CPU tests).
 
 The state is updated in place, so a block can be captured as a CUDA graph
 and replayed (models/step_graphs.py).
@@ -56,67 +59,68 @@ import scipy.linalg
 import torch
 
 from navierstokes_tpu_torch.kernels.arnoldi_lsq import lsq_update
-from navierstokes_tpu_torch.kernels.launches import record_launches
+from navierstokes_tpu_torch.kernels.conditional import set_condition
 
-# Iterations per block between two host reads.  At the bench point of
-# chip_smoke.py (2D-2, 1,014,414 DoF) a projection step takes 3-6
-# BiCGStab and 47-53 CG iterations; FGMRES's outer solve 21-39.
+# Iterations per block between two host reads (MASKED).  At the bench
+# point of chip_smoke.py (2D-2, 1,014,414 DoF) a projection step takes
+# 3-6 BiCGStab and 47-53 CG iterations; FGMRES's outer solve 21-39.
 BICGSTAB_CHECK_EVERY = 2
 CG_CHECK_EVERY = 8
 GMRES_CHECK_EVERY = 4
-# FGMRES iterations per captured block of the monolithic step, each under
-# a conditional node.  An iteration past the stop costs its node (5 us on
-# an H100, tools/conditional_probe.py), not its work (a masked block pays
-# a whole preconditioner apply), so the block is sized for the host
-# reads: at the bench point (22-39 iterations a step) 8 read 3-5 flags a
-# step, 4.4 on average, where 4 would read 6-10.  Its capture holds
-# 8 x (1 + 10 inner) = 88 bodies under cc; the whole step captured in
-# 1.05-1.30 s with its warm-up step (PERF.md section 6).
-GMRES_GRAPH_CHECK_EVERY = 8
 
 MASKED, HOST, GRAPH, DRY = "masked", "host", "graph", "dry"
 
 
 class Mode:
-    """How the loops run an iteration under its flag (``kind``, see the
-    module docstring) and what they counted: ``reads``, the loops' host
-    reads; under DRY the conditional ``nodes`` visited and the bodies
-    ``runs``.  Under GRAPH, ``ifs`` (kernels/conditional.IfNodes) adds
-    the nodes to the capture in progress, and each body captured has its
-    launch record (``records``) and a device counter of its runs
-    (``hits``), read with the cycle's end."""
+    """How the loops run their iterations under their flags (``kind``, see
+    the module docstring) and what they counted: ``reads``, the loops'
+    host reads; under DRY the loops ``entered``, the bodies ``runs`` and
+    the ``tests`` of a flag (before each loop and after each body).  Under
+    GRAPH, ``whiles`` (kernels/conditional.WhileNodes) adds the nodes to
+    the capture in progress; node i keeps its body's launch record
+    (``records[i]``), its enclosing node (``parents[i]``; -1 at the top of
+    the segment ``segments[i]``, the ``segment`` being captured) and three
+    counters on the device, ``tally[i]``: the node's evaluations, those
+    that let the body run, and bodies run under a down flag (advanced by
+    the condition kernels themselves)."""
 
-    def __init__(self, kind: str = MASKED, ifs=None, capacity: int = 4096):
+    def __init__(self, kind: str = MASKED, whiles=None, capacity: int = 32):
         self.kind = kind
-        self.reads = self.nodes = self.runs = 0
-        self.ifs = ifs
-        self.records = []
-        self.hits = (torch.zeros(capacity, dtype=torch.int64,
-                                 device=ifs.device)
-                     if kind == GRAPH else None)
+        self.reads = self.entered = self.runs = self.tests = 0
+        self.whiles = whiles
+        self.records, self.parents, self.segments = [], [], []
+        self.segment = None
+        self._open = []
+        self.tally = (torch.zeros((capacity, 3), dtype=torch.int64,
+                                  device=whiles.device)
+                      if kind == GRAPH else None)
 
-    def under(self, flag, body):
-        """``body`` under an if node on ``flag`` (GRAPH), or run when the
-        flag is up (DRY)."""
+    def loop(self, flag, body):
+        """A while loop on ``flag``: ``body(cond)``, one iteration whose
+        last launch is its predicate (returns whether that set the node's
+        condition ``cond``), while the flag is up, tested before the first
+        body and after each: one while node (GRAPH), or run on any device
+        (DRY)."""
         if self.kind == DRY:
-            self.nodes += 1
-            if bool(flag):
+            self.entered += 1
+            self.tests += 1
+            while bool(flag):
                 self.runs += 1
-                body()
+                body(None)
+                self.tests += 1
             return
         i = len(self.records)
-        if i >= self.hits.numel():
-            raise RuntimeError(f"more than {i} conditional bodies in one "
-                               "capture")
+        if i == self.tally.shape[0]:
+            raise RuntimeError(f"more than {i} while nodes in one model's "
+                               "captures")
         self.records.append(None)
-
-        def counted():
-            with record_launches() as rec:
-                self.hits[i].add_(1)
-                body()
-            self.records[i] = rec
-
-        self.ifs.body(flag, counted)
+        self.parents.append(self._open[-1] if self._open else -1)
+        self.segments.append(self.segment)
+        self._open.append(i)
+        try:
+            self.records[i] = self.whiles.loop(flag, body, self.tally[i])
+        finally:
+            self._open.pop()
 
 
 _MODE = [Mode()]
@@ -132,19 +136,22 @@ def iteration_mode(mode: Mode):
         _MODE.pop()
 
 
-def _under_flag(loop, body) -> bool:
-    """One iteration ``body`` of ``loop`` under its flag, as the mode in
-    force says.  False only where the host read the flag down (HOST)."""
+def _run_loop(loop, body, block):
+    """``loop`` to its stop as the mode in force says: ``block()`` until
+    the flag read after one is down (MASKED), ``body(None)`` after each
+    read of the flag up (HOST), or ``body`` under a while node (GRAPH,
+    DRY)."""
     mode = _MODE[-1]
     if mode.kind == MASKED:
-        body()
+        while True:
+            block()
+            if not _read(loop, loop.active):
+                return
     elif mode.kind == HOST:
-        if not _read(loop, loop.active):
-            return False
-        body()
+        while _read(loop, loop.active):
+            body(None)
     else:
-        mode.under(loop.active, body)
-    return True
+        mode.loop(loop.active, body)
 
 
 def _read(loop, t):
@@ -206,29 +213,20 @@ class _Loop:
     check_every = 1
 
     def run(self):
-        """The loop to its stop, as the mode in force says: blocks of
-        ``check_every`` masked iterations until the flag read after a
-        block is down (MASKED); an iteration after each read of the flag
-        up (HOST); ``maxiter`` iterations under conditional nodes and no
-        read (GRAPH, DRY)."""
-        kind = _MODE[-1].kind
-        if kind == HOST:
-            while _under_flag(self, self._iteration):
-                pass
-        elif kind in (GRAPH, DRY):
-            for _ in range(self.maxiter):
-                _under_flag(self, self._iteration)
-        else:
-            while True:
-                self.block()
-                if not _read(self, self.active):
-                    break
+        """The loop to its stop, as the mode in force says
+        (``_run_loop``)."""
+        _run_loop(self, self._body, self.block)
         return self
+
+    def _body(self, cond=None) -> bool:
+        """One iteration and its predicate (see ``Mode.loop``)."""
+        self._iteration()
+        return self._predicate(cond)
 
     def block(self):
         """``check_every`` masked iterations, in place; no host read."""
         for _ in range(self.check_every):
-            self._iteration()
+            self._body()
         self.blocks += 1
         return self
 
@@ -272,9 +270,10 @@ class BicgstabLoop(_Loop):
         self.blocks = self.reads = 0
         self._predicate()
 
-    def _predicate(self):
-        self.active.copy_((torch.linalg.norm(self.r) > self.target)
-                          & ~self.stag & (self.k < self.maxiter))
+    def _predicate(self, cond=None) -> bool:
+        return set_condition(self.active, torch.linalg.norm(self.r),
+                             self.target, self.k, self.maxiter, self.stag,
+                             cond)
 
     def _iteration(self):
         eps, r0, r = self.eps, self.r0, self.r
@@ -300,7 +299,6 @@ class BicgstabLoop(_Loop):
                     (self.alpha, alpha), (self.omega, omega), (self.v, v),
                     (self.p, p), (self.stag, stag)))
         self.k.add_(a)
-        self._predicate()
 
 
 class CgLoop(_Loop):
@@ -327,9 +325,9 @@ class CgLoop(_Loop):
         self.blocks = self.reads = 0
         self._predicate()
 
-    def _predicate(self):
-        self.active.copy_((torch.linalg.norm(self.r) > self.target)
-                          & (self.k < self.maxiter))
+    def _predicate(self, cond=None) -> bool:
+        return set_condition(self.active, torch.linalg.norm(self.r),
+                             self.target, self.k, self.maxiter, cond=cond)
 
     def _iteration(self):
         p, rz = self.p, self.rz
@@ -345,7 +343,6 @@ class CgLoop(_Loop):
         _commit(a, ((self.x, x), (self.r, r), (self.p, p_new),
                     (self.rz, rz_new)))
         self.k.add_(a)
-        self._predicate()
 
 
 def bicgstab(matvec: Callable, b, x0=None, *, tol=1e-6, atol=0.0,
@@ -441,8 +438,12 @@ class GmresLoop:
         self.j_max.copy_(torch.clamp(self.maxiter - self.total, max=self.m))
         self.active.copy_((self.res > self.target) & (self.j_max > 0))
 
-    def iteration(self):
-        """One Arnoldi step, committed under the flag."""
+    def iteration(self, cond=None) -> bool:
+        """One Arnoldi step, committed under the flag; its last launch,
+        the Givens kernel, writes the flag and, given ``cond``, sets the
+        while node's condition, one launch fewer per iteration than a
+        set_condition after it (PERF.md section 6 gives both times).
+        Returns whether it set it."""
         V, Z, j, m, active = self.V, self.Z, self.j, self.m, self.active
         jl = j.long().view(1)
         z = self.pc(V.index_select(0, jl)[0])
@@ -464,27 +465,32 @@ class GmresLoop:
             V.index_select(0, j1)[0])[None])
         # h1 + h2, the stored Givens rotations, the new one, g, H[:, j],
         # res, j and the flag, under the flag
-        lsq_update(self.H, self.cs, self.sn, self.g, h1, h2, wnorm, j,
-                   self.res, active, self.target, self.j_max)
+        return lsq_update(self.H, self.cs, self.sn, self.g, h1, h2, wnorm, j,
+                          self.res, active, self.target, self.j_max,
+                          cond=cond)
 
     def block(self, n: int):
-        """``n`` iterations under the flag, in place; no host read."""
+        """``n`` masked iterations, in place; no host read."""
         for _ in range(n):
-            _under_flag(self, self.iteration)
+            self.iteration()
         self.blocks += 1
 
-    def end_cycle(self, extra=None):
-        """The host's part of a cycle's end: (H, g, j, converged) and
-        ``extra`` (a 1-d tensor, or None) read in one transfer, the j x j
-        upper-triangular system, padded to m with the identity, solved by
-        LAPACK in the solve's precision, and y written to its device
-        buffer.  Returns (whether the solve is done, extra's values)."""
+    def iterate(self):
+        """The cycle's iterations to its stop, as the mode in force says
+        (``_run_loop``; MASKED in blocks of GMRES_CHECK_EVERY)."""
+        _run_loop(self, self.iteration,
+                  lambda: self.block(GMRES_CHECK_EVERY))
+
+    def end_cycle(self) -> bool:
+        """The host's part of a cycle's end: (H, g, j, converged) read in
+        one transfer, the j x j upper-triangular system, padded to m with
+        the identity, solved by LAPACK in the solve's precision, and y
+        written to its device buffer.  Returns whether the solve is
+        done."""
         m, dtype = self.m, self.dtype
         npdt = np.float64 if dtype == torch.float64 else np.float32
         parts = [self.H[:m].reshape(-1), self.g[:m], self.j.to(dtype)[None],
                  (self.res <= self.target).to(dtype)[None]]
-        if extra is not None:
-            parts.append(extra.to(dtype))
         vals = np.asarray(_read(self, torch.cat(parts)), npdt)
         jj, conv = int(vals[m * m + m]), bool(vals[m * m + m + 1])
         act = np.arange(m) < jj
@@ -495,8 +501,7 @@ class GmresLoop:
         self.y.copy_(torch.as_tensor(y.astype(npdt)))
         self.iterations += jj
         self.converged = conv
-        done = conv or self.iterations >= self.budget
-        return done, vals[m * m + m + 2:]
+        return conv or self.iterations >= self.budget
 
     def update(self):
         """x += y Z (or the preconditioned y V) and the cycle's j added to
@@ -510,19 +515,10 @@ class GmresLoop:
 
     def run(self):
         """Cycles to convergence or the budget, the host deciding at each
-        cycle's end: per cycle, blocks of GMRES_CHECK_EVERY iterations and
-        a read of the flag after each (MASKED), or an iteration after each
-        read of the flag up (HOST)."""
+        cycle's end (``iterate`` runs a cycle's iterations)."""
         while True:
-            if _MODE[-1].kind == HOST:
-                while _under_flag(self, self.iteration):
-                    pass
-            else:
-                while True:
-                    self.block(GMRES_CHECK_EVERY)
-                    if not _read(self, self.active):
-                        break
-            done, _ = self.end_cycle()
+            self.iterate()
+            done = self.end_cycle()
             self.update()
             if done:
                 return self

@@ -21,7 +21,10 @@ solver options ``proj_poisson="schur"``, ``proj_p_extrap`` and
 capture raises), and
 the block-Jacobi tile-apply kernel (fp32, bf16 and fp64 tiles) against
 its plain version, batch invariant, refusing what it does not take, and
-launched by captured, eager, float64 and row-sharded steps.
+launched by captured, eager, float64 and row-sharded steps; the while
+nodes of csrc/graph_cond.cu against the host loop (seeded trip counts,
+nested, no synchronising replay) and their predicate kernel against its
+plain version.
 Fixtures: the h=0.12 cylinder channel of tests/test_pallas_matvec.py;
 in 3D the h=0.15 square-column duct of tests/test_torch_3d.py.
 """
@@ -557,7 +560,9 @@ def _forcing(x, t):
 def test_captured_steps_equal_eager_on_cuda(cuda, tmp_path, case, fields):
     """5 projection steps replayed from the captured CUDA graphs equal 5
     plain (eager) steps bit for bit, with the same counts; no replay
-    synchronises (set_sync_debug_mode("error") around each)."""
+    synchronises (set_sync_debug_mode("error") around each); the captured
+    step reads the host only for the tile guard, and its two while loops
+    run one body per iteration, none masked or skipped."""
     fields = dict(fields)
     forcing = fields.pop("forcing", None)
     eager = _small_model(tmp_path / "eager", forcing, **fields)
@@ -570,9 +575,14 @@ def test_captured_steps_equal_eager_on_cuda(cuda, tmp_path, case, fields):
     assert torch.equal(eager._u, graphs._u)
     assert torch.equal(eager._p, graphs._p)
     assert torch.equal(eager._phi, graphs._phi)
+    guard = int(graphs._bj_plan is not None and graphs.config.bj_newton > 0)
     for a, b in zip(me, mg):
         assert (a.cd, a.cl, a.f_iterations, a.p_iterations, a.converged) \
             == (b.cd, b.cl, b.f_iterations, b.p_iterations, b.converged)
+        assert b.flag_reads == guard
+        assert (b.loops_entered, b.bodies_run) == (
+            2, b.f_iterations + b.p_iterations)
+        assert b.masked_iterations == b.skipped_bodies == 0
 
 
 @pytest.mark.cuda
@@ -590,11 +600,12 @@ def test_captured_steps_equal_eager_on_cuda(cuda, tmp_path, case, fields):
                                        f_solver="richardson"))])
 def test_captured_monolithic_steps_equal_eager_on_cuda(cuda, tmp_path, case,
                                                        fields):
-    """5 monolithic steps replayed from the captured CUDA graphs (FGMRES and
-    inner BiCGStab iterations under conditional nodes) equal 5 plain steps
-    bit for bit, with the same counts and the same SELL and Givens
-    launches; no replay synchronises; the captured step reads the host
-    less often."""
+    """5 monolithic steps replayed from the captured CUDA graphs (each
+    FGMRES cycle a while node, the inner BiCGStab a while node nested in
+    its body) equal 5 plain steps bit for bit, with the same counts and the
+    same SELL and Givens launches; no replay synchronises; the captured
+    step reads the host less often, and runs no body masked and skips
+    none."""
     from navierstokes_tpu_torch.kernels import arnoldi_lsq as AL
     eager = _small_model(tmp_path / "eager", scheme="monolithic",
                               **fields)
@@ -618,6 +629,8 @@ def test_captured_monolithic_steps_equal_eager_on_cuda(cuda, tmp_path, case,
         assert (a.cd, a.cl, a.iterations, a.residual, a.converged) \
             == (b.cd, b.cl, b.iterations, b.residual, b.converged)
         assert b.flag_reads < a.flag_reads
+        assert b.masked_iterations == b.skipped_bodies == 0
+        assert b.bodies_run >= b.iterations > 0
 
 
 @pytest.mark.cuda
@@ -672,6 +685,187 @@ def test_givens_kernel_matches_plain_on_cuda(cuda, dtype):
     differ = [n for n, a, b in zip(names, out["cuda"], out["cpu"])
               if not torch.equal(a, b)]
     assert differ == []
+
+
+def _capture_whiles(fn):
+    """A graph of ``fn(whiles)``, captured with the port's while nodes
+    (kernels/conditional.WhileNodes)."""
+    from navierstokes_tpu_torch.kernels.conditional import WhileNodes
+    whiles = WhileNodes("cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream), whiles.routed():
+        fn(whiles)
+    torch.cuda.synchronize()
+    return graph, whiles
+
+
+def _replay_unsynced(graph):
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_while_node_equals_host_loop_on_cuda(cuda):
+    """A while node whose body (x += r, r -= 1, k += 1) ends in the
+    predicate kernel (r > 0.5, k < 1000) runs exactly as the host loop
+    that reads the flag before each iteration, for seeded trip counts 0 to
+    64, in one captured graph replayed under set_sync_debug_mode("error");
+    its tally counts n + 1 evaluations, n bodies and none masked."""
+    from navierstokes_tpu_torch.kernels.conditional import set_condition
+    f32 = dict(dtype=torch.float32, device=cuda)
+    r, x = torch.zeros((), **f32), torch.zeros((), **f32)
+    half = torch.tensor(0.5, **f32)
+    k = torch.zeros((), dtype=torch.int64, device=cuda)
+    active = torch.zeros((), dtype=torch.bool, device=cuda)
+    tally = torch.zeros(3, dtype=torch.int64, device=cuda)
+
+    def body(cond):
+        x.add_(r)
+        r.sub_(1.0)
+        k.add_(1)
+        return set_condition(active, r, half, k, 1000, cond=cond)
+
+    def start(n):
+        r.fill_(float(n))
+        x.zero_()
+        k.zero_()
+        tally.zero_()
+        set_condition(active, r, half, k, 1000)
+
+    graph, whiles = _capture_whiles(lambda w: w.loop(active, body, tally))
+    trips = [0, 1, 64] + list(np.random.default_rng(14).integers(0, 65, 8))
+    for n in map(int, trips):
+        start(n)
+        _replay_unsynced(graph)
+        got = (int(k), float(x), tally.tolist())
+        start(n)
+        while bool(active):
+            body(None)
+        assert got == (int(k), float(x), [n + 1, n, 0]), n
+        assert int(k) == n and float(x) == n * (n + 1) / 2
+    del graph
+    whiles.close()
+
+
+@pytest.mark.cuda
+def test_while_body_that_sets_no_condition_raises_on_cuda(cuda):
+    """A while body whose last launch does not set its node's condition
+    (the predicate launched without the body's ``cond``) is refused when
+    it is captured: the node would run on the condition of its first
+    test for ever."""
+    from navierstokes_tpu_torch.kernels.conditional import set_condition
+    f32 = dict(dtype=torch.float32, device=cuda)
+    r, half = torch.tensor(3.0, **f32), torch.tensor(0.5, **f32)
+    k = torch.zeros((), dtype=torch.int64, device=cuda)
+    active = torch.ones((), dtype=torch.bool, device=cuda)
+    tally = torch.zeros(3, dtype=torch.int64, device=cuda)
+
+    def body(cond):
+        r.sub_(1.0)
+        k.add_(1)
+        return set_condition(active, r, half, k, 1000)
+
+    with pytest.raises(RuntimeError, match="must set its node's condition"):
+        _capture_whiles(lambda w: w.loop(active, body, tally))
+
+
+@pytest.mark.cuda
+def test_nested_while_nodes_on_cuda(cuda):
+    """A while node nested in another's body, the inner loop entered
+    afresh in each outer iteration with i % 4 trips: outer and inner
+    bodies run as the host loops run them, for outer trip counts 0 to 9;
+    the inner node's tally counts one evaluation per entry and per body."""
+    from navierstokes_tpu_torch.kernels.conditional import set_condition
+    f32 = dict(dtype=torch.float32, device=cuda)
+    i64 = dict(dtype=torch.int64, device=cuda)
+    half = torch.tensor(0.5, **f32)
+    ro, ri = torch.zeros((), **f32), torch.zeros((), **f32)
+    ko, ki, total = (torch.zeros((), **i64) for _ in range(3))
+    ao = torch.zeros((), dtype=torch.bool, device=cuda)
+    ai = torch.zeros((), dtype=torch.bool, device=cuda)
+    t_out = torch.zeros(3, **i64)
+    t_in = torch.zeros(3, **i64)
+    state = (ro, ri, ko, ki, total, t_out, t_in)
+
+    def inner(cond):
+        total.add_(1)
+        ri.sub_(1.0)
+        ki.add_(1)
+        return set_condition(ai, ri, half, ki, 1000, cond=cond)
+
+    def outer(w):
+        def body(cond):
+            ri.copy_(torch.remainder(ko, 4).to(torch.float32))
+            ki.zero_()
+            set_condition(ai, ri, half, ki, 1000)
+            if w is None:
+                while bool(ai):
+                    inner(None)
+            else:
+                w.loop(ai, inner, t_in)
+            ro.sub_(1.0)
+            ko.add_(1)
+            return set_condition(ao, ro, half, ko, 1000, cond=cond)
+        return body
+
+    graph, whiles = _capture_whiles(lambda w: w.loop(ao, outer(w), t_out))
+    for n in range(10):
+        for t in state:
+            t.zero_()
+        ro.fill_(float(n))
+        set_condition(ao, ro, half, ko, 1000)
+        _replay_unsynced(graph)
+        got = [t.tolist() for t in state[2:]]
+        for t in state:
+            t.zero_()
+        ro.fill_(float(n))
+        set_condition(ao, ro, half, ko, 1000)
+        while bool(ao):
+            outer(None)(None)
+        inner_trips = sum(i % 4 for i in range(n))
+        assert got[:3] == [n, int(ki), inner_trips] == [
+            int(ko), int(ki), int(total)], n
+        assert got[3] == [n + 1, n, 0] and got[4] == [n + inner_trips,
+                                                      inner_trips, 0], n
+    del graph
+    whiles.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_set_condition_matches_plain_on_cuda(cuda, dtype):
+    """The predicate kernel (one launch: ||r|| > target, no breakdown,
+    k < maxiter) writes the flag of its plain version (torch operations)
+    bit for bit on 256 seeded scalar sets, a quarter of them ties
+    (res == target, k == maxiter) and a quarter with the breakdown flag
+    up, with and without a breakdown flag."""
+    from navierstokes_tpu_torch.kernels import conditional as C
+    rng = np.random.default_rng(14)
+    n, maxiter = 256, 3
+    res = rng.standard_normal(n)
+    target = np.where(rng.random(n) < 0.25, res, rng.standard_normal(n))
+    k = rng.integers(0, maxiter + 2, n)
+    stag = rng.random(n) < 0.25
+    C.COUNTS.reset()
+    for i in range(n):
+        for with_stag in (True, False):
+            out = {}
+            for dev in ("cpu", "cuda"):
+                t = lambda v: torch.tensor(v, dtype=dtype, device=dev)
+                active = torch.tensor(not stag[i], device=dev)
+                C.set_condition(
+                    active, t(res[i]), t(target[i]),
+                    torch.tensor(int(k[i]), device=dev), maxiter,
+                    torch.tensor(bool(stag[i]), device=dev)
+                    if with_stag else None)
+                out[dev] = bool(active)
+            assert out["cuda"] == out["cpu"], (i, with_stag)
+    assert C.COUNTS.set_condition == 2 * n       # the CUDA launches only
 
 
 def _cells_model(tmp, kv, kp, n=1, **fields):

@@ -2,9 +2,11 @@
 (solvers/krylov.py) at several block sizes and against the JAX solvers,
 the plain version of the Givens kernel (kernels/arnoldi_lsq.py) against
 the host arithmetic it replaces, the host reads of a solve, the chunked
-``solve`` and a restart at an output boundary, and the replay order of
-the captured projection step (models/step_graphs.py, rehearsed with its
-segment functions where the graphs would replay).
+``solve`` and a restart at an output boundary, the loops as while loops
+(krylov ``DRY``, what the card's while nodes run) against the JAX
+solvers, and the replay order of the captured projection step
+(models/step_graphs.py, rehearsed with its segment functions where the
+graphs would replay, its loops under ``DRY``).
 
 Fixture: the h=0.1 cylinder channel of tests/test_torch_solvers.py in the
 projection configuration, float64 (fp32 where noted).  Tolerances: the
@@ -167,6 +169,33 @@ def test_loops_match_jax(models, jax_model, solver):
     assert np.abs(tr.x.numpy() - x).max() / np.abs(x).max() < 1e-10
 
 
+@pytest.mark.parametrize("solver", SOLVERS + ("gmres",))
+def test_while_loops_match_jax(models, jax_model, solver):
+    """The loops as the card's while nodes run them (krylov ``DRY``: the
+    flag tested before the first body and after each, no host read but
+    FGMRES's cycle ends) give the JAX package's lax.while_loop counts, x
+    to 1e-10 (float64), and the masked loops' bits; every test of a flag
+    ran a body or ended a loop."""
+    system = _system(models["float64"], solver, torch, TB, TP, TS)
+    masked = _solve(solver, system)
+    with TK.iteration_mode(TK.Mode(TK.DRY)) as mode:
+        tr = _solve(solver, system)
+    mv, b, x0, pre, kw = _system(jax_model, solver, jnp, JB, JP, JS)
+    jr = getattr(JK, solver)(mv, b, x0=x0, precond=pre, **kw)
+    assert tr.iterations == int(jr.iterations) == masked.iterations > 2
+    assert tr.converged == bool(jr.converged)
+    x = np.asarray(jr.x)
+    assert np.abs(tr.x.numpy() - x).max() / np.abs(x).max() < 1e-10
+    assert torch.equal(tr.x, masked.x)
+    assert mode.runs == tr.iterations
+    assert mode.tests == mode.runs + mode.entered
+    # BiCGStab and CG: one loop; FGMRES: one per restart cycle
+    assert mode.entered == (1 if solver in ("bicgstab", "cg")
+                            else math.ceil(tr.iterations / kw["restart"]))
+    assert mode.reads == (0 if solver in ("bicgstab", "cg")
+                          else mode.entered)
+
+
 def _host_rotations(h, j, cs, sn, g, H, npdt):
     """The host arithmetic the Givens kernel replaces (the port's FGMRES
     before its loop moved to the device), on numpy scalars of ``npdt``."""
@@ -327,9 +356,13 @@ REPLAY_CASES = {
 @pytest.mark.parametrize("case", list(REPLAY_CASES))
 def test_replay_order_equals_the_plain_step(tmp_path, case):
     """ProjectionGraphs' replay order, rehearsed with its segment functions
-    (``_dry``) on its static buffers, against the plain step: 4 steps,
-    the second and fourth from the plain step between replays, bit for
-    bit, with the same counts, flag reads and masked iterations."""
+    (``_dry``: each loop a while loop) on its static buffers, against the
+    plain step: 4 steps, the second and fourth from the plain step between
+    replays, bit for bit, with the same counts.  The plain step reads each
+    flag before each iteration (krylov ``HOST``) and masks none; the
+    rehearsal reads the host only for the tile guard, enters the two loops
+    once each, runs one body per iteration, none masked or skipped (every
+    test of a flag ran a body or ended a loop)."""
     kw = dict(REPLAY_CASES[case])
     if "mesh" in kw:
         kw["mesh"] = kw["mesh"]()
@@ -344,13 +377,19 @@ def test_replay_order_equals_the_plain_step(tmp_path, case):
     assert torch.equal(a._u, b._u) and torch.equal(a._p, b._p)
     assert torch.equal(a._phi, b._phi)
     assert b._u is not sg.u           # the last step was the plain one
-    for x, y in zip(ma, mb):
+    guard = int(b._bj_plan is not None and b.config.bj_newton > 0)
+    for k, (x, y) in enumerate(zip(ma, mb)):
         for field in ("time", "cd", "cl", "drag", "lift", "residual",
                       "f_iterations", "p_iterations", "converged",
-                      "flag_reads", "masked_iterations", "exact_inverse"):
+                      "exact_inverse"):
             assert getattr(x, field) == getattr(y, field), field
-        assert 0 <= y.masked_iterations < (TK.BICGSTAB_CHECK_EVERY
-                                           + TK.CG_CHECK_EVERY)
+        its = x.f_iterations + x.p_iterations
+        assert x.flag_reads == guard + its + 2
+        assert x.masked_iterations == y.masked_iterations == 0
+        if k % 2 == 0:                # the replays
+            assert y.flag_reads == guard
+            assert (y.loops_entered, y.bodies_run) == (2, its)
+            assert y.skipped_bodies == 0
     assert b._ap_dir_pinned is (case != "mean-free")
 
 

@@ -1,7 +1,8 @@
 """The captured monolithic step on the CPU (models/step_graphs.py
 ``MonolithicGraphs``), rehearsed with its segment functions where the
-graphs would replay (``_dry``: each conditional body run only while its
-flag is up), against the plain step ``NavierStokes._step_monolithic``;
+graphs would replay (``_dry``: each loop a while loop, its flag tested
+before the first body and after each), against the plain step
+``NavierStokes._step_monolithic``;
 the Givens update with its bounds on the device against the call it
 replaces; and which models capture (``_capture_refusal``).
 
@@ -71,13 +72,17 @@ FIELDS = ("time", "iterations", "residual", "converged", "drag", "lift",
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_replay_order_equals_the_plain_step(tmp_path, mesh, case):
+def test_replay_order_equals_the_plain_step(tmp_path, mesh, monkeypatch,
+                                            case):
     """MonolithicGraphs' replay order, rehearsed on its static buffers,
     against the plain step: 3 steps, the second from the plain step
     between replays, bit for bit in u, p and every metric, with the same
-    FGMRES counts; the rehearsal reads the host only at the guard, once
-    per FGMRES block and once per cycle, fewer times than the plain step,
-    which reads each flag before each iteration and masks none."""
+    FGMRES counts.  The plain step reads each flag before each iteration
+    and masks none; the rehearsal reads the host at the guard and once per
+    FGMRES cycle's end, and nowhere else, runs no body masked and skips
+    none (every test of a flag ran a body or ended a loop); without inner
+    loops (identity, richardson) and refinement its bodies are the FGMRES
+    iterations and its loops the cycles."""
     kw = CASES[case]
     a = _model(mesh, str(tmp_path / "a"), **kw)
     b = _model(mesh, str(tmp_path / "b"), **kw)
@@ -85,20 +90,39 @@ def test_replay_order_equals_the_plain_step(tmp_path, mesh, case):
     ma = [a.solve_time_step() for _ in range(3)]
     b._init_state(0)
     sg = b._graphs = MonolithicGraphs(b, _dry=True)
-    mb = (b._read_rows(*sg.run(1)) + [b.solve_time_step(_eager=True)]
-          + b._read_rows(*sg.run(1)))
+    cycles = []
+    setup = TK.GmresLoop.cycle
+
+    def counted(loop):
+        cycles[-1] += 1
+        setup(loop)
+
+    monkeypatch.setattr(TK.GmresLoop, "cycle", counted)
+    mb = []
+    for run in (lambda: b._read_rows(*sg.run(1)),
+                lambda: [b.solve_time_step(_eager=True)],
+                lambda: b._read_rows(*sg.run(1))):
+        cycles.append(0)
+        mb += run()
     assert torch.equal(a._u, b._u) and torch.equal(a._p, b._p)
     assert b._u is sg.u               # the last step was a replay
+    guard = int(b._bj_plan is not None and b.config.bj_newton > 0)
+    plain = ("identity" in case or "richardson" in case) \
+        and "refine" not in case
     for k, (x, y) in enumerate(zip(ma, mb)):
         for field in FIELDS:
             assert getattr(x, field) == getattr(y, field), (k, field)
         assert x.masked_iterations == 0
         if k != 1:                    # the replays
-            assert 0 < y.flag_reads < x.flag_reads
-            # skipped bodies: inner BiCGStab iterations past their stop
-            # (identity has no inner solve, and its 200 iterations fill
-            # every block)
-            assert (y.masked_iterations > 0) == (case != "identity")
+            assert y.flag_reads == guard + cycles[k] < x.flag_reads
+            assert y.masked_iterations == y.skipped_bodies == 0
+            assert y.bodies_run >= y.iterations > 0
+            assert y.loops_entered >= cycles[k]
+            if plain:
+                assert (y.bodies_run, y.loops_entered) == (y.iterations,
+                                                           cycles[k])
+            else:
+                assert y.loops_entered > cycles[k]
     if "restart" in case:
         assert max(m.iterations for m in ma) > 8      # a second cycle
 
@@ -144,7 +168,8 @@ def test_givens_with_device_bounds_equals_the_host_bound(tmp_path, mesh,
     with h1 + h2 and int(j_max), bit for bit in every output."""
     calls, bounds = [], set()
 
-    def both(H, cs, sn, g, h1, h2, wnorm, j, res, active, target, j_max):
+    def both(H, cs, sn, g, h1, h2, wnorm, j, res, active, target, j_max,
+             cond=None):
         state = [t.clone() for t in (H, cs, sn, g, j, res, active)]
         AL.lsq_update(H, cs, sn, g, h1, h2, wnorm, j, res, active, target,
                       j_max)

@@ -42,21 +42,34 @@ It prints, for the case:
 * the per-step F rebuild (``a0_cell + convection``) in ms, from CUDA
   events, median of 30 calls, L2-cold (a 128 MB read before each call)
   and warm;
+* the captured step's device time per step from CUDA events around each
+  graph replay over ``--steps`` further steps (``graph_device_ms``), and
+  its share of the unprofiled step time;
+* the captured step's memory: the capture's peak and reserved growth,
+  and bytes (allocated, reserved) by pool (the graphs' pool, the
+  conditional nodes' pool, torch's default pools) before and after the capture, after the timed steps and after
+  the plain steps below, with those plain steps' peak (``pool_bytes``);
 * a ``torch.profiler`` trace of ``--profile-steps`` further steps: the
   device time per step (kernels, copies and memsets), its share of the
   unprofiled step time, the SpMV kernels' part of it, and the kernels with
-  the most time (name, calls, ms).
+  the most time (name, calls, ms).  The trace holds no kernel launched
+  inside a while node's body, so a captured step is not traced: the
+  split comes from ``--profile-steps`` plain steps of the same model
+  (``solve_time_step(_eager=True)``, the same kernels on the same bits),
+  printed beside the graph device time; the JSON's ``kernel_ms_per_step``,
+  ``spmv_ms_per_step`` and ``top`` are null for a captured run and the
+  split is under ``plain_split``.
 
 On the card the one-device bsr step, in either scheme, replays its
-captured CUDA graphs (models/step_graphs.py; monolithic: FGMRES and its
-inner BiCGStab iterations under conditional nodes); ``--eager`` steps it
+captured CUDA graphs (models/step_graphs.py; each Krylov loop a while
+node, the inner BiCGStab nested in FGMRES's body); ``--eager`` steps it
 with the plain (eager) step instead (``solve_time_step(_eager=True)``),
 so the two can be compared in one call.  The cells operator (``--case
 p3``, ``--operator cells``) steps eagerly either way, and so does a
 ``--tree`` without captured graphs (or, before them, without captured
-monolithic graphs).  The capture seconds, and per step the host reads
-and the masked (projection) or skipped (monolithic) iterations, are
-printed beside the times.
+monolithic graphs).  The capture seconds, and per step the host reads,
+the masked iterations and the skipped bodies, are printed beside the
+times.
 
 The last line is one JSON object with these numbers.
 """
@@ -158,6 +171,55 @@ def its(m):
     return str(m.iterations)
 
 
+def pool_bytes(ns):
+    """[allocated, reserved] bytes on the card by memory pool, from
+    ``torch.cuda.memory_snapshot()``: the captured graphs' pool
+    (``graphs``), the conditional nodes' pool (``bodies``: the tensors
+    allocated inside bodies, and since the while nodes every allocation
+    of a capture) and torch's default pools (``other``)."""
+    names = {}
+    sg = getattr(ns, "_graphs", None)
+    if sg is not None:
+        names[tuple(sg.pool)] = "graphs"
+        nodes = getattr(sg, "whiles", None) or getattr(sg, "ifs", None)
+        if nodes is not None:
+            names[tuple(nodes.pool)] = "bodies"
+    out = {"graphs": [0, 0], "bodies": [0, 0], "other": [0, 0]}
+    for seg in torch.cuda.memory_snapshot():
+        pool = names.get(tuple(seg.get("segment_pool_id", (0, 0))), "other")
+        out[pool][0] += seg["allocated_size"]
+        out[pool][1] += seg["total_size"]
+    return out
+
+
+def graph_device_ms(step, n):
+    """Device time per step of ``n`` steps replayed from captured graphs:
+    a pair of CUDA events around every ``CUDAGraph.replay``, summed.  The
+    profiler's trace has no kernel launched inside a conditional while
+    node's body, so this is the captured step's device time; it counts the
+    gap between the first event and the graph's start, a launch's worth,
+    as busy, and leaves out the few launches between replays."""
+    pairs = []
+    replay = torch.cuda.CUDAGraph.replay
+
+    def timed(graph):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        replay(graph)
+        b.record()
+        pairs.append((a, b))
+
+    torch.cuda.CUDAGraph.replay = timed
+    try:
+        for _ in range(n):
+            step()
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / n
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=ROOT,
@@ -210,9 +272,23 @@ def main():
     setup_s = time.perf_counter() - t0
     print(f"{tag} setup {setup_s:.1f} s, {ns.space.n_dofs} DoF", flush=True)
     import inspect
-    kw = ({"_eager": True} if args.eager and "_eager" in inspect.signature(
-        ns.solve_time_step).parameters else {})
+    has_eager = "_eager" in inspect.signature(ns.solve_time_step).parameters
+    kw = {"_eager": True} if args.eager and has_eager else {}
     step = lambda: ns.solve_time_step(**kw)
+    captured = (not kw and hasattr(ns, "_captures") and ns._captures()
+                and hasattr(ns, "capture_graphs"))
+    mem = {}
+    if captured:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reserved0 = torch.cuda.memory_reserved()
+        mem["before_capture"] = pool_bytes(ns)
+        ns.capture_graphs()
+        torch.cuda.synchronize()
+        mem["capture_peak"] = torch.cuda.max_memory_allocated()
+        mem["capture_reserved_growth"] = (torch.cuda.memory_reserved()
+                                          - reserved0)
+        mem["after_capture"] = pool_bytes(ns)
 
     torch.cuda.reset_peak_memory_stats()
     ms = [step() for _ in range(args.warm)]
@@ -222,13 +298,16 @@ def main():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    mem["after_steps"] = pool_bytes(ns)
     step_ms = wall / args.steps * 1e3
     timed = ms[args.warm:]
     reads = statistics.mean(getattr(m, "flag_reads", 0) for m in timed)
     masked = statistics.mean(getattr(m, "masked_iterations", 0)
                              for m in timed)
+    skipped = statistics.mean(getattr(m, "skipped_bodies", 0) for m in timed)
     graphs = getattr(ns, "_graphs", None)
     capture_s = graphs.capture_seconds if graphs is not None else None
+    graph_ms = graph_device_ms(step, args.steps) if captured else None
 
     u = torch.as_tensor(np.random.default_rng(1234).standard_normal(
         (ns.space.n_p2, ns.dim)), dtype=torch.float32, device="cuda")
@@ -236,19 +315,30 @@ def main():
     rebuild_cold, rebuild_warm = time_ms(rebuild, True), time_ms(rebuild,
                                                                  False)
 
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ms += [step() for _ in range(args.profile_steps)]
+    # the per-kernel split: the trace holds no kernel launched inside a
+    # while node's body, so a captured step is split from its plain step,
+    # which launches the same kernels on the same bits
+    profiled = ((lambda: ns.solve_time_step(_eager=True)) if captured
+                else step)
+    rows = []
+    if not captured or has_eager:
+        from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
-    # device-side events only (kernels, copies, memsets): the operator
-    # events above them carry the same device time again
-    from torch.autograd import DeviceType
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ms += [profiled() for _ in range(args.profile_steps)]
+            torch.cuda.synchronize()
+        if captured:
+            mem["eager_peak"] = torch.cuda.max_memory_allocated()
+            mem["after_eager"] = pool_bytes(ns)
+        # device-side events only (kernels, copies, memsets): the operator
+        # events above them carry the same device time again
+        from torch.autograd import DeviceType
+        rows = sorted(((e.self_device_time_total, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0), reverse=True)
     per_step = lambda us: us / 1e3 / max(args.profile_steps, 1)
     kernel_ms = per_step(sum(r[0] for r in rows))
     spmv_ms = per_step(sum(r[0] for r in rows if "spmv" in r[2]))
@@ -262,38 +352,63 @@ def main():
     print(f"{tag} steps/s {args.steps / wall:.4f} ({args.steps} steps in "
           f"{wall:.3f} s, {step_ms:.1f} ms/step), peak {peak} bytes "
           f"({peak / 2**30:.2f} GiB) on {card}", flush=True)
-    print(f"{tag} host reads per step {reads:.2f}, masked or skipped "
-          f"iterations per step {masked:.2f}; capture "
+    print(f"{tag} host reads per step {reads:.2f}, masked iterations per "
+          f"step {masked:.2f}, skipped bodies per step {skipped:.2f}; capture "
           f"{'not captured' if capture_s is None else f'{capture_s:.2f} s'}",
           flush=True)
+    if captured:
+        print(f"{tag} capture: peak {mem['capture_peak']} bytes, reserved "
+              f"growth {mem['capture_reserved_growth']} bytes; bytes "
+              "(allocated, reserved) by pool before the capture "
+              f"{mem['before_capture']}, after it {mem['after_capture']}, "
+              f"after the captured steps {mem['after_steps']}", flush=True)
+        if "eager_peak" in mem:
+            print(f"{tag} {args.profile_steps} plain steps of the captured "
+                  f"model: peak {mem['eager_peak']} bytes, by pool after "
+                  f"them {mem['after_eager']}", flush=True)
     print(f"{tag} F rebuild (a0 + convection) ms: cold {rebuild_cold:.4f}, "
           f"warm {rebuild_warm:.4f}", flush=True)
+    if graph_ms is not None:
+        print(f"{tag} graph device time {graph_ms:.2f} ms per step (CUDA "
+              f"events around each replay, {args.steps} steps), "
+              f"{100 * graph_ms / step_ms:.0f}% of an unprofiled step",
+              flush=True)
+    split = "plain-step " if captured else ""
     if rows:
-        print(f"{tag} device time {kernel_ms:.1f} ms per step over "
-              f"{args.profile_steps} profiled steps, "
-              f"{100 * kernel_ms / step_ms:.0f}% of an unprofiled step; "
-              f"SpMV kernels {spmv_ms:.1f} ms per step", flush=True)
+        print(f"{tag} {split}device time {kernel_ms:.1f} ms per step over "
+              f"{args.profile_steps} profiled "
+              + ("plain steps (solve_time_step(_eager=True): the captured "
+                 "step's kernels, not its time)" if captured else
+                 f"steps, {100 * kernel_ms / step_ms:.0f}% of an unprofiled "
+                 "step")
+              + f"; SpMV kernels {spmv_ms:.1f} ms per step", flush=True)
         for dev_us, n, key in rows[:args.top]:
             print(f"{tag}   {dev_us / 1e3:9.3f} ms {n:6d} calls  "
                   f"{key[:90]}", flush=True)
     else:
         print(f"{tag} torch.profiler recorded no device time: kernel time "
               "not measured", flush=True)
+    top = [[k, n, us / 1e3] for us, n, k in rows[:args.top]]
     print(json.dumps({
         "tree": os.path.basename(tree), "case": args.case,
         "scheme": label, "card": card, "setup_s": setup_s,
-        "eager": bool(kw) or not (hasattr(ns, "_captures")
-                                  and ns._captures()),
-        "n_dofs": ns.space.n_dofs, "steps_per_s": args.steps / wall,
+        "eager": not captured, "n_dofs": ns.space.n_dofs,
+        "steps_per_s": args.steps / wall,
         "step_ms": step_ms, "cd": [m.cd for m in ms],
         "flag_reads_per_step": reads, "masked_per_step": masked,
-        "capture_s": capture_s,
+        "skipped_per_step": skipped,
+        "capture_s": capture_s, "memory": mem,
         "converged": all(m.converged for m in ms),
         "peak_bytes": peak, "iterations": [its(m) for m in ms],
         "rebuild_ms_cold": rebuild_cold, "rebuild_ms_warm": rebuild_warm,
-        "kernel_ms_per_step": kernel_ms if rows else None,
-        "spmv_ms_per_step": spmv_ms if rows else None,
-        "top": [[k, n, us / 1e3] for us, n, k in rows[:args.top]]}),
+        "graph_ms_per_step": graph_ms,
+        # a trace of a captured step misses the loop bodies: null there
+        "kernel_ms_per_step": kernel_ms if rows and not captured else None,
+        "spmv_ms_per_step": spmv_ms if rows and not captured else None,
+        "top": top if not captured else None,
+        "plain_split": ({"kernel_ms_per_step": kernel_ms,
+                         "spmv_ms_per_step": spmv_ms, "top": top}
+                        if rows and captured else None)}),
         flush=True)
     return 0
 
