@@ -181,9 +181,17 @@ and checks them:
    bursts, the plain version's, the bound (tile rows read + r + y bytes
    over 3.35 TB/s) and the library's batched GEMM (``torch.matmul``),
    the fp64 apply and ``torch.matmul`` again in 8 rounds of alternating
-   bursts (medians); the launches per step of each path; 2 captured float64 steps of the
-   phase 4 small fixture on the card (the fp64 variant) against the CPU
-   within 1e-9; then the same check and times, d=3, at the exact tile
+   bursts, the library over its own copy of the tiles (medians; the fp64
+   ring no slower than the library), then over the kernel's tiles
+   (printed); the launches per step of each path; before
+   those, the edges of the fp64 ring and its persistent grid for every
+   tile type (one tile, a count of items the grid does not divide, a
+   one-row tail tile, SB 128 and 512, d=3, ``tiles[t:]`` slices, and 12
+   launches with 40 MB of tiles read into the L2 before each), each
+   against its plain version, on repeat and tile by tile alone, with the
+   grid, stages and bytes per stage printed; 2 captured float64 steps of
+   the phase 4 small fixture on the card (the fp64 variant) against the
+   CPU within 1e-9; then the same check and times, d=3, at the exact tile
    inverses of 3D-1Z's F (right after phase 11, fp32 and bf16) and, d=2,
    of the NACA model's static operator (phase 14's kernel model);
 25. the solver options the port took last (right after phase 24's bench
@@ -1634,7 +1642,7 @@ def check_and_time_bj(use, tiles, r):
     (``torch.matmul`` on r padded to whole tiles, today's yardstick, which
     the port no longer calls)."""
     from navierstokes_tpu_torch.kernels.bj_apply import (
-        bj_apply, block_jacobi_apply_plain)
+        bj_apply, block_jacobi_apply_plain, launch_config)
     name, limit = BJ_VARIANTS[tiles.dtype]
     yk = bj_apply(tiles, r)
     yk2 = bj_apply(tiles, r)
@@ -1672,7 +1680,9 @@ def check_and_time_bj(use, tiles, r):
                bound_ms=max(by_bytes, by_ops),
                bound_by="bytes" if by_bytes >= by_ops else "operations")
     del rb
+    out["launch"] = launch_config(tiles, r)
     log(f"[24] {use} {name}: tiles {tuple(tiles.shape)}, r ({n_p2}, {d}); "
+        f"{launch_line(out['launch'])}; "
         f"max abs err {abs_err:.3e} (limit {lim:.3e}), {differ} of "
         f"{yk.numel()} values differ; ms {out['ms']:.4f} "
         f"({nbytes / out['ms'] / 1e6:.0f} GB/s) plain {out['plain_ms']:.4f} "
@@ -1681,41 +1691,180 @@ def check_and_time_bj(use, tiles, r):
     return out
 
 
+def launch_line(c):
+    if c["design"] != "ring":
+        return (f"{c['design']}: grid {c['grid']}, one CTA per "
+                f"{c['rows_per_cta']} rows")
+    return (f"ring: grid {c['grid']} ({c['ctas_per_sm']} per SM x {c['sms']} "
+            f"SMs) over {c['n_items']} items of {c['rows_per_item']} rows, "
+            f"{c['stages']} stages of {c['stage_bytes']} B, {c['r_slots']} "
+            f"r slots, {c['smem_bytes']} B of shared memory per CTA")
+
+
+# the edges of the tile apply's ring and persistent grid: case -> (SB, d,
+# n_tiles, live rows of the tail tile); None: sized from the grid
+BJ_EDGES = {"one tile (fewer items than CTAs)": (256, 2, 1, 256),
+            "items not a multiple of the grid": None,
+            "one-row tail tile": (256, 2, 5, 1),
+            "SB 128": (128, 2, 5, 77),
+            "SB 512": (512, 2, 5, 77),
+            "d=3": (256, 3, 7, 200)}
+
+
+def _edge_inputs(dtype, sb, d, n_tiles, tail, seed):
+    from navierstokes_tpu_torch.kernels.bj_apply import VARIANTS
+    rng = np.random.default_rng(seed)
+    tiles = np.eye(sb)[None] + 0.05 * rng.standard_normal((n_tiles, sb, sb))
+    r = rng.standard_normal(((n_tiles - 1) * sb + tail, d))
+    return (torch.as_tensor(tiles, dtype=torch.float32).to(
+                device="cuda", dtype=dtype),
+            torch.as_tensor(r, dtype=VARIANTS[dtype][1], device="cuda"))
+
+
+def phase_tile_apply_edges():
+    """Phase 24: the kernel at the edges of its ring and persistent grid
+    (BJ_EDGES, and a slice ``tiles[t:]``), every tile type: against its
+    plain version under BJ_VARIANTS' limit, a repeat bit for bit, and the
+    first, a middle and the last tile alone equal to the batch's rows."""
+    from navierstokes_tpu_torch.kernels.bj_apply import (
+        bj_apply, block_jacobi_apply_plain, launch_config, ring)
+    out = {}
+    # the grid's edges are the fp64 ring's; the register stream of fp32
+    # and bf16 tiles runs the same shapes
+    g = ring(0, 256, 2)
+    resident = g["ctas_per_sm"] * g["sms"]
+    n_tiles = resident * g["rows_per_item"] // 256 + 2
+    tail = 77
+    while -(-((n_tiles - 1) * 256 + tail) // g["rows_per_item"]) \
+            % resident == 0:
+        tail += g["rows_per_item"]
+    cases = {**BJ_EDGES, "items not a multiple of the grid":
+             (256, 2, n_tiles, tail)}
+    for dtype, (name, limit) in BJ_VARIANTS.items():
+        out[name] = []
+        for k, (case, (sb, d, nt, tl)) in enumerate(cases.items()):
+            tiles, r = _edge_inputs(dtype, sb, d, nt, tl, 2400 + k)
+            c = launch_config(tiles, r)
+            ring_case = dtype == torch.float64
+            if case.startswith("one tile") and ring_case:
+                check(c["grid"] == c["n_items"] < resident,
+                      f"[24] {name} {case}: fewer items than CTAs")
+            if case.startswith("items not") and ring_case:
+                check(c["n_items"] > c["grid"] and c["n_long"] > 0,
+                      f"[24] {name} {case}: the grid does not divide them")
+            y = bj_apply(tiles, r)
+            y2 = bj_apply(tiles, r)
+            yp = block_jacobi_apply_plain(tiles, r)
+            torch.cuda.synchronize()
+            err = float((y - yp).abs().max())
+            lim = (_bf16_ulp(yp) if limit is None
+                   else limit * float(yp.abs().max()))
+            check(err <= lim, f"[24] {name} {case}: kernel vs plain max abs "
+                  f"err {err:.3e} (limit {lim:.3e})")
+            check(torch.equal(y, y2), f"[24] {name} {case}: bit-identical "
+                  "repeat")
+            for t in sorted({0, nt // 2, nt - 1}):
+                rows = slice(t * sb, min((t + 1) * sb, r.shape[0]))
+                check(torch.equal(bj_apply(tiles[t:t + 1], r[rows]),
+                                  y[rows]),
+                      f"[24] {name} {case}: tile {t} alone equals the "
+                      "batch's rows")
+            if case == "one-row tail tile":
+                # the slice tiles[t:] of the batch, each t
+                for t in range(1, nt):
+                    check(torch.equal(bj_apply(tiles[t:], r[t * sb:]),
+                                      y[t * sb:]),
+                          f"[24] {name} tiles[{t}:] equals the batch's rows")
+            log(f"[24] edge {name} {case}: tiles {tuple(tiles.shape)}, r "
+                f"{tuple(r.shape)}; {launch_line(c)}; max abs err "
+                f"{err:.3e} (limit {lim:.3e}), repeat and tiles alone bit "
+                "for bit" + (", tiles[t:] slices bit for bit"
+                              if case == "one-row tail tile" else ""))
+            out[name].append(dict(case=case, tiles=list(tiles.shape),
+                                  d=d, max_abs_err=err, limit=lim,
+                                  launch=c))
+        # every stage reused, the tiles (about 40 MB) read into the L2 right
+        # before each launch, so each bulk copy lands within a few hundred
+        # cycles: a stage given back before the warp's reads of it landed
+        # would be overwritten under them
+        nt = (40 << 20) // (256 * 256 * torch.finfo(dtype).bits // 8)
+        tiles, r = _edge_inputs(dtype, 256, 2, nt, 130, 2499)
+        c = launch_config(tiles, r)
+        check(dtype != torch.float64 or c["n_items"] > c["stages"] * c["grid"],
+              f"[24] {name} L2 case: stages reused")
+        ys = []
+        for _ in range(12):
+            tiles.sum()
+            ys.append(bj_apply(tiles, r))
+        yp = block_jacobi_apply_plain(tiles, r)
+        torch.cuda.synchronize()
+        err = float((ys[0] - yp).abs().max())
+        lim = (_bf16_ulp(yp) if limit is None
+               else limit * float(yp.abs().max()))
+        check(err <= lim and all(torch.equal(y, ys[0]) for y in ys),
+              f"[24] {name} L2 case: 12 launches bit for bit, max abs err "
+              f"{err:.3e} (limit {lim:.3e})")
+        log(f"[24] edge {name} stages reused with the tiles in L2: tiles "
+            f"{tuple(tiles.shape)}; {launch_line(c)}; 12 launches bit for "
+            f"bit, max abs err {err:.3e} (limit {lim:.3e})")
+        out[name].append(dict(case="stages reused, tiles in L2",
+                              tiles=list(tiles.shape), d=2,
+                              max_abs_err=err, limit=lim, launch=c))
+    return out
+
+
 BJ_F64_ROUNDS = 8
 
 
 def retime_f64(use, tiles, r):
-    """Phase 24: the fp64 tile apply against ``torch.matmul`` at the same
-    tiles in BJ_F64_ROUNDS rounds of alternating bursts (kernel, library,
-    then library, kernel), their medians set as the use's ``ms`` and
-    ``library_ms`` (the single figures kept as ``ms_single``,
-    ``library_ms_single``)."""
+    """Phase 24: the fp64 tile apply against ``torch.matmul`` in
+    BJ_F64_ROUNDS rounds of alternating bursts (kernel, library, then
+    library, kernel; five bursts per entry, no read between), twice:
+    the library over its own copy of the tiles, the medians set as the
+    use's ``ms`` and ``library_ms`` (the single figures kept as
+    ``ms_single``, ``library_ms_single``) and the kernel's no slower; then
+    the library over the kernel's own tiles, printed.  On the main path no
+    other kernel reads the tile array; a ``torch.matmul`` over it leaves its
+    last 50 MB in the L2 at normal priority, after which the ring's
+    evict-first copies run at the unhinted ring's speed
+    (``tools/bj_apply_ab.py``'s L2 states, PERF.md section 6)."""
     from navierstokes_tpu_torch.kernels.bj_apply import bj_apply
     n_tiles, sb = tiles.shape[0], tiles.shape[1]
     n_p2, d = r.shape
     rb = torch.nn.functional.pad(r, (0, 0, 0, n_tiles * sb - n_p2)).reshape(
         n_tiles, sb, d)
-    fns = {"kernel": lambda: bj_apply(tiles, r),
-           "library": lambda: torch.matmul(tiles, rb)}
-    times = {"kernel": [], "library": []}
-    for i in range(BJ_F64_ROUNDS):
-        for name in (("kernel", "library") if i % 2 == 0
-                     else ("library", "kernel")):
-            times[name].append(_burst_ms([fns[name]], reps=5))
-    del rb
-    med = {k: statistics.median(v) for k, v in times.items()}
+    copy = tiles.clone()
+    out = {}
+    for lib_tiles, what in ((copy, "its own copy of the tiles"),
+                            (tiles, "the kernel's tiles")):
+        fns = {"kernel": lambda: bj_apply(tiles, r),
+               "library": lambda t=lib_tiles: torch.matmul(t, rb)}
+        times = {"kernel": [], "library": []}
+        for i in range(BJ_F64_ROUNDS):
+            for name in (("kernel", "library") if i % 2 == 0
+                         else ("library", "kernel")):
+                times[name].append(_burst_ms([fns[name]], reps=5))
+        med = {k: statistics.median(v) for k, v in times.items()}
+        verdict = ("slower than" if med["kernel"] > med["library"]
+                   else "not slower than")
+        log(f"[24] fp64 tile apply against torch.matmul over {what}, "
+            f"{BJ_F64_ROUNDS} rounds of alternating bursts: medians "
+            f"{med['kernel']:.4f} ms against {med['library']:.4f} ms (the "
+            f"kernel {verdict} the library); rounds kernel "
+            + " ".join(f"{t:.4f}" for t in times["kernel"]) + ", library "
+            + " ".join(f"{t:.4f}" for t in times["library"])
+            + f"; bound {use['bound_ms']:.4f} ms on {card_line()}")
+        out[what] = (med, times)
+    del rb, copy
+    (med, times), (med_same, times_same) = out.values()
     use.update(ms_single=use["ms"], library_ms_single=use["library_ms"],
                ms=med["kernel"], library_ms=med["library"],
-               ms_rounds=times["kernel"], library_ms_rounds=times["library"])
-    verdict = ("slower than" if med["kernel"] > med["library"]
-               else "not slower than")
-    log(f"[24] fp64 tile apply against torch.matmul at the bench tiles, "
-        f"{BJ_F64_ROUNDS} rounds of alternating bursts: medians "
-        f"{med['kernel']:.4f} ms against {med['library']:.4f} ms (the kernel "
-        f"{verdict} the library); rounds kernel "
-        + " ".join(f"{t:.4f}" for t in times["kernel"]) + ", library "
-        + " ".join(f"{t:.4f}" for t in times["library"])
-        + f"; bound {use['bound_ms']:.4f} ms on {card_line()}")
+               ms_rounds=times["kernel"], library_ms_rounds=times["library"],
+               same_tiles_ms=med_same["kernel"],
+               same_tiles_library_ms=med_same["library"])
+    check(med["kernel"] <= med["library"], "[24] the fp64 tile apply no "
+          f"slower than torch.matmul over its own copy of the tiles: "
+          f"{med['kernel']:.4f} ms against {med['library']:.4f}")
 
 
 def _r(n_p2, d, dtype, seed):
@@ -1743,6 +1892,7 @@ def phase_tile_apply_bench(proj_tiles, mono, paths, card):
     n_p2 = ns.space.n_p2
     r32 = _r(n_p2, 2, torch.float32, 24)
     out = {dt: [] for dt in BJ_VARIANTS}
+    out["edges"] = phase_tile_apply_edges()
     for use, tiles in (("bench projection", proj_tiles.cuda()),
                        ("bench monolithic", mono_tiles)):
         out[torch.float32].append(check_and_time_bj(use, tiles, r32))
@@ -3419,7 +3569,7 @@ def main():
             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "bound_bytes", "library_ms")},
             "launches_per_step": bj_paths if dt == f32 else None,
-            "uses": uses})
+            "uses": uses, "edges": bj_bench["edges"][BJ_VARIANTS[dt][0]]})
     record = {"kernels": kernels}
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -10,8 +10,8 @@ of r at or beyond n_p2 count as 0.  Every tile apply of the port goes
 through it: the eager step's F preconditioner, the captured step
 (models/step_graphs.py) and each row shard (parallel/sharded_bsr.py).
 
-Three variants of one CUDA kernel (csrc/bj_apply.cu), chosen by the dtype
-of the tiles, for SB = 128, 256 (the port's default) or 512:
+Three variants of the CUDA kernels of csrc/bj_apply.cu, chosen by the
+dtype of the tiles, for SB = 128, 256 (the port's default) or 512:
 
 * fp32 tiles, fp32 r and y, sums in float64 — replaces the Pallas TPU
   kernel ``scripts/exp_fused.py`` ``bj_kern`` (and its planar twin in
@@ -25,9 +25,14 @@ of the tiles, for SB = 128, 256 (the port's default) or 512:
   counterpart).
 
 It is bound by device-memory traffic: each tile value is read once for d
-multiply-adds.  Each row sums in a fixed order, so a tile's result does
-not depend on the tile count or its place in the batch, and repeats are
-bit-identical.
+multiply-adds.  fp64 tiles stream through bulk copies into a shared-memory
+ring on a persistent grid (one CTA per SM, each walking a contiguous range
+of row blocks, ``partition``), each tile's block of r staged once per tile
+a CTA enters; fp32 and bf16 tiles keep a register stream of one CTA per 64
+rows, which measured faster on their tiles (the source note of
+csrc/bj_apply.cu).  Each row sums in the same fixed order in both, so a
+tile's result does not depend on the grid, the tile count or its place in
+the batch, and repeats are bit-identical.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel or raise.  ``COUNTS`` records the launches by (tiles dtype, d) and
@@ -39,7 +44,9 @@ which adds it to ``COUNTS`` at every replay (models/step_graphs.py).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as Fn
@@ -75,6 +82,68 @@ VARIANTS = {
 }
 # the tile sizes SB with an instantiation in csrc/bj_apply.cu
 TILE_SIZES = (128, 256, 512)
+# the ring's bulk copies take fp64 tiles and r at 16-byte addresses
+ALIGN = 16
+# rows of a CTA of the register stream (fp32, bf16 tiles)
+STREAM_ROWS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class Partition:
+    """The persistent grid's split of ``n_items`` work items (blocks of
+    consecutive rows of the tile batch): CTA b of ``grid`` takes
+    ``per_cta + (b < n_long)`` items, after those of CTAs 0..b-1, in
+    order.  The kernel gets ``grid``, ``per_cta`` and ``n_long`` and
+    derives its range [b * per_cta + min(b, n_long), + per_cta + (b <
+    n_long))."""
+    n_items: int
+    grid: int
+    per_cta: int
+    n_long: int
+
+
+def partition(n_p2, rows_per_item, resident):
+    """The work items of ``n_p2`` rows in blocks of ``rows_per_item``,
+    dealt to at most ``resident`` CTAs (the card's resident CTAs) and at
+    most one CTA per item, the first CTAs taking one more."""
+    n_items = -(-n_p2 // rows_per_item)
+    grid = max(1, min(resident, n_items))
+    return Partition(n_items, grid, n_items // grid, n_items % grid)
+
+
+@functools.lru_cache(maxsize=None)
+def ring(device_index, sb, d):
+    """The fp64 ring's (SB, d) instantiation on card ``device_index``:
+    ``nst_bj_apply_f64_setup`` raises its shared memory limit there (once
+    per instantiation and card, at its first launch) and reports its
+    residency and ring."""
+    from navierstokes_tpu_torch.kernels.build import library
+    info = (ctypes.c_int * 7)()
+    with torch.cuda.device(device_index):
+        rc = library().nst_bj_apply_f64_setup(sb, d, info)
+    if rc != 0:
+        msg = {-1: f"no instantiation for SB={sb}, d={d}",
+               -2: "the kernel does not fit on an SM"}.get(rc)
+        if msg is None:
+            msg = library().nst_cuda_error_string(rc).decode()
+        raise RuntimeError(f"bj_apply (nst_bj_apply_f64_setup) failed "
+                           f"({rc}): {msg}")
+    keys = ("ctas_per_sm", "sms", "rows_per_item", "stages", "stage_bytes",
+            "smem_bytes", "r_slots")
+    return dict(zip(keys, info))
+
+
+def launch_config(inv_tiles, r):
+    """The grid a launch on these CUDA tensors takes: for fp64 tiles the
+    ring and its partition, for fp32 and bf16 the register stream's CTAs."""
+    n_p2, d = r.shape
+    n_tiles, sb = inv_tiles.shape[0], inv_tiles.shape[1]
+    if inv_tiles.dtype != torch.float64:
+        return {"design": "register stream", "grid": n_tiles * sb
+                // STREAM_ROWS, "rows_per_cta": STREAM_ROWS}
+    g = ring(inv_tiles.device.index, sb, d)
+    part = partition(n_p2, g["rows_per_item"], g["ctas_per_sm"] * g["sms"])
+    return {"design": "ring", **g, **dataclasses.asdict(part)}
 
 
 def block_jacobi_apply_plain(inv_tiles, r):
@@ -134,20 +203,33 @@ def bj_apply(inv_tiles, r):
     for name, t in (("tiles", inv_tiles), ("r", r)):
         if not t.is_contiguous():
             raise ValueError(f"bj_apply: {name} must be contiguous")
-    # the tiles' widest load: four values (two 16-byte loads in fp64)
-    align = min(16, 4 * inv_tiles.element_size())
-    if inv_tiles.data_ptr() % align:
-        raise ValueError(f"bj_apply: tiles must be {align}-byte aligned (the "
-                         "kernel's vector loads)")
+    bulk = inv_tiles.dtype == torch.float64      # the ring's bulk copies
+    # the register stream's widest load is four values (16 bytes in fp32,
+    # 8 in bf16); it reads r without alignment
+    stream_align = 4 * inv_tiles.element_size()
+    for name, t, align in (("tiles", inv_tiles,
+                            ALIGN if bulk else stream_align),
+                           ("r", r, ALIGN if bulk else 1)):
+        if t.data_ptr() % align:
+            raise ValueError(f"bj_apply: {name} must be {align}-byte aligned "
+                             "(the kernel's " + ("bulk copies)" if bulk else
+                                                 "vector loads)"))
     from navierstokes_tpu_torch.kernels.build import library
     lib = library()
     y = torch.empty((n_p2, d), dtype=rdt, device=dev)
+    if n_p2 == 0:
+        return y
+    args = [inv_tiles.data_ptr(), r.data_ptr(), y.data_ptr()]
+    if bulk:
+        cfg = launch_config(inv_tiles, r)
+        args += [sb, n_p2, d, cfg["grid"], cfg["per_cta"], cfg["n_long"]]
+    else:
+        args += [n_tiles, sb, n_p2, d]
     stream = torch.cuda.current_stream(dev).cuda_stream
     # the C entry launches on the current device: make it the tensors'
     # (a row shard on another card, parallel/sharded_bsr.py)
     with torch.cuda.device(dev):
-        rc = getattr(lib, entry)(inv_tiles.data_ptr(), r.data_ptr(),
-                                 y.data_ptr(), n_tiles, sb, n_p2, d, stream)
+        rc = getattr(lib, entry)(*args, stream)
     if rc != 0:
         msg = (lib.nst_cuda_error_string(rc).decode() if rc > 0 else
                f"no instantiation for SB={sb}, d={d} in csrc/bj_apply.cu")

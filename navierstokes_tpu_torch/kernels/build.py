@@ -76,10 +76,14 @@ def build_info() -> dict:
         fn = getattr(lib, entry)
         fn.argtypes = [p, p, p, p, p, p, i, i, p]
         fn.restype = i
-    for suffix in ("f32", "bf16", "f64"):
+    for suffix in ("f32", "bf16"):
         fn = getattr(lib, f"nst_bj_apply_{suffix}")
         fn.argtypes = [p, p, p, i, i, i, i, p]
         fn.restype = i
+    lib.nst_bj_apply_f64.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.nst_bj_apply_f64.restype = i
+    lib.nst_bj_apply_f64_setup.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.nst_bj_apply_f64_setup.restype = i
     u64, i64 = ctypes.c_ulonglong, ctypes.c_longlong
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"nst_lsq_update_{suffix}")

@@ -13,7 +13,9 @@ tests/test_torch_cuda.py) against the JAX package's
 * the wrapper on CPU tensors: it takes the plain version, counts no
   launch and imports nothing of JAX;
 * what the model's steps hand the apply (both schemes, the bf16 options,
-  the exact branch, row shards): what the kernel takes on the card.
+  the exact branch, row shards): what the kernel takes on the card;
+* the persistent grid's split of the work items (``partition``): every
+  block of rows goes to exactly one CTA, in order.
 """
 
 import os
@@ -25,6 +27,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from navierstokes_tpu.fem.spaces import TaylorHoodSpace
 from navierstokes_tpu.mesh import channel_with_cylinder_2d
@@ -197,7 +201,8 @@ def test_steps_hand_the_apply_what_the_kernel_takes(tmp_path, monkeypatch,
 
     def spy(tiles, r):
         seen.append((tiles.dtype, r.dtype, tiles.shape[1], r.shape[1],
-                     tiles.is_contiguous(), r.is_contiguous()))
+                     tiles.is_contiguous(), r.is_contiguous(),
+                     tiles.data_ptr() % BJ.ALIGN, r.data_ptr() % BJ.ALIGN))
         return plain(tiles, r)
 
     monkeypatch.setattr(BJ, "block_jacobi_apply_plain", spy)
@@ -216,7 +221,37 @@ def test_steps_hand_the_apply_what_the_kernel_takes(tmp_path, monkeypatch,
     bf16 = fields.get("bj_bf16") or fields.get("inner_bf16")
     want = torch.bfloat16 if bf16 else torch.float32
     assert seen and {s[0] for s in seen} == {want}
-    for tdt, rdt, sb, d, t_contig, r_contig in seen:
+    for tdt, rdt, sb, d, t_contig, r_contig, t_off, r_off in seen:
         assert rdt == BJ.VARIANTS[tdt][1]
         assert sb in BJ.TILE_SIZES and d == 2
         assert t_contig and r_contig
+        # the kernel's bulk copies take 16-byte aligned tiles and r
+        assert t_off == 0 and r_off == 0
+
+
+@settings(max_examples=300, deadline=None)
+@given(n_tiles=st.integers(1, 5000), sb=st.sampled_from(BJ.TILE_SIZES),
+       rows=st.sampled_from([8, 16, 32, 64]), resident=st.integers(1, 264),
+       tail=st.integers(1, 512))
+def test_partition_deals_every_row_block_to_one_cta_in_order(
+        n_tiles, sb, rows, resident, tail):
+    """The kernel's work items, blocks of ``rows`` rows (the ring's rows
+    per item, which divide SB: 8 to 64 in csrc/bj_apply.cu), of a batch of
+    ``n_tiles`` tiles with a tail tile of ``tail`` live rows: the CTAs'
+    ranges cover them once, in order, each CTA at least one item, the
+    shares differing by at most one, on at most ``resident`` CTAs."""
+    n_p2 = (n_tiles - 1) * sb + min(tail, sb)
+    part = BJ.partition(n_p2, rows, resident)
+    # every (tile, row block) with a live row is an item
+    assert part.n_items == ((n_tiles - 1) * (sb // rows)
+                            + -(-min(tail, sb) // rows))
+    assert part.grid == min(resident, part.n_items)
+    # [begin, end) of each CTA, as csrc/bj_apply.cu's ring_kernel derives it
+    begins = [b * part.per_cta + min(b, part.n_long)
+              for b in range(part.grid)]
+    ranges = [(begin, begin + part.per_cta + (b < part.n_long))
+              for b, begin in enumerate(begins)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == part.n_items
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = [end - begin for begin, end in ranges]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1

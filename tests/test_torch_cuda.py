@@ -20,7 +20,8 @@ solver options ``proj_poisson="schur"``, ``proj_p_extrap`` and
 ``f_solver="richardson"`` captured against eager (a change of them after
 capture raises), and
 the block-Jacobi tile-apply kernel (fp32, bf16 and fp64 tiles) against
-its plain version, batch invariant, refusing what it does not take, and
+its plain version, batch invariant, at the edges of its ring and
+persistent grid, refusing what it does not take, and
 launched by captured, eager, float64 and row-sharded steps; the while
 nodes of csrc/graph_cond.cu against the host loop (seeded trip counts,
 nested, no synchronising replay) and their predicate kernel against its
@@ -1023,6 +1024,146 @@ def test_bj_apply_is_batch_invariant_on_cuda(cuda, dtype):
     assert torch.equal(tail, y[2 * sb:])
 
 
+def _bj_edge_inputs(dev, dtype, case):
+    """Tiles and r of one edge of the kernel's ring and grid (see
+    test_bj_apply_ring_and_grid_edges_on_cuda)."""
+    from navierstokes_tpu_torch.kernels import bj_apply as BJ
+    if case == "one tile":
+        return _bj_inputs(dev, dtype, 2, n_tiles=1, tail=256)
+    if case == "items not a multiple of the grid":
+        # sized from the fp64 ring's grid (the register stream of fp32 and
+        # bf16 tiles runs one CTA per 64 rows)
+        g = BJ.ring(dev.index or 0, 256, 2)
+        resident = g["ctas_per_sm"] * g["sms"]
+        n_tiles = resident * g["rows_per_item"] // 256 + 2
+        tail = 77
+        while -(-((n_tiles - 1) * 256 + tail) // g["rows_per_item"]) \
+                % resident == 0:
+            tail += g["rows_per_item"]
+        return _bj_inputs(dev, dtype, 2, n_tiles=n_tiles, tail=tail)
+    if case == "one-row tail tile":
+        return _bj_inputs(dev, dtype, 2, n_tiles=5, tail=1)
+    if case in ("SB 128", "SB 512"):
+        return _bj_inputs(dev, dtype, 2, sb=int(case[3:]))
+    if case == "d=3":
+        return _bj_inputs(dev, dtype, 3, n_tiles=7, tail=200)
+    raise ValueError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "one tile", "items not a multiple of the grid", "one-row tail tile",
+    "SB 128", "SB 512", "d=3", "tiles[t:] slice"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_bj_apply_ring_and_grid_edges_on_cuda(cuda, dtype, case):
+    """The edges of the persistent grid and the ring (fewer items than
+    CTAs, a count of items the grid does not divide, a tail tile of one
+    row, SB 128 and 512, d=3, a slice ``tiles[t:]`` of a batch): the kernel
+    against its plain version, a repeat bit for bit, and each of the first,
+    a middle and the last tile alone equal to the batch's rows."""
+    from navierstokes_tpu_torch.kernels import bj_apply as BJ
+    if case == "tiles[t:] slice":
+        tiles, r = _bj_inputs(cuda, dtype, 2, n_tiles=6, tail=100)
+        sb = tiles.shape[1]
+        y = BJ.bj_apply(tiles, r)
+        for t in (1, 4, 5):
+            assert torch.equal(BJ.bj_apply(tiles[t:], r[t * sb:]),
+                               y[t * sb:])
+        return
+    tiles, r = _bj_edge_inputs(cuda, dtype, case)
+    cfg = BJ.launch_config(tiles, r)
+    if case == "one tile" and dtype == torch.float64:
+        assert cfg["n_items"] < cfg["ctas_per_sm"] * cfg["sms"]
+        assert cfg["grid"] == cfg["n_items"]
+    if case == "items not a multiple of the grid" and dtype == torch.float64:
+        assert cfg["n_items"] > cfg["grid"] and cfg["n_long"] > 0
+    y = BJ.bj_apply(tiles, r)
+    y2 = BJ.bj_apply(tiles, r)
+    yp = BJ.block_jacobi_apply_plain(tiles, r)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    if dtype == torch.bfloat16:
+        assert float((y - yp).abs().max()) <= _bf16_ulp(yp)
+    else:
+        assert float((y - yp).abs().max()) <= (BJ_LIMITS[dtype]
+                                               * float(yp.abs().max()))
+    n_tiles, sb = tiles.shape[0], tiles.shape[1]
+    for t in sorted({0, n_tiles // 2, n_tiles - 1}):
+        rows = slice(t * sb, min((t + 1) * sb, r.shape[0]))
+        assert torch.equal(BJ.bj_apply(tiles[t:t + 1], r[rows]), y[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_bj_apply_reuses_stages_safely_with_tiles_in_l2(cuda, dtype):
+    """Tiles that fit in the L2 and were just read there, many items per
+    CTA (every stage of the ring reused many times): each bulk copy lands
+    within a few hundred cycles, so a stage given back before the warp's
+    reads of it landed would be overwritten under them.  Every launch
+    equals the first bit for bit, and the first is within the limit of the
+    plain version."""
+    from navierstokes_tpu_torch.kernels import bj_apply as BJ
+    # about 40 MB of tiles, within the 50 MB L2
+    n_tiles = (40 << 20) // (256 * 256 * torch.finfo(dtype).bits // 8)
+    tiles, r = _bj_inputs(cuda, dtype, 2, n_tiles=n_tiles, tail=130)
+    cfg = BJ.launch_config(tiles, r)
+    if dtype == torch.float64:
+        assert cfg["n_items"] > cfg["stages"] * cfg["grid"]
+    ys = []
+    for _ in range(12):
+        tiles.sum()                      # the tiles into the L2
+        ys.append(BJ.bj_apply(tiles, r))
+    yp = BJ.block_jacobi_apply_plain(tiles, r)
+    torch.cuda.synchronize()
+    for y in ys[1:]:
+        assert torch.equal(y, ys[0])
+    if dtype == torch.bfloat16:
+        assert float((ys[0] - yp).abs().max()) <= _bf16_ulp(yp)
+    else:
+        assert float((ys[0] - yp).abs().max()) <= (BJ_LIMITS[dtype]
+                                                   * float(yp.abs().max()))
+
+
+# the fp64 ring's first launch in a fresh process at the bench point's
+# tiles, the last 40 MB of them just read into the L2
+_BJ_FIRST_LAUNCH = """
+import torch
+from navierstokes_tpu_torch.kernels import bj_apply as BJ
+g = torch.Generator(device="cuda").manual_seed(15)
+tiles = 0.05 * torch.randn((1760, 256, 256), generator=g, device="cuda",
+                           dtype=torch.float64)
+tiles.diagonal(dim1=1, dim2=2).add_(1.0)
+r = torch.randn((450_518, 2), generator=g, device="cuda", dtype=torch.float64)
+ys = []
+for _ in range(4):
+    tiles[-80:].sum()
+    ys.append(BJ.bj_apply(tiles, r))
+yp = BJ.block_jacobi_apply_plain(tiles, r)
+torch.cuda.synchronize()
+bad = [k for k, y in enumerate(ys) if not torch.equal(y, ys[-1])]
+assert not bad, f"launches {bad} differ from the last in " + str(
+    [int((ys[k] != ys[-1]).any(dim=1).sum()) for k in bad]) + " rows"
+assert float((ys[0] - yp).abs().max()) <= 1e-12 * float(yp.abs().max())
+"""
+
+
+@pytest.mark.cuda
+def test_bj_apply_f64_first_launch_with_the_tiles_end_in_l2(cuda):
+    """The fp64 ring's first launch in a fresh process, at the bench
+    point's tiles with their last 40 MB just read into the L2, then three
+    more: the last CTAs' bulk copies hit the L2 and land within a few
+    hundred cycles.  Before a proxy fence preceded each release of a stage,
+    they overwrote rows that some lanes had not read yet, in every first
+    launch (a few of the last CTAs' rows, seen on an H100).  Every launch
+    equals the last bit for bit and the plain version within 1e-12 of
+    max|y|."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", _BJ_FIRST_LAUNCH], check=True,
+                   cwd=ROOT, env=env, timeout=600)
+
+
 @pytest.mark.cuda
 def test_bj_apply_refuses_what_the_kernel_does_not_take(cuda):
     from navierstokes_tpu_torch.kernels import bj_apply as BJ
@@ -1052,6 +1193,22 @@ def test_bj_apply_refuses_what_the_kernel_does_not_take(cuda):
     off.copy_(tiles)
     with pytest.raises(ValueError, match="16-byte aligned"):
         BJ.bj_apply(off, r)
+    # 8 bytes off: short of the fp32 stream's 16-byte loads and of the fp64
+    # ring's bulk copies, which also copy r
+    for dt in (torch.float32, torch.float64):
+        t = tiles.to(dt)
+        step = 8 // t.element_size()
+        buf = torch.empty(t.numel() + step, device=cuda, dtype=dt)
+        off = buf[step:].view(t.shape)
+        off.copy_(t)
+        with pytest.raises(ValueError, match="tiles must be 16-byte aligned"):
+            BJ.bj_apply(off, r.to(BJ.VARIANTS[dt][1]))
+    rr = r.double()
+    rbuf = torch.empty(rr.numel() + 1, device=cuda, dtype=rr.dtype)
+    roff = rbuf[1:].view(rr.shape)
+    roff.copy_(rr)
+    with pytest.raises(ValueError, match="r must be 16-byte aligned"):
+        BJ.bj_apply(tiles.double(), roff)
 
 
 @pytest.mark.cuda
