@@ -211,7 +211,25 @@ and checks them:
    p_extrap, richardson, ``mass_format="node"``, ``bj_tiles="rows"`` and
    ``"scatter"`` under phase 4's rule, and ``operator="ell"`` in float64
    within 1e-9 at the inner solves' 1e-10 (phase 18's gate), 1 step; the
-   phase's seconds.
+   phase's seconds;
+26. the Krylov loops' kernels (right after phase 25; their launches are
+   counted on phases 5, 8, 21, 22 and 25, per step by kind: each fused
+   update stage of csrc/krylov_update.cu and the Gram-Schmidt steps of
+   csrc/gram_schmidt.cu, equal between captured and eager runs, one
+   launch of each BiCGStab stage per BiCGStab iteration and of each CG
+   stage per CG iteration in phases 5 and 21, one Gram-Schmidt step per
+   FGMRES iteration in phases 8 and 22): at the bench point's shapes
+   (BiCGStab n = 901,036, CG n = 113,378), fp32 and fp64, each update
+   stage against its plain version bit for bit with the flag up and
+   down (down: no state buffer moves); Gram-Schmidt on the flat
+   1,014,414-element vector at restart 64 and j = 0, 13, 38, 63 against
+   its plain version within 1e-6 (fp32) or 1e-12 (fp64) of the scale,
+   bit-identical on repeat, V and Z untouched with the flag down; each
+   timed in bursts over input sets that exceed twice the L2, beside its
+   bound (bytes over 3.35 TB/s), its plain version (launched eagerly)
+   and, for Gram-Schmidt, one cuBLAS ``V @ w`` over the whole basis (the
+   record's ``library_ms``) and the whole-basis sequence the port ran
+   before.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
@@ -225,6 +243,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -348,6 +367,40 @@ def per_step_launches(n_steps, by_pattern=None):
     by_pattern = COUNTS.by_pattern if by_pattern is None else by_pattern
     return {f"{name} {str(dt).replace('torch.', '')}": v / n_steps
             for (name, dt), v in by_pattern.items()}
+
+
+def kry_reset():
+    """Set the Krylov loops' kernel counts to 0 (csrc/krylov_update.cu's
+    stages, csrc/gram_schmidt.cu's steps)."""
+    from navierstokes_tpu_torch.kernels import gram_schmidt, krylov_update
+    krylov_update.COUNTS.reset()
+    gram_schmidt.COUNTS.reset()
+
+
+def kry_per_step(n_steps):
+    """Launches per step of the Krylov loops' kernels by kind since
+    ``kry_reset``: each fused update stage, and the Gram-Schmidt steps
+    (``gram_schmidt``, six kernels each)."""
+    from navierstokes_tpu_torch.kernels import gram_schmidt, krylov_update
+    c = dataclasses.asdict(krylov_update.COUNTS)
+    c["gram_schmidt"] = gram_schmidt.COUNTS.calls
+    return {k: v / n_steps for k, v in c.items()}
+
+
+def check_kry_projection(phase, kry, ms):
+    """A projection step's BiCGStab iterations each launch the three
+    BiCGStab stages once, its CG iterations the two CG stages; no
+    Gram-Schmidt."""
+    n = len(ms)
+    f_its = sum(m.f_iterations for m in ms) / n
+    p_its = sum(m.p_iterations for m in ms) / n
+    check(all(abs(kry[s] - f_its) < 1e-9 for s in
+              ("bicgstab_p", "bicgstab_s", "bicgstab_xr"))
+          and all(abs(kry[s] - p_its) < 1e-9 for s in ("cg_xr", "cg_p"))
+          and kry["gram_schmidt"] == 0 and f_its > 0 and p_its > 0,
+          f"[{phase}] one launch of each BiCGStab stage per BiCGStab "
+          f"iteration ({f_its:.2f}) and of each CG stage per CG iteration "
+          f"({p_its:.2f}) per step: {kry}")
 
 
 # PR 10's figures of the captured steps, printed beside this run's
@@ -697,6 +750,7 @@ def phase_bench(ns, card):
     COUNTS.reset()
     bj_apply.COUNTS.reset()
     conditional.COUNTS.reset()
+    kry_reset()
     ms_all, first = [], dict(ms=[])
     for k in range(n_warm):
         t1 = time.perf_counter()
@@ -721,6 +775,10 @@ def phase_bench(ns, card):
     sps = n_meas / wall
     whiles = while_counts(5, "projection", ms_all, captured=True)
     conds = conditional.COUNTS.set_condition / (n_warm + n_meas)
+    kry = kry_per_step(n_warm + n_meas)
+    log(f"[5] Krylov loop kernels (csrc/krylov_update.cu stages, "
+        f"csrc/gram_schmidt.cu steps) per step: {kry}")
+    check_kry_projection(5, kry, ms_all)
     log(f"[5] captured steps: {while_line(whiles, conds)} (PR 10: host "
         f"reads {PR10['proj_reads']}, masked iterations "
         f"{PR10['proj_masked']} per step, AX) on {card}")
@@ -766,7 +824,8 @@ def phase_bench(ns, card):
                 capture_s=sg.capture_seconds, capture_peak_bytes=capture_peak,
                 reserved_growth_bytes=growth, whiles=whiles,
                 set_condition_per_step=conds, bj=bj,
-                bj_per_step=bj_per_step(bj, n_warm + n_meas))
+                bj_per_step=bj_per_step(bj, n_warm + n_meas),
+                kry_per_step=kry, n_steps=n_warm + n_meas)
 
 
 # phase 21: steps of each mode from phase 5's end state, and the chunked
@@ -805,6 +864,7 @@ def phase_graphs(ns, bench, card):
         COUNTS.reset()
         bj_apply.COUNTS.reset()
         conditional.COUNTS.reset()
+        kry_reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ms = [ns.solve_time_step(_eager=mode == "eager")
@@ -817,6 +877,7 @@ def phase_graphs(ns, bench, card):
             metrics=ms, u=ns._u.clone(), p=ns._p.clone(),
             launches=per_step_launches(GRAPH_STEPS),
             bj=bj_per_step(bj_snapshot()[0], GRAPH_STEPS),
+            kry=kry_per_step(GRAPH_STEPS),
             plain_cuda=COUNTS.plain_cuda_calls + bj_snapshot()[1],
             flag_reads=w["flag_reads"], masked=w["masked_iterations"],
             whiles=w, set_condition=(conditional.COUNTS.set_condition
@@ -841,10 +902,13 @@ def phase_graphs(ns, bench, card):
                         for a, b in zip(r["metrics"], ref["metrics"])))
         check(same, f"[21] the {r['mode']} run equals the first eager run "
               "bit for bit (u, p, Cd, Cl, counts)")
-        check((r["launches"], r["bj"]) == (ref["launches"], ref["bj"]),
-              f"[21] {r['mode']}: SELL and tile-apply launches per step "
-              f"equal the eager run's ({r['launches']}, {r['bj']} against "
-              f"{ref['launches']}, {ref['bj']})")
+        check((r["launches"], r["bj"], r["kry"])
+              == (ref["launches"], ref["bj"], ref["kry"]),
+              f"[21] {r['mode']}: SELL, tile-apply and Krylov-kernel "
+              f"launches per step equal the eager run's ({r['launches']}, "
+              f"{r['bj']}, {r['kry']} against {ref['launches']}, "
+              f"{ref['bj']}, {ref['kry']})")
+        check_kry_projection(21, r["kry"], r["metrics"])
         # the graph adds one set_condition per loop entered: the test
         # before each while node
         extra = r["whiles"]["loops_entered"] if r["mode"] == "captured" \
@@ -863,7 +927,8 @@ def phase_graphs(ns, bench, card):
     log(f"[21] captured equals eager bit for bit in all four runs; SELL "
         f"launches per step (captured, from the replay records) "
         f"{runs[1]['launches']}; tile-apply launches per step "
-        f"{runs[1]['bj']}")
+        f"{runs[1]['bj']}; Krylov-kernel launches per step "
+        f"{runs[1]['kry']}")
     log(f"[21] capture {bench['capture_s']:.2f} s (phase 5), peak device "
         f"memory over the four runs {peak} bytes ({peak / 2**30:.2f} GiB); "
         f"steps/s eager {sps['eager']}, captured {sps['captured']} on "
@@ -920,7 +985,7 @@ def phase_graphs(ns, bench, card):
     return dict(runs=[{k: r[k] for k in ("mode", "sync_check",
                                          "steps_per_s", "flag_reads",
                                          "masked", "whiles", "set_condition",
-                                         "launches", "bj")}
+                                         "launches", "bj", "kry")}
                       for r in runs],
                 peak_bytes=peak, capture_s=bench["capture_s"],
                 inverse_gap=gap, givens=givens)
@@ -1183,6 +1248,7 @@ def phase_monolithic_bench(card):
     arnoldi_lsq.COUNTS.reset()
     conditional.COUNTS.reset()
     bj_apply.COUNTS.reset()
+    kry_reset()
     ms_all, step_s = [], []
     n_warm = n_meas = 5
     k = 0
@@ -1205,12 +1271,15 @@ def phase_monolithic_bench(card):
     per_step = per_step_launches(n_warm + n_meas)
     givens = dataclasses.asdict(arnoldi_lsq.COUNTS)
     nodes = conditional.COUNTS.set_condition
+    kry = kry_per_step(n_warm + n_meas)
     bj, bj_plain = bj_snapshot()
     peak = torch.cuda.max_memory_allocated()
     sps = n_meas / wall
     whiles = while_counts(8, "monolithic", ms_all, captured=True)
     log(f"[8] Givens kernel launches over {n_warm + n_meas} steps: "
         f"{givens}; set_condition launches {nodes}")
+    log(f"[8] Krylov loop kernels (csrc/krylov_update.cu stages, "
+        f"csrc/gram_schmidt.cu steps) per step: {kry}")
     log(f"[8] captured steps: "
         f"{while_line(whiles, nodes / (n_warm + n_meas))} (PR 10: host "
         f"reads {PR10['mono_reads']}, set_condition "
@@ -1250,6 +1319,12 @@ def phase_monolithic_bench(card):
     check(launches > 0, "[8] kernel launched on the monolithic path")
     check(givens["update"] == sum(m.iterations for m in ms_all),
           "[8] the Givens kernel launched once per FGMRES iteration")
+    check(abs(kry["gram_schmidt"] * (n_warm + n_meas)
+              - sum(m.iterations for m in ms_all)) < 1e-6,
+          "[8] the Gram-Schmidt kernels ran once per FGMRES iteration")
+    check(all(kry[s] > 0 for s in ("bicgstab_p", "bicgstab_s",
+                                   "bicgstab_xr")),
+          "[8] the inner BiCGStab's stages launched")
     check(nodes > 0, "[8] the while nodes' kernel launched")
     if not sg.refine:
         # the guard, and one read per restart cycle's end (a cycle but the
@@ -1267,6 +1342,7 @@ def phase_monolithic_bench(card):
     return dict(launches=launches, steps_per_s=sps, peak_bytes=peak,
                 setup_s=setup_s, per_step=per_step, givens=givens,
                 set_condition=nodes, n_steps=n_warm + n_meas, ns=ns,
+                kry_per_step=kry,
                 end=end, capture=capture, whiles=whiles, bj=bj,
                 bj_per_step=bj_per_step(bj, n_warm + n_meas))
 
@@ -1303,6 +1379,7 @@ def phase_monolithic_graphs(mono, card):
         arnoldi_lsq.COUNTS.reset()
         conditional.COUNTS.reset()
         bj_apply.COUNTS.reset()
+        kry_reset()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1316,7 +1393,7 @@ def phase_monolithic_graphs(mono, card):
             launches=per_step_launches(n),
             givens=arnoldi_lsq.COUNTS.update / n,
             set_condition=conditional.COUNTS.set_condition / n,
-            bj=bj_per_step(bj_snapshot()[0], n),
+            bj=bj_per_step(bj_snapshot()[0], n), kry=kry_per_step(n),
             plain_cuda=COUNTS.plain_cuda_calls + bj_snapshot()[1],
             flag_reads=sum(m.flag_reads for m in ms) / n,
             masked=sum(m.masked_iterations for m in ms) / n,
@@ -1346,12 +1423,13 @@ def phase_monolithic_graphs(mono, card):
                         for a, b in zip(r["metrics"], ref["metrics"])))
         check(same, f"[22] the {r['mode']} run equals the first captured "
               "run bit for bit (u, p, Cd, Cl, FGMRES counts)")
-        check((r["launches"], r["givens"], r["bj"])
-              == (ref["launches"], ref["givens"], ref["bj"]),
-              f"[22] {r['mode']}: SELL, Givens and tile-apply launches per "
-              f"step ({r['launches']}, {r['givens']}, {r['bj']}) equal the "
-              f"captured run's ({ref['launches']}, {ref['givens']}, "
-              f"{ref['bj']})")
+        check((r["launches"], r["givens"], r["bj"], r["kry"])
+              == (ref["launches"], ref["givens"], ref["bj"], ref["kry"]),
+              f"[22] {r['mode']}: SELL, Givens, tile-apply and Krylov-kernel "
+              f"launches per step ({r['launches']}, {r['givens']}, "
+              f"{r['bj']}, {r['kry']}) equal the captured run's "
+              f"({ref['launches']}, {ref['givens']}, {ref['bj']}, "
+              f"{ref['kry']})")
     check(all(r["plain_cuda"] == 0 for r in runs),
           "[22] no plain-version calls on CUDA tensors")
     check(all(m.flag_reads < e.flag_reads for m, e in
@@ -1367,12 +1445,15 @@ def phase_monolithic_graphs(mono, card):
               f"{runs[1]['set_condition']:.2f} + loops entered {extra:.2f}")
     check(ref["givens"] * n == sum(m.iterations for m in ref["metrics"]),
           "[22] one Givens launch per FGMRES iteration")
+    check(ref["kry"]["gram_schmidt"] == ref["givens"],
+          "[22] one Gram-Schmidt step per FGMRES iteration")
     sps = {m: [r["steps_per_s"] for r in runs if r["mode"] == m]
            for m in ("captured", "eager")}
     cap = mono["capture"]
     log(f"[22] captured equals eager bit for bit in all four runs, with the "
         f"same launches per step (SELL {ref['launches']}, Givens "
-        f"{ref['givens']:.2f}, tile apply {ref['bj']}); capture "
+        f"{ref['givens']:.2f}, tile apply {ref['bj']}, Krylov kernels "
+        f"{ref['kry']}); capture "
         f"{cap['capture_s']:.2f} s (phase 8; PR 10: {PR10['capture_s']} s), "
         f"{cap['while_nodes']} while nodes; peak device memory over the "
         f"four runs {peak} bytes ({peak / 2**30:.2f} GiB; PR 10: "
@@ -1383,8 +1464,8 @@ def phase_monolithic_graphs(mono, card):
     return dict(runs=[{k: r[k] for k in ("mode", "sync_check", "steps_per_s",
                                          "flag_reads", "masked", "whiles",
                                          "launches", "givens",
-                                         "set_condition", "bj", "peak",
-                                         "pools")}
+                                         "set_condition", "bj", "kry",
+                                         "peak", "pools")}
                       for r in runs],
                 peak_bytes=peak, nodes=nodes)
 
@@ -1975,6 +2056,7 @@ def _option_run(ns, end, mode, sync_check=False):
     COUNTS.reset()
     bj_apply.COUNTS.reset()
     conditional.COUNTS.reset()
+    kry_reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ms = [ns.solve_time_step(_eager=mode == "eager")
@@ -1990,6 +2072,7 @@ def _option_run(ns, end, mode, sync_check=False):
                 steps_per_s=OPTION_STEPS / wall, launches=COUNTS.launches,
                 per_step=per_step_launches(OPTION_STEPS),
                 bj=bj, bj_per_step=bj_per_step(bj, OPTION_STEPS),
+                kry=kry_per_step(OPTION_STEPS),
                 plain_cuda=COUNTS.plain_cuda_calls + bj_plain,
                 state=[ns._u.clone(), ns._p.clone(), ns._phi.clone()])
 
@@ -2029,10 +2112,12 @@ def phase_options_bench(bench, mono, lap_div, card):
                     == [_metrics_key(m) for m in ref["metrics"]])
             check(same, f"[25] {tag}: the {r['mode']} run equals the first "
                   "captured run bit for bit (u, p, phi, Cd, Cl, counts)")
-            check((r["per_step"], r["bj"]) == (ref["per_step"], ref["bj"]),
-                  f"[25] {tag}: {r['mode']} SELL and tile-apply launches "
-                  f"per step ({r['per_step']}, {r['bj']}) equal the "
-                  f"captured run's ({ref['per_step']}, {ref['bj']})")
+            check((r["per_step"], r["bj"], r["kry"])
+                  == (ref["per_step"], ref["bj"], ref["kry"]),
+                  f"[25] {tag}: {r['mode']} SELL, tile-apply and "
+                  f"Krylov-kernel launches per step ({r['per_step']}, "
+                  f"{r['bj']}, {r['kry']}) equal the captured run's "
+                  f"({ref['per_step']}, {ref['bj']}, {ref['kry']})")
         check(all(r["plain_cuda"] == 0 for r in runs),
               f"[25] {tag}: no plain-version calls on CUDA tensors")
         check(ref["launches"] > 0, f"[25] {tag}: the SELL kernel launched")
@@ -2053,7 +2138,8 @@ def phase_options_bench(bench, mono, lap_div, card):
             f"checked), {runs[2]['steps_per_s']:.4f}, eager "
             f"{runs[1]['steps_per_s']:.4f}; SELL launches per step "
             f"{ref['per_step']}; tile-apply launches per step "
-            f"{ref['bj_per_step']}; Cd {ms[-1].cd:.6f}, Cl {ms[-1].cl:.6f}"
+            f"{ref['bj_per_step']}; Krylov-kernel launches per step "
+            f"{ref['kry']}; Cd {ms[-1].cd:.6f}, Cl {ms[-1].cl:.6f}"
             f" on {card}")
         for r in runs:
             log(f"[25] {tag} {r['mode']}: "
@@ -2063,6 +2149,7 @@ def phase_options_bench(bench, mono, lap_div, card):
                                 for i, r in enumerate(runs)},
                    launches=ref["launches"], per_step=ref["per_step"],
                    bj=ref["bj"], bj_per_step=ref["bj_per_step"],
+                   kry_per_step=ref["kry"],
                    iterations=[m.iterations for m in ms],
                    converged=[m.converged for m in ms],
                    whiles=ref["whiles"], set_condition=ref["set_condition"])
@@ -3356,6 +3443,280 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
                 bj_per_step=bj_per_step(bj, SHARD_STEPS))
 
 
+# phase 26: the Krylov loops' kernels at the bench point's shapes
+KRY_SOURCE = "navierstokes_tpu_torch/csrc/krylov_update.cu"
+GS_SOURCE = "navierstokes_tpu_torch/csrc/gram_schmidt.cu"
+# no Pallas kernel: XLA's fusion of the JAX loop bodies (BiCGStab's and
+# CG's updates; FGMRES's masked Gram-Schmidt)
+KRY_REPLACES = {stage: f"navierstokes_tpu/solvers/krylov.py:{line}"
+                for stage, line in (("bicgstab_p", 207), ("bicgstab_s", 213),
+                                    ("bicgstab_xr", 218), ("cg_xr", 261),
+                                    ("cg_p", 266))}
+GS_REPLACES = "navierstokes_tpu/solvers/krylov.py:97"
+# BiCGStab's F system (2 x 450,518 velocity rows), CG's P1 Laplacian, the
+# flat (u, p) vector of FGMRES at restart 64
+KRY_N = {"bicgstab": 901_036, "cg": 113_378}
+GS_N, GS_M, GS_JS = EXPECTED_DOFS, 64, (0, 13, 38, 63)
+# kernel against plain version: both sum each product in float64, in other
+# orders; each element within one ulp of the plain value, or within
+# GS_GATE of the scale (measured gaps in PERF.md section 6)
+GS_GATE = {torch.float32: 2.0 ** -24, torch.float64: 1e-12}
+FP64_OPS_PER_S = 34e12        # published H100 SXM fp64 rate, no tensor core
+# vectors of n read plus written per stage with the flag up, and flops
+# per element
+KRY_VECTORS = {"bicgstab_p": (3, 1, 4), "bicgstab_s": (2, 2, 2),
+               "bicgstab_xr": (5, 2, 6), "cg_xr": (4, 2, 4),
+               "cg_p": (2, 1, 2)}
+# the timed bursts' scalars: powers of two that keep repeated calls
+# bounded (beta 1/2); the bit-for-bit checks draw theirs
+KRY_TAME = {"rho_new": 0.5, "rho": 1.0, "alpha": 1.0, "omega": 1.0,
+            "denom": 2.0, "ts": 0.25, "tt": 1.0, "alpha_state": 1.0,
+            "omega_state": 1.0, "rz": 1.0, "pap": 4.0, "rz_new": 0.5,
+            "rz_prev": 1.0}
+
+
+def _plain_ms(fn, n=BURST, reps=5):
+    """Median device time per call of ``n`` calls of ``fn`` launched
+    eagerly (a plain version's many small launches outrun any spin, so
+    the host's gaps are in the time), after one warm-up call."""
+    fn()
+    return _replay_ms(lambda: [fn() for _ in range(n)], n, reps)
+
+
+def _gate_ratio(k, p, scale, dt):
+    """max |k - p| / max(ulp(p), GS_GATE[dt] * scale) over the elements:
+    the kernel passes at 1 or less."""
+    ulp = torch.nextafter(p.abs(), torch.full_like(p, math.inf)) - p.abs()
+    tol = torch.clamp(ulp, min=GS_GATE[dt] * scale)
+    return float(((k - p).abs() / tol).max())
+
+
+def _gs_basis(n, m, seed=26):
+    """An orthonormal basis of m rows of n (QR on the card, float64) and a
+    seeded vector with a part in its span."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, _ = torch.linalg.qr(torch.randn(n, m, generator=g, device="cuda",
+                                       dtype=torch.float64))
+    w = torch.randn(n, generator=g, device="cuda", dtype=torch.float64)
+    w += 3.0 * q @ torch.randn(m, generator=g, device="cuda",
+                               dtype=torch.float64)
+    return q.T.contiguous(), w
+
+
+def _whole_basis(V, w, j):
+    """The Gram-Schmidt the port ran before csrc/gram_schmidt.cu: the JAX
+    body's masked products over the whole basis (cuBLAS GEMVs)."""
+    m = V.shape[0] - 1
+    mask = (torch.arange(m + 1, device=V.device) <= j).to(V.dtype)
+    h1 = (V @ w) * mask
+    w = w - h1 @ V
+    h2 = (V @ w) * mask
+    w = w - h2 @ V
+    return h1, h2, torch.linalg.norm(w)
+
+
+def phase_krylov_kernels(card):
+    """Phase 26: the fused update stages (csrc/krylov_update.cu) against
+    their plain versions at the bench point's shapes, fp32 and fp64, the
+    flag up and down, bit for bit; the Gram-Schmidt kernels
+    (csrc/gram_schmidt.cu) against theirs on the flat bench vector at
+    restart 64 and j in GS_JS, each element within one ulp or GS_GATE of
+    the scale, bit-identical on repeat, V and Z untouched with the flag
+    down; each timed in bursts
+    beside its bound (input sets cycled that exceed twice the L2), its
+    plain version (launched eagerly, ``_plain_ms``), and for Gram-Schmidt
+    one cuBLAS GEMV over the whole basis (the library) and the
+    whole-basis sequence the port ran before."""
+    from navierstokes_tpu_torch.kernels import gram_schmidt as GS
+    from navierstokes_tpu_torch.kernels import krylov_update as KU
+    t_phase = time.perf_counter()
+    out = {"stages": {}, "gs": {}}
+    for stage in KU.STAGES:
+        n = KRY_N[stage.split("_")[0]]
+        reads, writes, flops = KRY_VECTORS[stage]
+        rec = {}
+        for dt in (torch.float32, torch.float64):
+            for active in (True, False):
+                # drawn scalars: no product of a scalar and an element is
+                # exact, so a contracted multiply-add would change bits
+                kern = KU.example(stage, n, dt, "cuda",
+                                  np.random.default_rng(1), active=active)
+                before = [t.clone() for t in kern]
+                plain = [t.clone() for t in kern]
+                KU.update(stage, *kern)
+                KU.PLAIN[stage](*plain)
+                torch.cuda.synchronize()
+                differ = [name for name, a, b in zip(KU.ARGS[stage], kern,
+                                                     plain)
+                          if not torch.equal(a, b)]
+                check(differ == [], f"[26] {stage} {dt} active={active}: "
+                      f"kernel against plain bit for bit (differ: {differ})")
+                if not active:
+                    moved = [name for name, a, b in zip(KU.ARGS[stage], kern,
+                                                        before)
+                             if not torch.equal(a, b)
+                             and name not in KU.SCRATCH.get(stage, ())]
+                    check(moved == [], f"[26] {stage} {dt}: the flag down "
+                          f"moves no state buffer (moved {moved})")
+            # input sets that together exceed twice the L2, cycled in the
+            # bursts: on the main path the products between two stages
+            # (the 461 MB tile apply among them) leave the L2 cold
+            nbytes = (reads + writes) * n * (4 if dt == torch.float32 else 8)
+            sets = [KU.example(stage, n, dt, "cuda",
+                               np.random.default_rng(2 + i),
+                               scalars=KRY_TAME)
+                    for i in range(max(2, -(-2 * L2_BYTES // nbytes)))]
+            ms = _burst_ms([functools.partial(KU.update, stage, *st)
+                            for st in sets])
+            plain_ms = _plain_ms(functools.partial(KU.PLAIN[stage],
+                                                   *sets[0]))
+            del sets
+            ops = flops * n
+            peak = FP32_OPS_PER_S if dt == torch.float32 else FP64_OPS_PER_S
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
+            rec[str(dt).replace("torch.", "")] = dict(
+                n=n, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                          >= ops / peak else "operations"),
+                bound_bytes=nbytes, max_abs_err=0.0, library_ms=None)
+            log(f"[26] {stage} {str(dt).replace('torch.', '')} n={n}: "
+                f"kernel = plain bit for bit (flag up and down); "
+                f"{ms:.4f} ms per launch in bursts, bound {bound:.4f} ms "
+                f"({nbytes} bytes, {100 * bound / ms:.0f}%), plain "
+                f"{plain_ms:.4f} ms on {card}")
+        out["stages"][stage] = rec
+    # Gram-Schmidt on the flat vector
+    q, w64 = _gs_basis(GS_N, GS_M)
+    g = torch.Generator(device="cuda").manual_seed(27)
+    z64 = torch.randn(GS_N, generator=g, device="cuda", dtype=torch.float64)
+    for dt in (torch.float32, torch.float64):
+        key = str(dt).replace("torch.", "")
+        work = GS.workspace(GS_M, GS_N, dt, "cuda")
+        Z = torch.zeros((GS_M, GS_N), dtype=dt, device="cuda")
+        z, wv = z64.to(dt), w64.to(dt)
+        rec = []
+        for j in GS_JS:
+            V = torch.zeros((GS_M + 1, GS_N), dtype=dt, device="cuda")
+            V[:j + 1] = q[:j + 1].to(dt)
+            jt = torch.tensor(j, dtype=torch.int32, device="cuda")
+            res = {}
+            for tag, fn in (("kernel", GS.gram_schmidt),
+                            ("again", GS.gram_schmidt),
+                            ("plain", GS.gram_schmidt_plain)):
+                st = dict(V=V.clone(), h1=torch.zeros(GS_M + 1, dtype=dt,
+                                                      device="cuda"),
+                          h2=torch.zeros(GS_M + 1, dtype=dt, device="cuda"),
+                          wnorm=torch.zeros((), dtype=dt, device="cuda"),
+                          Z=Z.clone())
+                args = (st["V"], wv, st["h1"], st["h2"], st["wnorm"], jt,
+                        torch.tensor(True, device="cuda"))
+                if tag == "plain":
+                    fn(*args, z, st["Z"])
+                else:
+                    fn(*args, work, z, st["Z"])
+                res[tag] = st
+            down = dict(V=V.clone(), Z=Z.clone())
+            GS.gram_schmidt(down["V"], wv, res["again"]["h1"].clone(),
+                            res["again"]["h2"].clone(),
+                            res["again"]["wnorm"].clone(), jt,
+                            torch.tensor(False, device="cuda"), work, z,
+                            down["Z"])
+            torch.cuda.synchronize()
+            k, p = res["kernel"], res["plain"]
+            check(all(torch.equal(k[x], res["again"][x]) for x in k),
+                  f"[26] gram_schmidt {key} j={j}: bit-identical on repeat")
+            check(torch.equal(down["V"], V) and torch.equal(down["Z"], Z),
+                  f"[26] gram_schmidt {key} j={j}: the flag down moves "
+                  "neither V nor Z")
+            row = j + 1
+            scale = float(p["h1"].abs().max())
+            errs = {"h1": float((k["h1"] - p["h1"]).abs().max()) / scale,
+                    "h2": float((k["h2"] - p["h2"]).abs().max()) / scale,
+                    "wnorm": float((k["wnorm"] - p["wnorm"]).abs()
+                                   / p["wnorm"]),
+                    "V": float((k["V"][row] - p["V"][row]).abs().max()
+                               / p["V"][row].abs().max())}
+            abs_err = max(float((k[x] - p[x]).abs().max())
+                          for x in ("h1", "h2", "wnorm", "V"))
+            vmax = float(p["V"][row].abs().max())
+            ratio = {"h1": _gate_ratio(k["h1"], p["h1"], scale, dt),
+                     "h2": _gate_ratio(k["h2"], p["h2"], scale, dt),
+                     "wnorm": _gate_ratio(k["wnorm"], p["wnorm"],
+                                          float(p["wnorm"]), dt),
+                     "V": _gate_ratio(k["V"][row], p["V"][row], vmax, dt)}
+            others = [i for i in range(GS_M + 1) if i != row]
+            check(max(ratio.values()) <= 1.0
+                  and torch.equal(k["V"][others], p["V"][others])
+                  and torch.equal(k["Z"], p["Z"])
+                  and not k["h1"][j + 1:].any() and not k["h2"][j + 1:].any(),
+                  f"[26] gram_schmidt {key} j={j}: kernel within one ulp "
+                  f"or {GS_GATE[dt]:g} of the scale (max|h1| for h1, h2) "
+                  f"of the plain version, element by element: {ratio} of "
+                  f"that limit; other rows and Z equal, h zero beyond j")
+            # the whole-basis sequence (fp32 sums) against the plain one,
+            # under the same limit
+            wb = _whole_basis(V, wv, j)
+            wb_gap = float((wb[0] - p["h1"]).abs().max()) / scale
+            wb_ratio = {"h1": _gate_ratio(wb[0], p["h1"], scale, dt),
+                        "h2": _gate_ratio(wb[1], p["h2"], scale, dt),
+                        "wnorm": _gate_ratio(wb[2], p["wnorm"],
+                                             float(p["wnorm"]), dt)}
+            s = V.element_size()
+            # copies that together exceed twice the L2 where one call's
+            # data does not, cycled in the bursts (the main path runs the
+            # preconditioner and the product between two calls)
+            on = torch.tensor(True, device="cuda")
+            foot = (j + 5) * GS_N * s
+            sets = [dict(V=V.clone(), w=wv.clone(), z=z.clone(), Z=Z.clone(),
+                         h1=torch.zeros(GS_M + 1, dtype=dt, device="cuda"),
+                         h2=torch.zeros(GS_M + 1, dtype=dt, device="cuda"),
+                         wnorm=torch.zeros((), dtype=dt, device="cuda"))
+                    for _ in range(max(1, -(-2 * L2_BYTES // foot)))]
+            ms = _burst_ms([functools.partial(
+                GS.gram_schmidt, c["V"], c["w"], c["h1"], c["h2"],
+                c["wnorm"], jt, on, work, c["z"], c["Z"]) for c in sets])
+            c = sets[0]
+            plain_ms = _plain_ms(functools.partial(
+                GS.gram_schmidt_plain, c["V"], c["w"], c["h1"], c["h2"],
+                c["wnorm"], jt, on, c["z"], c["Z"]), n=5, reps=3)
+            del sets, c
+            lib_ms = _burst_ms([lambda: V @ wv])
+            whole_ms = _burst_ms([lambda: _whole_basis(V, wv, j)], reps=5)
+            # read once: rows 0..j, w, z; written once: V[j+1], Z[j]
+            nbytes = (j + 5) * GS_N * s + 4 * (GS_M + 1) * s
+            design = (3 * (j + 1) + 8) * GS_N * s
+            ops = 8 * (j + 1) * GS_N
+            bound = max(nbytes / HBM_BYTES_PER_S,
+                        ops / FP64_OPS_PER_S) * 1e3
+            rec.append(dict(j=j, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            whole_basis_ms=whole_ms, bound_ms=bound,
+                            bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                                      >= ops / FP64_OPS_PER_S
+                                      else "operations"),
+                            bound_bytes=nbytes, design_bytes=design,
+                            errors=errs, gate_ratio=ratio,
+                            max_abs_err=abs_err, whole_basis_h1_gap=wb_gap,
+                            whole_basis_gate_ratio=wb_ratio))
+            log(f"[26] gram_schmidt {key} n={GS_N} m={GS_M} j={j}: kernel "
+                f"against plain {errs} of the scale, {ratio} of the limit "
+                f"(one ulp or {GS_GATE[dt]:g} of the scale); the "
+                f"whole-basis sequence's h1 {wb_gap:.2e} from the plain, "
+                f"{wb_ratio} of the limit; "
+                f"{ms:.4f} ms per step in bursts (6 launches), bound "
+                f"{bound:.4f} ms ({nbytes} bytes, "
+                f"{100 * bound / ms:.0f}%; this design moves {design} "
+                f"bytes, {design / ms / 1e6:.0f} GB/s), plain "
+                f"{plain_ms:.4f} ms, one cuBLAS V @ w over the whole basis "
+                f"{lib_ms:.4f} ms, the whole-basis sequence {whole_ms:.4f} "
+                f"ms, on {card}")
+            del V, res, down
+        out["gs"][key] = rec
+        del work, Z
+    torch.cuda.empty_cache()
+    log(f"[26] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3404,6 +3765,7 @@ def main():
     options = phase_options_bench(bench, mono, lap_div, card)
     options_small = phase_options_small()
     log(f"[25] phase {time.perf_counter() - t25:.1f} s")
+    kry = phase_krylov_kernels(card)
     small3d = phase_small_3d()
     ns3, st3d1 = phase_3d1(card)
     uses3d = phase_kernel_3d(ns3)
@@ -3570,6 +3932,42 @@ def main():
                                     "bound_bytes", "library_ms")},
             "launches_per_step": bj_paths if dt == f32 else None,
             "uses": uses, "edges": bj_bench["edges"][BJ_VARIANTS[dt][0]]})
+    # the Krylov loops' kernels: launches on the main paths (phases 5 and
+    # 8, captured), per step on each captured path, phase 26's figures at
+    # the bench shapes (fp32; fp64 beside)
+    kry_paths = {"projection": bench["kry_per_step"],
+                 "monolithic": mono["kry_per_step"],
+                 **{tag: o["kry_per_step"] for tag, o in options.items()}}
+    for stage, rec in kry["stages"].items():
+        head = rec["float32"]
+        kernels.append({
+            "name": f"krylov_{stage}", "route": "cuda", "source": KRY_SOURCE,
+            "replaces": KRY_REPLACES[stage],
+            "launches": sum(round(p["kry_per_step"][stage] * p["n_steps"])
+                            for p in (bench, mono)),
+            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "bound_bytes",
+                                    "library_ms", "n")},
+            "fp64": rec["float64"],
+            "launches_per_step": {p: c[stage] for p, c in kry_paths.items()}})
+    gs = kry["gs"]
+    mean = lambda key: statistics.mean(r[key] for r in gs["float32"])
+    kernels.append({
+        "name": "gram_schmidt", "route": "cuda", "source": GS_SOURCE,
+        "replaces": GS_REPLACES,
+        "launches": round(mono["kry_per_step"]["gram_schmidt"]
+                          * mono["n_steps"]),
+        "kernels_per_launch": 6,
+        "max_abs_err": max(r["max_abs_err"] for r in gs["float32"]),
+        "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"),
+        "bound_by": gs["float32"][-1]["bound_by"],
+        "library_ms": mean("library_ms"),
+        "whole_basis_ms": mean("whole_basis_ms"),
+        "headline": f"means over j in {list(GS_JS)}, fp32",
+        "uses": gs,
+        "launches_per_step": {p: c["gram_schmidt"]
+                              for p, c in kry_paths.items()}})
     record = {"kernels": kernels}
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

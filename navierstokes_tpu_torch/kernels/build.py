@@ -92,6 +92,13 @@ def build_info() -> dict:
         fn = getattr(lib, f"nst_set_condition_{suffix}")
         fn.argtypes = [p, u64, i, p, p, p, p, i64, p, p]
         fn.restype = i
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"nst_krylov_update_{suffix}")
+        fn.argtypes = [i, p, i64, p]
+        fn.restype = i
+        fn = getattr(lib, f"nst_gram_schmidt_{suffix}")
+        fn.argtypes = [p] * 11 + [i, i64, p]
+        fn.restype = i
     lib.nst_while_begin.argtypes = [p, p, p, p, ctypes.POINTER(u64),
                                     ctypes.POINTER(i)]
     lib.nst_while_begin.restype = i

@@ -8,12 +8,15 @@ BiCGStab breakdown guard and the same iteration counting.
 The counterpart of JAX's ``lax.while_loop``: every loop keeps its whole
 state on the device in fixed-shape tensors, the iteration count and the
 loop predicate ``active`` (JAX's ``cond``: ``||r|| > target``, no
-breakdown, ``k < maxiter``) included.  Each iteration computes its update
-and commits it under ``torch.where(active, new, old)``, adding ``active``
-to the count, so an iteration run after the stop changes no bit; its last
-launch is the predicate (kernels/conditional.set_condition: one launch on
-the card, which also sets a while node's condition; FGMRES's Givens
-kernel writes its flag itself).  How a loop runs its iterations under its
+breakdown, ``k < maxiter``) included.  Each iteration commits its update
+only while ``active`` is up, adding ``active`` to the count, so an
+iteration run after the stop changes no bit: BiCGStab's and CG's vector
+updates and scalars are one fused stage each between the products
+(kernels/krylov_update.py: one launch per stage on the card; the plain
+version's ``torch.where(active, new, old)`` on the CPU).  An iteration's
+last launch is the predicate (kernels/conditional.set_condition: one
+launch on the card, which also sets a while node's condition; FGMRES's
+Givens kernel writes its flag itself).  How a loop runs its iterations under its
 flag is the ``Mode`` in force (``iteration_mode``):
 
 * ``MASKED`` (the default): blocks of ``check_every`` iterations
@@ -36,9 +39,12 @@ flag is the ``Mode`` in force (``iteration_mode``):
 The state is updated in place, so a block can be captured as a CUDA graph
 and replayed (models/step_graphs.py).
 
-GMRES keeps JAX's arithmetic: a two-pass modified Gram-Schmidt against
-the whole static (m+1, n) basis under an index mask, and the Givens
-rotations of the small Hessenberg least-squares problem on the device in
+GMRES keeps JAX's arithmetic: a two-pass modified Gram-Schmidt of the
+new vector against rows 0..j of the static (m+1, n) basis
+(``kernels/gram_schmidt.py``: on the card six launches that read j from
+the device and touch those rows only; the JAX body's masked whole-basis
+products on the CPU; products summed in float64 for float32 data), and
+the Givens rotations of the small Hessenberg least-squares problem on the device in
 the solve's precision (``kernels/arnoldi_lsq.py``: one hand-written CUDA
 kernel launch per iteration on the card, its bounds read from the
 device).  Only the end of a restart cycle reads the host: (H, g, j,
@@ -60,6 +66,9 @@ import torch
 
 from navierstokes_tpu_torch.kernels.arnoldi_lsq import lsq_update
 from navierstokes_tpu_torch.kernels.conditional import set_condition
+from navierstokes_tpu_torch.kernels.gram_schmidt import (gram_schmidt,
+                                                         workspace)
+from navierstokes_tpu_torch.kernels.krylov_update import update
 
 # Iterations per block between two host reads (MASKED).  At the bench
 # point of chip_smoke.py (2D-2, 1,014,414 DoF) a projection step takes
@@ -198,13 +207,6 @@ def _flat_system(b, matvec, precond):
     return b_flat, unravel, mv, pc
 
 
-def _commit(active, pairs):
-    """state <- where(active, new, state) for each (state, new), in
-    place."""
-    for old, new in pairs:
-        old.copy_(torch.where(active, new, old))
-
-
 class _Loop:
     """Device state of a blocked Krylov loop: ``k`` (iterations), ``active``
     (the loop predicate), ``target``; ``blocks`` counts the blocks run and
@@ -263,6 +265,7 @@ class BicgstabLoop(_Loop):
         self.rho, self.alpha, self.omega = one.clone(), one.clone(), one
         self.v = torch.zeros_like(b_flat)
         self.p = torch.zeros_like(b_flat)
+        self.s = torch.empty_like(b_flat)           # scratch: s = r - alpha v
         self.eps = torch.full((), 1e-30, dtype=dt, device=dev)
         self.k = torch.zeros((), dtype=torch.int64, device=dev)
         self.stag = torch.zeros((), dtype=torch.bool, device=dev)
@@ -276,29 +279,23 @@ class BicgstabLoop(_Loop):
                              cond)
 
     def _iteration(self):
-        eps, r0, r = self.eps, self.r0, self.r
-        safe = lambda a: torch.where(a.abs() > eps, a, eps)
-        rho_new = r0 @ r
-        beta = (rho_new / safe(self.rho)) * (self.alpha / safe(self.omega))
-        p = r + beta * (self.p - self.omega * self.v)
-        phat = self.pc(p)
+        """JAX's body: p, then s, then x and r with the scalars, the
+        breakdown guard and k (kernels/krylov_update.py), each stage
+        committed under the flag; the products and dots between them."""
+        eps, r0, s, a = self.eps, self.r0, self.s, self.active
+        rho_new = r0 @ self.r
+        update("bicgstab_p", self.p, self.r, self.v, rho_new, self.rho,
+               self.alpha, self.omega, eps, a)
+        phat = self.pc(self.p)
         v = self.mv(phat)
         denom = r0 @ v
-        alpha = rho_new / safe(denom)
-        s = r - alpha * v
+        update("bicgstab_s", s, self.v, self.r, v, rho_new, denom, eps, a)
         shat = self.pc(s)
         t = self.mv(shat)
         tt = t @ t
-        omega = (t @ s) / torch.where(tt > eps, tt, eps)
-        x = self.x + alpha * phat + omega * shat
-        r_new = s - omega * t
-        # breakdown guard: stops the loop cleanly
-        stag = (rho_new.abs() <= eps) | (denom.abs() <= eps)
-        a = self.active
-        _commit(a, ((self.x, x), (self.r, r_new), (self.rho, rho_new),
-                    (self.alpha, alpha), (self.omega, omega), (self.v, v),
-                    (self.p, p), (self.stag, stag)))
-        self.k.add_(a)
+        update("bicgstab_xr", self.x, self.r, phat, shat, s, t, rho_new,
+               denom, t @ s, tt, eps, self.rho, self.alpha, self.omega,
+               self.stag, self.k, a)
 
 
 class CgLoop(_Loop):
@@ -319,6 +316,7 @@ class CgLoop(_Loop):
         z = self.pc(self.r)
         self.p = z.clone()
         self.rz = self.r @ z
+        self.rz_prev = torch.empty_like(self.rz)    # scratch: rz for beta
         self.target = torch.clamp(tol * torch.linalg.norm(b_flat), min=atol)
         self.k = torch.zeros((), dtype=torch.int64, device=dev)
         self.active = torch.zeros((), dtype=torch.bool, device=dev)
@@ -330,19 +328,14 @@ class CgLoop(_Loop):
                              self.target, self.k, self.maxiter, cond=cond)
 
     def _iteration(self):
-        p, rz = self.p, self.rz
+        """JAX's body: x and r, then p with rz and k
+        (kernels/krylov_update.py), each stage committed under the flag."""
+        p, a = self.p, self.active
         Ap = self.mv(p)
-        alpha = rz / torch.clamp(p @ Ap, min=1e-30)
-        x = self.x + alpha * p
-        r = self.r - alpha * Ap
-        z = self.pc(r)
-        rz_new = r @ z
-        beta = rz_new / torch.clamp(rz, min=1e-30)
-        p_new = z + beta * p
-        a = self.active
-        _commit(a, ((self.x, x), (self.r, r), (self.p, p_new),
-                    (self.rz, rz_new)))
-        self.k.add_(a)
+        update("cg_xr", self.x, self.r, p, Ap, self.rz, p @ Ap, self.rz_prev,
+               a)
+        z = self.pc(self.r)
+        update("cg_p", p, z, self.r @ z, self.rz_prev, self.rz, self.k, a)
 
 
 def bicgstab(matvec: Callable, b, x0=None, *, tol=1e-6, atol=0.0,
@@ -385,12 +378,17 @@ class GmresLoop:
         self.V = torch.empty((m + 1, n), dtype=dtype, device=dev)
         self.Z = (torch.empty((m, n), dtype=dtype, device=dev) if flexible
                   else None)
-        self.rows = torch.arange(m + 1, device=dev)
         self.H = torch.empty((m + 1, m), dtype=dtype, device=dev)
         self.cs = torch.empty(m, dtype=dtype, device=dev)
         self.sn = torch.empty(m, dtype=dtype, device=dev)
         self.g = torch.empty(m + 1, dtype=dtype, device=dev)
         self.y = torch.zeros(m, dtype=dtype, device=dev)
+        # the Gram-Schmidt coefficients of both passes and ||w||, and the
+        # kernels' scratch on the card
+        self.h1 = torch.zeros(m + 1, dtype=dtype, device=dev)
+        self.h2 = torch.zeros(m + 1, dtype=dtype, device=dev)
+        self.wnorm = torch.zeros((), dtype=dtype, device=dev)
+        self.gs_work = workspace(m, n, dtype, dev)
         i32 = dict(dtype=torch.int32, device=dev)
         self.j, self.j_max = torch.zeros((), **i32), torch.zeros((), **i32)
         self.maxiter, self.total = (torch.zeros((), **i32),
@@ -444,30 +442,18 @@ class GmresLoop:
         while node's condition, one launch fewer per iteration than a
         set_condition after it (PERF.md section 6 gives both times).
         Returns whether it set it."""
-        V, Z, j, m, active = self.V, self.Z, self.j, self.m, self.active
-        jl = j.long().view(1)
-        z = self.pc(V.index_select(0, jl)[0])
+        V, j, active = self.V, self.j, self.active
+        z = self.pc(V.index_select(0, j.long().view(1))[0])
         w = self.mv(z)
-        if self.flexible:
-            jz = torch.clamp(jl, max=m - 1)
-            Z.index_copy_(0, jz, torch.where(
-                active, z, Z.index_select(0, jz)[0])[None])
-        # two-pass modified Gram-Schmidt over the whole basis, masked
-        mask = (self.rows <= j).to(self.dtype)
-        h1 = (V @ w) * mask
-        w = w - h1 @ V
-        h2 = (V @ w) * mask
-        w = w - h2 @ V
-        wnorm = torch.linalg.norm(w)
-        j1 = torch.clamp(jl + 1, max=m)
-        V.index_copy_(0, j1, torch.where(
-            active, w / torch.clamp(wnorm, min=1e-30),
-            V.index_select(0, j1)[0])[None])
+        # two-pass modified Gram-Schmidt against rows 0..j: h1, h2, ||w||,
+        # and under the flag V[j+1] = w / ||w|| and (FGMRES) Z[j] = z
+        gram_schmidt(V, w, self.h1, self.h2, self.wnorm, j, active,
+                     self.gs_work, *((z, self.Z) if self.flexible else ()))
         # h1 + h2, the stored Givens rotations, the new one, g, H[:, j],
         # res, j and the flag, under the flag
-        return lsq_update(self.H, self.cs, self.sn, self.g, h1, h2, wnorm, j,
-                          self.res, active, self.target, self.j_max,
-                          cond=cond)
+        return lsq_update(self.H, self.cs, self.sn, self.g, self.h1, self.h2,
+                          self.wnorm, j, self.res, active, self.target,
+                          self.j_max, cond=cond)
 
     def block(self, n: int):
         """``n`` masked iterations, in place; no host read."""

@@ -1266,3 +1266,164 @@ def test_float64_steps_on_cuda_launch_bj_apply_f64(cuda, tmp_path):
     assert c_cpu == {} and plain == 0
     assert set(c_gpu) == {(torch.float64, 2)}
     assert (gpu._u.cpu() - cpu._u).abs().max() <= 1e-9 * cpu._u.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 1000, 70_001])
+@pytest.mark.parametrize("active", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("stage", ["bicgstab_p", "bicgstab_s",
+                                   "bicgstab_xr", "cg_xr", "cg_p"])
+def test_krylov_update_kernels_match_plain_on_cuda(cuda, stage, dtype,
+                                                   active, n, offset):
+    """Each fused update stage (csrc/krylov_update.cu) equals its plain
+    version on the card bit for bit, and the plain version on the CPU, in
+    every buffer; with the flag down no state buffer moves."""
+    from navierstokes_tpu_torch.kernels import krylov_update as KU
+    kern = KU.example(stage, n, dtype, "cuda", np.random.default_rng(5),
+                      active=active, offset=offset)
+    plain = [t.clone() for t in kern]
+    host = [t.cpu() for t in kern]
+    before = [t.clone() for t in kern]
+    KU.COUNTS.reset()
+    KU.update(stage, *kern)
+    KU.PLAIN[stage](*plain)
+    KU.update(stage, *host)
+    torch.cuda.synchronize()
+    assert getattr(KU.COUNTS, stage) == 1
+    for i, (a, b, c) in enumerate(zip(kern, plain, host)):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c), (stage, i)
+    if not active:
+        for name, a, b in zip(KU.ARGS[stage], kern, before):
+            assert name in KU.SCRATCH.get(stage, ()) or torch.equal(a, b), \
+                (stage, name)
+
+
+def _within(k, p, scale, rel):
+    """Each element of k within one ulp of p, or within ``rel`` of the
+    scale (the elements the second pass leaves far below it)."""
+    ulp = torch.nextafter(p.abs(), torch.full_like(p, float("inf"))) - p.abs()
+    return bool(((k - p).abs() <= torch.clamp(ulp, min=rel * scale)).all())
+
+
+def _gs_state(m, n, j, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((n, j + 1)))
+    V = np.zeros((m + 1, n))
+    V[:j + 1] = q.T
+    w = rng.standard_normal(n) + 3.0 * q @ rng.standard_normal(j + 1)
+    z = rng.standard_normal(n)
+    Z = rng.standard_normal((m, n))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return dict(V=t(V), w=t(w), z=t(z), Z=t(Z),
+                h1=torch.full((m + 1,), 7.0, dtype=dtype, device=device),
+                h2=torch.full((m + 1,), 7.0, dtype=dtype, device=device),
+                wnorm=torch.zeros((), dtype=dtype, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("active", [True, False])
+@pytest.mark.parametrize("dtype,m,n,j", [
+    (torch.float32, 12, 301, 0), (torch.float32, 12, 301, 1),
+    (torch.float32, 12, 301, 11), (torch.float32, 12, 301, 12),
+    (torch.float32, 64, 70_001, 13), (torch.float32, 64, 3_000, 15),
+    (torch.float32, 120, 5_000, 110),
+    (torch.float64, 12, 301, 11), (torch.float64, 64, 70_001, 38),
+    (torch.float64, 64, 3_000, 31), (torch.float64, 64, 20_000, 60)],
+    ids=lambda v: str(v).replace("torch.", ""))
+def test_gram_schmidt_kernel_matches_plain_on_cuda(cuda, dtype, m, n, j,
+                                                   active):
+    """The Gram-Schmidt kernels (csrc/gram_schmidt.cu; one partial block
+    of staged rows at j < 15, several and a partial last one at j = 38,
+    60 and 110, exactly one at j = 15) against the plain version
+    on the card: each element of h1 and h2 within one ulp, or within 2^-24
+    (fp32; 1e-13 fp64) of max|h1|, ||w|| and the new row within one ulp or
+    the same of their max (both sum products in float64, in other orders;
+    fp32 sums would miss it, PERF.md section 6), Z's row equal, rows
+    beyond j of h zero,
+    every other row of V and Z untouched, bit-identical on repeat; with
+    the flag down V and Z unchanged."""
+    from navierstokes_tpu_torch.kernels import gram_schmidt as GS
+    rel = 2.0 ** -24 if dtype == torch.float32 else 1e-13
+    kern = _gs_state(m, n, min(j, m - 1), dtype, 3, "cuda")
+    again = {k: v.clone() for k, v in kern.items()}
+    plain = {k: v.clone() for k, v in kern.items()}
+    jt = torch.tensor(j, dtype=torch.int32, device="cuda")
+    flag = torch.tensor(active, device="cuda")
+    work = GS.workspace(m, n, dtype, "cuda")
+    names = ("V", "w", "h1", "h2", "wnorm")
+    GS.COUNTS.reset()
+    for st in (kern, again):
+        GS.gram_schmidt(*(st[k] for k in names), jt, flag, work, st["z"],
+                        st["Z"])
+    GS.gram_schmidt_plain(*(plain[k] for k in names), jt, flag,
+                          plain["z"], plain["Z"])
+    torch.cuda.synchronize()
+    assert GS.COUNTS.calls == 2
+    assert all(torch.equal(again[k], kern[k]) for k in kern)
+    h1 = float(plain["h1"].abs().max())
+    for k in ("h1", "h2"):
+        assert _within(kern[k], plain[k], h1, rel), k
+        assert not kern[k][j + 1:].any(), k
+    assert _within(kern["wnorm"], plain["wnorm"], float(plain["wnorm"]), rel)
+    row = min(j + 1, m)
+    assert _within(kern["V"][row], plain["V"][row],
+                   float(plain["V"][row].abs().max()), rel)
+    others = [i for i in range(m + 1) if i != row]
+    assert torch.equal(kern["V"][others], plain["V"][others])
+    assert torch.equal(kern["Z"], plain["Z"])
+    assert torch.equal(kern["w"], plain["w"])
+    if not active:
+        ref = _gs_state(m, n, min(j, m - 1), dtype, 3, "cuda")
+        assert torch.equal(kern["V"], ref["V"])
+        assert torch.equal(kern["Z"], ref["Z"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("solver", ["bicgstab", "cg", "gmres", "fgmres"])
+def test_krylov_solves_launch_the_loop_kernels_on_cuda(cuda, solver, dtype):
+    """Whole solves on the card go through the fused updates and the
+    Gram-Schmidt kernels and agree with the CPU's: the same count within
+    one iteration, x within 1e-4 (fp32) or 1e-10 (fp64) of max|x|."""
+    from navierstokes_tpu_torch.kernels import gram_schmidt as GS
+    from navierstokes_tpu_torch.kernels import krylov_update as KU
+    from navierstokes_tpu_torch.solvers import krylov as TK
+    rng = np.random.default_rng(8)
+    n = 3000
+    if solver == "cg":
+        d = rng.uniform(1.0, 50.0, n)
+        off = 0.3 * rng.uniform(0.0, 1.0, n - 1)
+        a = np.diag(d) + np.diag(off, 1) + np.diag(off, -1)
+    else:
+        a = (np.diag(rng.uniform(1.0, 6.0, n))
+             + np.diag(rng.uniform(-1.0, 1.0, n - 1), 1)
+             + np.diag(rng.uniform(-1.0, 1.0, n - 1), -1))
+    b = rng.standard_normal(n)
+    kw = dict(tol=1e-5 if dtype == torch.float32 else 1e-10, maxiter=400)
+    if solver in ("gmres", "fgmres"):
+        kw.update(restart=16)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        A = torch.as_tensor(a, dtype=dtype, device=dev).to_sparse_csr()
+        D = torch.as_tensor(1.0 / np.diag(a), dtype=dtype, device=dev)
+        KU.COUNTS.reset()
+        GS.COUNTS.reset()
+        res = getattr(TK, solver)(lambda v: A @ v,
+                                  torch.as_tensor(b, dtype=dtype,
+                                                  device=dev),
+                                  precond=lambda v: v * D, **kw)
+        out[dev] = (res, dataclasses.asdict(KU.COUNTS), GS.COUNTS.calls)
+    (cpu, c_cpu, g_cpu), (gpu, c_gpu, g_gpu) = out["cpu"], out["cuda"]
+    assert cpu.converged and gpu.converged
+    assert abs(cpu.iterations - gpu.iterations) <= 1
+    assert sum(c_cpu.values()) == 0 and g_cpu == 0
+    if solver in ("gmres", "fgmres"):
+        assert g_gpu >= gpu.iterations
+    else:
+        stages = [s for s in c_gpu if s.startswith(solver)]
+        assert all(c_gpu[s] > 0 for s in stages) and stages
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    x = cpu.x.abs().max()
+    assert (gpu.x.cpu() - cpu.x).abs().max() <= tol * x

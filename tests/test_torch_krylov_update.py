@@ -1,0 +1,275 @@
+"""BiCGStab's and CG's fused update stages (kernels/krylov_update.py) on
+the CPU: each plain stage against the loop body's inline torch sequence
+it replaced, bit for bit, in float64 and float32, with the flag up and
+down (down: every state buffer unchanged); whole loops against that
+inline body and against the JAX package's ``bicgstab`` / ``cg`` in
+float64 (x within 1e-12 of max|x|, the same iteration counts: the only
+difference is the dots' summation order); and the wrapper's dispatch,
+which takes the plain version only for CPU tensors and raises without
+the kernel library.  The kernels themselves are held to the plain
+stages on the card (tests/test_torch_cuda.py, ``chip_smoke.py`` phase
+26)."""
+
+import pathlib
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from navierstokes_tpu.solvers import krylov as JK
+from navierstokes_tpu_torch.kernels import build
+from navierstokes_tpu_torch.kernels import krylov_update as KU
+from navierstokes_tpu_torch.solvers import krylov as TK
+
+DTYPES = [torch.float64, torch.float32]
+N = 37
+
+
+def _inputs(stage, dtype, active, seed):
+    """Each stage's tensors, seeded, in its argument order."""
+    return KU.example(stage, N, dtype, "cpu", np.random.default_rng(seed),
+                      active=active)
+
+
+def _at(stage, name):
+    return KU.ARGS[stage].index(name)
+
+
+def _inline(stage, args):
+    """The loop bodies' inline sequence before the fused stages: the new
+    values of each stage's state, committed under the flag as
+    ``_commit`` did (``torch.where(active, new, old)``)."""
+    a = args[-1]
+    where = lambda new, old: torch.where(a, new, old)
+    if stage == "bicgstab_p":
+        p, r, v, rho_new, rho, alpha, omega, eps, _ = args
+        safe = lambda q: torch.where(q.abs() > eps, q, eps)
+        beta = (rho_new / safe(rho)) * (alpha / safe(omega))
+        return [where(r + beta * (p - omega * v), p)] + args[1:]
+    if stage == "bicgstab_s":
+        s, v_state, r, v, rho_new, denom, eps, _ = args
+        safe = lambda q: torch.where(q.abs() > eps, q, eps)
+        alpha = rho_new / safe(denom)
+        return [r - alpha * v, where(v, v_state)] + args[2:]
+    if stage == "bicgstab_xr":
+        (x, r, phat, shat, s, t, rho_new, denom, ts, tt, eps, rho, alpha_s,
+         omega_s, stag, k, _) = args
+        safe = lambda q: torch.where(q.abs() > eps, q, eps)
+        alpha = rho_new / safe(denom)
+        omega = ts / torch.where(tt > eps, tt, eps)
+        x_new = x + alpha * phat + omega * shat
+        r_new = s - omega * t
+        stag_new = (rho_new.abs() <= eps) | (denom.abs() <= eps)
+        return [where(x_new, x), where(r_new, r)] + args[2:11] + [
+            where(rho_new, rho), where(alpha, alpha_s),
+            where(omega, omega_s), where(stag_new, stag), k + a, a]
+    if stage == "cg_xr":
+        x, r, p, ap, rz, pap, rz_prev, _ = args
+        alpha = rz / torch.clamp(pap, min=1e-30)
+        return [where(x + alpha * p, x), where(r - alpha * ap, r)] + \
+            args[2:6] + [rz.clone(), a]
+    p, z, rz_new, rz_prev, rz, k, _ = args
+    beta = rz_new / torch.clamp(rz_prev, min=1e-30)
+    return [where(z + beta * p, p), z, rz_new, rz_prev, where(rz_new, rz),
+            k + a, a]
+
+
+@pytest.mark.parametrize("active", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stage", KU.STAGES)
+def test_plain_stage_equals_the_inline_body(stage, dtype, active):
+    args = _inputs(stage, dtype, active, seed=KU.STAGES.index(stage))
+    before = [t.clone() for t in args]
+    want = _inline(stage, [t.clone() for t in args])
+    KU.update(stage, *args)
+    for i, (got, ref) in enumerate(zip(args, want)):
+        assert got.dtype == ref.dtype and torch.equal(got, ref), (stage, i)
+    if not active:
+        # the scratch (s, rz_prev) aside, no buffer moved
+        for name, got, old in zip(KU.ARGS[stage], args, before):
+            if name not in KU.SCRATCH.get(stage, ()):
+                assert torch.equal(got, old), (stage, name)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_guards_take_eps_and_the_clamp(dtype):
+    """The breakdown guards with zero scalars: beta and alpha divide by
+    eps, omega's tt by eps, CG's clamp by 1e-30; the flag records the
+    breakdown."""
+    args = _inputs("bicgstab_xr", dtype, True, seed=11)
+    for name in ("rho_new", "denom", "tt"):
+        args[_at("bicgstab_xr", name)] = torch.tensor(0.0, dtype=dtype)
+    want = _inline("bicgstab_xr", [t.clone() for t in args])
+    KU.update("bicgstab_xr", *args)
+    assert all(torch.equal(a, b) for a, b in zip(args, want))
+    assert bool(args[_at("bicgstab_xr", "stag")])
+    args = _inputs("cg_p", dtype, True, seed=12)
+    args[_at("cg_p", "rz_prev")] = torch.tensor(0.0, dtype=dtype)
+    want = _inline("cg_p", [t.clone() for t in args])
+    KU.update("cg_p", *args)
+    assert all(torch.equal(a, b) for a, b in zip(args, want))
+
+
+def _system(dtype, spd, seed=3, n=48):
+    """A seeded (matrix, rhs, x0, Jacobi preconditioner diagonal): SPD
+    with eigenvalues in [0.5, 20], or a nonsymmetric one whose
+    eigenvalues lie within about 1 of its diagonal in [1.5, 6]."""
+    rng = np.random.default_rng(seed)
+    if spd:
+        q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        a = (q * rng.uniform(0.5, 20.0, n)) @ q.T
+    else:
+        a = (rng.standard_normal((n, n)) / np.sqrt(n)
+             + np.diag(rng.uniform(1.5, 6.0, n)))
+    return (a, rng.standard_normal(n), 0.01 * rng.standard_normal(n),
+            1.0 / np.diag(a))
+
+
+class _InlineBicgstab(TK.BicgstabLoop):
+    """The iteration as the port wrote it before the fused stages."""
+
+    def _iteration(self):
+        eps, r0, r = self.eps, self.r0, self.r
+        safe = lambda a: torch.where(a.abs() > eps, a, eps)
+        rho_new = r0 @ r
+        beta = (rho_new / safe(self.rho)) * (self.alpha / safe(self.omega))
+        p = r + beta * (self.p - self.omega * self.v)
+        phat = self.pc(p)
+        v = self.mv(phat)
+        denom = r0 @ v
+        alpha = rho_new / safe(denom)
+        s = r - alpha * v
+        shat = self.pc(s)
+        t = self.mv(shat)
+        tt = t @ t
+        omega = (t @ s) / torch.where(tt > eps, tt, eps)
+        x = self.x + alpha * phat + omega * shat
+        r_new = s - omega * t
+        stag = (rho_new.abs() <= eps) | (denom.abs() <= eps)
+        a = self.active
+        KU.commit(a, ((self.x, x), (self.r, r_new), (self.rho, rho_new),
+                      (self.alpha, alpha), (self.omega, omega),
+                      (self.v, v), (self.p, p), (self.stag, stag)))
+        self.k.add_(a)
+
+
+class _InlineCg(TK.CgLoop):
+    def _iteration(self):
+        p, rz = self.p, self.rz
+        Ap = self.mv(p)
+        alpha = rz / torch.clamp(p @ Ap, min=1e-30)
+        x = self.x + alpha * p
+        r = self.r - alpha * Ap
+        z = self.pc(r)
+        rz_new = r @ z
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        p_new = z + beta * p
+        a = self.active
+        KU.commit(a, ((self.x, x), (self.r, r), (self.p, p_new),
+                      (self.rz, rz_new)))
+        self.k.add_(a)
+
+
+@pytest.mark.parametrize("check_every", [1, 3])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("solver", ["bicgstab", "cg"])
+def test_loops_equal_the_inline_body(solver, dtype, check_every,
+                                     monkeypatch):
+    """Whole solves, masked blocks of 1 and 3 (iterations run after the
+    stop included): x, r, the count and every state buffer bit for bit
+    with the inline body's."""
+    a, b, x0, dinv = _system(np.float64, solver == "cg")
+    t = lambda v: torch.as_tensor(v, dtype=dtype)
+    A, D = t(a), t(dinv)
+    kw = dict(tol=1e-6 if dtype == torch.float32 else 1e-11, maxiter=80,
+              precond=lambda v: v * D)
+    new_cls, old_cls = ((TK.BicgstabLoop, _InlineBicgstab)
+                        if solver == "bicgstab" else (TK.CgLoop, _InlineCg))
+    monkeypatch.setattr(new_cls, "check_every", check_every)
+    new = new_cls(lambda v: A @ v, t(b), t(x0), **kw).run()
+    old = old_cls(lambda v: A @ v, t(b), t(x0), **kw).run()
+    assert int(new.k) == int(old.k) > 3
+    state = ("x", "r", "p", "k", "active") + (
+        ("v", "rho", "alpha", "omega", "stag") if solver == "bicgstab"
+        else ("rz",))
+    for name in state:
+        assert torch.equal(getattr(new, name), getattr(old, name)), name
+
+
+@pytest.mark.parametrize("precond", [True, False])
+@pytest.mark.parametrize("solver", ["bicgstab", "cg"])
+def test_loops_equal_jax(solver, precond):
+    """The port's solvers through the fused stages against the JAX
+    package's, float64: the same iteration count, x within 1e-12 of
+    max|x| (the dots sum in another order)."""
+    a, b, x0, dinv = _system(np.float64, solver == "cg")
+    A, D = torch.as_tensor(a), torch.as_tensor(dinv)
+    kw = dict(tol=1e-10, maxiter=200)
+    got = getattr(TK, solver)(
+        lambda v: A @ v, torch.as_tensor(b), torch.as_tensor(x0),
+        precond=(lambda v: v * D) if precond else None, **kw)
+    ja, jd = jnp.asarray(a), jnp.asarray(dinv)
+    ref = getattr(JK, solver)(
+        lambda v: ja @ v, jnp.asarray(b), jnp.asarray(x0),
+        precond=(lambda v: v * jd) if precond else None, **kw)
+    assert got.converged and bool(ref.converged)
+    assert got.iterations == int(ref.iterations)
+    x, xr = got.x.numpy(), np.asarray(ref.x)
+    assert np.abs(x - xr).max() <= 1e-12 * np.abs(xr).max()
+
+
+def test_cpu_calls_launch_nothing(monkeypatch):
+    """CPU tensors take the plain version and count no launch."""
+    KU.COUNTS.reset()
+    seen = []
+    for stage in KU.STAGES:
+        monkeypatch.setitem(KU.PLAIN, stage,
+                            lambda *a, _s=stage: seen.append(_s))
+        KU.update(stage, *_inputs(stage, torch.float64, True, 0))
+    assert seen == list(KU.STAGES)
+    assert KU.COUNTS == KU.Counts()
+
+
+@pytest.mark.parametrize("stage", KU.STAGES)
+def test_other_devices_raise_and_never_take_the_plain_version(
+        stage, monkeypatch):
+    """A tensor that is not on the CPU never takes the plain version: a
+    device other than CUDA raises, and a CUDA launch without the kernel
+    library raises (no fallback)."""
+    monkeypatch.setitem(KU.PLAIN, stage, lambda *a: pytest.fail("plain"))
+    args = [t.to("meta") for t in _inputs(stage, torch.float32, True, 1)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        KU.update(stage, *args)
+
+    def absent():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(build, "library", absent)
+    for dt in DTYPES:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            KU._entry(dt, torch.device("cuda"))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        KU._entry(torch.bfloat16, torch.device("cuda"))
+
+
+def test_the_kernels_take_each_stage_in_its_order():
+    """csrc/krylov_update.cu agrees with ``ARGS``: each stage's kernel
+    takes n and then the stage's tensors by the same names, its launch
+    passes pointers 0, 1, ... cast by kind (flags bool, k int64, the rest
+    the dtype), and the enum numbers the stages in ``STAGES``'s order."""
+    src = (pathlib.Path(KU.__file__).parents[1] / "csrc"
+           / "krylov_update.cu").read_text()
+    enum = re.search(r"enum Stage \{(.*?)\}", src).group(1)
+    camel = ["k" + "".join(w.capitalize() for w in st.split("_"))
+             for st in KU.STAGES]
+    assert [e.split("=")[0].strip() for e in enum.split(",")] == camel
+    for stage, case in zip(KU.STAGES, camel):
+        sig = re.search(rf"\n{stage}\((.*?)\)\s*\{{", src, re.S).group(1)
+        assert [p.split()[-1] for p in sig.split(",")] == ["n",
+                                                           *KU.ARGS[stage]]
+        call = re.search(rf"case {case}:(.*?)break;", src, re.S).group(1)
+        args = re.findall(r"(V|B|long long\*>)\(?\(?a?\[?(\d+)", call)
+        want = [("B" if name in KU.FLAGS else "long long*>" if name == "k"
+                 else "V", str(i)) for i, name in enumerate(KU.ARGS[stage])]
+        assert args == want, stage

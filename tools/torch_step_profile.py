@@ -51,7 +51,9 @@ It prints, for the case:
   the plain steps below, with those plain steps' peak (``pool_bytes``);
 * a ``torch.profiler`` trace of ``--profile-steps`` further steps: the
   device time per step (kernels, copies and memsets), its share of the
-  unprofiled step time, the SpMV kernels' part of it, and the kernels with
+  unprofiled step time, the SpMV kernels' part of it, calls and ms per
+  step by kernel kind (``KINDS``: SpMV, tile apply, the Krylov updates,
+  Gram-Schmidt, dots, GEMMs, elementwise, ...), and the kernels with
   the most time (name, calls, ms).  The trace holds no kernel launched
   inside a while node's body, so a captured step is not traced: the
   split comes from ``--profile-steps`` plain steps of the same model
@@ -161,6 +163,36 @@ def time_ms(fn, cold, n=30):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+# kernel kinds of the profiled split, by a part of the kernel's name (the
+# first that matches)
+KINDS = (("spmv", ("sell_spmv",)),
+         ("tile apply", ("stream_kernel", "ring_kernel")),
+         ("Krylov update", ("bicgstab_p", "bicgstab_s", "bicgstab_xr",
+                            "cg_xr", "cg_p")),
+         ("Gram-Schmidt", ("gs_pass", "gs_reduce", "gs_finish")),
+         ("Givens", ("lsq_update",)), ("predicate", ("set_condition",)),
+         ("dot", ("dot_kernel", "reduce_1Block", "dot_")),
+         ("GEMM/GEMV", ("gemm", "gemv", "xmma", "cutlass", "Kernel2",
+                        "sm90_", "ampere_")),
+         ("elementwise", ("elementwise_kernel", "index_elementwise",
+                          "CatArrayBatched", "fill_kernel")),
+         ("reduction", ("reduce_kernel",)),
+         ("copy / memset", ("Memcpy", "Memset", "memcpy", "memset")))
+
+
+def by_kind(rows, steps):
+    """{kind: [calls per step, device ms per step]} of profiler rows
+    (device us, calls, name)."""
+    out = {}
+    for us, n, key in rows:
+        kind = next((k for k, parts in KINDS
+                     if any(part in key for part in parts)), "other")
+        c = out.setdefault(kind, [0.0, 0.0])
+        c[0] += n / steps
+        c[1] += us / 1e3 / steps
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][1]))
 
 
 def its(m):
@@ -341,6 +373,7 @@ def main():
                        and e.self_device_time_total > 0), reverse=True)
     per_step = lambda us: us / 1e3 / max(args.profile_steps, 1)
     kernel_ms = per_step(sum(r[0] for r in rows))
+    kinds = by_kind(rows, max(args.profile_steps, 1))
     spmv_ms = per_step(sum(r[0] for r in rows if "spmv" in r[2]))
 
     print(f"{tag} iterations per step: " + " ".join(its(m) for m in ms),
@@ -382,6 +415,9 @@ def main():
                  f"steps, {100 * kernel_ms / step_ms:.0f}% of an unprofiled "
                  "step")
               + f"; SpMV kernels {spmv_ms:.1f} ms per step", flush=True)
+        print(f"{tag} {split}kernels per step by kind (calls, ms): "
+              + "; ".join(f"{k} {c:.1f}, {t:.3f}" for k, (c, t)
+                          in kinds.items()), flush=True)
         for dev_us, n, key in rows[:args.top]:
             print(f"{tag}   {dev_us / 1e3:9.3f} ms {n:6d} calls  "
                   f"{key[:90]}", flush=True)
@@ -406,8 +442,10 @@ def main():
         "kernel_ms_per_step": kernel_ms if rows and not captured else None,
         "spmv_ms_per_step": spmv_ms if rows and not captured else None,
         "top": top if not captured else None,
+        "by_kind": kinds if rows and not captured else None,
         "plain_split": ({"kernel_ms_per_step": kernel_ms,
-                         "spmv_ms_per_step": spmv_ms, "top": top}
+                         "spmv_ms_per_step": spmv_ms, "top": top,
+                         "by_kind": kinds}
                         if rows and captured else None)}),
         flush=True)
     return 0
