@@ -214,17 +214,23 @@ and checks them:
    phase's seconds;
 26. the Krylov loops' kernels (right after phase 25; their launches are
    counted on phases 5, 8, 21, 22 and 25, per step by kind: each fused
-   update stage of csrc/krylov_update.cu and the Gram-Schmidt steps of
-   csrc/gram_schmidt.cu, equal between captured and eager runs, one
-   launch of each BiCGStab stage per BiCGStab iteration and of each CG
-   stage per CG iteration in phases 5 and 21, one Gram-Schmidt step per
-   FGMRES iteration in phases 8 and 22): at the bench point's shapes
-   (BiCGStab n = 901,036, CG n = 113,378), fp32 and fp64, each update
-   stage against its plain version bit for bit with the flag up and
-   down (down: no state buffer moves); Gram-Schmidt on the flat
-   1,014,414-element vector at restart 64 and j = 0, 13, 38, 63 against
-   its plain version within 1e-6 (fp32) or 1e-12 (fp64) of the scale,
-   bit-identical on repeat, V and Z untouched with the flag down; each
+   update stage of csrc/krylov_update.cu, also by the path its element
+   loop took (``stage:path``: vector, peeled or scalar), and the
+   Gram-Schmidt steps of csrc/gram_schmidt.cu, equal between captured
+   and eager runs, one launch of each BiCGStab stage per BiCGStab
+   iteration and of each CG stage per CG iteration in phases 5 and 21,
+   one Gram-Schmidt step per FGMRES iteration in phases 8 and 22): at the
+   bench point's shapes (BiCGStab n = 901,036, CG n = 113,378), fp32 and
+   fp64, each update stage against its plain version bit for bit with
+   the flag up and down (down: no state buffer moves), timed on aligned
+   views (the vector path) and on views one element off (the peeled
+   path); cuBLAS's ``y @ Z`` on the padded basis against a contiguous
+   copy (whether the row stride moves its bits); Gram-Schmidt on the
+   flat 1,014,414-element vector in the padded basis at restart 64 and
+   j = 0, 5, 13, 20, 38, 63 against its plain version within one ulp or
+   2^-24 (fp32) / 1e-12 (fp64) of the scale, bit-identical on repeat, V
+   and Z untouched with the flag down, its kernel launches per call
+   counted in a captured call's graph; each
    timed in bursts over input sets that exceed twice the L2, beside its
    bound (bytes over 3.35 TB/s), its plain version (launched eagerly)
    and, for Gram-Schmidt, one cuBLAS ``V @ w`` over the whole basis (the
@@ -239,6 +245,7 @@ package.
 """
 
 import collections
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -379,10 +386,14 @@ def kry_reset():
 
 def kry_per_step(n_steps):
     """Launches per step of the Krylov loops' kernels by kind since
-    ``kry_reset``: each fused update stage, and the Gram-Schmidt steps
-    (``gram_schmidt``, six kernels each)."""
+    ``kry_reset``: each fused update stage, each stage by the path its
+    element loop took (``stage:path``: vector, peeled or scalar), and the
+    Gram-Schmidt calls (``gram_schmidt``; phase 26 counts each call's
+    kernels in a captured call's graph)."""
     from navierstokes_tpu_torch.kernels import gram_schmidt, krylov_update
     c = dataclasses.asdict(krylov_update.COUNTS)
+    c.update({f"{stage}:{way}": v for (stage, way), v
+              in sorted(krylov_update.PATHS.items())})
     c["gram_schmidt"] = gram_schmidt.COUNTS.calls
     return {k: v / n_steps for k, v in c.items()}
 
@@ -3456,7 +3467,7 @@ GS_REPLACES = "navierstokes_tpu/solvers/krylov.py:97"
 # BiCGStab's F system (2 x 450,518 velocity rows), CG's P1 Laplacian, the
 # flat (u, p) vector of FGMRES at restart 64
 KRY_N = {"bicgstab": 901_036, "cg": 113_378}
-GS_N, GS_M, GS_JS = EXPECTED_DOFS, 64, (0, 13, 38, 63)
+GS_N, GS_M, GS_JS = EXPECTED_DOFS, 64, (0, 5, 13, 20, 38, 63)
 # kernel against plain version: both sum each product in float64, in other
 # orders; each element within one ulp of the plain value, or within
 # GS_GATE of the scale (measured gaps in PERF.md section 6)
@@ -3481,6 +3492,44 @@ def _plain_ms(fn, n=BURST, reps=5):
     the host's gaps are in the time), after one warm-up call."""
     fn()
     return _replay_ms(lambda: [fn() for _ in range(n)], n, reps)
+
+
+def kernel_launches(fn):
+    """(kernels one call of ``fn`` launches, other operations it
+    enqueues), counted as the nodes that the call records into a CUDA
+    graph when captured (the main path runs its calls captured), read
+    with libcuda's ``cuGraphGetNodes`` from the graph in capture.
+    (A ``torch.profiler`` trace on the card at times loses launches or
+    holds none, so it cannot gate a count.)"""
+    cu = ctypes.CDLL("libcuda.so.1")
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    kinds = []
+    with torch.cuda.graph(g):
+        fn()
+        graph, status = ctypes.c_void_p(), ctypes.c_int()
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = cu.cuStreamGetCaptureInfo_v2(stream, ctypes.byref(status),
+                                          None, ctypes.byref(graph), None,
+                                          None)
+        check(rc == 0 and status.value == 1,
+              f"cuStreamGetCaptureInfo ({rc}, status {status.value})")
+        n = ctypes.c_size_t()
+        check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0,
+              "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * n.value)()
+        check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0,
+              "cuGraphGetNodes")
+        for node in nodes:
+            kind = ctypes.c_int()
+            check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                        ctypes.byref(kind)) == 0,
+                  "cuGraphNodeGetType")
+            kinds.append(kind.value)
+    del g
+    kernels = kinds.count(0)              # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels, len(kinds) - kernels
 
 
 def _gate_ratio(k, p, scale, dt):
@@ -3526,7 +3575,9 @@ def phase_krylov_kernels(card):
     beside its bound (input sets cycled that exceed twice the L2), its
     plain version (launched eagerly, ``_plain_ms``), and for Gram-Schmidt
     one cuBLAS GEMV over the whole basis (the library) and the
-    whole-basis sequence the port ran before."""
+    whole-basis sequence the port ran before; then each call's kernel
+    launches at every j, counted in a captured call's graph
+    (``kernel_launches``) and held to ``gram_schmidt.LAUNCHES``."""
     from navierstokes_tpu_torch.kernels import gram_schmidt as GS
     from navierstokes_tpu_torch.kernels import krylov_update as KU
     t_phase = time.perf_counter()
@@ -3562,15 +3613,30 @@ def phase_krylov_kernels(card):
             # bursts: on the main path the products between two stages
             # (the 461 MB tile apply among them) leave the L2 cold
             nbytes = (reads + writes) * n * (4 if dt == torch.float32 else 8)
-            sets = [KU.example(stage, n, dt, "cuda",
-                               np.random.default_rng(2 + i),
-                               scalars=KRY_TAME)
-                    for i in range(max(2, -(-2 * L2_BYTES // nbytes)))]
-            ms = _burst_ms([functools.partial(KU.update, stage, *st)
-                            for st in sets])
-            plain_ms = _plain_ms(functools.partial(KU.PLAIN[stage],
-                                                   *sets[0]))
-            del sets
+            # on views that start on a 16-byte boundary and on views one
+            # element past one (the pressure part of a flat (u, p) vector):
+            # the path each takes, from the launch counts
+            paths, path_ms = {}, {}
+            for offset in (0, 1):
+                sets = [KU.example(stage, n, dt, "cuda",
+                                   np.random.default_rng(2 + i),
+                                   scalars=KRY_TAME, offset=offset)
+                        for i in range(max(2, -(-2 * L2_BYTES // nbytes)))]
+                KU.COUNTS.reset()
+                KU.update(stage, *sets[0])
+                (way,) = [w for (st, w) in KU.PATHS if st == stage]
+                paths[offset] = way
+                path_ms[way] = _burst_ms([functools.partial(KU.update, stage,
+                                                            *st)
+                                          for st in sets])
+                if offset == 0:
+                    ms = path_ms[way]
+                    plain_ms = _plain_ms(functools.partial(KU.PLAIN[stage],
+                                                           *sets[0]))
+                del sets
+            check(paths == {0: "vector", 1: "peeled"},
+                  f"[26] {stage} {dt}: aligned views take the vector path, "
+                  f"views one element off the peeled path ({paths})")
             ops = flops * n
             peak = FP32_OPS_PER_S if dt == torch.float32 else FP64_OPS_PER_S
             bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
@@ -3578,36 +3644,57 @@ def phase_krylov_kernels(card):
                 n=n, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                           >= ops / peak else "operations"),
-                bound_bytes=nbytes, max_abs_err=0.0, library_ms=None)
+                bound_bytes=nbytes, max_abs_err=0.0, library_ms=None,
+                path_ms=path_ms)
             log(f"[26] {stage} {str(dt).replace('torch.', '')} n={n}: "
                 f"kernel = plain bit for bit (flag up and down); "
-                f"{ms:.4f} ms per launch in bursts, bound {bound:.4f} ms "
-                f"({nbytes} bytes, {100 * bound / ms:.0f}%), plain "
+                f"{ms:.4f} ms per launch in bursts on aligned views (vector "
+                f"path), {path_ms['peeled']:.4f} ms one element off "
+                f"(peeled path); bound {bound:.4f} ms ({nbytes} bytes, "
+                f"{100 * bound / ms:.1f}% on the vector path, "
+                f"{100 * bound / path_ms['peeled']:.1f}% peeled), plain "
                 f"{plain_ms:.4f} ms on {card}")
         out["stages"][stage] = rec
     # Gram-Schmidt on the flat vector
     q, w64 = _gs_basis(GS_N, GS_M)
     g = torch.Generator(device="cuda").manual_seed(27)
     z64 = torch.randn(GS_N, generator=g, device="cuda", dtype=torch.float64)
+    def padded(B):
+        """A copy of B in a padded basis (GmresLoop's layout; clone()
+        of the padded view would be contiguous)."""
+        out = GS.basis(B.shape[0], B.shape[1], B.dtype, B.device)
+        out.copy_(B)
+        return out
+
     for dt in (torch.float32, torch.float64):
         key = str(dt).replace("torch.", "")
         work = GS.workspace(GS_M, GS_N, dt, "cuda")
-        Z = torch.zeros((GS_M, GS_N), dtype=dt, device="cuda")
+        Z = GS.basis(GS_M, GS_N, dt, "cuda").zero_()
         z, wv = z64.to(dt), w64.to(dt)
+        # cuBLAS's y @ Z (the FGMRES x update) on the padded basis against
+        # a contiguous copy of it: whether the leading dimension moves bits
+        g = torch.Generator(device="cuda").manual_seed(28)
+        Zr = torch.randn(GS_M, GS_N, generator=g, device="cuda", dtype=dt)
+        y = torch.randn(GS_M, generator=g, device="cuda", dtype=dt)
+        same_ld = torch.equal(y @ Zr, y @ padded(Zr))
+        log(f"[26] cuBLAS y @ Z {key} on the padded basis (row stride "
+            f"{Z.stride(0)}) {'equals' if same_ld else 'DIFFERS from'} the "
+            "contiguous basis's bits")
+        del Zr
         rec = []
         for j in GS_JS:
-            V = torch.zeros((GS_M + 1, GS_N), dtype=dt, device="cuda")
+            V = GS.basis(GS_M + 1, GS_N, dt, "cuda").zero_()
             V[:j + 1] = q[:j + 1].to(dt)
             jt = torch.tensor(j, dtype=torch.int32, device="cuda")
             res = {}
             for tag, fn in (("kernel", GS.gram_schmidt),
                             ("again", GS.gram_schmidt),
                             ("plain", GS.gram_schmidt_plain)):
-                st = dict(V=V.clone(), h1=torch.zeros(GS_M + 1, dtype=dt,
+                st = dict(V=padded(V), h1=torch.zeros(GS_M + 1, dtype=dt,
                                                       device="cuda"),
                           h2=torch.zeros(GS_M + 1, dtype=dt, device="cuda"),
                           wnorm=torch.zeros((), dtype=dt, device="cuda"),
-                          Z=Z.clone())
+                          Z=padded(Z))
                 args = (st["V"], wv, st["h1"], st["h2"], st["wnorm"], jt,
                         torch.tensor(True, device="cuda"))
                 if tag == "plain":
@@ -3615,7 +3702,7 @@ def phase_krylov_kernels(card):
                 else:
                     fn(*args, work, z, st["Z"])
                 res[tag] = st
-            down = dict(V=V.clone(), Z=Z.clone())
+            down = dict(V=padded(V), Z=padded(Z))
             GS.gram_schmidt(down["V"], wv, res["again"]["h1"].clone(),
                             res["again"]["h2"].clone(),
                             res["again"]["wnorm"].clone(), jt,
@@ -3667,7 +3754,7 @@ def phase_krylov_kernels(card):
             # preconditioner and the product between two calls)
             on = torch.tensor(True, device="cuda")
             foot = (j + 5) * GS_N * s
-            sets = [dict(V=V.clone(), w=wv.clone(), z=z.clone(), Z=Z.clone(),
+            sets = [dict(V=padded(V), w=wv.clone(), z=z.clone(), Z=padded(Z),
                          h1=torch.zeros(GS_M + 1, dtype=dt, device="cuda"),
                          h2=torch.zeros(GS_M + 1, dtype=dt, device="cuda"),
                          wnorm=torch.zeros((), dtype=dt, device="cuda"))
@@ -3694,6 +3781,7 @@ def phase_krylov_kernels(card):
                                       >= ops / FP64_OPS_PER_S
                                       else "operations"),
                             bound_bytes=nbytes, design_bytes=design,
+                            cublas_ld_same=same_ld,
                             errors=errs, gate_ratio=ratio,
                             max_abs_err=abs_err, whole_basis_h1_gap=wb_gap,
                             whole_basis_gate_ratio=wb_ratio))
@@ -3702,7 +3790,7 @@ def phase_krylov_kernels(card):
                 f"(one ulp or {GS_GATE[dt]:g} of the scale); the "
                 f"whole-basis sequence's h1 {wb_gap:.2e} from the plain, "
                 f"{wb_ratio} of the limit; "
-                f"{ms:.4f} ms per step in bursts (6 launches), bound "
+                f"{ms:.4f} ms per step in bursts, bound "
                 f"{bound:.4f} ms ({nbytes} bytes, "
                 f"{100 * bound / ms:.0f}%; this design moves {design} "
                 f"bytes, {design / ms / 1e6:.0f} GB/s), plain "
@@ -3712,6 +3800,33 @@ def phase_krylov_kernels(card):
             del V, res, down
         out["gs"][key] = rec
         del work, Z
+    # the kernels a call launches at each j, counted in a captured
+    # call's graph
+    on = torch.tensor(True, device="cuda")
+    for dt in (torch.float32, torch.float64):
+        key = str(dt).replace("torch.", "")
+        work = GS.workspace(GS_M, GS_N, dt, "cuda")
+        V = GS.basis(GS_M + 1, GS_N, dt, "cuda").zero_()
+        V[:GS_M] = q.to(dt)
+        st = dict(V=V, w=w64.to(dt), z=z64.to(dt),
+                  Z=GS.basis(GS_M, GS_N, dt, "cuda").zero_(),
+                  h1=torch.zeros(GS_M + 1, dtype=dt, device="cuda"),
+                  h2=torch.zeros(GS_M + 1, dtype=dt, device="cuda"),
+                  wnorm=torch.zeros((), dtype=dt, device="cuda"))
+        for r in out["gs"][key]:
+            jt = torch.tensor(r["j"], dtype=torch.int32, device="cuda")
+            launches, other = kernel_launches(functools.partial(
+                GS.gram_schmidt, st["V"], st["w"], st["h1"], st["h2"],
+                st["wnorm"], jt, on, work, st["z"], st["Z"]))
+            r["launches"] = launches
+            log(f"[26] gram_schmidt {key} j={r['j']}: {launches} kernel "
+                f"launches per call (and {other} other operations), "
+                "counted in a captured call's graph")
+            check(launches == GS.LAUNCHES and other == 0,
+                  f"[26] gram_schmidt {key} j={r['j']}: {launches} "
+                  f"kernels and {other} other operations per call "
+                  f"captured, the module says {GS.LAUNCHES} kernels")
+        del work, V, st
     torch.cuda.empty_cache()
     log(f"[26] phase {time.perf_counter() - t_phase:.1f} s")
     return out
@@ -3949,7 +4064,11 @@ def main():
                                     "bound_ms", "bound_by", "bound_bytes",
                                     "library_ms", "n")},
             "fp64": rec["float64"],
-            "launches_per_step": {p: c[stage] for p, c in kry_paths.items()}})
+            "launches_per_step": {p: c[stage] for p, c in kry_paths.items()},
+            "launches_per_step_by_path": {
+                p: {k.split(":")[1]: v for k, v in c.items()
+                    if k.startswith(stage + ":")}
+                for p, c in kry_paths.items()}})
     gs = kry["gs"]
     mean = lambda key: statistics.mean(r[key] for r in gs["float32"])
     kernels.append({
@@ -3957,7 +4076,7 @@ def main():
         "replaces": GS_REPLACES,
         "launches": round(mono["kry_per_step"]["gram_schmidt"]
                           * mono["n_steps"]),
-        "kernels_per_launch": 6,
+        "kernels_per_launch": gs["float32"][0]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in gs["float32"]),
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),

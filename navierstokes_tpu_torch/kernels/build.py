@@ -94,10 +94,14 @@ def build_info() -> dict:
         fn.restype = i
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"nst_krylov_update_{suffix}")
-        fn.argtypes = [i, p, i64, p]
+        fn.argtypes = [i, p, i64, i, p]
         fn.restype = i
         fn = getattr(lib, f"nst_gram_schmidt_{suffix}")
-        fn.argtypes = [p] * 11 + [i, i64, p]
+        fn.argtypes = [p, i64, p, i] + [p] * 5 + [p, i, p, i64] + [p] * 2 \
+            + [i, i64, i, p]
+        fn.restype = i
+        fn = getattr(lib, f"nst_gram_schmidt_setup_{suffix}")
+        fn.argtypes = [ctypes.POINTER(i)]
         fn.restype = i
     lib.nst_while_begin.argtypes = [p, p, p, p, ctypes.POINTER(u64),
                                     ctypes.POINTER(i)]

@@ -33,9 +33,17 @@ They replace no Pallas kernel: XLA fuses the JAX package's loop bodies
 (navierstokes_tpu/solvers/krylov.py:204-224, :258-268), which eager
 PyTorch runs as about 50 (BiCGStab) and 19 (CG) launches per iteration.
 
+On the card every stage runs one element loop on one of three paths,
+which ``path`` picks from the vectors' addresses alone: ``vector`` (all
+on 16-byte boundaries: 16-byte loads and stores), ``peeled`` (all the
+same bytes off one: a scalar head up to it, then as ``vector``) or
+``scalar`` (one element per thread); the tail of n is scalar in the same
+launch, and every path rounds each element alike.
+
 Dispatch: CPU tensors take the plain versions; CUDA tensors launch the
-kernel or raise.  ``COUNTS`` records the launches per stage (under
-capture through the graph's record, ``kernels/launches.py``).
+kernel or raise.  ``COUNTS`` records the launches per stage, ``PATHS``
+per (stage, path) (both under capture through the graph's record,
+``kernels/launches.py``; ``COUNTS.reset()`` clears both).
 """
 
 from __future__ import annotations
@@ -52,6 +60,12 @@ from navierstokes_tpu_torch.kernels.launches import count
 STAGES = ("bicgstab_p", "bicgstab_s", "bicgstab_xr", "cg_xr", "cg_p")
 
 
+# the element loop's paths, by their index in csrc/krylov_update.cu
+PATH_NAMES = ("scalar", "vector", "peeled")
+# launches per (stage, path), cleared with COUNTS
+PATHS: dict = {}
+
+
 @dataclasses.dataclass
 class Counts:
     bicgstab_p: int = 0
@@ -63,13 +77,26 @@ class Counts:
     def reset(self):
         for f in STAGES:
             setattr(self, f, 0)
+        PATHS.clear()
 
 
 COUNTS = Counts()
 
 
-def _count(stage):
+def _count(stage, path):
     setattr(COUNTS, stage, getattr(COUNTS, stage) + 1)
+    PATHS[stage, path] = PATHS.get((stage, path), 0) + 1
+
+
+def path(addresses):
+    """The path of a launch whose vectors start at ``addresses`` (bytes):
+    ``vector`` when every one is on a 16-byte boundary, ``peeled`` when
+    all sit the same bytes off one (the kernel peels a scalar head up to
+    it), else ``scalar``."""
+    offsets = {a % 16 for a in addresses}
+    if offsets == {0}:
+        return "vector"
+    return "peeled" if len(offsets) == 1 else "scalar"
 
 
 def commit(active, pairs):
@@ -225,10 +252,14 @@ def update(stage: str, *args):
             raise ValueError(f"krylov_update: {stage}'s {name} must be "
                              "contiguous")
     ptrs = (ctypes.c_void_p * len(args))(*[t.data_ptr() for t in args])
+    way = path([t.data_ptr() for name, t in zip(names, args)
+                if name in VECTORS])
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = fn(STAGES.index(stage), ptrs, n, stream)
+        rc = fn(STAGES.index(stage), ptrs, n, PATH_NAMES.index(way), stream)
     if rc != 0:
+        msg = ("unknown stage or path" if rc < 0
+               else lib.nst_cuda_error_string(rc).decode())
         raise RuntimeError(f"krylov_update ({stage}) launch failed ({rc}): "
-                           f"{lib.nst_cuda_error_string(rc).decode()}")
-    count(_count, stage)
+                           f"{msg}")
+    count(_count, stage, way)

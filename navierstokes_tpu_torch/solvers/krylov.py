@@ -41,8 +41,9 @@ and replayed (models/step_graphs.py).
 
 GMRES keeps JAX's arithmetic: a two-pass modified Gram-Schmidt of the
 new vector against rows 0..j of the static (m+1, n) basis
-(``kernels/gram_schmidt.py``: on the card six launches that read j from
-the device and touch those rows only; the JAX body's masked whole-basis
+(``kernels/gram_schmidt.py``: on the card four launches that read j from
+the device and touch those rows only, on a basis whose rows are padded
+to 128-byte boundaries; the JAX body's masked whole-basis
 products on the CPU; products summed in float64 for float32 data), and
 the Givens rotations of the small Hessenberg least-squares problem on the device in
 the solve's precision (``kernels/arnoldi_lsq.py``: one hand-written CUDA
@@ -66,8 +67,9 @@ import torch
 
 from navierstokes_tpu_torch.kernels.arnoldi_lsq import lsq_update
 from navierstokes_tpu_torch.kernels.conditional import set_condition
-from navierstokes_tpu_torch.kernels.gram_schmidt import (gram_schmidt,
-                                                         workspace)
+from navierstokes_tpu_torch.kernels.gram_schmidt import (basis,
+                                                         gram_schmidt,
+                                                         padded, workspace)
 from navierstokes_tpu_torch.kernels.krylov_update import update
 
 # Iterations per block between two host reads (MASKED).  At the bench
@@ -375,9 +377,10 @@ class GmresLoop:
         dtype, dev = b_flat.dtype, b_flat.device
         self.m, self.flexible, self.dtype = m, flexible, dtype
         self.b, self.x = torch.empty_like(b_flat), torch.empty_like(b_flat)
-        self.V = torch.empty((m + 1, n), dtype=dtype, device=dev)
-        self.Z = (torch.empty((m, n), dtype=dtype, device=dev) if flexible
-                  else None)
+        # the padded bases the Gram-Schmidt kernels stage with 16-byte
+        # copies (rows 128-byte aligned); the solver sees (rows, n) views
+        self.V = basis(m + 1, n, dtype, dev)
+        self.Z = basis(m, n, dtype, dev) if flexible else None
         self.H = torch.empty((m + 1, m), dtype=dtype, device=dev)
         self.cs = torch.empty(m, dtype=dtype, device=dev)
         self.sn = torch.empty(m, dtype=dtype, device=dev)
@@ -423,11 +426,11 @@ class GmresLoop:
         cs, sn and g, g[0] = beta, j = 0, j_max and the flag."""
         r0 = self.b - self.mv(self.x)
         beta = torch.linalg.norm(r0)
-        self.V.zero_()
+        padded(self.V).zero_()
         self.V[0] = torch.where(beta > 0, r0 / torch.clamp(beta, min=1e-30),
                                 torch.zeros_like(r0))
         if self.flexible:
-            self.Z.zero_()
+            padded(self.Z).zero_()
         for t in (self.H, self.cs, self.sn, self.g):
             t.zero_()
         self.g[0] = beta

@@ -1300,6 +1300,213 @@ def test_krylov_update_kernels_match_plain_on_cuda(cuda, stage, dtype,
                 (stage, name)
 
 
+def _views(stage, n, dtype, offsets, rng, active):
+    """A stage's tensors (``KU.example``) with its vectors re-viewed
+    ``offsets[i]`` elements into storages of their own, in ARGS order."""
+    from navierstokes_tpu_torch.kernels import krylov_update as KU
+    args = KU.example(stage, n, dtype, "cuda", rng, active=active)
+    vec = iter(offsets)
+    out = []
+    for name, t in zip(KU.ARGS[stage], args):
+        if name in KU.VECTORS:
+            off = next(vec)
+            buf = torch.empty(n + off, dtype=dtype, device="cuda")
+            buf[off:] = t
+            t = buf[off:]
+        out.append(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 1_003, 70_001])
+@pytest.mark.parametrize("active", [True, False])
+@pytest.mark.parametrize("dtype,layout", [
+    (torch.float32, "vector"), (torch.float32, "peeled1"),
+    (torch.float32, "peeled2"), (torch.float32, "peeled3"),
+    (torch.float32, "scalar"), (torch.float64, "vector"),
+    (torch.float64, "peeled1"), (torch.float64, "scalar")],
+    ids=lambda v: str(v).replace("torch.", ""))
+@pytest.mark.parametrize("stage", ["bicgstab_p", "bicgstab_s",
+                                   "bicgstab_xr"])
+def test_krylov_update_paths_match_plain_on_cuda(cuda, stage, dtype, active,
+                                                 layout, n):
+    """Each BiCGStab stage on the vector path (every vector 16-byte
+    aligned), the peeled path (all 1, 2 or 3 elements off a boundary:
+    a scalar head, fp64 only one) and the scalar path (vectors at
+    different offsets), n not a multiple of the vector width (and
+    shorter than the head): bit for bit with the plain version on the
+    card and on the CPU, the flag up and down; the launch counted on the
+    path ``KU.path`` picks from the addresses."""
+    from navierstokes_tpu_torch.kernels import krylov_update as KU
+    k = sum(name in KU.VECTORS for name in KU.ARGS[stage])
+    if layout == "vector":
+        offsets = [0] * k
+    elif layout == "scalar":
+        offsets = [0] + [1] * (k - 1)
+    else:
+        offsets = [int(layout[-1])] * k
+    kern = _views(stage, n, dtype, offsets, np.random.default_rng(11),
+                  active)
+    plain = [t.clone() for t in kern]
+    host = [t.cpu() for t in kern]
+    before = [t.clone() for t in kern]
+    way = KU.path([t.data_ptr() for name, t in zip(KU.ARGS[stage], kern)
+                   if name in KU.VECTORS])
+    assert way == layout.rstrip("123")
+    KU.COUNTS.reset()
+    KU.update(stage, *kern)
+    KU.PLAIN[stage](*plain)
+    KU.update(stage, *host)
+    torch.cuda.synchronize()
+    assert KU.PATHS == {(stage, way): 1}
+    assert getattr(KU.COUNTS, stage) == 1
+    for name, a, b, c in zip(KU.ARGS[stage], kern, plain, host):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c), (stage, name)
+    if not active:
+        for name, a, b in zip(KU.ARGS[stage], kern, before):
+            assert name in KU.SCRATCH.get(stage, ()) or torch.equal(a, b), \
+                (stage, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_schmidt_padded_basis_every_j_on_cuda(cuda, dtype):
+    """The Gram-Schmidt kernels on the padded basis (``GS.basis``) at
+    every j from 0 to 63 of a restart-64 basis (the ring's slots wrap at
+    every multiple of its depth, 8 rows in fp32 and 4 in fp64, and the
+    first pass's dots re-stage rows past it), n = 20,001 (a last tile
+    of 33 elements, rows 4 bytes past a whole vector in fp32): h1, h2,
+    ||w||, the new row within one ulp or 2^-24 (fp32; 1e-13 fp64) of the
+    scale of the plain version, Z's row equal, bit-identical on repeat,
+    each call counted once; w given 1 element off a 16-byte boundary
+    (copied element by element) gives the same bits."""
+    from navierstokes_tpu_torch.kernels import gram_schmidt as GS
+    rel = 2.0 ** -24 if dtype == torch.float32 else 1e-13
+    m, n = 64, 20_001
+    work = GS.workspace(m, n, dtype, "cuda")
+    flag = torch.tensor(True, device="cuda")
+    names = ("V", "w", "h1", "h2", "wnorm")
+    for j in range(m):
+        kern = _gs_state(m, n, j, dtype, 40 + j, "cuda")
+        again = _gs_clone(kern)
+        shifted = torch.empty(n + 1, dtype=dtype, device="cuda")[1:]
+        shifted.copy_(kern["w"])
+        again["w"] = shifted
+        plain = {k: v.clone() for k, v in kern.items()}
+        jt = torch.tensor(j, dtype=torch.int32, device="cuda")
+        GS.COUNTS.reset()
+        for st in (kern, again):
+            GS.gram_schmidt(*(st[k] for k in names), jt, flag, work,
+                            st["z"], st["Z"])
+        GS.gram_schmidt_plain(*(plain[k] for k in names), jt, flag,
+                              plain["z"], plain["Z"])
+        torch.cuda.synchronize()
+        assert GS.COUNTS.calls == 2
+        for k in kern:
+            assert torch.equal(again[k], kern[k]), (j, k)
+        h1 = float(plain["h1"].abs().max())
+        for k in ("h1", "h2"):
+            assert _within(kern[k], plain[k], h1, rel), (j, k)
+            assert not kern[k][j + 1:].any(), (j, k)
+        assert _within(kern["wnorm"], plain["wnorm"], float(plain["wnorm"]),
+                       rel), j
+        assert _within(kern["V"][j + 1], plain["V"][j + 1],
+                       float(plain["V"][j + 1].abs().max()), rel), j
+        assert torch.equal(kern["Z"], plain["Z"]), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_schmidt_launches_per_call_on_cuda(cuda, dtype):
+    """A call's kernel launches counted in a captured call's graph
+    (chip_smoke.kernel_launches, phase 26's count): ``GS.LAUNCHES``, the
+    three passes and the write, and nothing else, at j = 0, 5, 13, 20
+    and 38."""
+    from navierstokes_tpu_torch.kernels import gram_schmidt as GS
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    m, n = 64, 70_001
+    work = GS.workspace(m, n, dtype, "cuda")
+    flag = torch.tensor(True, device="cuda")
+    for j in (0, 5, 13, 20, 38):
+        st = _gs_state(m, n, j, dtype, 60 + j, "cuda")
+        jt = torch.tensor(j, dtype=torch.int32, device="cuda")
+        launches, other = smoke.kernel_launches(lambda: GS.gram_schmidt(
+            st["V"], st["w"], st["h1"], st["h2"], st["wnorm"], jt, flag,
+            work, st["z"], st["Z"]))
+        assert (launches, other) == (GS.LAUNCHES, 0) == (4, 0), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_schmidt_restarts_in_any_order_on_cuda(cuda, dtype):
+    """Bases of 13, 65 and 401 rows set up and launched in turn, then 13
+    again (a GMRES at restart 12 after a NavierStokes model at 64): each
+    call within the gate of the plain version (no basis lowers the
+    passes' shared-memory limit below another's); a basis past
+    ``setup``'s ``max_rows`` raises before any launch."""
+    from navierstokes_tpu_torch.kernels import gram_schmidt as GS
+    rel = 2.0 ** -24 if dtype == torch.float32 else 1e-13
+    n = 3_001
+    flag = torch.tensor(True, device="cuda")
+    names = ("V", "w", "h1", "h2", "wnorm")
+    for m in (12, 64, 400, 12):
+        j = min(m - 1, 9)
+        work = GS.workspace(m, n, dtype, "cuda")
+        kern = _gs_state(m, n, j, dtype, 70 + m, "cuda")
+        plain = {k: v.clone() for k, v in kern.items()}
+        jt = torch.tensor(j, dtype=torch.int32, device="cuda")
+        GS.gram_schmidt(*(kern[k] for k in names), jt, flag, work,
+                        kern["z"], kern["Z"])
+        GS.gram_schmidt_plain(*(plain[k] for k in names), jt, flag,
+                              plain["z"], plain["Z"])
+        torch.cuda.synchronize()
+        h1 = float(plain["h1"].abs().max())
+        for k in ("h1", "h2"):
+            assert _within(kern[k], plain[k], h1, rel), (m, k)
+        assert _within(kern["V"][j + 1], plain["V"][j + 1],
+                       float(plain["V"][j + 1].abs().max()), rel), m
+        assert torch.equal(kern["Z"], plain["Z"]), m
+    rows = GS.setup("cuda", dtype)["max_rows"]
+    big = GS.basis(rows + 1, 64, dtype, "cuda").zero_()
+    st = _gs_state(1, 64, 0, dtype, 5, "cuda")
+    GS.COUNTS.reset()
+    with pytest.raises(ValueError, match="rows at most"):
+        GS.gram_schmidt(big, st["w"], torch.zeros(rows + 1, dtype=dtype,
+                                                  device="cuda"),
+                        torch.zeros(rows + 1, dtype=dtype, device="cuda"),
+                        st["wnorm"], torch.tensor(0, dtype=torch.int32,
+                                                  device="cuda"),
+                        flag, GS.workspace(rows, 64, dtype, "cuda"))
+    assert GS.COUNTS.calls == 0
+
+
+@pytest.mark.cuda
+def test_gram_schmidt_refuses_an_unaligned_basis_on_cuda(cuda):
+    """A contiguous basis whose rows fall off 16-byte boundaries, or a
+    padded one viewed from its second element, raises before any launch
+    (no copy, no other path)."""
+    from navierstokes_tpu_torch.kernels import gram_schmidt as GS
+    m, n = 12, 301
+    st = _gs_state(m, n, 3, torch.float32, 3, "cuda")
+    work = GS.workspace(m, n, torch.float32, "cuda")
+    jt = torch.tensor(3, dtype=torch.int32, device="cuda")
+    flag = torch.tensor(True, device="cuda")
+    GS.COUNTS.reset()
+    bad = {"V": st["V"].contiguous(),
+           "V+1": GS.basis(m + 1, n + 1, torch.float32, "cuda")[:, 1:]}
+    for tag, V in bad.items():
+        with pytest.raises(ValueError, match="16-byte|row stride"):
+            GS.gram_schmidt(V, st["w"], st["h1"], st["h2"], st["wnorm"],
+                            jt, flag, work, st["z"], st["Z"])
+    with pytest.raises(ValueError, match="16-byte|row stride"):
+        GS.gram_schmidt(st["V"], st["w"], st["h1"], st["h2"], st["wnorm"],
+                        jt, flag, work, st["z"], st["Z"].contiguous())
+    assert GS.COUNTS.calls == 0
+
+
 def _within(k, p, scale, rel):
     """Each element of k within one ulp of p, or within ``rel`` of the
     scale (the elements the second pass leaves far below it)."""
@@ -1308,6 +1515,9 @@ def _within(k, p, scale, rel):
 
 
 def _gs_state(m, n, j, dtype, seed, device):
+    """V and Z in the padded bases that GmresLoop allocates
+    (kernels/gram_schmidt.basis), the rest contiguous."""
+    from navierstokes_tpu_torch.kernels import gram_schmidt as GS
     rng = np.random.default_rng(seed)
     q, _ = np.linalg.qr(rng.standard_normal((n, j + 1)))
     V = np.zeros((m + 1, n))
@@ -1316,10 +1526,27 @@ def _gs_state(m, n, j, dtype, seed, device):
     z = rng.standard_normal(n)
     Z = rng.standard_normal((m, n))
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    return dict(V=t(V), w=t(w), z=t(z), Z=t(Z),
+
+    def padded(a):
+        b = GS.basis(a.shape[0], n, dtype, device)
+        b.copy_(t(a))
+        return b
+    return dict(V=padded(V), w=t(w), z=t(z), Z=padded(Z),
                 h1=torch.full((m + 1,), 7.0, dtype=dtype, device=device),
                 h2=torch.full((m + 1,), 7.0, dtype=dtype, device=device),
                 wnorm=torch.zeros((), dtype=dtype, device=device))
+
+
+def _gs_clone(st):
+    """A copy of a Gram-Schmidt state, V and Z in padded bases of their
+    own (``clone`` of the padded views would make them contiguous)."""
+    from navierstokes_tpu_torch.kernels import gram_schmidt as GS
+    out = {k: v.clone() for k, v in st.items() if k not in ("V", "Z")}
+    for k in ("V", "Z"):
+        out[k] = GS.basis(st[k].shape[0], st[k].shape[1], st[k].dtype,
+                          st[k].device)
+        out[k].copy_(st[k])
+    return out
 
 
 @pytest.mark.cuda
@@ -1347,7 +1574,7 @@ def test_gram_schmidt_kernel_matches_plain_on_cuda(cuda, dtype, m, n, j,
     from navierstokes_tpu_torch.kernels import gram_schmidt as GS
     rel = 2.0 ** -24 if dtype == torch.float32 else 1e-13
     kern = _gs_state(m, n, min(j, m - 1), dtype, 3, "cuda")
-    again = {k: v.clone() for k, v in kern.items()}
+    again = _gs_clone(kern)
     plain = {k: v.clone() for k, v in kern.items()}
     jt = torch.tensor(j, dtype=torch.int32, device="cuda")
     flag = torch.tensor(active, device="cuda")

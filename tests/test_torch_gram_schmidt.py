@@ -255,3 +255,69 @@ def test_other_devices_raise_and_never_take_the_plain_version(monkeypatch):
             GS._entry(dt, torch.device("cuda"))
     with pytest.raises(TypeError, match="float32 or float64"):
         GS._entry(torch.bfloat16, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1, 31, 32, 301])
+def test_basis_pads_each_row_to_128_bytes(n, dtype):
+    """``GS.basis``: the (rows, n) view of a (rows, ld) buffer, ld the
+    least multiple of 32 elements >= n, its pad zero; writes through the
+    view leave the pad zero, and ``check_basis`` takes it (returns ld)."""
+    B = GS.basis(5, n, dtype, "cpu")
+    ld = -(-n // 32) * 32
+    assert B.shape == (5, n) and B.stride() == (ld, 1)
+    assert B.data_ptr() % 16 == 0
+    assert not B.as_strided((5, ld), (ld, 1))[:, n:].any()
+    B.fill_(3.0)
+    B.index_copy_(0, torch.tensor([2]), torch.ones(1, n, dtype=dtype))
+    full = B.as_strided((5, ld), (ld, 1))
+    assert not full[:, n:].any() and (full[:, :n] != 0).all()
+    assert GS.check_basis("V", B) == ld
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_the_wrapper_refuses_a_basis_the_kernels_cannot_take(dtype):
+    """``check_basis`` raises on a basis whose rows do not all start on
+    16-byte boundaries (a contiguous basis of an odd n, a padded one
+    viewed from its second element), on a row stride below n and on a
+    column stride other than 1; it never copies."""
+    n = 301
+    with pytest.raises(ValueError, match="16-byte"):
+        GS.check_basis("V", torch.zeros((M + 1, n), dtype=dtype))
+    with pytest.raises(ValueError, match="16-byte"):
+        GS.check_basis("V", GS.basis(M + 1, n + 1, dtype, "cpu")[:, 1:])
+    with pytest.raises(ValueError, match="row stride"):
+        GS.check_basis("V", torch.zeros((n, M + 1), dtype=dtype).T)
+    with pytest.raises(ValueError, match="row stride"):
+        GS.check_basis("V", torch.zeros(64, dtype=dtype).as_strided(
+            (3, 32), (16, 1)))
+    assert GS.check_basis("V", torch.zeros((M + 1, 320), dtype=dtype)) == 320
+
+
+@pytest.mark.parametrize("solver", ["gmres", "fgmres"])
+def test_padded_basis_gmres_equals_jax(solver):
+    """``GmresLoop`` keeps V and Z in padded bases (row stride 320 for
+    n = 301) and its solves equal the JAX package's in float64: the same
+    iterations over several restart cycles, x within 1e-12 of max|x|, the
+    residual estimate within 1e-10 of |b|, both converged."""
+    a, b, x0 = _system(seed=7, n=301)
+    dinv = 1.0 / np.diag(a)
+    kw = dict(tol=1e-10, restart=8, maxiter=300)
+    A, D = torch.as_tensor(a), torch.as_tensor(dinv)
+    loop = TK.GmresLoop(lambda v: A @ v, torch.as_tensor(b),
+                        torch.as_tensor(x0), precond=lambda v: v * D,
+                        flexible=solver == "fgmres", **kw)
+    assert loop.V.stride() == (320, 1) and loop.V.shape == (9, 301)
+    if solver == "fgmres":
+        assert loop.Z.stride() == (320, 1) and loop.Z.shape == (8, 301)
+    got = loop.run().result()
+    ja, jd = jnp.asarray(a), jnp.asarray(dinv)
+    ref = getattr(JK, solver)(lambda v: ja @ v, jnp.asarray(b),
+                              jnp.asarray(x0), precond=lambda v: v * jd,
+                              **kw)
+    xr = np.asarray(ref.x)
+    assert got.converged and bool(ref.converged)
+    assert got.iterations == int(ref.iterations) > 8
+    assert np.abs(got.x.numpy() - xr).max() <= 1e-12 * np.abs(xr).max()
+    assert abs(float(got.residual) - float(ref.residual)) <= \
+        1e-10 * np.linalg.norm(b)

@@ -273,3 +273,56 @@ def test_the_kernels_take_each_stage_in_its_order():
         want = [("B" if name in KU.FLAGS else "long long*>" if name == "k"
                  else "V", str(i)) for i, name in enumerate(KU.ARGS[stage])]
         assert args == want, stage
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("base", [0, 16 * 3, 16 * 1024 + 512])
+def test_the_path_is_a_function_of_the_alignment_alone(base, itemsize):
+    """``KU.path``: vector when every address is on a 16-byte boundary,
+    peeled when all sit the same bytes off one, scalar when they differ;
+    the same for any shift of every address by a multiple of 16 and in
+    any order."""
+    for offs in ([0, 0, 0], [0], [itemsize] * 3, [16 - itemsize] * 2,
+                 [0, itemsize, 0], [itemsize, 0], [itemsize, 2 * itemsize]):
+        addresses = [base + 16 * i + o for i, o in enumerate(offs)]
+        got = KU.path(addresses)
+        assert got == KU.path(addresses[::-1])
+        assert got == KU.path([a + 16 * 7 for a in addresses])
+        if set(offs) == {0}:
+            assert got == "vector"
+        elif len(set(offs)) == 1:
+            assert got == "peeled"
+        else:
+            assert got == "scalar"
+
+
+def test_the_paths_of_views_into_one_flat_vector():
+    """The views the loops hand the stages: the velocity part of a flat
+    (u, p) vector and fresh vectors take the vector path; a part that
+    starts 1 (fp32: up to 3) elements in shares its offset with the views
+    beside it (peeled), mixed with a fresh vector it takes the scalar
+    path."""
+    for dt in (torch.float32, torch.float64):
+        flat = torch.zeros(1001, dtype=dt)
+        fresh = torch.zeros(1000, dtype=dt)
+        assert KU.path([flat[:1000].data_ptr(), fresh.data_ptr()]) == \
+            "vector"
+        tail = [flat[1:].data_ptr(), torch.zeros(1001, dtype=dt)[1:]
+                .data_ptr()]
+        assert KU.path(tail) == "peeled"
+        assert KU.path(tail + [fresh.data_ptr()]) == "scalar"
+
+
+def test_the_counts_by_path_clear_with_the_stage_counts():
+    """``PATHS`` counts launches by (stage, path) and ``COUNTS.reset()``
+    clears it with the stage counts; CPU calls count nothing."""
+    KU.PATHS[("bicgstab_p", "vector")] = 3
+    KU.COUNTS.bicgstab_p = 3
+    KU.COUNTS.reset()
+    assert KU.PATHS == {} and KU.COUNTS.bicgstab_p == 0
+    KU.update("bicgstab_p", *_inputs("bicgstab_p", torch.float32, True, 1))
+    assert KU.PATHS == {} and KU.COUNTS.bicgstab_p == 0
+    KU._count("bicgstab_s", "peeled")
+    assert KU.PATHS == {("bicgstab_s", "peeled"): 1}
+    assert KU.COUNTS.bicgstab_s == 1
+    KU.COUNTS.reset()

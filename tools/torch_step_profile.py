@@ -171,7 +171,8 @@ KINDS = (("spmv", ("sell_spmv",)),
          ("tile apply", ("stream_kernel", "ring_kernel")),
          ("Krylov update", ("bicgstab_p", "bicgstab_s", "bicgstab_xr",
                             "cg_xr", "cg_p")),
-         ("Gram-Schmidt", ("gs_pass", "gs_reduce", "gs_finish")),
+         ("Gram-Schmidt", ("gs_pass", "gs_reduce", "gs_finish",
+                           "gs_write")),
          ("Givens", ("lsq_update",)), ("predicate", ("set_condition",)),
          ("dot", ("dot_kernel", "reduce_1Block", "dot_")),
          ("GEMM/GEMV", ("gemm", "gemv", "xmma", "cutlass", "Kernel2",
