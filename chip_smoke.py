@@ -219,12 +219,23 @@ and checks them:
    Gram-Schmidt steps of csrc/gram_schmidt.cu, equal between captured
    and eager runs, one launch of each BiCGStab stage per BiCGStab
    iteration and of each CG stage per CG iteration in phases 5 and 21,
-   one Gram-Schmidt step per FGMRES iteration in phases 8 and 22): at the
-   bench point's shapes (BiCGStab n = 901,036, CG n = 113,378), fp32 and
-   fp64, each update stage against its plain version bit for bit with
-   the flag up and down (down: no state buffer moves), timed on aligned
-   views (the vector path) and on views one element off (the peeled
-   path); cuBLAS's ``y @ Z`` on the padded basis against a contiguous
+   one Gram-Schmidt step per FGMRES iteration in phases 8 and 22; in
+   phase 5 one captured CG iteration of the bench step launches 3 kernels
+   besides its product and its preconditioner, cg_xr, cg_p and the
+   predicate, so no cuBLAS dot and no norm reduction, counted as graph
+   kernel nodes): at the bench point's shapes (BiCGStab n = 901,036, CG
+   n = 113,378), fp32 and fp64, each BiCGStab stage against its plain
+   version bit for bit with the flag up and down (down: no state buffer
+   moves), each CG stage (one thread-block cluster that takes its own
+   float64 dots) over 8 seeded draws, every other one with products of
+   both signs in its dot, under ``krylov_update.cg_gate`` (fp32: the dot
+   and the norm within one ulp, every tensor bit for bit where they are
+   equal, the bit-equal draws counted; fp64 within 1e-13 of the sum of
+   |a b|; where the dots differ, each vector element within what the
+   gap moves it) and bit for bit with the flag down, timed on aligned views (the
+   vector path) and on views one element off (the peeled path), the CG
+   stages L2-warm too and beside the cuBLAS dots and the norm they took
+   over; cuBLAS's ``y @ Z`` on the padded basis against a contiguous
    copy (whether the row stride moves its bits); Gram-Schmidt on the
    flat 1,014,414-element vector in the padded basis at restart 64 and
    j = 0, 5, 13, 20, 38, 63 against its plain version within one ulp or
@@ -250,7 +261,6 @@ import dataclasses
 import functools
 import gc
 import json
-import math
 import os
 import statistics
 import subprocess
@@ -398,10 +408,14 @@ def kry_per_step(n_steps):
     return {k: v / n_steps for k, v in c.items()}
 
 
-def check_kry_projection(phase, kry, ms):
+def check_kry_projection(phase, kry, ms, ploop=None):
     """A projection step's BiCGStab iterations each launch the three
     BiCGStab stages once, its CG iterations the two CG stages; no
-    Gram-Schmidt."""
+    Gram-Schmidt.  Given the step's CG loop (after its run, the counts
+    read), also that one captured CG iteration launches no cuBLAS dot and
+    no norm reduction: CG_ITERATION_KERNELS kernels besides its product
+    and its preconditioner (``check_cg_iteration``).  Returns that count,
+    or None."""
     n = len(ms)
     f_its = sum(m.f_iterations for m in ms) / n
     p_its = sum(m.p_iterations for m in ms) / n
@@ -412,6 +426,11 @@ def check_kry_projection(phase, kry, ms):
           f"[{phase}] one launch of each BiCGStab stage per BiCGStab "
           f"iteration ({f_its:.2f}) and of each CG stage per CG iteration "
           f"({p_its:.2f}) per step: {kry}")
+    if ploop is None:
+        return None
+    it = cg_iteration_launches(ploop)
+    check_cg_iteration(phase, it)
+    return it
 
 
 # PR 10's figures of the captured steps, printed beside this run's
@@ -789,7 +808,8 @@ def phase_bench(ns, card):
     kry = kry_per_step(n_warm + n_meas)
     log(f"[5] Krylov loop kernels (csrc/krylov_update.cu stages, "
         f"csrc/gram_schmidt.cu steps) per step: {kry}")
-    check_kry_projection(5, kry, ms_all)
+    cg_iteration = check_kry_projection(5, kry, ms_all,
+                                        ns._graphs.ws.ploop)
     log(f"[5] captured steps: {while_line(whiles, conds)} (PR 10: host "
         f"reads {PR10['proj_reads']}, masked iterations "
         f"{PR10['proj_masked']} per step, AX) on {card}")
@@ -836,7 +856,8 @@ def phase_bench(ns, card):
                 reserved_growth_bytes=growth, whiles=whiles,
                 set_condition_per_step=conds, bj=bj,
                 bj_per_step=bj_per_step(bj, n_warm + n_meas),
-                kry_per_step=kry, n_steps=n_warm + n_meas)
+                kry_per_step=kry, n_steps=n_warm + n_meas,
+                cg_iteration=cg_iteration)
 
 
 # phase 21: steps of each mode from phase 5's end state, and the chunked
@@ -3467,6 +3488,10 @@ GS_REPLACES = "navierstokes_tpu/solvers/krylov.py:97"
 # BiCGStab's F system (2 x 450,518 velocity rows), CG's P1 Laplacian, the
 # flat (u, p) vector of FGMRES at restart 64
 KRY_N = {"bicgstab": 901_036, "cg": 113_378}
+# CG's P1 size in 3D-1Z (3,393,382 DoF less 3 x 1,084,214 velocity nodes):
+# above one cluster's register pass (131,072 fp32 elements), so the CG
+# stages read their second pass again after the barrier
+KRY_N_CG_3D1 = 140_740
 GS_N, GS_M, GS_JS = EXPECTED_DOFS, 64, (0, 5, 13, 20, 38, 63)
 # kernel against plain version: both sum each product in float64, in other
 # orders; each element within one ulp of the plain value, or within
@@ -3474,16 +3499,23 @@ GS_N, GS_M, GS_JS = EXPECTED_DOFS, 64, (0, 5, 13, 20, 38, 63)
 GS_GATE = {torch.float32: 2.0 ** -24, torch.float64: 1e-12}
 FP64_OPS_PER_S = 34e12        # published H100 SXM fp64 rate, no tensor core
 # vectors of n read plus written per stage with the flag up, and flops
-# per element
+# per element (the CG stages' dots and norm: a multiply and an add each)
 KRY_VECTORS = {"bicgstab_p": (3, 1, 4), "bicgstab_s": (2, 2, 2),
-               "bicgstab_xr": (5, 2, 6), "cg_xr": (4, 2, 4),
-               "cg_p": (2, 1, 2)}
-# the timed bursts' scalars: powers of two that keep repeated calls
-# bounded (beta 1/2); the bit-for-bit checks draw theirs
+               "bicgstab_xr": (5, 2, 6), "cg_xr": (4, 2, 8),
+               "cg_p": (3, 1, 4)}
+# the timed bursts' BiCGStab scalars: powers of two that keep repeated
+# calls bounded (beta 1/2); the bit-for-bit checks draw theirs, and the CG
+# stages' rz comes from their dots (krylov_update.example: alpha and beta
+# below 1)
 KRY_TAME = {"rho_new": 0.5, "rho": 1.0, "alpha": 1.0, "omega": 1.0,
             "denom": 2.0, "ts": 0.25, "tt": 1.0, "alpha_state": 1.0,
-            "omega_state": 1.0, "rz": 1.0, "pap": 4.0, "rz_new": 0.5,
-            "rz_prev": 1.0}
+            "omega_state": 1.0}
+# seeded draws per dtype whose dots and norm phase 26 compares with the
+# plain version's (the bit-equal ones counted)
+CG_DRAWS = 8
+# a captured CG iteration's kernels besides its product and its
+# preconditioner: cg_xr, cg_p, set_condition
+CG_ITERATION_KERNELS = 3
 
 
 def _plain_ms(fn, n=BURST, reps=5):
@@ -3535,8 +3567,8 @@ def kernel_launches(fn):
 def _gate_ratio(k, p, scale, dt):
     """max |k - p| / max(ulp(p), GS_GATE[dt] * scale) over the elements:
     the kernel passes at 1 or less."""
-    ulp = torch.nextafter(p.abs(), torch.full_like(p, math.inf)) - p.abs()
-    tol = torch.clamp(ulp, min=GS_GATE[dt] * scale)
+    from navierstokes_tpu_torch.kernels.krylov_update import ulp
+    tol = torch.clamp(ulp(p), min=GS_GATE[dt] * scale)
     return float(((k - p).abs() / tol).max())
 
 
@@ -3564,10 +3596,67 @@ def _whole_basis(V, w, j):
     return h1, h2, torch.linalg.norm(w)
 
 
-def phase_krylov_kernels(card):
+def cg_iteration_launches(loop):
+    """The kernels (and other nodes) that one iteration of ``loop`` (a
+    ``CgLoop`` whose flag is down, so its state stays as it is) records
+    into a captured graph, besides those of its product and of its
+    preconditioner on the same vectors (``kernel_launches``; the body's
+    kernels, the product's and the preconditioner's are counted apart).
+    Call it after the counts of a run are read: the calls add to them."""
+    check(not bool(loop.active), "cg_iteration_launches: the loop's flag "
+          "is down")
+    body = kernel_launches(loop._body)
+    product = kernel_launches(lambda: loop.mv(loop.p))
+    precond = kernel_launches(lambda: loop.pc(loop.r))
+    return dict(body=body[0], product=product[0], preconditioner=precond[0],
+                besides=body[0] - product[0] - precond[0],
+                other_besides=body[1] - product[1] - precond[1])
+
+
+def check_cg_iteration(phase, it):
+    """A captured CG iteration launches CG_ITERATION_KERNELS kernels
+    besides its product and its preconditioner (cg_xr, cg_p and the
+    predicate: no cuBLAS dot, no norm reduction) and no other node."""
+    log(f"[{phase}] one captured CG iteration: {it['body']} kernels, of "
+        f"them {it['product']} the product's and {it['preconditioner']} the "
+        f"preconditioner's: {it['besides']} besides (and "
+        f"{it['other_besides']} other nodes)")
+    check(it["besides"] == CG_ITERATION_KERNELS and it["other_besides"] == 0,
+          f"[{phase}] a captured CG iteration launches "
+          f"{CG_ITERATION_KERNELS} kernels besides its product and its "
+          f"preconditioner (cg_xr, cg_p, set_condition; no dot or norm of "
+          f"its own): {it}")
+
+
+def _cg_dots_ms(stage, sets):
+    """ms in L2-cold bursts of the launches that a CG stage took over
+    besides the parent's stage: cg_xr's p @ Ap (cuBLAS, two kernels) and
+    the predicate's torch.linalg.norm(r), cg_p's r @ z."""
+    from navierstokes_tpu_torch.kernels import krylov_update as KU
+    at = {name: KU.ARGS[stage].index(name) for name in KU.ARGS[stage]}
+    if stage == "cg_xr":
+        return dict(
+            dot_ms=_burst_ms([functools.partial(torch.dot, st[at["p"]],
+                                                st[at["ap"]])
+                              for st in sets]),
+            norm_ms=_burst_ms([functools.partial(torch.linalg.norm,
+                                                 st[at["r"]])
+                               for st in sets]))
+    return dict(dot_ms=_burst_ms([functools.partial(torch.dot, st[at["r"]],
+                                                    st[at["z"]])
+                                  for st in sets]))
+
+
+def phase_krylov_kernels(card, cg_iteration):
     """Phase 26: the fused update stages (csrc/krylov_update.cu) against
     their plain versions at the bench point's shapes, fp32 and fp64, the
-    flag up and down, bit for bit; the Gram-Schmidt kernels
+    flag up and down, bit for bit (the CG stages, which take their own
+    float64 dots in one cluster, under ``KU.cg_gate`` over CG_DRAWS seeded
+    draws, the odd ones with products of both signs, the bit-equal ones
+    counted; timed L2-warm too, beside the
+    cuBLAS dots and the norm they took over, with the kernels a captured
+    CG iteration of phase 5 launched besides its product and its
+    preconditioner, ``cg_iteration``); the Gram-Schmidt kernels
     (csrc/gram_schmidt.cu) against theirs on the flat bench vector at
     restart 64 and j in GS_JS, each element within one ulp or GS_GATE of
     the scale, bit-identical on repeat, V and Z untouched with the flag
@@ -3585,30 +3674,48 @@ def phase_krylov_kernels(card):
     for stage in KU.STAGES:
         n = KRY_N[stage.split("_")[0]]
         reads, writes, flops = KRY_VECTORS[stage]
+        is_cg = stage in KU.CG_DOTS
         rec = {}
         for dt in (torch.float32, torch.float64):
+            max_err, equal_draws = 0.0, 0
             for active in (True, False):
                 # drawn scalars: no product of a scalar and an element is
                 # exact, so a contracted multiply-add would change bits
-                kern = KU.example(stage, n, dt, "cuda",
-                                  np.random.default_rng(1), active=active)
-                before = [t.clone() for t in kern]
-                plain = [t.clone() for t in kern]
-                KU.update(stage, *kern)
-                KU.PLAIN[stage](*plain)
-                torch.cuda.synchronize()
-                differ = [name for name, a, b in zip(KU.ARGS[stage], kern,
-                                                     plain)
-                          if not torch.equal(a, b)]
-                check(differ == [], f"[26] {stage} {dt} active={active}: "
-                      f"kernel against plain bit for bit (differ: {differ})")
-                if not active:
-                    moved = [name for name, a, b in zip(KU.ARGS[stage], kern,
-                                                        before)
-                             if not torch.equal(a, b)
-                             and name not in KU.SCRATCH.get(stage, ())]
-                    check(moved == [], f"[26] {stage} {dt}: the flag down "
-                          f"moves no state buffer (moved {moved})")
+                for draw in range(CG_DRAWS if is_cg and active else 1):
+                    kern = KU.example(stage, n, dt, "cuda",
+                                      np.random.default_rng(1 + 100 * draw),
+                                      active=active, signed=draw % 2 == 1)
+                    before = [t.clone() for t in kern]
+                    plain = [t.clone() for t in kern]
+                    KU.update(stage, *kern)
+                    KU.PLAIN[stage](*plain)
+                    torch.cuda.synchronize()
+                    if is_cg and active:
+                        ok, equal, err = KU.cg_gate(stage, kern, plain,
+                                                    before)
+                        equal_draws += equal
+                        max_err = max(max_err, err)
+                        check(ok, f"[26] {stage} {dt} draw {draw}: kernel "
+                              "against plain within KU.cg_gate (fp32: "
+                              "dots and norm within one ulp, bit for bit "
+                              "where equal; fp64 within "
+                              f"{KU.DOT_GATE:g} of the sum of |a b|; the "
+                              "vectors within what the dots' gap moves), "
+                              f"max |kernel - plain| {err:.3e}")
+                        continue
+                    differ = [name for name, a, b in zip(KU.ARGS[stage],
+                                                         kern, plain)
+                              if not torch.equal(a, b)]
+                    check(differ == [], f"[26] {stage} {dt} active={active}"
+                          f": kernel against plain bit for bit (differ: "
+                          f"{differ})")
+                    if not active:
+                        moved = [name for name, a, b in zip(KU.ARGS[stage],
+                                                            kern, before)
+                                 if not torch.equal(a, b)
+                                 and name not in KU.SCRATCH.get(stage, ())]
+                        check(moved == [], f"[26] {stage} {dt}: the flag "
+                              f"down moves no state buffer (moved {moved})")
             # input sets that together exceed twice the L2, cycled in the
             # bursts: on the main path the products between two stages
             # (the 461 MB tile apply among them) leave the L2 cold
@@ -3631,29 +3738,82 @@ def phase_krylov_kernels(card):
                                           for st in sets])
                 if offset == 0:
                     ms = path_ms[way]
+                    # L2-warm: one set over and over (CG's 1-3 MB stay in
+                    # the L2 across a captured iteration)
+                    warm_ms = _burst_ms([functools.partial(
+                        KU.update, stage, *sets[0])])
                     plain_ms = _plain_ms(functools.partial(KU.PLAIN[stage],
                                                            *sets[0]))
+                    dots_ms = (_cg_dots_ms(stage, sets) if is_cg else None)
                 del sets
             check(paths == {0: "vector", 1: "peeled"},
                   f"[26] {stage} {dt}: aligned views take the vector path, "
                   f"views one element off the peeled path ({paths})")
+            ms_3d1 = None
+            if is_cg:
+                # 3D-1Z's size: two passes, the gate and the L2-cold time
+                n3 = KRY_N_CG_3D1
+                kern = KU.example(stage, n3, dt, "cuda",
+                                  np.random.default_rng(7))
+                before = [t.clone() for t in kern]
+                plain = [t.clone() for t in kern]
+                KU.update(stage, *kern)
+                KU.PLAIN[stage](*plain)
+                ok, _, err = KU.cg_gate(stage, kern, plain, before)
+                check(ok, f"[26] {stage} {dt} n={n3}: kernel against plain "
+                      f"within KU.cg_gate, max |kernel - plain| "
+                      f"{err:.3e}")
+                n3_bytes = (reads + writes) * n3 * kern[0].element_size()
+                sets = [KU.example(stage, n3, dt, "cuda",
+                                   np.random.default_rng(20 + i))
+                        for i in range(max(2, -(-2 * L2_BYTES // n3_bytes)))]
+                ms_3d1 = _burst_ms([functools.partial(KU.update, stage, *st)
+                                    for st in sets])
+                del sets, kern, plain, before
             ops = flops * n
             peak = FP32_OPS_PER_S if dt == torch.float32 else FP64_OPS_PER_S
             bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
             rec[str(dt).replace("torch.", "")] = dict(
-                n=n, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                n=n, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+                bound_ms=bound,
                 bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                           >= ops / peak else "operations"),
-                bound_bytes=nbytes, max_abs_err=0.0, library_ms=None,
-                path_ms=path_ms)
-            log(f"[26] {stage} {str(dt).replace('torch.', '')} n={n}: "
-                f"kernel = plain bit for bit (flag up and down); "
-                f"{ms:.4f} ms per launch in bursts on aligned views (vector "
-                f"path), {path_ms['peeled']:.4f} ms one element off "
-                f"(peeled path); bound {bound:.4f} ms ({nbytes} bytes, "
-                f"{100 * bound / ms:.1f}% on the vector path, "
-                f"{100 * bound / path_ms['peeled']:.1f}% peeled), plain "
-                f"{plain_ms:.4f} ms on {card}")
+                bound_bytes=nbytes, max_abs_err=max_err, library_ms=None,
+                path_ms=path_ms, replaced_dots_ms=dots_ms,
+                ms_3d1_size=ms_3d1,
+                bit_equal_draws=(f"{equal_draws} of {CG_DRAWS}" if is_cg
+                                 else None))
+            key = str(dt).replace("torch.", "")
+            if is_cg:
+                log(f"[26] {stage} {key} n={n}: one cluster of "
+                    f"{KU.cluster()} CTAs; dots and norm bit-equal to the "
+                    f"plain version's in {equal_draws} of {CG_DRAWS} draws, "
+                    f"max |kernel - plain| {max_err:.3e} (flag down: "
+                    f"nothing moves); {ms:.4f} ms per launch in bursts "
+                    f"L2-cold on aligned views (vector path), {warm_ms:.4f} "
+                    f"L2-warm, {path_ms['peeled']:.4f} one element off "
+                    f"(peeled path); bound {bound:.4f} ms ({nbytes} bytes, "
+                    f"{100 * bound / ms:.1f}% cold, "
+                    f"{100 * bound / warm_ms:.1f}% warm); the launches it "
+                    f"replaces besides the parent's stage: {dots_ms}; "
+                    f"plain {plain_ms:.4f} ms; at 3D-1Z's n = "
+                    f"{KRY_N_CG_3D1} (two passes) {ms_3d1:.4f} ms L2-cold, "
+                    f"within the gate, on {card}")
+            else:
+                log(f"[26] {stage} {key} n={n}: "
+                    f"kernel = plain bit for bit (flag up and down); "
+                    f"{ms:.4f} ms per launch in bursts on aligned views "
+                    f"(vector path), {path_ms['peeled']:.4f} ms one element "
+                    f"off (peeled path); bound {bound:.4f} ms ({nbytes} "
+                    f"bytes, {100 * bound / ms:.1f}% on the vector path, "
+                    f"{100 * bound / path_ms['peeled']:.1f}% peeled), plain "
+                    f"{plain_ms:.4f} ms on {card}")
+        if is_cg:
+            rec["launches_per_captured_iteration"] = cg_iteration
+            log(f"[26] {stage}: a captured CG iteration of the bench step "
+                f"launches {cg_iteration['besides']} kernels besides its "
+                f"product and its preconditioner (phase 5; gate "
+                f"{CG_ITERATION_KERNELS})")
         out["stages"][stage] = rec
     # Gram-Schmidt on the flat vector
     q, w64 = _gs_basis(GS_N, GS_M)
@@ -3880,7 +4040,7 @@ def main():
     options = phase_options_bench(bench, mono, lap_div, card)
     options_small = phase_options_small()
     log(f"[25] phase {time.perf_counter() - t25:.1f} s")
-    kry = phase_krylov_kernels(card)
+    kry = phase_krylov_kernels(card, bench["cg_iteration"])
     small3d = phase_small_3d()
     ns3, st3d1 = phase_3d1(card)
     uses3d = phase_kernel_3d(ns3)
@@ -4060,10 +4220,13 @@ def main():
             "replaces": KRY_REPLACES[stage],
             "launches": sum(round(p["kry_per_step"][stage] * p["n_steps"])
                             for p in (bench, mono)),
-            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by", "bound_bytes",
-                                    "library_ms", "n")},
+            **{k: head[k] for k in ("max_abs_err", "ms", "warm_ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "bound_bytes", "library_ms", "n",
+                                    "replaced_dots_ms", "bit_equal_draws")},
             "fp64": rec["float64"],
+            "launches_per_captured_iteration": rec.get(
+                "launches_per_captured_iteration"),
             "launches_per_step": {p: c[stage] for p, c in kry_paths.items()},
             "launches_per_step_by_path": {
                 p: {k.split(":")[1]: v for k, v in c.items()

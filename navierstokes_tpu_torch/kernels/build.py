@@ -103,6 +103,8 @@ def build_info() -> dict:
         fn = getattr(lib, f"nst_gram_schmidt_setup_{suffix}")
         fn.argtypes = [ctypes.POINTER(i)]
         fn.restype = i
+    lib.nst_krylov_cg_cluster.argtypes = []
+    lib.nst_krylov_cg_cluster.restype = i
     lib.nst_while_begin.argtypes = [p, p, p, p, ctypes.POINTER(u64),
                                     ctypes.POINTER(i)]
     lib.nst_while_begin.restype = i

@@ -13,7 +13,9 @@ only while ``active`` is up, adding ``active`` to the count, so an
 iteration run after the stop changes no bit: BiCGStab's and CG's vector
 updates and scalars are one fused stage each between the products
 (kernels/krylov_update.py: one launch per stage on the card; the plain
-version's ``torch.where(active, new, old)`` on the CPU).  An iteration's
+version's ``torch.where(active, new, old)`` on the CPU); CG's stages take
+its dots and the norm its predicate reads, so ``CgLoop.residual`` returns
+that norm, taken as float64 sums rounded once.  An iteration's
 last launch is the predicate (kernels/conditional.set_condition: one
 launch on the card, which also sets a while node's condition; FGMRES's
 Givens kernel writes its flag itself).  How a loop runs its iterations under its
@@ -70,7 +72,8 @@ from navierstokes_tpu_torch.kernels.conditional import set_condition
 from navierstokes_tpu_torch.kernels.gram_schmidt import (basis,
                                                          gram_schmidt,
                                                          padded, workspace)
-from navierstokes_tpu_torch.kernels.krylov_update import update
+from navierstokes_tpu_torch.kernels.krylov_update import (dot, norm,
+                                                          update)
 
 # Iterations per block between two host reads (MASKED).  At the bench
 # point of chip_smoke.py (2D-2, 1,014,414 DoF) a projection step takes
@@ -302,7 +305,14 @@ class BicgstabLoop(_Loop):
 
 class CgLoop(_Loop):
     """Preconditioned conjugate gradient for SPD operators as device
-    state."""
+    state.  Its stages take the dots and the norm themselves
+    (kernels/krylov_update.py ``dot``, ``norm``: float64 sums rounded
+    once), so an iteration launches the product, ``cg_xr``, the
+    preconditioner, ``cg_p`` and the predicate; ``rnorm`` is ||r|| of the
+    committed r (the set-up's, then ``cg_xr``'s), which the predicate and
+    ``residual`` read.  ``pap`` holds the last p.Ap that ``cg_xr``
+    committed; nothing in the loop reads it: it is the stage's observable
+    dot for the checks (``krylov_update.cg_gate``)."""
 
     check_every = CG_CHECK_EVERY
 
@@ -317,8 +327,9 @@ class CgLoop(_Loop):
         self.r = b_flat - self.mv(self.x)
         z = self.pc(self.r)
         self.p = z.clone()
-        self.rz = self.r @ z
-        self.rz_prev = torch.empty_like(self.rz)    # scratch: rz for beta
+        self.rz = dot(self.r, z)
+        self.pap = torch.zeros_like(self.rz)        # the last p.Ap
+        self.rnorm = norm(self.r)
         self.target = torch.clamp(tol * torch.linalg.norm(b_flat), min=atol)
         self.k = torch.zeros((), dtype=torch.int64, device=dev)
         self.active = torch.zeros((), dtype=torch.bool, device=dev)
@@ -326,18 +337,22 @@ class CgLoop(_Loop):
         self._predicate()
 
     def _predicate(self, cond=None) -> bool:
-        return set_condition(self.active, torch.linalg.norm(self.r),
-                             self.target, self.k, self.maxiter, cond=cond)
+        return set_condition(self.active, self.rnorm, self.target, self.k,
+                             self.maxiter, cond=cond)
 
     def _iteration(self):
-        """JAX's body: x and r, then p with rz and k
-        (kernels/krylov_update.py), each stage committed under the flag."""
+        """JAX's body: x and r with p.Ap and ||r||, then p with r.z, rz
+        and k (kernels/krylov_update.py), each stage committed under the
+        flag."""
         p, a = self.p, self.active
         Ap = self.mv(p)
-        update("cg_xr", self.x, self.r, p, Ap, self.rz, p @ Ap, self.rz_prev,
-               a)
+        update("cg_xr", self.x, self.r, p, Ap, self.rz, self.pap,
+               self.rnorm, a)
         z = self.pc(self.r)
-        update("cg_p", p, z, self.r @ z, self.rz_prev, self.rz, self.k, a)
+        update("cg_p", p, z, self.r, self.rz, self.k, a)
+
+    def residual(self):
+        return self.rnorm.clone()
 
 
 def bicgstab(matvec: Callable, b, x0=None, *, tol=1e-6, atol=0.0,

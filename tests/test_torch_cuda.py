@@ -1279,7 +1279,8 @@ def test_krylov_update_kernels_match_plain_on_cuda(cuda, stage, dtype,
                                                    active, n, offset):
     """Each fused update stage (csrc/krylov_update.cu) equals its plain
     version on the card bit for bit, and the plain version on the CPU, in
-    every buffer; with the flag down no state buffer moves."""
+    every buffer (the CG stages, whose float64 sums run in other orders,
+    under ``_cg_gate``); with the flag down no state buffer moves."""
     from navierstokes_tpu_torch.kernels import krylov_update as KU
     kern = KU.example(stage, n, dtype, "cuda", np.random.default_rng(5),
                       active=active, offset=offset)
@@ -1292,19 +1293,35 @@ def test_krylov_update_kernels_match_plain_on_cuda(cuda, stage, dtype,
     KU.update(stage, *host)
     torch.cuda.synchronize()
     assert getattr(KU.COUNTS, stage) == 1
-    for i, (a, b, c) in enumerate(zip(kern, plain, host)):
-        assert torch.equal(a, b) and torch.equal(a.cpu(), c), (stage, i)
+    if stage in KU.CG_DOTS:
+        for ref in (plain, [t.cuda() for t in host]):
+            _cg_gate(stage, kern, ref, before)
+    else:
+        for i, (a, b, c) in enumerate(zip(kern, plain, host)):
+            assert torch.equal(a, b) and torch.equal(a.cpu(), c), (stage, i)
     if not active:
         for name, a, b in zip(KU.ARGS[stage], kern, before):
             assert name in KU.SCRATCH.get(stage, ()) or torch.equal(a, b), \
                 (stage, name)
 
 
-def _views(stage, n, dtype, offsets, rng, active):
+def _cg_gate(stage, kern, ref, before):
+    """A CG stage on the card (``kern``) against its plain version
+    (``ref``) from the same inputs (``before``) under
+    ``krylov_update.cg_gate``; returns whether the dots and the norm were
+    equal."""
+    from navierstokes_tpu_torch.kernels import krylov_update as KU
+    ok, equal, err = KU.cg_gate(stage, kern, ref, before)
+    assert ok, (stage, err)
+    return equal
+
+
+def _views(stage, n, dtype, offsets, rng, active, signed=False):
     """A stage's tensors (``KU.example``) with its vectors re-viewed
     ``offsets[i]`` elements into storages of their own, in ARGS order."""
     from navierstokes_tpu_torch.kernels import krylov_update as KU
-    args = KU.example(stage, n, dtype, "cuda", rng, active=active)
+    args = KU.example(stage, n, dtype, "cuda", rng, active=active,
+                      signed=signed)
     vec = iter(offsets)
     out = []
     for name, t in zip(KU.ARGS[stage], args):
@@ -1366,6 +1383,103 @@ def test_krylov_update_paths_match_plain_on_cuda(cuda, stage, dtype, active,
         for name, a, b in zip(KU.ARGS[stage], kern, before):
             assert name in KU.SCRATCH.get(stage, ()) or torch.equal(a, b), \
                 (stage, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [113_378, 1_001, 300_001])
+@pytest.mark.parametrize("active", [True, False])
+@pytest.mark.parametrize("layout", ["vector", "off1", "off2", "scalar"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("stage", ["cg_xr", "cg_p"])
+def test_cg_stages_match_plain_on_cuda(cuda, stage, dtype, layout, active,
+                                       n):
+    """Each CG stage (one cluster, its own dot; csrc/krylov_update.cu)
+    against its plain version on the card under ``_cg_gate``, at the bench
+    point's P1 size, an odd n and n above one cluster's register pass
+    (131,072 fp32 elements on the vector path), on aligned views, views 1
+    and 2 elements off a 16-byte boundary (float64's 2 land on one) and
+    views at mixed offsets; at odd n the dot's products of both signs; the
+    launch counted on the path that ``KU.path`` picks; bit-identical on
+    repeat; with the flag down nothing moves.
+    Prints whether the dots and the norm were bit-equal (chip_smoke.py
+    phase 26 counts such cases over its draws)."""
+    from navierstokes_tpu_torch.kernels import krylov_update as KU
+    k = sum(name in KU.VECTORS for name in KU.ARGS[stage])
+    offsets = {"vector": [0] * k, "off1": [1] * k, "off2": [2] * k,
+               "scalar": [0] + [1] * (k - 1)}[layout]
+    kern = _views(stage, n, dtype, offsets, np.random.default_rng(n),
+                  active, signed=n % 2 == 1)
+    again = _views(stage, n, dtype, offsets, np.random.default_rng(n),
+                   active, signed=n % 2 == 1)
+    plain = [t.clone() for t in kern]
+    before = [t.clone() for t in kern]
+    way = KU.path([t.data_ptr() for name, t in zip(KU.ARGS[stage], kern)
+                   if name in KU.VECTORS])
+    KU.COUNTS.reset()
+    KU.update(stage, *kern)
+    KU.update(stage, *again)
+    KU.PLAIN[stage](*plain)
+    torch.cuda.synchronize()
+    assert KU.PATHS == {(stage, way): 2}
+    assert all(torch.equal(a, b) for a, b in zip(kern, again))
+    if active:
+        equal = _cg_gate(stage, kern, plain, before)
+        print(f"{stage} {dtype} {layout} n={n}: dots and norm "
+              f"{'bit-equal' if equal else 'apart, within the gate'}")
+    else:
+        for name, a, b in zip(KU.ARGS[stage], kern, before):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_captured_cg_loop_equals_eager_on_cuda(cuda, dtype):
+    """A ``CgLoop`` under one while node (GRAPH) equals the same loop run
+    eagerly with a host read before each iteration (HOST) bit for bit in
+    every state buffer, on an SPD tridiagonal system of 113,378 unknowns
+    with the Jacobi preconditioner; one iteration launches cg_xr and cg_p
+    once each."""
+    from navierstokes_tpu_torch.kernels import krylov_update as KU
+    from navierstokes_tpu_torch.kernels.conditional import WhileNodes
+    from navierstokes_tpu_torch.solvers import krylov as TK
+    n = 113_378
+    rng = np.random.default_rng(31)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    d = t(rng.uniform(2.0, 4.0, n))
+    off = t(-rng.uniform(0.0, 0.9, n - 1))
+    b = t(rng.standard_normal(n))
+    pad = torch.nn.functional.pad
+
+    def mv(v):
+        return d * v + pad(off * v[:-1], (1, 0)) + pad(off * v[1:], (0, 1))
+
+    kw = dict(tol=1e-5 if dtype == torch.float32 else 1e-10, maxiter=300,
+              precond=lambda v: v / d)
+    names = ("x", "r", "p", "rz", "pap", "rnorm", "k", "active")
+    eager = TK.CgLoop(mv, b, **kw)
+    KU.COUNTS.reset()
+    with TK.iteration_mode(TK.Mode(TK.HOST)):
+        eager.run()
+    torch.cuda.synchronize()
+    its = int(eager.k)
+    assert 10 < its < 300 and not bool(eager.active)
+    assert KU.COUNTS.cg_xr == KU.COUNTS.cg_p == its
+    loop = TK.CgLoop(mv, b, **kw)
+    whiles = WhileNodes("cuda")
+    mode = TK.Mode(TK.GRAPH, whiles)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream), whiles.routed(), \
+            TK.iteration_mode(mode):
+        loop.run()
+    graph.replay()
+    torch.cuda.synchronize()
+    for name in names:
+        assert torch.equal(getattr(loop, name), getattr(eager, name)), name
+    assert mode.tally[0].tolist() == [its + 1, its, 0]
+    del graph
+    whiles.close()
 
 
 @pytest.mark.cuda

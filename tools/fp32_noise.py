@@ -3,7 +3,7 @@ other thread counts.
 
     python3 tools/fp32_noise.py [--tree DIR]
         [--case small|3d-inner-bf16|3d-projection-bj] [--threads N ...]
-        [--proj-tol TOL] [--steps N]
+        [--proj-tol TOL] [--steps N] [--witness]
 
 Cases: ``small`` (the default) is the fixture of ``chip_smoke.py`` phase
 4 (h=0.1 cylinder channel, Re 20, dt 0.01, BDF2 projection, fp32);
@@ -24,7 +24,10 @@ run and the default one, which differ only in their summation order.
 1e-3 only where the card's gap is at most three times the CPU-CPU noise.
 ``--proj-tol`` sets both sub-solves' relative tolerance of the projection
 cases (default: the configuration's 1e-4), to show how much of each gap
-the solves' stopping point leaves.
+the solves' stopping point leaves.  ``--witness`` steps the case once more
+on the CPU in float64 and prints, for each step, the card's and the fp32
+CPU run's gaps to it: which of the two fp32 runs a change of rounding
+moved away from the float64 solution.
 
 The last line is one JSON object with the per-step and worst gaps.
 """
@@ -57,18 +60,18 @@ def cylinder_mesh(**kw):
     return channel_with_cylinder_2d(**kw)
 
 
-def _config(work, **fields):
+def _config(work, dtype="float32", **fields):
     from navierstokes_tpu_torch.models import navier_stokes as M
-    return M.SolverConfig(dtype="float32",
+    return M.SolverConfig(dtype=dtype,
                           output_dir=os.path.join(work, "out"),
                           cache_dir=os.path.join(work, "cache"),
                           csv_path=os.path.join(work, "forces.csv"),
                           **fields)
 
 
-def small_model(device, work, proj_tol):
+def small_model(device, work, proj_tol, dtype="float32"):
     from navierstokes_tpu_torch.models import navier_stokes as M
-    cfg = _config(work, scheme="projection", proj_bdf2=True)
+    cfg = _config(work, dtype, scheme="projection", proj_bdf2=True)
     if proj_tol is not None:
         cfg.proj_tol = proj_tol
     ns = M.NavierStokes(cylinder_mesh(h=0.1, h_near=0.04), 2, 1,
@@ -80,23 +83,24 @@ def small_model(device, work, proj_tol):
     return ns.setup()
 
 
-def duct_model(device, work, **fields):
+def duct_model(device, work, dtype, **fields):
     """``chip_smoke.py``'s ``duct_model`` under ``fields``."""
     from navierstokes_tpu_torch.scenarios.registry import build_solver
-    cfg = _config(work, ref_length=0.1, force_formula="st", **fields)
+    cfg = _config(work, dtype, ref_length=0.1, force_formula="st", **fields)
     return build_solver("3d-test1", h=0.15, config=cfg, device=device,
                         t_final=0.05, output_step=5).setup()
 
 
-def duct_inner_bf16_model(device, work, proj_tol):
-    """Phase 9's ``cc+inner_bf16`` configuration."""
-    return duct_model(device, work, scheme="monolithic", inner_bf16=True)
+def duct_inner_bf16_model(device, work, proj_tol, dtype="float32"):
+    """Phase 9's ``cc+inner_bf16`` configuration (float64: no bf16)."""
+    return duct_model(device, work, dtype, scheme="monolithic",
+                      inner_bf16=dtype == "float32")
 
 
-def duct_projection_bj_model(device, work, proj_tol):
+def duct_projection_bj_model(device, work, proj_tol, dtype="float32"):
     """Phase 9's ``projection bj`` configuration."""
     fields = {} if proj_tol is None else dict(proj_tol=proj_tol)
-    return duct_model(device, work, scheme="projection", **fields)
+    return duct_model(device, work, dtype, scheme="projection", **fields)
 
 
 def gaps(ma, mb, a, b):
@@ -122,6 +126,9 @@ def main():
                     help="CPU thread counts held against the default one")
     ap.add_argument("--proj-tol", type=float, default=None)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--witness", action="store_true",
+                    help="also step a float64 CPU run and print each fp32 "
+                         "run's gaps to it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("fp32_noise: no CUDA device", file=sys.stderr)
@@ -141,6 +148,8 @@ def main():
     cpu = make("cpu", os.path.join(work, "cpu"), args.proj_tol)
     others = {k: make("cpu", os.path.join(work, f"cpu{k}"), args.proj_tol)
               for k in alts}
+    f64 = (make("cpu", os.path.join(work, "cpu_f64"), args.proj_tol,
+                "float64") if args.witness else None)
     steps = []
     for k in range(args.steps):
         mg = gpu.solve_time_step()
@@ -158,6 +167,19 @@ def main():
         steps.append(dict(step=k + 1, cd=mc.cd, cl=mc.cl, its=its,
                           card_cpu=card_cpu, cpu_cpu=spread,
                           cpu_cpu_by_threads=cpu_cpu))
+        if f64 is not None:
+            mw = f64.solve_time_step()
+            steps[-1].update(f64_its=iterations(mw),
+                             card_f64=gaps(mg, mw, gpu, f64),
+                             cpu_f64=gaps(mc, mw, cpu, f64))
+            print(f"{tag} step {k + 1} against float64 on the CPU (its "
+                  f"{iterations(mw)}, Cd {mw.cd:.6f} Cl {mw.cl:.6f}): card "
+                  + " ".join(f"{q} {g:.3e}" for q, g in zip(
+                      ("Cd", "Cl", "u"), steps[-1]["card_f64"]))
+                  + f"; cpu {n_threads} threads " + " ".join(
+                      f"{q} {g:.3e}" for q, g in zip(
+                          ("Cd", "Cl", "u"), steps[-1]["cpu_f64"])),
+                  flush=True)
         print(f"{tag} step {k + 1}: its card/cpu/" + "/".join(
             f"cpu{nt}" for nt in others) + f" {' '.join(its)}; Cd "
             f"{mc.cd:.6f} Cl {mc.cl:.6f}; card-cpu Cd {card_cpu[0]:.3e} Cl "
