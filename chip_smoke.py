@@ -246,7 +246,24 @@ and checks them:
    bound (bytes over 3.35 TB/s), its plain version (launched eagerly)
    and, for Gram-Schmidt, one cuBLAS ``V @ w`` over the whole basis (the
    record's ``library_ms``) and the whole-basis sequence the port ran
-   before.
+   before;
+27. the V-cycle's fused Chebyshev stages (csrc/vcycle.cu; right after
+   phase 10's 3D-1Z kernels; their launches are counted on phases 5, 8,
+   21, 22 and 25, per step by stage: one V-cycle per CG iteration and one
+   for CG's set-up in every projection step, each cycle one residual, two
+   cheb_first and 2 (k - 1) cheb_step, none of the plain stages; in
+   phase 5 the V-cycle of one captured CG iteration launches exactly the
+   kernels ``vcycle.launches(1, k)`` states, graph nodes counted): at
+   the bench point's outlet-pinned Laplacian (n = 113,378) in fp32 and
+   fp64 and 3D-1Z's (n = 140,740) in fp32, every stage call of a V-cycle
+   against its plain version on seeded inputs bit for bit in every
+   buffer and on repeat, the whole fused V-cycle against the plain cycle
+   bit for bit on an aligned right-hand side and on a view at an odd
+   offset, the kernel nodes of one captured V-cycle held to the stated
+   launches, and times: each call in L2-cold and warm bursts beside its
+   bound and its plain version (the residual also beside its one library
+   call, torch.addmv on a CSR tensor), the fused and the plain (stock)
+   V-cycle per call.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
@@ -388,34 +405,72 @@ def per_step_launches(n_steps, by_pattern=None):
 
 def kry_reset():
     """Set the Krylov loops' kernel counts to 0 (csrc/krylov_update.cu's
-    stages, csrc/gram_schmidt.cu's steps)."""
-    from navierstokes_tpu_torch.kernels import gram_schmidt, krylov_update
+    stages, csrc/gram_schmidt.cu's steps, csrc/vcycle.cu's V-cycle
+    stages)."""
+    from navierstokes_tpu_torch.kernels import (gram_schmidt, krylov_update,
+                                                vcycle)
     krylov_update.COUNTS.reset()
     gram_schmidt.COUNTS.reset()
+    vcycle.COUNTS.reset()
 
 
 def kry_per_step(n_steps):
     """Launches per step of the Krylov loops' kernels by kind since
     ``kry_reset``: each fused update stage, each stage by the path its
-    element loop took (``stage:path``: vector, peeled or scalar), and the
+    element loop took (``stage:path``: vector, peeled or scalar), the
     Gram-Schmidt calls (``gram_schmidt``; phase 26 counts each call's
-    kernels in a captured call's graph)."""
-    from navierstokes_tpu_torch.kernels import gram_schmidt, krylov_update
+    kernels in a captured call's graph), each V-cycle stage
+    (``vcycle_<stage>``) and the V-cycle's plain stages on CUDA tensors
+    (``vcycle_plain``, 0 on every path)."""
+    from navierstokes_tpu_torch.kernels import (gram_schmidt, krylov_update,
+                                                vcycle)
     c = dataclasses.asdict(krylov_update.COUNTS)
     c.update({f"{stage}:{way}": v for (stage, way), v
               in sorted(krylov_update.PATHS.items())})
     c["gram_schmidt"] = gram_schmidt.COUNTS.calls
+    c.update({f"vcycle_{stage}": getattr(vcycle.COUNTS, stage)
+              for stage in vcycle.STAGES})
+    c["vcycle_plain"] = vcycle.COUNTS.plain_cuda_calls
     return {k: v / n_steps for k, v in c.items()}
 
 
-def check_kry_projection(phase, kry, ms, ploop=None):
+def vcycle_per_step(phase, tag, kry, n_cycles, k, calls=None):
+    """The V-cycle's stage launches per step in ``kry`` (``kry_per_step``):
+    logged; every V-cycle of the path fused (``vcycle_plain`` 0), each of
+    its ``n_cycles`` cycles one ``residual``, two ``cheb_first`` and 2 (k -
+    1) ``cheb_step``; given ``calls``, V-cycle solves per step, exactly
+    ``calls`` of them.  Returns the V-cycle solves per step."""
+    res = kry["vcycle_residual"]
+    solves = res / n_cycles
+    log(f"[{phase}] {tag}: V-cycle (csrc/vcycle.cu) launches per step: "
+        f"cheb_first {kry['vcycle_cheb_first']:.2f}, cheb_step "
+        f"{kry['vcycle_cheb_step']:.2f}, residual {res:.2f}; {solves:.2f} "
+        f"V-cycles of {n_cycles} cycle(s), k = {k}"
+        + ("" if calls is None else f" ({calls:.2f} expected)"))
+    check(kry["vcycle_plain"] == 0 and res > 0
+          and abs(kry["vcycle_cheb_first"] - 2 * res) < 1e-9
+          and abs(kry["vcycle_cheb_step"] - 2 * (k - 1) * res) < 1e-9,
+          f"[{phase}] {tag}: every V-cycle runs the fused stages, per cycle "
+          f"one residual, two cheb_first, 2 (k - 1) cheb_step: {kry}")
+    if calls is not None:
+        check(abs(solves - calls) < 1e-9,
+              f"[{phase}] {tag}: {solves:.2f} fused V-cycles per step, "
+              f"expected {calls:.2f}")
+    return solves
+
+
+def check_kry_projection(phase, kry, ms, ploop=None, k=3):
     """A projection step's BiCGStab iterations each launch the three
     BiCGStab stages once, its CG iterations the two CG stages; no
-    Gram-Schmidt.  Given the step's CG loop (after its run, the counts
-    read), also that one captured CG iteration launches no cuBLAS dot and
-    no norm reduction: CG_ITERATION_KERNELS kernels besides its product
-    and its preconditioner (``check_cg_iteration``).  Returns that count,
-    or None."""
+    Gram-Schmidt; one fused V-cycle of one cycle and k smoothing
+    iterations (``vcycle_per_step``) per CG iteration and one for CG's
+    set-up.  Given the step's CG loop (after its run, the counts read),
+    also that one captured CG iteration launches no cuBLAS dot and no norm
+    reduction: CG_ITERATION_KERNELS kernels besides its product and its
+    preconditioner (``check_cg_iteration``), the preconditioner, its
+    V-cycle, exactly ``vcycle.launches(1, k)`` kernels.  Returns that
+    count, or None."""
+    from navierstokes_tpu_torch.kernels import vcycle
     n = len(ms)
     f_its = sum(m.f_iterations for m in ms) / n
     p_its = sum(m.p_iterations for m in ms) / n
@@ -426,10 +481,19 @@ def check_kry_projection(phase, kry, ms, ploop=None):
           f"[{phase}] one launch of each BiCGStab stage per BiCGStab "
           f"iteration ({f_its:.2f}) and of each CG stage per CG iteration "
           f"({p_its:.2f}) per step: {kry}")
+    vcycle_per_step(phase, "projection", kry, 1, k, calls=p_its + 1)
     if ploop is None:
         return None
     it = cg_iteration_launches(ploop)
     check_cg_iteration(phase, it)
+    fused, stated = vcycle.launches(1, k)
+    log(f"[{phase}] the captured CG iteration's preconditioner, the fused "
+        f"V-cycle: {it['preconditioner']} kernels ({fused} stages, "
+        f"{stated} in all stated); the iteration's kernels in all "
+        f"{it['body']}")
+    check(it["preconditioner"] == stated,
+          f"[{phase}] the V-cycle of a captured CG iteration launches "
+          f"{stated} kernels (got {it['preconditioner']})")
     return it
 
 
@@ -573,16 +637,22 @@ def spmv_uses(ns, rng):
     ]
 
 
-def _library_fn(mat, vals, x):
-    """One PyTorch call computing the same product: torch.sparse.mm on a
-    CSR tensor of the same nonzeros (the port never calls it)."""
+def _csr(mat, vals):
+    """A PyTorch CSR tensor of the same nonzeros (for the library calls;
+    the port never builds one)."""
     idx = torch.as_tensor(mat.nz_slot, device=vals.device)
     crow = np.zeros(mat.n_rows + 1, np.int64)
     np.cumsum(np.bincount(mat.nz_row, minlength=mat.n_rows), out=crow[1:])
-    a = torch.sparse_csr_tensor(
+    return torch.sparse_csr_tensor(
         torch.as_tensor(crow, device=vals.device),
         torch.as_tensor(mat.nz_col, device=vals.device), vals[idx],
         size=(mat.n_rows, mat.n_cols), check_invariants=False)
+
+
+def _library_fn(mat, vals, x):
+    """One PyTorch call computing the same product: torch.sparse.mm on a
+    CSR tensor of the same nonzeros (the port never calls it)."""
+    a = _csr(mat, vals)
     x2 = x[:, None] if x.dim() == 1 else x
     return lambda: torch.sparse.mm(a, x2)
 
@@ -809,7 +879,8 @@ def phase_bench(ns, card):
     log(f"[5] Krylov loop kernels (csrc/krylov_update.cu stages, "
         f"csrc/gram_schmidt.cu steps) per step: {kry}")
     cg_iteration = check_kry_projection(5, kry, ms_all,
-                                        ns._graphs.ws.ploop)
+                                        ns._graphs.ws.ploop,
+                                        k=cfg.schur_smooth_k)
     log(f"[5] captured steps: {while_line(whiles, conds)} (PR 10: host "
         f"reads {PR10['proj_reads']}, masked iterations "
         f"{PR10['proj_masked']} per step, AX) on {card}")
@@ -940,7 +1011,8 @@ def phase_graphs(ns, bench, card):
               f"launches per step equal the eager run's ({r['launches']}, "
               f"{r['bj']}, {r['kry']} against {ref['launches']}, "
               f"{ref['bj']}, {ref['kry']})")
-        check_kry_projection(21, r["kry"], r["metrics"])
+        check_kry_projection(21, r["kry"], r["metrics"],
+                             k=ns.config.schur_smooth_k)
         # the graph adds one set_condition per loop entered: the test
         # before each while node
         extra = r["whiles"]["loops_entered"] if r["mode"] == "captured" \
@@ -1357,6 +1429,10 @@ def phase_monolithic_bench(card):
     check(all(kry[s] > 0 for s in ("bicgstab_p", "bicgstab_s",
                                    "bicgstab_xr")),
           "[8] the inner BiCGStab's stages launched")
+    vc = vcycle_per_step(8, "monolithic cc", kry, cfg.schur_vcycles,
+                         cfg.schur_smooth_k)
+    log(f"[8] fused Ap V-cycles per FGMRES iteration: "
+        f"{vc * (n_warm + n_meas) / sum(m.iterations for m in ms_all):.3f}")
     check(nodes > 0, "[8] the while nodes' kernel launched")
     if not sg.refine:
         # the guard, and one read per restart cycle's end (a cycle but the
@@ -1479,6 +1555,10 @@ def phase_monolithic_graphs(mono, card):
           "[22] one Givens launch per FGMRES iteration")
     check(ref["kry"]["gram_schmidt"] == ref["givens"],
           "[22] one Gram-Schmidt step per FGMRES iteration")
+    cfg22 = mono["ns"].config
+    for r in runs:
+        vcycle_per_step(22, r["mode"], r["kry"], cfg22.schur_vcycles,
+                        cfg22.schur_smooth_k)
     sps = {m: [r["steps_per_s"] for r in runs if r["mode"] == m]
            for m in ("captured", "eager")}
     cap = mono["capture"]
@@ -2176,6 +2256,14 @@ def phase_options_bench(bench, mono, lap_div, card):
         for r in runs:
             log(f"[25] {tag} {r['mode']}: "
                 f"{while_line(r['whiles'], r['set_condition'])}")
+        cfg = ns.config
+        if mono_path:
+            vcycle_per_step(25, tag, ref["kry"], cfg.schur_vcycles,
+                            cfg.schur_smooth_k)
+        else:
+            vcycle_per_step(25, tag, ref["kry"], 1, cfg.schur_smooth_k,
+                            calls=sum(m.p_iterations + 1 for m in ms)
+                            / len(ms))
         res = dict(setup_s=setup_s, capture_s=sg.capture_seconds,
                    steps_per_s={r["mode"] + str(i): r["steps_per_s"]
                                 for i, r in enumerate(runs)},
@@ -3992,6 +4080,211 @@ def phase_krylov_kernels(card, cg_iteration):
     return out
 
 
+# phase 27: the V-cycle's fused Chebyshev stages at the P1 Laplacians of
+# the bench point (n = 113,378) and 3D-1Z (n = 140,740)
+VC_SOURCE = "navierstokes_tpu_torch/csrc/vcycle.cu"
+# no Pallas kernel: XLA's fusion of the JAX smoother and V-cycle
+# (schur.chebyshev's first step and loop body, make_vcycle_solver's
+# residual)
+VC_REPLACES = {"cheb_first": "navierstokes_tpu/solvers/schur.py:163",
+               "cheb_step": "navierstokes_tpu/solvers/schur.py:165",
+               "residual": "navierstokes_tpu/solvers/schur.py:189"}
+# each stage's headline call (the record's numbers)
+VC_HEAD = {"cheb_first": "first", "cheb_step": "step",
+           "residual": "residual"}
+# n-vectors a call reads plus writes (the gathered one once), whether it
+# reads the operator (z = 0: no product) and the coarse vector y
+VC_BYTES = {"first, z = 0": (4, False, False), "first": (6, True, False),
+            "first, prolonged": (7, True, True),
+            "first, z = 0, last": (3, False, False),
+            "first, last": (4, True, False),
+            "first, prolonged, last": (4, True, True),
+            "step": (6, True, False), "step, last": (6, True, False),
+            "step, last, z = 0": (5, True, False),
+            "residual": (3, True, False)}
+
+
+def _vc_copies(op, ex):
+    """Copies of the operator and of a stage's inputs that together exceed
+    twice the L2, so that a burst cycling through them reads each from
+    HBM (the cold time; the main path's V-cycle finds its operator warm
+    or cold as the tiles and the F solve left the L2)."""
+    from navierstokes_tpu_torch.ops.p1ell import P1Matrix
+    size = (op.vals.numel() * op.vals.element_size()
+            + 4 * op.mat.cols.numel()
+            + sum(v.numel() * v.element_size() for v in ex.values()
+                  if torch.is_tensor(v)))
+    out = []
+    for _ in range(max(2, -(-2 * L2_BYTES // size))):
+        m = dataclasses.replace(op.mat, cols=op.mat.cols.clone(),
+                                slice_ptr=op.mat.slice_ptr.clone(),
+                                rows=op.mat.rows.clone())
+        out.append((dataclasses.replace(op, mat=m, vals=op.vals.clone()),
+                    {k: v.clone() if torch.is_tensor(v) else v
+                     for k, v in ex.items()}))
+    return out
+
+
+def _vc_bound(op, case, agg):
+    """(bytes, ms) of the least traffic of a stage call: each nonzero's
+    value and column once, each n-vector it reads or writes once
+    (VC_BYTES), y once."""
+    vecs, reads_op, reads_y = VC_BYTES[case]
+    t = op.vals.element_size()
+    nbytes = vecs * op.n * t + (op.mat.nnz * (t + 4) if reads_op else 0) \
+        + (-(-op.n // agg) * t if reads_y else 0)
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _vc_parts64(parts):
+    """The bench-point parts in float64: the operator's values and diagonal
+    and the coarse inverse cast, lambda_max cast."""
+    op, plan, sc_inv, lam, k = parts
+    return (dataclasses.replace(op, vals=op.vals.double(),
+                                diag=op.diag.double()),
+            plan, sc_inv.double(), lam.double(), k)
+
+
+def _vc_library_residual(copies, want):
+    """The residual's one library call, out = r - S x as torch.addmv(r, S,
+    x, alpha=-1) on a CSR tensor of S (cuSPARSE's SpMV; the port never
+    calls it), timed in the same L2-cold bursts over ``copies``; and its
+    largest gap to the kernel's ``want`` on the first copy (another sum
+    order, so not bit for bit)."""
+    calls = [(_csr(o.mat, o.vals), e) for o, e in copies]
+    gap = float((torch.addmv(calls[0][1]["r"], calls[0][0], calls[0][1]["x"],
+                             alpha=-1) - want).abs().max())
+    check(gap <= 1e-4 * max(float(want.abs().max()), 1.0),
+          f"[27] the residual's library call computes the same function "
+          f"(gap {gap:.3e})")
+    ms = _burst_ms([functools.partial(torch.addmv, e["r"], a, e["x"],
+                                      alpha=-1) for a, e in calls])
+    return dict(library_ms=ms, library_gap=gap)
+
+
+def phase_vcycle(card, laplacians):
+    """Phase 27: the V-cycle's fused stages (csrc/vcycle.cu) on each
+    operator of ``laplacians`` (name -> (P1Matrix, CoarsePlan, sc_inv,
+    lambda_max, k) of a model's outlet-pinned Laplacian), in fp32 and
+    fp64: every stage call of a V-cycle (``vcycle.CASES``) against its
+    plain version on seeded inputs, bit for bit in every buffer and on
+    repeat; the whole fused V-cycle (one cycle, the model's k) against
+    ``make_vcycle_solver``'s plain cycle bit for bit, on an aligned
+    right-hand side and on a view at an odd offset; the kernel nodes of
+    one captured V-cycle (``kernel_launches``) exactly its stages and the
+    coarse correction's kernels, as ``vcycle.launches(1, k)`` states;
+    times: each call in L2-cold bursts (copies beyond twice the L2) and
+    warm ones beside its bound (bytes over 3.35 TB/s), its plain version
+    and, for the residual, its one library call (torch.addmv on a CSR
+    tensor), the fused and the plain (stock) V-cycle per call.  fp64 and 3D-1Z time the headline calls
+    only."""
+    from navierstokes_tpu_torch.kernels import vcycle as VC
+    from navierstokes_tpu_torch.ops.p1ell import ell_matvec
+    from navierstokes_tpu_torch.solvers import schur as TS
+    t_phase = time.perf_counter()
+    out = {}
+    sets = [(name, "float32", parts) for name, parts in laplacians.items()]
+    sets.insert(1, ("bench", "float64", _vc_parts64(laplacians["bench"])))
+    for name, dt, (op, plan, sc_inv, lam, k) in sets:
+        rng = np.random.default_rng(27)
+        ex = VC.example(op, rng, k=k, agg=plan.agg)
+        rec = {"n": op.n, "nnz": op.mat.nnz, "stages": {}}
+        full = name == "bench" and dt == "float32"
+        for case in VC.CASES:
+            label, stage, _ = case
+            VC.COUNTS.reset()
+            got = VC.run_case(case, op, ex)
+            again = VC.run_case(case, op, ex)
+            torch.cuda.synchronize()
+            launched = getattr(VC.COUNTS, stage)
+            want = VC.run_case(case, op, ex, plain=True)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(got[b], want[b]) for b in VC.BUFFERS)
+            err = max(float((got[b] - want[b]).abs().max())
+                      for b in VC.BUFFERS)
+            check(equal and all(torch.equal(got[b], again[b])
+                                for b in VC.BUFFERS) and launched == 2,
+                  f"[27] {name} {dt} {label}: the kernel's buffers equal "
+                  f"the plain version's bit for bit and on repeat, one "
+                  f"launch a call (max gap {err:.3e}, {launched} launches)")
+            r = dict(max_abs_err=err, bit_equal=equal)
+            if full or label in VC_HEAD.values():
+                nbytes, bound = _vc_bound(op, label, plan.agg)
+                copies = _vc_copies(op, ex)
+                scratch = {b: ex[b].clone() for b in VC.BUFFERS}
+                r.update(
+                    ms=_burst_ms([functools.partial(VC.run_case, case, o, e,
+                                                    into=e)
+                                  for o, e in copies]),
+                    warm_ms=_burst_ms([functools.partial(
+                        VC.run_case, case, op, ex, into=scratch)]),
+                    plain_ms=_plain_ms(functools.partial(
+                        VC.run_case, case, op, ex, plain=True,
+                        into=scratch)),
+                    bound_bytes=nbytes, bound_ms=bound, bound_by="bytes",
+                    library_ms=None)
+                if stage == "residual":
+                    r.update(_vc_library_residual(copies, got["out"]))
+                del copies
+                lib = ("" if r["library_ms"] is None else
+                       f" library {r['library_ms']:.4f} (gap "
+                       f"{r['library_gap']:.3e})")
+                log(f"[27] {name} {dt} {label}: bit for bit; ms cold "
+                    f"{r['ms']:.4f} warm {r['warm_ms']:.4f} plain "
+                    f"{r['plain_ms']:.4f}{lib}; bound {bound:.4f} "
+                    f"({nbytes} B, {100 * bound / r['ms']:.1f}% cold) on "
+                    f"{card}")
+            rec["stages"][label] = r
+        # the whole V-cycle, one cycle at the model's k
+        plain = TS.make_vcycle_solver(lambda v: ell_matvec(op, v), op.diag,
+                                      plan, sc_inv, n_cycles=1, smooth_k=k,
+                                      lam_max=lam)
+        fused = TS.make_vcycle_solver(lambda v: ell_matvec(op, v), op.diag,
+                                      plan, sc_inv, n_cycles=1, smooth_k=k,
+                                      lam_max=lam, op=op)
+        check(isinstance(fused, TS.FusedVcycle),
+              f"[27] {name}: make_vcycle_solver(op=) on the card is fused")
+        flat = torch.as_tensor(rng.standard_normal(op.n + 1),
+                               dtype=op.vals.dtype, device="cuda")
+        for tag, r in (("aligned", flat[:op.n].clone()),
+                       ("odd offset", flat[1:])):
+            VC.COUNTS.reset()
+            z = fused(r)
+            torch.cuda.synchronize()
+            n_fused = VC.COUNTS.cheb_first + VC.COUNTS.cheb_step \
+                + VC.COUNTS.residual
+            check(torch.equal(z, plain(r)) and torch.equal(z, fused(r))
+                  and n_fused == VC.launches(1, k)[0],
+                  f"[27] {name} {dt} V-cycle ({tag} r): fused equals plain "
+                  f"bit for bit and on repeat, {n_fused} stage launches")
+        r = flat[:op.n].clone()
+        kernels, others = kernel_launches(lambda: fused(r))
+        stock = kernel_launches(
+            lambda: sc_inv @ fused.rc.view(plan.n_agg, plan.agg).sum(dim=1))
+        fused_n, stated = VC.launches(1, k)
+        check(kernels == fused_n + stock[0] == stated,
+              f"[27] {name} {dt}: a captured V-cycle launches {kernels} "
+              f"kernels, its {fused_n} stages and the coarse correction's "
+              f"{stock[0]}, {stated} stated")
+        rec["vcycle"] = dict(
+            kernels=kernels, other_nodes=others, stages=fused_n,
+            stated=stated, coarse_kernels=stock[0],
+            ms=_burst_ms([lambda: fused(r)]),
+            stock_ms=_plain_ms(lambda: plain(r)))
+        v = rec["vcycle"]
+        log(f"[27] {name} {dt} V-cycle (1 cycle, k = {k}, n = {op.n}): "
+            f"fused equals plain bit for bit (aligned and odd-offset r); "
+            f"captured: {kernels} kernel nodes ({fused_n} stages, "
+            f"{stock[0]} of the restriction's sum and coarse GEMV; "
+            f"{stated} stated) and {others} other nodes; ms per V-cycle "
+            f"fused {v['ms']:.4f}, plain (stock) {v['stock_ms']:.4f} on "
+            f"{card}")
+        out[f"{name} {dt}"] = rec
+    VC.COUNTS.reset()
+    log(f"[27] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4019,6 +4312,10 @@ def main():
     sharded = phase_sharded(ns, bench, card)
     # phase 24's projection tiles, on the host until then
     proj_tiles = ns._graphs.tiles.cpu()
+    # phase 27's bench operator: the outlet-pinned Laplacian and its
+    # V-cycle parts
+    lap_bench = (ns._ap_dir, ns._coarse_plan, ns._ap_dir_sc_inv,
+                 ns._ap_dir_lam, ns.config.schur_smooth_k)
     del ns
     gc.collect()
     torch.cuda.empty_cache()
@@ -4045,6 +4342,9 @@ def main():
     ns3, st3d1 = phase_3d1(card)
     uses3d = phase_kernel_3d(ns3)
     bj_3d1 = phase_tile_apply_3d1(ns3)
+    vc = phase_vcycle(card, {"bench": lap_bench, "3d1": (
+        ns3._ap_dir, ns3._coarse_plan, ns3._ap_dir_sc_inv, ns3._ap_dir_lam,
+        ns3.config.schur_smooth_k)})
     del ns3
     gc.collect()
     torch.cuda.empty_cache()
@@ -4250,6 +4550,31 @@ def main():
         "uses": gs,
         "launches_per_step": {p: c["gram_schmidt"]
                               for p, c in kry_paths.items()}})
+    # the V-cycle's fused stages: launches on the main paths (phases 5 and
+    # 8, captured), per step on each captured path, phase 27's figures
+    # (the bench Laplacian in fp32; fp64 and 3D-1Z beside)
+    from navierstokes_tpu_torch.kernels.vcycle import CASES as VC_CASES
+    stage_of = {label: stage for label, stage, _ in VC_CASES}
+    for stage, label in VC_HEAD.items():
+        head = vc["bench float32"]["stages"][label]
+        kernels.append({
+            "name": f"vcycle_{stage}", "route": "cuda", "source": VC_SOURCE,
+            "replaces": VC_REPLACES[stage],
+            "launches": sum(round(p["kry_per_step"][f"vcycle_{stage}"]
+                                  * p["n_steps"]) for p in (bench, mono)),
+            "max_abs_err": max(r["max_abs_err"] for rec in vc.values()
+                               for lab, r in rec["stages"].items()
+                               if stage_of[lab] == stage),
+            **{k: head[k] for k in ("ms", "warm_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "bound_bytes",
+                                    "library_ms")},
+            "headline": f"{label!r} on the bench Laplacian, fp32",
+            "calls": {key: {lab: r for lab, r in rec["stages"].items()
+                            if stage_of[lab] == stage}
+                      for key, rec in vc.items()},
+            "vcycle": {key: rec["vcycle"] for key, rec in vc.items()},
+            "launches_per_step": {p: c[f"vcycle_{stage}"]
+                                  for p, c in kry_paths.items()}})
     record = {"kernels": kernels}
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -26,7 +26,8 @@
 //   and each sum (no fused multiply-add).  The order is fixed, with no
 //   shuffles, shared memory or atomics, so repeated runs are bit-identical,
 //   and it is the order of the plain version (kernels/sell_spmv.py), which
-//   rounds the same way.
+//   rounds the same way.  The row loop lives in csrc/sell_row.cuh, which
+//   csrc/vcycle.cu shares, so the V-cycle's fused products keep these bits.
 // * Values and columns arrive four slots at a time as one 16-byte load per
 //   thread (8 bytes for bf16 values, two 16-byte loads for fp64), marked
 //   streaming (__ldcs: evict first), so the gathered x, at most 7.2 MB,
@@ -49,71 +50,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "sell_row.cuh"
+
 namespace {
 
-constexpr int kC = 32;        // rows per slice (one warp)
-constexpr int kG = 4;         // slots per group
+using sell::Arith;
+using sell::kC;
 constexpr int kThreads = 256;  // 8 slices per block
-
-// How a stored value meets a gathered x: Acc is the type of x, of the sums
-// and of y, and of the values once loaded.
-template <typename V>
-struct Arith;
-
-template <>
-struct Arith<float> {
-  using Acc = float;
-  __device__ static void load_group(const float* p, float a[kG]) {
-    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
-    a[0] = t.x; a[1] = t.y; a[2] = t.z; a[3] = t.w;
-  }
-  __device__ static float load_one(const float* p) { return __ldcs(p); }
-  __device__ static float x_in(float x) { return x; }
-  __device__ static float madd(float a, float x, float acc) {
-    return __fadd_rn(acc, __fmul_rn(a, x));
-  }
-};
-
-template <>
-struct Arith<double> {
-  using Acc = double;
-  __device__ static void load_group(const double* p, double a[kG]) {
-    const double2 t0 = __ldcs(reinterpret_cast<const double2*>(p));
-    const double2 t1 = __ldcs(reinterpret_cast<const double2*>(p) + 1);
-    a[0] = t0.x; a[1] = t0.y; a[2] = t1.x; a[3] = t1.y;
-  }
-  __device__ static double load_one(const double* p) { return __ldcs(p); }
-  __device__ static double x_in(double x) { return x; }
-  __device__ static double madd(double a, double x, double acc) {
-    return __dadd_rn(acc, __dmul_rn(a, x));
-  }
-};
-
-template <>
-struct Arith<__nv_bfloat16> {
-  using Acc = float;
-  // a bf16 is the high half of the fp32 with the same value
-  __device__ static void load_group(const __nv_bfloat16* p, float a[kG]) {
-    const uint2 t = __ldcs(reinterpret_cast<const uint2*>(p));
-    a[0] = __uint_as_float(t.x << 16);
-    a[1] = __uint_as_float(t.x & 0xffff0000u);
-    a[2] = __uint_as_float(t.y << 16);
-    a[3] = __uint_as_float(t.y & 0xffff0000u);
-  }
-  __device__ static float load_one(const __nv_bfloat16* p) {
-    const unsigned short b =
-        __ldcs(reinterpret_cast<const unsigned short*>(p));
-    return __uint_as_float(static_cast<unsigned int>(b) << 16);
-  }
-  __device__ static float x_in(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-  // a and xb hold bf16 values, so their fp32 product is exact and one
-  // round-to-nearest-even to bf16 is the bf16 multiply
-  __device__ static float madd(float a, float xb, float acc) {
-    return __fadd_rn(acc, __bfloat162float(__float2bfloat16_rn(a * xb)));
-  }
-};
 
 template <typename T, int D>
 struct Vec;
@@ -162,6 +105,15 @@ struct Vec<T, 3> {
   }
 };
 
+// Vec's load as the row loop's gather of x
+template <typename T, int D>
+struct VecX {
+  const T* x;
+  __device__ void operator()(int c, T out[D]) const {
+    Vec<T, D>::load(x, c, out);
+  }
+};
+
 template <typename V, int D>
 __global__ void __launch_bounds__(kThreads)
 sell_spmv_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
@@ -169,43 +121,16 @@ sell_spmv_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
                  const int* __restrict__ rows,
                  const typename Arith<V>::Acc* __restrict__ x,
                  typename Arith<V>::Acc* __restrict__ y, int n_slices) {
-  using A = Arith<V>;
-  using T = typename A::Acc;
+  using T = typename Arith<V>::Acc;
   const int slice = blockIdx.x * (kThreads / kC) + threadIdx.x / kC;
   if (slice >= n_slices) return;
   const int lane = threadIdx.x % kC;
   const int beg = slice_ptr[slice];
   const int width = (slice_ptr[slice + 1] - beg) / kC;
-  const int n_grp = width / kG;
   T acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = T(0);
-
-  const V* vp = vals + beg + lane * kG;
-  const int* cp = cols + beg + lane * kG;
-#pragma unroll 2
-  for (int g = 0; g < n_grp; ++g) {
-    T a[kG];
-    A::load_group(vp + g * (kC * kG), a);
-    const int4 c4 = __ldcs(reinterpret_cast<const int4*>(cp + g * (kC * kG)));
-    const int c[kG] = {c4.x, c4.y, c4.z, c4.w};
-#pragma unroll
-    for (int t = 0; t < kG; ++t) {
-      T xg[D];
-      Vec<T, D>::load(x, c[t], xg);
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = A::madd(a[t], A::x_in(xg[d]), acc[d]);
-    }
-  }
-  const int tail = beg + n_grp * (kC * kG) + lane;
-  for (int r = 0; r < width - n_grp * kG; ++r) {
-    const T a = A::load_one(vals + tail + r * kC);
-    const int c = __ldcs(cols + tail + r * kC);
-    T xg[D];
-    Vec<T, D>::load(x, c, xg);
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = A::madd(a, A::x_in(xg[d]), acc[d]);
-  }
+  sell::row_sum<V, D>(vals, cols, beg, width, lane, VecX<T, D>{x}, acc);
   const int row = rows[slice * kC + lane];
   if (row >= 0) Vec<T, D>::store(y, row, acc);
 }

@@ -4,9 +4,10 @@ Every ``navierstokes_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc``
 for ``sm_90a``, one process per source, all started together, and the
 objects are linked into one shared library with a plain C interface, at
 first use, and loaded with ``ctypes``.  The library lands in ``build/kernels/``
-at the repository root (git-ignored) under a name that hashes the sources
-and flags, so an edited source rebuilds and an unchanged one loads the
-existing file.  There is no fallback: without ``nvcc`` the build raises.
+at the repository root (git-ignored) under a name that hashes the sources,
+the headers they share (``csrc/*.cuh``) and the flags, so an edited source
+or header rebuilds and an unchanged tree loads the existing file.  There
+is no fallback: without ``nvcc`` the build raises.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def build_info() -> dict:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sources + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     lib_path = BUILD_DIR / f"libnst_kernels_{h.hexdigest()[:16]}.so"
@@ -103,6 +104,16 @@ def build_info() -> dict:
         fn = getattr(lib, f"nst_gram_schmidt_setup_{suffix}")
         fn.argtypes = [ctypes.POINTER(i)]
         fn.restype = i
+    sell = [p] * 4 + [i]      # vals, cols, slice_ptr, rows, n_slices
+    for suffix in ("f32", "f64"):
+        for entry, args in (("first", [p] * 5 + [i] + [p] * 4),
+                            ("first_last", [p] * 5 + [i, p]),
+                            ("step", [p, i] + [p] * 5),
+                            ("step_last", [p, i] + [p] * 6),
+                            ("residual", [p] * 3)):
+            fn = getattr(lib, f"nst_vcycle_{entry}_{suffix}")
+            fn.argtypes = sell + args + [p]
+            fn.restype = i
     lib.nst_krylov_cg_cluster.argtypes = []
     lib.nst_krylov_cg_cluster.restype = i
     lib.nst_while_begin.argtypes = [p, p, p, p, ctypes.POINTER(u64),

@@ -592,6 +592,27 @@ class NavierStokes:
                                self.space.n_p1, self.dtype)
         return sc_inv, lam
 
+    def _p1_vcycle(self, which: str, n_cycles: int):
+        """The V-cycle solver of the assembled P1 operator ``which``
+        (``"ap_dir"``: the outlet-pinned Laplacian of the projection
+        Poisson solve; ``"ap"``: Ap of ``cc``/``pcd``) at ``n_cycles`` and
+        ``config.schur_smooth_k``, made once for each operator, cycle count
+        and k (``_build_cc_statics`` drops them): on the card its
+        coefficients and work vectors are static (solvers/schur.py
+        ``FusedVcycle``), so a call runs no scalar work and allocates only
+        its output, and the first call, which makes it, comes in the
+        graphs' eager warm-up, outside any capture."""
+        k = self.config.schur_smooth_k
+        solve = self._vcycles.get((which, n_cycles, k))
+        if solve is None:
+            op = getattr(self, f"_{which}")
+            solve = make_vcycle_solver(
+                lambda v: ell_matvec(op, v), op.diag, self._coarse_plan,
+                getattr(self, f"_{which}_sc_inv"), n_cycles=n_cycles,
+                smooth_k=k, lam_max=getattr(self, f"_{which}_lam"), op=op)
+            self._vcycles[which, n_cycles, k] = solve
+        return solve
+
     def _build_cc_statics(self):
         """Static pressure-side data of either scheme: the masked
         velocity-correction weights, the block-Jacobi plan, the
@@ -636,6 +657,7 @@ class NavierStokes:
         self._ap_dir = assemble_p1_stiffness(sp, self._cells_host, dt_, dev,
                                              b=self.ell.bp,
                                              dirichlet_nodes=out_nodes)
+        self._vcycles = {}          # _p1_vcycle's solvers of these operators
         self._ap_dir_sc_inv, self._ap_dir_lam = self._coarse_statics(
             self._ap_dir)
         # lumped P1 mass: detJ * reference measure / (dim + 1) per vertex
@@ -894,10 +916,7 @@ class NavierStokes:
         pinned = self._ap_dir_pinned
         ap_op = self._ap_dir
         apply_ap = lambda v: ell_matvec(ap_op, v)
-        solve_ap = make_vcycle_solver(
-            apply_ap, ap_op.diag, self._coarse_plan, self._ap_dir_sc_inv,
-            n_cycles=1, smooth_k=cfg.schur_smooth_k,
-            lam_max=self._ap_dir_lam)
+        solve_ap = self._p1_vcycle("ap_dir", 1)
         if not pinned:
             # closed domain: keep the preconditioner output mean-free
             _solve0 = solve_ap
@@ -1132,9 +1151,7 @@ class NavierStokes:
             pc = "asimple"      # the JAX model's fallback off the bsr path
         if pc in ("cc", "pcd"):
             apply_ap = lambda v: ell_matvec(self._ap, v)
-            solve_ap = make_vcycle_solver(apply_ap, self._ap.diag,
-                                          self._coarse_plan, self._ap_sc_inv,
-                                          lam_max=self._ap_lam, **vcycles)
+            solve_ap = self._p1_vcycle("ap", cfg.schur_vcycles)
             if pc == "pcd":
                 np_flat = ops.pressure_convection(self.ell, u)
                 return make_pcd(apply_F, apply_Bt, solve_ap, apply_ap,

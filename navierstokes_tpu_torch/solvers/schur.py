@@ -9,6 +9,12 @@ once at setup; the Schur complement S = B W B^T of aSIMPLE/aYosida gets
 its Galerkin coarse matrix assembled every step from G block pairs
 (``coarse_matrix``, on G's static block sums over the pressure nodes) and
 inverted in fp32 (``coarse_inverse``).
+
+On the card the V-cycle of an assembled operator runs the fused stages of
+``kernels/vcycle.py`` (``FusedVcycle``: each smoothing step one SELL
+product carrying its Chebyshev update, the coefficients computed once, the
+same bits as ``make_vcycle_solver``'s plain cycle); on the CPU, and for a
+bare operator callable, the plain cycle below runs.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
+from navierstokes_tpu_torch.kernels import vcycle as VC
 from navierstokes_tpu_torch.ops.operators import SegmentPlan, segment_plan
 from navierstokes_tpu_torch.ops.p1ell import _inv_capturable
 
@@ -118,10 +125,16 @@ def chebyshev(apply_s, sdinv, lam_max, r, k: int, ratio: float = 6.0):
 
 
 def make_vcycle_solver(apply_s, diag_s, plan: CoarsePlan, sc_inv,
-                       n_cycles: int = 2, smooth_k: int = 3, lam_max=None):
+                       n_cycles: int = 2, smooth_k: int = 3, lam_max=None,
+                       op=None):
     """Fixed-iteration two-level V-cycles approximating S^-1 (Chebyshev
     pre/post-smoothing + dense coarse correction): a fixed linear
-    operator, usable as a CG preconditioner."""
+    operator, usable as a CG preconditioner.  ``op``: the assembled
+    operator (``ops/p1ell.P1Matrix``) that ``apply_s`` applies; on a CUDA
+    device the V-cycle is then ``FusedVcycle`` (the same bits)."""
+    if op is not None and op.vals.is_cuda:
+        return FusedVcycle(op, diag_s, plan, sc_inv, lam_max, n_cycles,
+                           smooth_k)
     sdinv = torch.where(diag_s != 0, 1.0 / diag_s, torch.ones_like(diag_s))
 
     def vcycle(z, r):
@@ -138,3 +151,76 @@ def make_vcycle_solver(apply_s, diag_s, plan: CoarsePlan, sc_inv,
         return z
 
     return solve
+
+
+class FusedVcycle:
+    """``make_vcycle_solver``'s V-cycles on an assembled operator ``op``
+    (``ops/p1ell.P1Matrix``) as the stages of ``kernels/vcycle.py``: per
+    cycle a pre-smoothing (``cheb_first`` and k - 1 ``cheb_step``s, the
+    last adding the smoother's z), ``residual`` into the zero-padded
+    restriction buffer, the restriction's sum and the coarse GEMV (torch),
+    and a post-smoothing whose ``cheb_first`` takes the prolongation in
+    its gather; the first cycle's ``cheb_first`` (z = 0) has no product.
+    So a solve launches ``kernels/vcycle.launches(n_cycles, k)`` kernels.
+
+    The coefficients (``vcycle.coefficients``) and the work vectors are
+    made once, here: a solver serves every call, eager or captured, and
+    each call returns a new tensor.  Every stage gives the plain cycle's
+    bits, so a solve equals ``make_vcycle_solver``'s without ``op``;
+    on the CPU the stages run their plain versions.
+
+    Buffers: ``z[0]`` holds the pre-smoothed z (the residual's and the
+    prolongation's input), ``z[1]`` z + P y and the result of a cycle
+    before the last; no stage writes the vector it gathers, and a last
+    step writes out = z + zc at its own row only, so ``out`` may be
+    ``z[1]`` itself."""
+
+    def __init__(self, op, diag_s, plan: CoarsePlan, sc_inv, lam_max,
+                 n_cycles: int = 2, smooth_k: int = 3):
+        if smooth_k < 1 or n_cycles < 1:
+            raise ValueError(f"FusedVcycle: n_cycles {n_cycles} and "
+                             f"smooth_k {smooth_k} must be at least 1")
+        if op.n != plan.n_p1:
+            raise ValueError(f"FusedVcycle: {op.n} rows against the plan's "
+                             f"{plan.n_p1}")
+        self.op, self.plan, self.sc_inv = op, plan, sc_inv
+        self.n_cycles, self.k = n_cycles, smooth_k
+        self.sdinv = torch.where(diag_s != 0, 1.0 / diag_s,
+                                 torch.ones_like(diag_s))
+        self.coef = VC.coefficients(lam_max, smooth_k)
+        n = plan.n_p1
+        new = lambda: torch.empty_like(self.sdinv)
+        self.r0, self.d = new(), new()
+        self.zc = (new(), new())
+        self.z = (new(), new())
+        # rc in the first n rows, zeros after: the restriction's pad
+        self.rc = torch.zeros(plan.n_agg * plan.agg, dtype=self.sdinv.dtype,
+                              device=self.sdinv.device)
+        self.rc_n = self.rc[:n]
+
+    def _smooth(self, r, z, y, out):
+        """out = z' + chebyshev(r - S z'), z' = z (None: 0) or z + P y."""
+        op, coef, sdinv, k = self.op, self.coef, self.sdinv, self.k
+        znew = self.z[1] if y is not None else None
+        VC.cheb_first(op, coef, sdinv, r, z, d=self.d, zc=self.zc[0],
+                      r0=self.r0, y=y, agg=self.plan.agg, znew=znew, out=out,
+                      last=k == 1)
+        r0 = r if z is None else self.r0
+        base = znew if y is not None else z
+        for s in range(k - 1):
+            VC.cheb_step(op, coef, s, sdinv, r0, self.d, self.zc[s % 2],
+                         zc=self.zc[1 - s % 2], z=base, out=out,
+                         last=s == k - 2)
+        return out
+
+    def __call__(self, r):
+        r = r.contiguous()
+        plan, z = self.plan, None
+        for c in range(self.n_cycles):
+            z1 = self._smooth(r, z, None, self.z[0])
+            VC.residual(self.op, r, z1, self.rc_n)
+            y = self.sc_inv @ self.rc.view(plan.n_agg, plan.agg).sum(dim=1)
+            out = (torch.empty_like(r) if c == self.n_cycles - 1
+                   else self.z[1])
+            z = self._smooth(r, z1, y, out)
+        return z

@@ -25,7 +25,9 @@ persistent grid, refusing what it does not take, and
 launched by captured, eager, float64 and row-sharded steps; the while
 nodes of csrc/graph_cond.cu against the host loop (seeded trip counts,
 nested, no synchronising replay) and their predicate kernel against its
-plain version.
+plain version; the V-cycle's fused Chebyshev stages (csrc/vcycle.cu)
+against their plain versions bit for bit, the fused V-cycle against the
+plain one (also captured), and the steps that run it.
 Fixtures: the h=0.12 cylinder channel of tests/test_pallas_matvec.py;
 in 3D the h=0.15 square-column duct of tests/test_torch_3d.py.
 """
@@ -44,6 +46,7 @@ import torch
 from navierstokes_tpu_torch.config import InletConfig, SolverConfig
 from navierstokes_tpu_torch.fem.spaces import TaylorHoodSpace
 from navierstokes_tpu_torch.kernels import sell_spmv as K
+from navierstokes_tpu_torch.kernels import vcycle as VC
 from navierstokes_tpu_torch.mesh.generators import channel_with_cylinder_2d
 from navierstokes_tpu_torch.ops import assembly as TA
 from navierstokes_tpu_torch.ops import bsr as TB
@@ -1768,3 +1771,160 @@ def test_krylov_solves_launch_the_loop_kernels_on_cuda(cuda, solver, dtype):
     tol = 1e-4 if dtype == torch.float32 else 1e-10
     x = cpu.x.abs().max()
     assert (gpu.x.cpu() - cpu.x).abs().max() <= tol * x
+
+
+def _vcycle_parts(space, dev, dtype, pinned=True, agg_blocks=4):
+    """(P1Matrix, CoarsePlan, sc_inv, lambda_max) of the fixture's P1
+    Laplacian (pinned at the outlet, as the projection step builds it, or
+    not), made as ``NavierStokes._coarse_statics`` makes them."""
+    from navierstokes_tpu_torch.mesh.geometry import TAG_OUTLET
+    from navierstokes_tpu_torch.solvers import schur as TS
+    mesh = space.mesh
+    pin = (np.unique(mesh.boundary_faces[mesh.boundary_tags == TAG_OUTLET])
+           if pinned else None)
+    op = TP.assemble_p1_stiffness(space, None, dtype, dev,
+                                  dirichlet_nodes=pin)
+    plan = TS.build_coarse_plan(space.n_p1, op.b, agg_blocks)
+    sc = TP.coarse_from_ell(op, agg_blocks)
+    scale = np.abs(np.diag(sc)).mean() + 1e-30
+    sc_inv = torch.as_tensor(
+        np.linalg.inv(sc + 1e-8 * scale * np.eye(sc.shape[0])), dtype=dtype,
+        device=dev)
+    sdinv = torch.where(op.diag != 0, 1.0 / op.diag, torch.ones_like(op.diag))
+    lam = TS.estimate_lam_max(lambda v: TP.ell_matvec(op, v), sdinv,
+                              space.n_p1, dtype)
+    return op, plan, sc_inv, lam
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c[0] for c in VC.CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vcycle_stages_match_plain_on_cuda(cuda, space, dtype, case):
+    """Each fused V-cycle stage (csrc/vcycle.cu) writes its plain
+    version's bits into every buffer, and touches no other; one launch,
+    and none of the plain version's."""
+    op = _vcycle_parts(space, cuda, dtype)[0]
+    c = next(c for c in VC.CASES if c[0] == case)
+    ex = VC.example(op, np.random.default_rng(27))
+    VC.COUNTS.reset()
+    got = VC.run_case(c, op, ex)
+    torch.cuda.synchronize()
+    assert getattr(VC.COUNTS, c[1]) == 1 and VC.COUNTS.plain_cuda_calls == 0
+    want = VC.run_case(c, op, ex, plain=True)
+    for name in VC.BUFFERS:
+        assert torch.equal(got[name], want[name]), name
+    assert torch.equal(VC.run_case(c, op, ex)["out"], got["out"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cycles,k", [(1, 3), (2, 3), (2, 2), (1, 1)])
+@pytest.mark.parametrize("pinned", [True, False], ids=["pinned", "unpinned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_vcycle_equals_plain_on_cuda(cuda, space, dtype, pinned,
+                                           n_cycles, k):
+    """The fused V-cycle (solvers/schur.FusedVcycle) equals the plain
+    cycle on the card bit for bit, on a right-hand side that is a view at
+    an odd offset too, with ``launches(n_cycles, k)[0]`` stage launches a
+    solve and no plain stage."""
+    from navierstokes_tpu_torch.solvers import schur as TS
+    op, plan, sc_inv, lam = _vcycle_parts(space, cuda, dtype, pinned)
+    plain = TS.make_vcycle_solver(lambda v: TP.ell_matvec(op, v), op.diag,
+                                  plan, sc_inv, n_cycles=n_cycles,
+                                  smooth_k=k, lam_max=lam)
+    fused = TS.make_vcycle_solver(lambda v: TP.ell_matvec(op, v), op.diag,
+                                  plan, sc_inv, n_cycles=n_cycles,
+                                  smooth_k=k, lam_max=lam, op=op)
+    assert isinstance(fused, TS.FusedVcycle)
+    rng = np.random.default_rng(28)
+    flat = torch.as_tensor(rng.standard_normal(op.n + 3), dtype=dtype,
+                           device=cuda)
+    for r in (flat[:op.n].clone(), flat[3:]):
+        VC.COUNTS.reset()
+        got = fused(r)
+        torch.cuda.synchronize()
+        assert (VC.COUNTS.cheb_first + VC.COUNTS.cheb_step
+                + VC.COUNTS.residual) == VC.launches(n_cycles, k)[0]
+        assert VC.COUNTS.plain_cuda_calls == 0
+        assert torch.equal(got, plain(r))
+
+
+@pytest.mark.cuda
+def test_fused_vcycle_captured_equals_eager_on_cuda(cuda, space):
+    """One fused V-cycle captured in a CUDA graph (its stages under
+    programmatic dependent launch) and replayed on new right-hand sides
+    equals the eager call bit for bit; the record adds each stage launch
+    once per replay."""
+    from navierstokes_tpu_torch.kernels.launches import record_launches
+    from navierstokes_tpu_torch.solvers import schur as TS
+    op, plan, sc_inv, lam = _vcycle_parts(space, cuda, torch.float32)
+    fused = TS.FusedVcycle(op, op.diag, plan, sc_inv, lam, 1, 3)
+    rng = np.random.default_rng(29)
+    r = torch.as_tensor(rng.standard_normal(op.n), dtype=torch.float32,
+                        device=cuda)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fused(r)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with record_launches() as rec, torch.cuda.graph(g):
+        out = fused(r)
+    assert len(rec.launches) == VC.launches(1, 3)[0]
+    for seed in (30, 31):
+        r.copy_(torch.as_tensor(np.random.default_rng(seed).standard_normal(
+            op.n), dtype=torch.float32))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fused(r.clone()))
+    VC.COUNTS.reset()
+    rec.replay(3)
+    assert (VC.COUNTS.cheb_first, VC.COUNTS.cheb_step,
+            VC.COUNTS.residual) == (6, 12, 3)
+
+
+@pytest.mark.cuda
+def test_vcycle_refuses_what_the_kernel_does_not_take(cuda, space):
+    op = _vcycle_parts(space, cuda, torch.float32)[0]
+    ex = VC.example(op, np.random.default_rng(32))
+    res = VC.CASES[-1]
+    bad = dataclasses.replace(op, vals=op.vals.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        VC.run_case(res, bad, ex)
+    with pytest.raises(TypeError):
+        VC.run_case(res, op, dict(ex, r=ex["r"].double()))
+    with pytest.raises(ValueError):
+        VC.run_case(res, op, dict(ex, x=ex["x"].cpu()))
+    with pytest.raises(ValueError):
+        VC.run_case(VC.CASES[2], op, dict(ex, y=ex["y"][:2]))
+    with pytest.raises(ValueError):
+        VC.cheb_first(op, ex["coef"], ex["sdinv"], ex["r"], None,
+                      y=ex["y"], agg=64, d=ex["d"], zc=ex["zc"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["projection", "monolithic"])
+def test_steps_run_the_fused_vcycle_on_cuda(cuda, tmp_path, scheme):
+    """The projection step's Poisson CG and the monolithic ``cc`` Ap solve
+    run the fused V-cycle, captured and eager, with the same launches:
+    per projection step one V-cycle per CG iteration and one for CG's
+    set-up; per monolithic step schur_vcycles cycles a call."""
+    runs = []
+    for mode in ("eager", "captured"):
+        ns = _small_model(tmp_path / mode, scheme=scheme)
+        if mode == "captured":
+            ns.capture_graphs()         # its warm-up step runs eagerly
+        VC.COUNTS.reset()
+        ms = [ns.solve_time_step(_eager=mode == "eager") for _ in range(3)]
+        torch.cuda.synchronize()
+        runs.append((dataclasses.asdict(VC.COUNTS), ms, ns._u.clone()))
+    (c_e, ms_e, u_e), (c_g, ms_g, u_g) = runs
+    assert c_e == c_g and c_e["plain_cuda_calls"] == 0
+    assert torch.equal(u_e, u_g)
+    k = ns.config.schur_smooth_k
+    assert c_e["cheb_first"] == 2 * c_e["residual"]
+    assert c_e["cheb_step"] == 2 * (k - 1) * c_e["residual"]
+    if scheme == "projection":
+        assert c_e["residual"] == sum(m.p_iterations + 1 for m in ms_e)
+    else:
+        assert c_e["residual"] % ns.config.schur_vcycles == 0
+        assert c_e["residual"] > 0

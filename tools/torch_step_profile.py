@@ -52,9 +52,9 @@ It prints, for the case:
 * a ``torch.profiler`` trace of ``--profile-steps`` further steps: the
   device time per step (kernels, copies and memsets), its share of the
   unprofiled step time, the SpMV kernels' part of it, calls and ms per
-  step by kernel kind (``KINDS``: SpMV, tile apply, the Krylov updates,
-  Gram-Schmidt, dots, GEMMs, elementwise, ...), and the kernels with
-  the most time (name, calls, ms).  The trace holds no kernel launched
+  step by kernel kind (``KINDS``: the V-cycle's fused stages, SpMV, tile
+  apply, the Krylov updates, Gram-Schmidt, dots, GEMMs, elementwise,
+  ...), and the kernels with the most time (name, calls, ms).  The trace holds no kernel launched
   inside a while node's body, so a captured step is not traced: the
   split comes from ``--profile-steps`` plain steps of the same model
   (``solve_time_step(_eager=True)``, the same kernels on the same bits),
@@ -167,7 +167,9 @@ def time_ms(fn, cold, n=30):
 
 # kernel kinds of the profiled split, by a part of the kernel's name (the
 # first that matches)
-KINDS = (("spmv", ("sell_spmv",)),
+KINDS = (("V-cycle stage", ("vcycle_first", "vcycle_step",
+                             "vcycle_residual")),
+         ("spmv", ("sell_spmv",)),
          ("tile apply", ("stream_kernel", "ring_kernel")),
          ("Krylov update", ("bicgstab_p", "bicgstab_s", "bicgstab_xr",
                             "cg_xr", "cg_p")),
