@@ -247,23 +247,30 @@ and checks them:
    and, for Gram-Schmidt, one cuBLAS ``V @ w`` over the whole basis (the
    record's ``library_ms``) and the whole-basis sequence the port ran
    before;
-27. the V-cycle's fused Chebyshev stages (csrc/vcycle.cu; right after
-   phase 10's 3D-1Z kernels; their launches are counted on phases 5, 8,
-   21, 22 and 25, per step by stage: one V-cycle per CG iteration and one
-   for CG's set-up in every projection step, each cycle one residual, two
-   cheb_first and 2 (k - 1) cheb_step, none of the plain stages; in
-   phase 5 the V-cycle of one captured CG iteration launches exactly the
-   kernels ``vcycle.launches(1, k)`` states, graph nodes counted): at
-   the bench point's outlet-pinned Laplacian (n = 113,378) in fp32 and
-   fp64 and 3D-1Z's (n = 140,740) in fp32, every stage call of a V-cycle
-   against its plain version on seeded inputs bit for bit in every
-   buffer and on repeat, the whole fused V-cycle against the plain cycle
-   bit for bit on an aligned right-hand side and on a view at an odd
-   offset, the kernel nodes of one captured V-cycle held to the stated
-   launches, and times: each call in L2-cold and warm bursts beside its
-   bound and its plain version (the residual also beside its one library
-   call, torch.addmv on a CSR tensor), the fused and the plain (stock)
-   V-cycle per call.
+27. the V-cycle's smoothing sweeps (csrc/vcycle.cu: every stage between
+   two coarse corrections in one persistent launch; right after phase
+   14's kernel model; their launches are counted on phases 5, 8, 21, 22
+   and 25, per step by sweep: each V-cycle a pre and a post sweep and
+   n_cycles - 1 mid, none of the plain stages; in phase 5 the V-cycle of
+   one captured CG iteration launches exactly the kernels
+   ``vcycle.launches(1, k)`` states (4), graph nodes counted, and the
+   iteration 8): at the bench point's and 3D-1Z's outlet-pinned
+   Laplacians (n = 113,378 and 140,740) and the NACA step's Ap, in fp32
+   and fp64, each sweep on each path that holds the operator (its slices
+   in shared memory, or read from device memory) and on the plan of
+   rounds 0 (as if the card had one SM for every 300 slices: any number
+   of slices a warp, the rows' state in device memory) against its plain
+   version on seeded inputs bit for bit in every buffer, on repeat and on
+   an odd-offset right-hand side, every CTA's progress word equal; each
+   plan (CTAs, slices a warp, shared-memory bytes a CTA, the compiler's
+   registers and local memory); the whole fused V-cycle at 1 cycle and at
+   the model's cycles against the plain cycle bit for bit (aligned and
+   odd-offset r; the plan of rounds 0 too) and its captured kernel nodes
+   held to
+   ``vcycle.launches(n, k)`` (4 at 1 cycle, 7 at 2); fp32 times: each
+   sweep in L2-cold and warm bursts beside its bound and its plain
+   version (both paths at the bench point), the fused and the plain
+   (stock) V-cycle per call.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
@@ -406,7 +413,7 @@ def per_step_launches(n_steps, by_pattern=None):
 def kry_reset():
     """Set the Krylov loops' kernel counts to 0 (csrc/krylov_update.cu's
     stages, csrc/gram_schmidt.cu's steps, csrc/vcycle.cu's V-cycle
-    stages)."""
+    sweeps)."""
     from navierstokes_tpu_torch.kernels import (gram_schmidt, krylov_update,
                                                 vcycle)
     krylov_update.COUNTS.reset()
@@ -419,39 +426,38 @@ def kry_per_step(n_steps):
     ``kry_reset``: each fused update stage, each stage by the path its
     element loop took (``stage:path``: vector, peeled or scalar), the
     Gram-Schmidt calls (``gram_schmidt``; phase 26 counts each call's
-    kernels in a captured call's graph), each V-cycle stage
-    (``vcycle_<stage>``) and the V-cycle's plain stages on CUDA tensors
-    (``vcycle_plain``, 0 on every path)."""
+    kernels in a captured call's graph), each V-cycle sweep
+    (``vcycle_<pre|mid|post>``) and the V-cycle's plain stages on CUDA
+    tensors (``vcycle_plain``, 0 on every path)."""
     from navierstokes_tpu_torch.kernels import (gram_schmidt, krylov_update,
                                                 vcycle)
     c = dataclasses.asdict(krylov_update.COUNTS)
     c.update({f"{stage}:{way}": v for (stage, way), v
               in sorted(krylov_update.PATHS.items())})
     c["gram_schmidt"] = gram_schmidt.COUNTS.calls
-    c.update({f"vcycle_{stage}": getattr(vcycle.COUNTS, stage)
-              for stage in vcycle.STAGES})
+    c.update({f"vcycle_{kind}": getattr(vcycle.COUNTS, kind)
+              for kind in vcycle.SWEEPS})
     c["vcycle_plain"] = vcycle.COUNTS.plain_cuda_calls
     return {k: v / n_steps for k, v in c.items()}
 
 
 def vcycle_per_step(phase, tag, kry, n_cycles, k, calls=None):
-    """The V-cycle's stage launches per step in ``kry`` (``kry_per_step``):
-    logged; every V-cycle of the path fused (``vcycle_plain`` 0), each of
-    its ``n_cycles`` cycles one ``residual``, two ``cheb_first`` and 2 (k -
-    1) ``cheb_step``; given ``calls``, V-cycle solves per step, exactly
-    ``calls`` of them.  Returns the V-cycle solves per step."""
-    res = kry["vcycle_residual"]
-    solves = res / n_cycles
-    log(f"[{phase}] {tag}: V-cycle (csrc/vcycle.cu) launches per step: "
-        f"cheb_first {kry['vcycle_cheb_first']:.2f}, cheb_step "
-        f"{kry['vcycle_cheb_step']:.2f}, residual {res:.2f}; {solves:.2f} "
-        f"V-cycles of {n_cycles} cycle(s), k = {k}"
+    """The V-cycle's sweep launches per step in ``kry`` (``kry_per_step``):
+    logged; every V-cycle of the path fused (``vcycle_plain`` 0), each a
+    ``pre`` and a ``post`` sweep and n_cycles - 1 ``mid``; given
+    ``calls``, V-cycle solves per step, exactly ``calls`` of them.  Returns
+    the V-cycle solves per step."""
+    solves = kry["vcycle_pre"]
+    log(f"[{phase}] {tag}: V-cycle (csrc/vcycle.cu) sweeps per step: pre "
+        f"{solves:.2f}, mid {kry['vcycle_mid']:.2f}, post "
+        f"{kry['vcycle_post']:.2f}; {solves:.2f} V-cycles of {n_cycles} "
+        f"cycle(s), k = {k}"
         + ("" if calls is None else f" ({calls:.2f} expected)"))
-    check(kry["vcycle_plain"] == 0 and res > 0
-          and abs(kry["vcycle_cheb_first"] - 2 * res) < 1e-9
-          and abs(kry["vcycle_cheb_step"] - 2 * (k - 1) * res) < 1e-9,
-          f"[{phase}] {tag}: every V-cycle runs the fused stages, per cycle "
-          f"one residual, two cheb_first, 2 (k - 1) cheb_step: {kry}")
+    check(kry["vcycle_plain"] == 0 and solves > 0
+          and abs(kry["vcycle_post"] - solves) < 1e-9
+          and abs(kry["vcycle_mid"] - (n_cycles - 1) * solves) < 1e-9,
+          f"[{phase}] {tag}: every V-cycle runs the sweeps, a pre, a post "
+          f"and n_cycles - 1 mid: {kry}")
     if calls is not None:
         check(abs(solves - calls) < 1e-9,
               f"[{phase}] {tag}: {solves:.2f} fused V-cycles per step, "
@@ -488,7 +494,7 @@ def check_kry_projection(phase, kry, ms, ploop=None, k=3):
     check_cg_iteration(phase, it)
     fused, stated = vcycle.launches(1, k)
     log(f"[{phase}] the captured CG iteration's preconditioner, the fused "
-        f"V-cycle: {it['preconditioner']} kernels ({fused} stages, "
+        f"V-cycle: {it['preconditioner']} kernels ({fused} sweeps, "
         f"{stated} in all stated); the iteration's kernels in all "
         f"{it['body']}")
     check(it["preconditioner"] == stated,
@@ -2831,7 +2837,8 @@ def phase_kernel_naca():
     """The fp32 kernel against its plain version in every use of the NACA
     step, on the 2d-naca operators at the scenario's h (0 degrees), timed
     as in phase 3; then (phase 24) the tile-apply kernel at the exact tile
-    inverses of the model's static operator (the Newton-Schulz seed)."""
+    inverses of the model's static operator (the Newton-Schulz seed).
+    Returns also the V-cycle parts of its Ap (phase 27)."""
     from navierstokes_tpu_torch.scenarios.registry import build_solver
     ns = build_solver("2d-naca", config=_config(os.path.join(
         WORK, "naca_kernel"), "float32"), device="cuda").setup()
@@ -2843,7 +2850,7 @@ def phase_kernel_naca():
     tiles = tiles_of(ns, ns.a0_cell, "NACA")
     bj = check_and_time_bj("NACA", tiles, _r(ns.space.n_p2, 2,
                                               torch.float32, 2414))
-    return spmv, bj
+    return spmv, bj, vcycle_parts(ns, "ap")
 
 
 def phase_postprocess():
@@ -4080,36 +4087,34 @@ def phase_krylov_kernels(card, cg_iteration):
     return out
 
 
-# phase 27: the V-cycle's fused Chebyshev stages at the P1 Laplacians of
-# the bench point (n = 113,378) and 3D-1Z (n = 140,740)
+# phase 27: the V-cycle's smoothing sweeps at the P1 operators of the bench
+# point and 3D-1Z (the outlet-pinned Laplacians, n = 113,378 and 140,740)
+# and of the NACA step (Ap of its monolithic cc)
 VC_SOURCE = "navierstokes_tpu_torch/csrc/vcycle.cu"
 # no Pallas kernel: XLA's fusion of the JAX smoother and V-cycle
-# (schur.chebyshev's first step and loop body, make_vcycle_solver's
-# residual)
-VC_REPLACES = {"cheb_first": "navierstokes_tpu/solvers/schur.py:163",
-               "cheb_step": "navierstokes_tpu/solvers/schur.py:165",
-               "residual": "navierstokes_tpu/solvers/schur.py:189"}
-# each stage's headline call (the record's numbers)
-VC_HEAD = {"cheb_first": "first", "cheb_step": "step",
-           "residual": "residual"}
-# n-vectors a call reads plus writes (the gathered one once), whether it
-# reads the operator (z = 0: no product) and the coarse vector y
-VC_BYTES = {"first, z = 0": (4, False, False), "first": (6, True, False),
-            "first, prolonged": (7, True, True),
-            "first, z = 0, last": (3, False, False),
-            "first, last": (4, True, False),
-            "first, prolonged, last": (4, True, True),
-            "step": (6, True, False), "step, last": (6, True, False),
-            "step, last, z = 0": (5, True, False),
-            "residual": (3, True, False)}
+# (make_vcycle_solver's pre-smoothing and residual, its post-smoothing
+# and the next cycle's pre-smoothing, its last post-smoothing)
+VC_REPLACES = {"pre": "navierstokes_tpu/solvers/schur.py:187",
+               "mid": "navierstokes_tpu/solvers/schur.py:192",
+               "post": "navierstokes_tpu/solvers/schur.py:192"}
+
+
+def vcycle_parts(ns, which):
+    """(P1Matrix, CoarsePlan, sc_inv, lambda_max, k, cycles) of a model's
+    V-cycle on its P1 operator ``which``: ``"ap_dir"``, the outlet-pinned
+    Laplacian of the projection Poisson solve (1 cycle), or ``"ap"``, Ap of
+    the monolithic ``cc`` (``schur_vcycles`` cycles)."""
+    cfg = ns.config
+    return (getattr(ns, f"_{which}"), ns._coarse_plan,
+            getattr(ns, f"_{which}_sc_inv"), getattr(ns, f"_{which}_lam"),
+            cfg.schur_smooth_k, 1 if which == "ap_dir" else cfg.schur_vcycles)
 
 
 def _vc_copies(op, ex):
-    """Copies of the operator and of a stage's inputs that together exceed
+    """Copies of the operator and of a sweep's inputs that together exceed
     twice the L2, so that a burst cycling through them reads each from
     HBM (the cold time; the main path's V-cycle finds its operator warm
     or cold as the tiles and the F solve left the L2)."""
-    from navierstokes_tpu_torch.ops.p1ell import P1Matrix
     size = (op.vals.numel() * op.vals.element_size()
             + 4 * op.mat.cols.numel()
             + sum(v.numel() * v.element_size() for v in ex.values()
@@ -4125,160 +4130,218 @@ def _vc_copies(op, ex):
     return out
 
 
-def _vc_bound(op, case, agg):
-    """(bytes, ms) of the least traffic of a stage call: each nonzero's
-    value and column once, each n-vector it reads or writes once
-    (VC_BYTES), y once."""
-    vecs, reads_op, reads_y = VC_BYTES[case]
+def _vc_bound(op, kind, k, agg):
+    """(bytes, ms) of the least traffic of a sweep: each nonzero's value
+    and column once, each n-vector it reads (r, sdinv, and z0 in mid and
+    post) and writes (zc0 for k > 1, zc1 for k > 2, its outputs) once, y
+    once; over 3.35 TB/s."""
     t = op.vals.element_size()
-    nbytes = vecs * op.n * t + (op.mat.nnz * (t + 4) if reads_op else 0) \
-        + (-(-op.n // agg) * t if reads_y else 0)
+    reads = {"pre": 2, "mid": 3, "post": 3}[kind]
+    writes = {"pre": 2, "mid": 3, "post": 1}[kind] + (k > 1) + (k > 2)
+    nbytes = (reads + writes) * op.n * t + op.mat.nnz * (t + 4) \
+        + (-(-op.n // agg) * t if kind != "pre" else 0)
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def _vc_parts64(parts):
-    """The bench-point parts in float64: the operator's values and diagonal
-    and the coarse inverse cast, lambda_max cast."""
-    op, plan, sc_inv, lam, k = parts
+    """A P1 operator's V-cycle parts in float64: the operator's values and
+    diagonal, the coarse inverse and lambda_max cast."""
+    op, plan, sc_inv, lam, k, n_cycles = parts
     return (dataclasses.replace(op, vals=op.vals.double(),
                                 diag=op.diag.double()),
-            plan, sc_inv.double(), lam.double(), k)
+            plan, sc_inv.double(), lam.double(), k, n_cycles)
 
 
-def _vc_library_residual(copies, want):
-    """The residual's one library call, out = r - S x as torch.addmv(r, S,
-    x, alpha=-1) on a CSR tensor of S (cuSPARSE's SpMV; the port never
-    calls it), timed in the same L2-cold bursts over ``copies``; and its
-    largest gap to the kernel's ``want`` on the first copy (another sum
-    order, so not bit for bit)."""
-    calls = [(_csr(o.mat, o.vals), e) for o, e in copies]
-    gap = float((torch.addmv(calls[0][1]["r"], calls[0][0], calls[0][1]["x"],
-                             alpha=-1) - want).abs().max())
-    check(gap <= 1e-4 * max(float(want.abs().max()), 1.0),
-          f"[27] the residual's library call computes the same function "
-          f"(gap {gap:.3e})")
-    ms = _burst_ms([functools.partial(torch.addmv, e["r"], a, e["x"],
-                                      alpha=-1) for a, e in calls])
-    return dict(library_ms=ms, library_gap=gap)
+# the plan of rounds 0 (any number of slices a warp, the rows' state in
+# device memory: operators of more than 4 x 32 slices a CTA) is held on the
+# phase's operators as if the card had one SM for every this many slices
+VC_FEW_SMS_SLICES = 300
 
 
-def phase_vcycle(card, laplacians):
-    """Phase 27: the V-cycle's fused stages (csrc/vcycle.cu) on each
-    operator of ``laplacians`` (name -> (P1Matrix, CoarsePlan, sc_inv,
-    lambda_max, k) of a model's outlet-pinned Laplacian), in fp32 and
-    fp64: every stage call of a V-cycle (``vcycle.CASES``) against its
-    plain version on seeded inputs, bit for bit in every buffer and on
-    repeat; the whole fused V-cycle (one cycle, the model's k) against
-    ``make_vcycle_solver``'s plain cycle bit for bit, on an aligned
-    right-hand side and on a view at an odd offset; the kernel nodes of
-    one captured V-cycle (``kernel_launches``) exactly its stages and the
-    coarse correction's kernels, as ``vcycle.launches(1, k)`` states;
-    times: each call in L2-cold bursts (copies beyond twice the L2) and
-    warm ones beside its bound (bytes over 3.35 TB/s), its plain version
-    and, for the residual, its one library call (torch.addmv on a CSR
-    tensor), the fused and the plain (stock) V-cycle per call.  fp64 and 3D-1Z time the headline calls
-    only."""
+def _vc_plans(op, name, dt):
+    """{path: plan} of the sweeps on ``op``: the path ``vcycle.plan`` picks
+    and each path forced; a path that cannot hold the operator (the shared
+    path where the fullest CTA's slots exceed the card's shared memory)
+    is logged and left out; and ``"rounds 0"``, the device path's plan as
+    if the card had one SM for every VC_FEW_SMS_SLICES slices."""
+    from navierstokes_tpu_torch.kernels import vcycle as VC
+    default = VC.plan(op)
+    plans = {}
+    for path in VC.PATHS:
+        try:
+            plans[path] = VC.plan(op, path)
+        except ValueError as e:
+            log(f"[27] {name} {dt}: no {path} path: {e}")
+    check(default.path in plans and plans[default.path].smem == default.smem,
+          f"[27] {name} {dt}: the picked path is a forced path's plan")
+    ptr = op.mat.slice_ptr.cpu().numpy().astype(np.int64)
+    sms = max(1, (len(ptr) - 1) // VC_FEW_SMS_SLICES)
+    card = VC.card_query(op)
+    plans["rounds 0"] = VC.attach(op, VC.choose(
+        ptr, op.vals.element_size(), lambda *a: dict(card(*a), sms=sms)))
+    few = plans["rounds 0"]
+    check(few.rounds == 0 and few.path == "device"
+          and few.slices > VC.WARPS * VC.ROUNDS[-1],
+          f"[27] {name} {dt}: on {sms} SMs the plan takes rounds 0 on the "
+          f"device path ({few.slices} slices a CTA)")
+    for path, p in plans.items():
+        log(f"[27] {name} {dt} {path} plan{' (picked)' * (path == default.path)}: "
+            f"{p.grid} CTAs ({p.per_sm} an SM) of 1,024 threads, "
+            f"{p.rounds or 'any'} slice(s) a warp, fullest CTA {p.slices} "
+            f"slices, "
+            f"{p.smem} bytes of shared memory a CTA, at most "
+            f"{p.neighbours} neighbours a CTA, {p.regs} registers "
+            f"and {p.local} bytes of local memory a thread")
+    return plans, default.path
+
+
+def phase_vcycle(card, operators):
+    """Phase 27: the V-cycle's sweeps (csrc/vcycle.cu) on each P1 operator
+    of ``operators`` (name -> (P1Matrix, CoarsePlan, sc_inv, lambda_max, k,
+    n_cycles) of a model's V-cycle), in fp32 and fp64: each sweep
+    (``vcycle.SWEEPS``) on seeded inputs against its plain version bit for
+    bit in every buffer, on repeat and on a right-hand side at an odd
+    offset, on each path that holds the operator (shared and device
+    memory) and on the plan of rounds 0 (``_vc_plans``); the whole fused
+    V-cycle at 1 cycle and at the model's cycles against
+    ``make_vcycle_solver``'s plain cycle bit for bit, on an aligned and an
+    odd-offset right-hand side (on the plan of rounds 0, aligned); the
+    kernel nodes of a
+    captured V-cycle held to ``vcycle.launches(n, k)`` (4 at 1 cycle, 7 at
+    2); times: each sweep in L2-cold bursts (copies beyond twice the L2)
+    and warm ones beside its bound (bytes over 3.35 TB/s) and its plain
+    version (bench fp32: both paths; elsewhere the picked one), the fused
+    and the plain (stock) V-cycle per call."""
     from navierstokes_tpu_torch.kernels import vcycle as VC
     from navierstokes_tpu_torch.ops.p1ell import ell_matvec
     from navierstokes_tpu_torch.solvers import schur as TS
     t_phase = time.perf_counter()
     out = {}
-    sets = [(name, "float32", parts) for name, parts in laplacians.items()]
-    sets.insert(1, ("bench", "float64", _vc_parts64(laplacians["bench"])))
-    for name, dt, (op, plan, sc_inv, lam, k) in sets:
+    sets = []
+    for name, parts in operators.items():
+        sets += [(name, "float32", parts), (name, "float64",
+                                            _vc_parts64(parts))]
+    for name, dt, (op, plan, sc_inv, lam, k, n_model) in sets:
         rng = np.random.default_rng(27)
         ex = VC.example(op, rng, k=k, agg=plan.agg)
-        rec = {"n": op.n, "nnz": op.mat.nnz, "stages": {}}
-        full = name == "bench" and dt == "float32"
-        for case in VC.CASES:
-            label, stage, _ = case
-            VC.COUNTS.reset()
-            got = VC.run_case(case, op, ex)
-            again = VC.run_case(case, op, ex)
-            torch.cuda.synchronize()
-            launched = getattr(VC.COUNTS, stage)
-            want = VC.run_case(case, op, ex, plain=True)
-            torch.cuda.synchronize()
-            equal = all(torch.equal(got[b], want[b]) for b in VC.BUFFERS)
-            err = max(float((got[b] - want[b]).abs().max())
-                      for b in VC.BUFFERS)
-            check(equal and all(torch.equal(got[b], again[b])
-                                for b in VC.BUFFERS) and launched == 2,
-                  f"[27] {name} {dt} {label}: the kernel's buffers equal "
-                  f"the plain version's bit for bit and on repeat, one "
-                  f"launch a call (max gap {err:.3e}, {launched} launches)")
-            r = dict(max_abs_err=err, bit_equal=equal)
-            if full or label in VC_HEAD.values():
-                nbytes, bound = _vc_bound(op, label, plan.agg)
-                copies = _vc_copies(op, ex)
-                scratch = {b: ex[b].clone() for b in VC.BUFFERS}
-                r.update(
-                    ms=_burst_ms([functools.partial(VC.run_case, case, o, e,
-                                                    into=e)
-                                  for o, e in copies]),
-                    warm_ms=_burst_ms([functools.partial(
-                        VC.run_case, case, op, ex, into=scratch)]),
-                    plain_ms=_plain_ms(functools.partial(
-                        VC.run_case, case, op, ex, plain=True,
-                        into=scratch)),
-                    bound_bytes=nbytes, bound_ms=bound, bound_by="bytes",
-                    library_ms=None)
-                if stage == "residual":
-                    r.update(_vc_library_residual(copies, got["out"]))
-                del copies
-                lib = ("" if r["library_ms"] is None else
-                       f" library {r['library_ms']:.4f} (gap "
-                       f"{r['library_gap']:.3e})")
-                log(f"[27] {name} {dt} {label}: bit for bit; ms cold "
-                    f"{r['ms']:.4f} warm {r['warm_ms']:.4f} plain "
-                    f"{r['plain_ms']:.4f}{lib}; bound {bound:.4f} "
-                    f"({nbytes} B, {100 * bound / r['ms']:.1f}% cold) on "
-                    f"{card}")
-            rec["stages"][label] = r
-        # the whole V-cycle, one cycle at the model's k
-        plain = TS.make_vcycle_solver(lambda v: ell_matvec(op, v), op.diag,
-                                      plan, sc_inv, n_cycles=1, smooth_k=k,
-                                      lam_max=lam)
-        fused = TS.make_vcycle_solver(lambda v: ell_matvec(op, v), op.diag,
-                                      plan, sc_inv, n_cycles=1, smooth_k=k,
-                                      lam_max=lam, op=op)
-        check(isinstance(fused, TS.FusedVcycle),
-              f"[27] {name}: make_vcycle_solver(op=) on the card is fused")
+        plans, picked = _vc_plans(op, name, dt)
+        rec = {"n": op.n, "nnz": op.mat.nnz, "k": k, "picked": picked,
+               "plans": {p: {f: getattr(sp, f) for f in (
+                   "grid", "rounds", "smem", "per_sm", "slices", "regs",
+                   "local", "neighbours")} for p, sp in plans.items()},
+               "sweeps": {}}
         flat = torch.as_tensor(rng.standard_normal(op.n + 1),
                                dtype=op.vals.dtype, device="cuda")
-        for tag, r in (("aligned", flat[:op.n].clone()),
-                       ("odd offset", flat[1:])):
-            VC.COUNTS.reset()
-            z = fused(r)
+        timed = dt == "float32"
+        for kind in VC.SWEEPS:
+            want = VC.run_case(kind, op, ex, plain=True)
+            want_odd = VC.run_case(kind, op, ex, plain=True, r=flat[1:])
             torch.cuda.synchronize()
-            n_fused = VC.COUNTS.cheb_first + VC.COUNTS.cheb_step \
-                + VC.COUNTS.residual
-            check(torch.equal(z, plain(r)) and torch.equal(z, fused(r))
-                  and n_fused == VC.launches(1, k)[0],
-                  f"[27] {name} {dt} V-cycle ({tag} r): fused equals plain "
-                  f"bit for bit and on repeat, {n_fused} stage launches")
-        r = flat[:op.n].clone()
-        kernels, others = kernel_launches(lambda: fused(r))
-        stock = kernel_launches(
-            lambda: sc_inv @ fused.rc.view(plan.n_agg, plan.agg).sum(dim=1))
-        fused_n, stated = VC.launches(1, k)
-        check(kernels == fused_n + stock[0] == stated,
-              f"[27] {name} {dt}: a captured V-cycle launches {kernels} "
-              f"kernels, its {fused_n} stages and the coarse correction's "
-              f"{stock[0]}, {stated} stated")
-        rec["vcycle"] = dict(
-            kernels=kernels, other_nodes=others, stages=fused_n,
-            stated=stated, coarse_kernels=stock[0],
-            ms=_burst_ms([lambda: fused(r)]),
-            stock_ms=_plain_ms(lambda: plain(r)))
-        v = rec["vcycle"]
-        log(f"[27] {name} {dt} V-cycle (1 cycle, k = {k}, n = {op.n}): "
-            f"fused equals plain bit for bit (aligned and odd-offset r); "
-            f"captured: {kernels} kernel nodes ({fused_n} stages, "
-            f"{stock[0]} of the restriction's sum and coarse GEMV; "
-            f"{stated} stated) and {others} other nodes; ms per V-cycle "
-            f"fused {v['ms']:.4f}, plain (stock) {v['stock_ms']:.4f} on "
-            f"{card}")
+            for path, sp in plans.items():
+                VC.COUNTS.reset()
+                got = VC.run_case(kind, op, ex, sp)
+                again = VC.run_case(kind, op, ex, sp)
+                odd = VC.run_case(kind, op, ex, sp, r=flat[1:])
+                torch.cuda.synchronize()
+                launched = getattr(VC.COUNTS, kind)
+                equal = all(torch.equal(got[b], want[b])
+                            and torch.equal(again[b], got[b])
+                            and torch.equal(odd[b], want_odd[b])
+                            for b in VC.BUFFERS)
+                err = max(float((got[b] - want[b]).abs().max())
+                          for b in VC.BUFFERS)
+                check(equal and launched == 3
+                      and bool((sp.flags == sp.flags[0]).all()),
+                      f"[27] {name} {dt} {kind} ({path}): the sweep's "
+                      f"buffers equal the plain version's bit for bit, on "
+                      f"repeat and at an odd offset, one launch a call, "
+                      f"every CTA's progress word equal (max gap "
+                      f"{err:.3e}, {launched} launches)")
+                r = dict(max_abs_err=err, bit_equal=equal, path=path,
+                         smem=sp.smem)
+                if timed and path in VC.PATHS and (path == picked
+                                                   or name == "bench"):
+                    nbytes, bound = _vc_bound(op, kind, k, plan.agg)
+                    copies = _vc_copies(op, ex)
+                    scratch = {b: ex[b].clone() for b in VC.BUFFERS}
+                    r.update(
+                        ms=_burst_ms([functools.partial(
+                            VC.run_case, kind, o, e, sp, into=e)
+                            for o, e in copies]),
+                        warm_ms=_burst_ms([functools.partial(
+                            VC.run_case, kind, op, ex, sp, into=scratch)]),
+                        bound_bytes=nbytes, bound_ms=bound,
+                        bound_by="bytes", library_ms=None)
+                    if path == picked:
+                        r["plain_ms"] = _plain_ms(functools.partial(
+                            VC.run_case, kind, op, ex, plain=True,
+                            into=scratch))
+                    del copies
+                    plain = ("" if "plain_ms" not in r
+                             else f" plain {r['plain_ms']:.4f}")
+                    log(f"[27] {name} {dt} {kind} ({path}, k = {k}): bit "
+                        f"for bit; ms cold {r['ms']:.4f} warm "
+                        f"{r['warm_ms']:.4f}{plain}; bound {bound:.4f} "
+                        f"({nbytes} B, {100 * bound / r['ms']:.1f}% cold); "
+                        f"{sp.smem} B of shared memory a CTA on {card}")
+                rec["sweeps"][f"{kind} {path}"] = r
+        # the whole V-cycle at 1 cycle and at the model's cycles
+        rec["vcycle"] = {}
+        for n_cycles in sorted({1, n_model}):
+            plain = TS.make_vcycle_solver(
+                lambda v: ell_matvec(op, v), op.diag, plan, sc_inv,
+                n_cycles=n_cycles, smooth_k=k, lam_max=lam)
+            fused = TS.make_vcycle_solver(
+                lambda v: ell_matvec(op, v), op.diag, plan, sc_inv,
+                n_cycles=n_cycles, smooth_k=k, lam_max=lam, op=op)
+            check(isinstance(fused, TS.FusedVcycle)
+                  and fused.sweep_plan.path == picked,
+                  f"[27] {name}: make_vcycle_solver(op=) on the card is "
+                  f"fused, on the picked path")
+            for tag, r in (("aligned", flat[:op.n].clone()),
+                           ("odd offset", flat[1:])):
+                VC.COUNTS.reset()
+                z = fused(r)
+                torch.cuda.synchronize()
+                n_sweeps = VC.COUNTS.pre + VC.COUNTS.mid + VC.COUNTS.post
+                check(torch.equal(z, plain(r)) and torch.equal(z, fused(r))
+                      and n_sweeps == VC.launches(n_cycles, k)[0],
+                      f"[27] {name} {dt} V-cycle of {n_cycles} ({tag} r): "
+                      f"fused equals plain bit for bit and on repeat, "
+                      f"{n_sweeps} sweep launches")
+            few = TS.FusedVcycle(op, op.diag, plan, sc_inv, lam, n_cycles, k)
+            few.sweep_plan = plans["rounds 0"]
+            r = flat[:op.n].clone()
+            check(torch.equal(few(r), plain(r)),
+                  f"[27] {name} {dt} V-cycle of {n_cycles} on the plan of "
+                  f"rounds 0: fused equals plain bit for bit")
+            del few
+            r = flat[:op.n].clone()
+            kernels, others = kernel_launches(lambda: fused(r))
+            stock = kernel_launches(
+                lambda: sc_inv @ fused.rc.view(plan.n_agg,
+                                               plan.agg).sum(dim=1))
+            sweeps, stated = VC.launches(n_cycles, k)
+            check(kernels == sweeps + n_cycles * stock[0] == stated,
+                  f"[27] {name} {dt}: a captured V-cycle of {n_cycles} "
+                  f"launches {kernels} kernels, its {sweeps} sweeps and "
+                  f"{n_cycles} x {stock[0]} of the coarse correction, "
+                  f"{stated} stated")
+            v = dict(kernels=kernels, other_nodes=others, sweeps=sweeps,
+                     stated=stated, coarse_kernels=stock[0])
+            if timed:
+                v.update(ms=_burst_ms([lambda: fused(r)]),
+                         stock_ms=_plain_ms(lambda: plain(r)))
+            rec["vcycle"][n_cycles] = v
+            times = ("" if not timed else
+                     f"; ms per V-cycle fused {v['ms']:.4f}, plain (stock) "
+                     f"{v['stock_ms']:.4f}")
+            log(f"[27] {name} {dt} V-cycle ({n_cycles} cycle(s), k = {k}, "
+                f"n = {op.n}): fused equals plain bit for bit (aligned and "
+                f"odd-offset r); captured: {kernels} kernel nodes "
+                f"({sweeps} sweeps, {n_cycles} x {stock[0]} of the "
+                f"restriction's sum and coarse GEMV; {stated} stated) and "
+                f"{others} other nodes{times} on {card}")
         out[f"{name} {dt}"] = rec
     VC.COUNTS.reset()
     log(f"[27] phase {time.perf_counter() - t_phase:.1f} s")
@@ -4314,8 +4377,7 @@ def main():
     proj_tiles = ns._graphs.tiles.cpu()
     # phase 27's bench operator: the outlet-pinned Laplacian and its
     # V-cycle parts
-    lap_bench = (ns._ap_dir, ns._coarse_plan, ns._ap_dir_sc_inv,
-                 ns._ap_dir_lam, ns.config.schur_smooth_k)
+    lap_bench = vcycle_parts(ns, "ap_dir")
     del ns
     gc.collect()
     torch.cuda.empty_cache()
@@ -4342,16 +4404,17 @@ def main():
     ns3, st3d1 = phase_3d1(card)
     uses3d = phase_kernel_3d(ns3)
     bj_3d1 = phase_tile_apply_3d1(ns3)
-    vc = phase_vcycle(card, {"bench": lap_bench, "3d1": (
-        ns3._ap_dir, ns3._coarse_plan, ns3._ap_dir_sc_inv, ns3._ap_dir_lam,
-        ns3.config.schur_smooth_k)})
+    lap_3d1 = vcycle_parts(ns3, "ap_dir")
     del ns3
     gc.collect()
     torch.cuda.empty_cache()
     phase_cli()
     phase_naca_small()
     naca = phase_naca_sweep(card)
-    uses_naca, bj_naca = phase_kernel_naca()
+    uses_naca, bj_naca, ap_naca = phase_kernel_naca()
+    vc = phase_vcycle(card, {"bench": lap_bench, "3d1": lap_3d1,
+                             "naca": ap_naca})
+    del lap_bench, lap_3d1, ap_naca
     log(f"[24] tile-apply launches per step, NACA sweep (phase 14, "
         f"captured): {naca['bj_per_step']:.2f}")
     gc.collect()
@@ -4550,30 +4613,35 @@ def main():
         "uses": gs,
         "launches_per_step": {p: c["gram_schmidt"]
                               for p, c in kry_paths.items()}})
-    # the V-cycle's fused stages: launches on the main paths (phases 5 and
-    # 8, captured), per step on each captured path, phase 27's figures
-    # (the bench Laplacian in fp32; fp64 and 3D-1Z beside)
-    from navierstokes_tpu_torch.kernels.vcycle import CASES as VC_CASES
-    stage_of = {label: stage for label, stage, _ in VC_CASES}
-    for stage, label in VC_HEAD.items():
-        head = vc["bench float32"]["stages"][label]
+    # the V-cycle's sweeps: launches on the main paths (phases 5 and 8,
+    # captured), per step on each captured path, phase 27's figures (the
+    # bench Laplacian in fp32 on the picked path; the other paths, fp64,
+    # 3D-1Z and NACA beside)
+    head_set = vc["bench float32"]
+    for kind in ("pre", "mid", "post"):
+        head = head_set["sweeps"][f"{kind} {head_set['picked']}"]
+        launched = sum(round(p["kry_per_step"][f"vcycle_{kind}"]
+                             * p["n_steps"]) for p in (bench, mono))
+        check(launched > 0, f"the {kind} sweep launched on the main paths "
+              f"(phases 5 and 8: {launched})")
         kernels.append({
-            "name": f"vcycle_{stage}", "route": "cuda", "source": VC_SOURCE,
-            "replaces": VC_REPLACES[stage],
-            "launches": sum(round(p["kry_per_step"][f"vcycle_{stage}"]
-                                  * p["n_steps"]) for p in (bench, mono)),
+            "name": f"vcycle_{kind}", "route": "cuda", "source": VC_SOURCE,
+            "replaces": VC_REPLACES[kind],
+            "launches": launched,
             "max_abs_err": max(r["max_abs_err"] for rec in vc.values()
-                               for lab, r in rec["stages"].items()
-                               if stage_of[lab] == stage),
+                               for lab, r in rec["sweeps"].items()
+                               if lab.split()[0] == kind),
             **{k: head[k] for k in ("ms", "warm_ms", "plain_ms", "bound_ms",
-                                    "bound_by", "bound_bytes",
-                                    "library_ms")},
-            "headline": f"{label!r} on the bench Laplacian, fp32",
-            "calls": {key: {lab: r for lab, r in rec["stages"].items()
-                            if stage_of[lab] == stage}
+                                    "bound_by", "bound_bytes", "library_ms",
+                                    "path", "smem")},
+            "headline": f"{kind} on the bench Laplacian, fp32, k = "
+                        f"{head_set['k']}, {head_set['picked']} path",
+            "calls": {key: {lab: r for lab, r in rec["sweeps"].items()
+                            if lab.split()[0] == kind}
                       for key, rec in vc.items()},
+            "plans": {key: rec["plans"] for key, rec in vc.items()},
             "vcycle": {key: rec["vcycle"] for key, rec in vc.items()},
-            "launches_per_step": {p: c[f"vcycle_{stage}"]
+            "launches_per_step": {p: c[f"vcycle_{kind}"]
                                   for p, c in kry_paths.items()}})
     record = {"kernels": kernels}
     log(f"chip_smoke: every phase passed in "

@@ -104,16 +104,20 @@ def build_info() -> dict:
         fn = getattr(lib, f"nst_gram_schmidt_setup_{suffix}")
         fn.argtypes = [ctypes.POINTER(i)]
         fn.restype = i
-    sell = [p] * 4 + [i]      # vals, cols, slice_ptr, rows, n_slices
+    # the V-cycle's sweeps: the plan (grid, rounds, shared, smem), the SELL
+    # arrays (vals, cols, slice_ptr, rows, n_slices), the vectors, the
+    # state vector, the progress words and neighbour lists, the stream
+    head = [i] * 4 + [p] * 4 + [i]
     for suffix in ("f32", "f64"):
-        for entry, args in (("first", [p] * 5 + [i] + [p] * 4),
-                            ("first_last", [p] * 5 + [i, p]),
-                            ("step", [p, i] + [p] * 5),
-                            ("step_last", [p, i] + [p] * 6),
-                            ("residual", [p] * 3)):
+        for entry, args in (("pre", [p] * 3 + [i] + [p] * 4),
+                            ("mid", [p] * 4 + [i, i] + [p] * 5),
+                            ("post", [p] * 4 + [i, i] + [p] * 4)):
             fn = getattr(lib, f"nst_vcycle_{entry}_{suffix}")
-            fn.argtypes = sell + args + [p]
+            fn.argtypes = head + args + [p] * 5
             fn.restype = i
+        fn = getattr(lib, f"nst_vcycle_setup_{suffix}")
+        fn.argtypes = [i, i, i, ctypes.POINTER(i)]
+        fn.restype = i
     lib.nst_krylov_cg_cluster.argtypes = []
     lib.nst_krylov_cg_cluster.restype = i
     lib.nst_while_begin.argtypes = [p, p, p, p, ctypes.POINTER(u64),

@@ -10,11 +10,12 @@ its Galerkin coarse matrix assembled every step from G block pairs
 (``coarse_matrix``, on G's static block sums over the pressure nodes) and
 inverted in fp32 (``coarse_inverse``).
 
-On the card the V-cycle of an assembled operator runs the fused stages of
-``kernels/vcycle.py`` (``FusedVcycle``: each smoothing step one SELL
-product carrying its Chebyshev update, the coefficients computed once, the
-same bits as ``make_vcycle_solver``'s plain cycle); on the CPU, and for a
-bare operator callable, the plain cycle below runs.
+On the card the V-cycle of an assembled operator runs the sweeps of
+``kernels/vcycle.py`` (``FusedVcycle``: every smoothing stage between two
+coarse corrections in one persistent launch, each stage one SELL product
+carrying its Chebyshev update, the coefficients computed once, the same
+bits as ``make_vcycle_solver``'s plain cycle); on the CPU, and for a bare
+operator callable, the plain cycle below runs.
 """
 
 from __future__ import annotations
@@ -155,25 +156,25 @@ def make_vcycle_solver(apply_s, diag_s, plan: CoarsePlan, sc_inv,
 
 class FusedVcycle:
     """``make_vcycle_solver``'s V-cycles on an assembled operator ``op``
-    (``ops/p1ell.P1Matrix``) as the stages of ``kernels/vcycle.py``: per
-    cycle a pre-smoothing (``cheb_first`` and k - 1 ``cheb_step``s, the
-    last adding the smoother's z), ``residual`` into the zero-padded
-    restriction buffer, the restriction's sum and the coarse GEMV (torch),
-    and a post-smoothing whose ``cheb_first`` takes the prolongation in
-    its gather; the first cycle's ``cheb_first`` (z = 0) has no product.
-    So a solve launches ``kernels/vcycle.launches(n_cycles, k)`` kernels.
+    (``ops/p1ell.P1Matrix``) as the sweeps of ``kernels/vcycle.py``: a
+    ``pre`` sweep (the first cycle's pre-smoothing at z = 0 and the
+    residual into the zero-padded restriction buffer), then per cycle the
+    restriction's sum and the coarse GEMV (torch) and a ``mid`` sweep (the
+    post-smoothing, whose first stage takes the prolongation in its
+    gather, and the next cycle's pre-smoothing and residual), the last
+    cycle's a ``post`` sweep (its post-smoothing alone).  So a solve
+    launches ``kernels/vcycle.launches(n_cycles, k)`` kernels.
 
-    The coefficients (``vcycle.coefficients``) and the work vectors are
-    made once, here: a solver serves every call, eager or captured, and
-    each call returns a new tensor.  Every stage gives the plain cycle's
-    bits, so a solve equals ``make_vcycle_solver``'s without ``op``;
-    on the CPU the stages run their plain versions.
+    The coefficients (``vcycle.coefficients``), the work vectors and, on
+    the card, the sweeps' plan (``vcycle.plan``, on the path it picks;
+    ``sweep_plan``) are made once, here: a solver serves every call, eager
+    or captured, and each call returns a new tensor.  Every sweep gives
+    the plain cycle's bits, so a solve equals ``make_vcycle_solver``'s
+    without ``op``; on the CPU the sweeps run their plain versions.
 
-    Buffers: ``z[0]`` holds the pre-smoothed z (the residual's and the
-    prolongation's input), ``z[1]`` z + P y and the result of a cycle
-    before the last; no stage writes the vector it gathers, and a last
-    step writes out = z + zc at its own row only, so ``out`` may be
-    ``z[1]`` itself."""
+    Buffers: ``zc`` the smoothers' ping-pong pair, ``z[0]`` the
+    pre-smoothed z (the residual's and the prolongation's input),
+    ``z[1]`` a cycle's result before the last, ``rc`` the residual."""
 
     def __init__(self, op, diag_s, plan: CoarsePlan, sc_inv, lam_max,
                  n_cycles: int = 2, smooth_k: int = 3):
@@ -188,9 +189,9 @@ class FusedVcycle:
         self.sdinv = torch.where(diag_s != 0, 1.0 / diag_s,
                                  torch.ones_like(diag_s))
         self.coef = VC.coefficients(lam_max, smooth_k)
+        self.sweep_plan = VC.plan(op) if op.vals.is_cuda else None
         n = plan.n_p1
         new = lambda: torch.empty_like(self.sdinv)
-        self.r0, self.d = new(), new()
         self.zc = (new(), new())
         self.z = (new(), new())
         # rc in the first n rows, zeros after: the restriction's pad
@@ -198,29 +199,18 @@ class FusedVcycle:
                               device=self.sdinv.device)
         self.rc_n = self.rc[:n]
 
-    def _smooth(self, r, z, y, out):
-        """out = z' + chebyshev(r - S z'), z' = z (None: 0) or z + P y."""
-        op, coef, sdinv, k = self.op, self.coef, self.sdinv, self.k
-        znew = self.z[1] if y is not None else None
-        VC.cheb_first(op, coef, sdinv, r, z, d=self.d, zc=self.zc[0],
-                      r0=self.r0, y=y, agg=self.plan.agg, znew=znew, out=out,
-                      last=k == 1)
-        r0 = r if z is None else self.r0
-        base = znew if y is not None else z
-        for s in range(k - 1):
-            VC.cheb_step(op, coef, s, sdinv, r0, self.d, self.zc[s % 2],
-                         zc=self.zc[1 - s % 2], z=base, out=out,
-                         last=s == k - 2)
-        return out
-
     def __call__(self, r):
         r = r.contiguous()
-        plan, z = self.plan, None
+        plan = self.plan
+        args = (self.op, self.sweep_plan, self.coef, self.sdinv, r)
+        bufs = dict(k=self.k, zc0=self.zc[0], zc1=self.zc[1], z0=self.z[0])
+        VC.sweep("pre", *args, rc=self.rc_n, **bufs)
         for c in range(self.n_cycles):
-            z1 = self._smooth(r, z, None, self.z[0])
-            VC.residual(self.op, r, z1, self.rc_n)
             y = self.sc_inv @ self.rc.view(plan.n_agg, plan.agg).sum(dim=1)
-            out = (torch.empty_like(r) if c == self.n_cycles - 1
-                   else self.z[1])
-            z = self._smooth(r, z1, y, out)
-        return z
+            if c < self.n_cycles - 1:
+                VC.sweep("mid", *args, y=y, agg=plan.agg, z1=self.z[1],
+                         rc=self.rc_n, **bufs)
+            else:
+                out = torch.empty_like(r)
+                VC.sweep("post", *args, y=y, agg=plan.agg, out=out, **bufs)
+        return out

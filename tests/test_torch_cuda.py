@@ -25,9 +25,10 @@ persistent grid, refusing what it does not take, and
 launched by captured, eager, float64 and row-sharded steps; the while
 nodes of csrc/graph_cond.cu against the host loop (seeded trip counts,
 nested, no synchronising replay) and their predicate kernel against its
-plain version; the V-cycle's fused Chebyshev stages (csrc/vcycle.cu)
-against their plain versions bit for bit, the fused V-cycle against the
-plain one (also captured), and the steps that run it.
+plain version; the V-cycle's smoothing sweeps (csrc/vcycle.cu) against
+their plain versions bit for bit on both operator paths, the fused
+V-cycle against the plain one (also captured), and the steps that run
+it.
 Fixtures: the h=0.12 cylinder channel of tests/test_pallas_matvec.py;
 in 3D the h=0.15 square-column duct of tests/test_torch_3d.py.
 """
@@ -1797,44 +1798,150 @@ def _vcycle_parts(space, dev, dtype, pinned=True, agg_blocks=4):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [c[0] for c in VC.CASES])
+@pytest.mark.parametrize("path", ["shared", "device"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("kind", ["pre", "mid", "post"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_vcycle_stages_match_plain_on_cuda(cuda, space, dtype, case):
-    """Each fused V-cycle stage (csrc/vcycle.cu) writes its plain
-    version's bits into every buffer, and touches no other; one launch,
-    and none of the plain version's."""
+def test_vcycle_sweeps_match_plain_on_cuda(cuda, space, dtype, kind, k,
+                                           path):
+    """Each sweep (csrc/vcycle.cu) writes its plain version's bits into
+    every buffer and touches no other, on the operator in shared memory
+    and in device memory, on repeat and on a right-hand side at an odd
+    offset; one launch a call, none of the plain stages; every CTA's
+    progress word at the barriers the launches passed."""
     op = _vcycle_parts(space, cuda, dtype)[0]
-    c = next(c for c in VC.CASES if c[0] == case)
-    ex = VC.example(op, np.random.default_rng(27))
+    sp = VC.plan(op, path)
+    assert sp.path == path and (sp.smem > 0) == (path == "shared")
+    ex = VC.example(op, np.random.default_rng(27), k=k, agg=16)
+    flat = torch.as_tensor(np.random.default_rng(28).standard_normal(
+        op.n + 1), dtype=dtype, device=cuda)
+    for r in (None, flat[1:]):
+        VC.COUNTS.reset()
+        got = VC.run_case(kind, op, ex, sp, r=r)
+        again = VC.run_case(kind, op, ex, sp, r=r)
+        torch.cuda.synchronize()
+        assert getattr(VC.COUNTS, kind) == 2
+        assert VC.COUNTS.plain_cuda_calls == 0
+        want = VC.run_case(kind, op, ex, plain=True, r=r)
+        for name in VC.BUFFERS:
+            assert torch.equal(got[name], want[name]), name
+            assert torch.equal(again[name], got[name]), name
+    barriers = {"pre": k, "mid": 2 * k, "post": k - 1}[kind]
+    assert bool((sp.flags == 4 * barriers).all())
     VC.COUNTS.reset()
-    got = VC.run_case(c, op, ex)
-    torch.cuda.synchronize()
-    assert getattr(VC.COUNTS, c[1]) == 1 and VC.COUNTS.plain_cuda_calls == 0
-    want = VC.run_case(c, op, ex, plain=True)
-    for name in VC.BUFFERS:
-        assert torch.equal(got[name], want[name]), name
-    assert torch.equal(VC.run_case(c, op, ex)["out"], got["out"])
+
+
+@pytest.fixture(scope="module")
+def space_fine():
+    """The cylinder channel at h=0.025: 2,707 P1 rows, 85 slices."""
+    return TaylorHoodSpace(channel_with_cylinder_2d(h=0.025))
+
+
+@pytest.fixture(scope="module")
+def space_finer():
+    """The cylinder channel at h=0.011: 13,231 P1 rows, 414 slices."""
+    return TaylorHoodSpace(channel_with_cylinder_2d(h=0.011))
+
+
+def _few_sms_plan(op, path, sms):
+    """``vcycle.plan`` as if the card had ``sms`` SMs: a small operator's
+    warps then take several slices each (rounds 0 past four)."""
+    card = VC.card_query(op)
+    query = lambda *a: dict(card(*a), sms=sms)
+    return VC.attach(op, VC.choose(op.mat.slice_ptr.cpu().numpy().astype(
+        np.int64), op.vals.element_size(), query, path))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sms,rounds", [(1, 4), (2, 2), (3, 1)])
+@pytest.mark.parametrize("kind", ["pre", "mid", "post"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vcycle_sweeps_on_few_ctas_match_plain_on_cuda(cuda, space_fine,
+                                                       dtype, kind, sms,
+                                                       rounds):
+    """On a grid spread over ``sms`` SMs, so that a warp takes ``rounds``
+    slices (the kernels for operators of more slices than the card has
+    warps), each sweep writes its plain version's bits on both paths."""
+    op = _vcycle_parts(space_fine, cuda, dtype)[0]
+    ex = VC.example(op, np.random.default_rng(33), k=3, agg=16)
+    want = VC.run_case(kind, op, ex, plain=True)
+    for path in ("shared", "device"):
+        sp = _few_sms_plan(op, path, sms)
+        assert (sp.grid, sp.rounds, sp.path) == (sms, rounds, path)
+        got = VC.run_case(kind, op, ex, sp)
+        again = VC.run_case(kind, op, ex, sp)
+        torch.cuda.synchronize()
+        for name in VC.BUFFERS:
+            assert torch.equal(got[name], want[name]), (path, name)
+            assert torch.equal(again[name], got[name]), (path, name)
+    VC.COUNTS.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms", [1, 3])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("kind", ["pre", "mid", "post"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vcycle_sweeps_past_the_register_rounds_match_plain_on_cuda(
+        cuda, space_finer, dtype, kind, k, sms):
+    """Where a CTA holds more than 4 x 32 slices (414 slices on one or
+    three CTAs), the plan takes rounds 0: each warp runs its slices one
+    after another with r0 and d in the plan's state vector, and each sweep
+    writes its plain version's bits in every buffer, on repeat and at an
+    odd offset; the whole V-cycle on that plan equals the plain cycle."""
+    from navierstokes_tpu_torch.solvers import schur as TS
+    op, plan, sc_inv, lam = _vcycle_parts(space_finer, cuda, dtype)
+    sp = _few_sms_plan(op, None, sms)
+    assert (sp.grid, sp.rounds, sp.path) == (sms, 0, "device")
+    assert sp.slices > 4 * 32 and sp.state.shape == (2 * op.n,)
+    ex = VC.example(op, np.random.default_rng(34), k=k, agg=16)
+    flat = torch.as_tensor(np.random.default_rng(35).standard_normal(
+        op.n + 1), dtype=dtype, device=cuda)
+    for r in (None, flat[1:]):
+        VC.COUNTS.reset()
+        got = VC.run_case(kind, op, ex, sp, r=r)
+        again = VC.run_case(kind, op, ex, sp, r=r)
+        torch.cuda.synchronize()
+        assert getattr(VC.COUNTS, kind) == 2
+        want = VC.run_case(kind, op, ex, plain=True, r=r)
+        for name in VC.BUFFERS:
+            assert torch.equal(got[name], want[name]), name
+            assert torch.equal(again[name], got[name]), name
+    if kind == "mid":
+        fused = TS.FusedVcycle(op, op.diag, plan, sc_inv, lam, 2, k)
+        fused.sweep_plan = sp
+        plain = TS.make_vcycle_solver(lambda v: TP.ell_matvec(op, v),
+                                      op.diag, plan, sc_inv, n_cycles=2,
+                                      smooth_k=k, lam_max=lam)
+        r = flat[:op.n].clone()
+        assert torch.equal(fused(r), plain(r))
+    VC.COUNTS.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["shared", "device"])
 @pytest.mark.parametrize("n_cycles,k", [(1, 3), (2, 3), (2, 2), (1, 1)])
 @pytest.mark.parametrize("pinned", [True, False], ids=["pinned", "unpinned"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_fused_vcycle_equals_plain_on_cuda(cuda, space, dtype, pinned,
-                                           n_cycles, k):
+                                           n_cycles, k, path):
     """The fused V-cycle (solvers/schur.FusedVcycle) equals the plain
-    cycle on the card bit for bit, on a right-hand side that is a view at
-    an odd offset too, with ``launches(n_cycles, k)[0]`` stage launches a
-    solve and no plain stage."""
+    cycle on the card bit for bit, on either operator path, on a
+    right-hand side that is a view at an odd offset too, with
+    ``launches(n_cycles, k)[0]`` sweep launches a solve and no plain
+    stage."""
     from navierstokes_tpu_torch.solvers import schur as TS
     op, plan, sc_inv, lam = _vcycle_parts(space, cuda, dtype, pinned)
     plain = TS.make_vcycle_solver(lambda v: TP.ell_matvec(op, v), op.diag,
                                   plan, sc_inv, n_cycles=n_cycles,
                                   smooth_k=k, lam_max=lam)
-    fused = TS.make_vcycle_solver(lambda v: TP.ell_matvec(op, v), op.diag,
+    built = TS.make_vcycle_solver(lambda v: TP.ell_matvec(op, v), op.diag,
                                   plan, sc_inv, n_cycles=n_cycles,
                                   smooth_k=k, lam_max=lam, op=op)
-    assert isinstance(fused, TS.FusedVcycle)
+    assert isinstance(built, TS.FusedVcycle)
+    fused = TS.FusedVcycle(op, op.diag, plan, sc_inv, lam, n_cycles, k)
+    fused.sweep_plan = VC.plan(op, path)
+    assert fused.sweep_plan.path == path
     rng = np.random.default_rng(28)
     flat = torch.as_tensor(rng.standard_normal(op.n + 3), dtype=dtype,
                            device=cuda)
@@ -1842,22 +1949,27 @@ def test_fused_vcycle_equals_plain_on_cuda(cuda, space, dtype, pinned,
         VC.COUNTS.reset()
         got = fused(r)
         torch.cuda.synchronize()
-        assert (VC.COUNTS.cheb_first + VC.COUNTS.cheb_step
-                + VC.COUNTS.residual) == VC.launches(n_cycles, k)[0]
+        assert (VC.COUNTS.pre, VC.COUNTS.mid, VC.COUNTS.post) == (
+            1, n_cycles - 1, 1)
+        assert VC.COUNTS.pre + VC.COUNTS.mid + VC.COUNTS.post \
+            == VC.launches(n_cycles, k)[0]
         assert VC.COUNTS.plain_cuda_calls == 0
-        assert torch.equal(got, plain(r))
+        want = plain(r)
+        assert torch.equal(got, want)
+        assert torch.equal(built(r), want)
 
 
 @pytest.mark.cuda
-def test_fused_vcycle_captured_equals_eager_on_cuda(cuda, space):
-    """One fused V-cycle captured in a CUDA graph (its stages under
-    programmatic dependent launch) and replayed on new right-hand sides
-    equals the eager call bit for bit; the record adds each stage launch
-    once per replay."""
+@pytest.mark.parametrize("n_cycles", [1, 2])
+def test_fused_vcycle_captured_equals_eager_on_cuda(cuda, space, n_cycles):
+    """One fused V-cycle captured in a CUDA graph (its sweeps under
+    programmatic dependent launch, their barriers replayed) and
+    replayed on new right-hand sides equals the eager call bit for bit;
+    the record adds each sweep launch once per replay."""
     from navierstokes_tpu_torch.kernels.launches import record_launches
     from navierstokes_tpu_torch.solvers import schur as TS
     op, plan, sc_inv, lam = _vcycle_parts(space, cuda, torch.float32)
-    fused = TS.FusedVcycle(op, op.diag, plan, sc_inv, lam, 1, 3)
+    fused = TS.FusedVcycle(op, op.diag, plan, sc_inv, lam, n_cycles, 3)
     rng = np.random.default_rng(29)
     r = torch.as_tensor(rng.standard_normal(op.n), dtype=torch.float32,
                         device=cuda)
@@ -1869,7 +1981,7 @@ def test_fused_vcycle_captured_equals_eager_on_cuda(cuda, space):
     g = torch.cuda.CUDAGraph()
     with record_launches() as rec, torch.cuda.graph(g):
         out = fused(r)
-    assert len(rec.launches) == VC.launches(1, 3)[0]
+    assert len(rec.launches) == VC.launches(n_cycles, 3)[0]
     for seed in (30, 31):
         r.copy_(torch.as_tensor(np.random.default_rng(seed).standard_normal(
             op.n), dtype=torch.float32))
@@ -1878,27 +1990,31 @@ def test_fused_vcycle_captured_equals_eager_on_cuda(cuda, space):
         assert torch.equal(out, fused(r.clone()))
     VC.COUNTS.reset()
     rec.replay(3)
-    assert (VC.COUNTS.cheb_first, VC.COUNTS.cheb_step,
-            VC.COUNTS.residual) == (6, 12, 3)
+    assert (VC.COUNTS.pre, VC.COUNTS.mid, VC.COUNTS.post) == (
+        3, 3 * (n_cycles - 1), 3)
 
 
 @pytest.mark.cuda
 def test_vcycle_refuses_what_the_kernel_does_not_take(cuda, space):
     op = _vcycle_parts(space, cuda, torch.float32)[0]
-    ex = VC.example(op, np.random.default_rng(32))
-    res = VC.CASES[-1]
+    sp = VC.plan(op)
+    ex = VC.example(op, np.random.default_rng(32), agg=16)
     bad = dataclasses.replace(op, vals=op.vals.to(torch.bfloat16))
     with pytest.raises(TypeError):
-        VC.run_case(res, bad, ex)
+        VC.run_case("pre", bad, ex, sp)
     with pytest.raises(TypeError):
-        VC.run_case(res, op, dict(ex, r=ex["r"].double()))
+        VC.plan(bad)
+    with pytest.raises(TypeError):
+        VC.run_case("pre", op, dict(ex, r=ex["r"].double()), sp)
     with pytest.raises(ValueError):
-        VC.run_case(res, op, dict(ex, x=ex["x"].cpu()))
+        VC.run_case("mid", op, dict(ex, y=ex["y"].cpu()), sp)
     with pytest.raises(ValueError):
-        VC.run_case(VC.CASES[2], op, dict(ex, y=ex["y"][:2]))
-    with pytest.raises(ValueError):
-        VC.cheb_first(op, ex["coef"], ex["sdinv"], ex["r"], None,
-                      y=ex["y"], agg=64, d=ex["d"], zc=ex["zc"])
+        VC.run_case("post", op, dict(ex, y=ex["y"][:2]), sp)
+    with pytest.raises(ValueError, match="plan"):
+        VC.run_case("pre", op, ex, None)
+    b = {name: ex[name].clone() for name in VC.BUFFERS}
+    with pytest.raises(ValueError, match="shares memory"):
+        VC.run_case("pre", op, ex, sp, into=b, r=b["z0"])
 
 
 @pytest.mark.cuda
@@ -1906,8 +2022,9 @@ def test_vcycle_refuses_what_the_kernel_does_not_take(cuda, space):
 def test_steps_run_the_fused_vcycle_on_cuda(cuda, tmp_path, scheme):
     """The projection step's Poisson CG and the monolithic ``cc`` Ap solve
     run the fused V-cycle, captured and eager, with the same launches:
-    per projection step one V-cycle per CG iteration and one for CG's
-    set-up; per monolithic step schur_vcycles cycles a call."""
+    per projection step one V-cycle (a pre and a post sweep) per CG
+    iteration and one for CG's set-up; per monolithic V-cycle a pre, a
+    post and schur_vcycles - 1 mid sweeps."""
     runs = []
     for mode in ("eager", "captured"):
         ns = _small_model(tmp_path / mode, scheme=scheme)
@@ -1920,11 +2037,9 @@ def test_steps_run_the_fused_vcycle_on_cuda(cuda, tmp_path, scheme):
     (c_e, ms_e, u_e), (c_g, ms_g, u_g) = runs
     assert c_e == c_g and c_e["plain_cuda_calls"] == 0
     assert torch.equal(u_e, u_g)
-    k = ns.config.schur_smooth_k
-    assert c_e["cheb_first"] == 2 * c_e["residual"]
-    assert c_e["cheb_step"] == 2 * (k - 1) * c_e["residual"]
+    assert c_e["pre"] == c_e["post"] > 0
     if scheme == "projection":
-        assert c_e["residual"] == sum(m.p_iterations + 1 for m in ms_e)
+        assert c_e["pre"] == sum(m.p_iterations + 1 for m in ms_e)
+        assert c_e["mid"] == 0
     else:
-        assert c_e["residual"] % ns.config.schur_vcycles == 0
-        assert c_e["residual"] > 0
+        assert c_e["mid"] == (ns.config.schur_vcycles - 1) * c_e["pre"]

@@ -52,7 +52,7 @@ It prints, for the case:
 * a ``torch.profiler`` trace of ``--profile-steps`` further steps: the
   device time per step (kernels, copies and memsets), its share of the
   unprofiled step time, the SpMV kernels' part of it, calls and ms per
-  step by kernel kind (``KINDS``: the V-cycle's fused stages, SpMV, tile
+  step by kernel kind (``KINDS``: the V-cycle's sweeps or stages, SpMV, tile
   apply, the Krylov updates, Gram-Schmidt, dots, GEMMs, elementwise,
   ...), and the kernels with the most time (name, calls, ms).  The trace holds no kernel launched
   inside a while node's body, so a captured step is not traced: the
@@ -167,8 +167,8 @@ def time_ms(fn, cold, n=30):
 
 # kernel kinds of the profiled split, by a part of the kernel's name (the
 # first that matches)
-KINDS = (("V-cycle stage", ("vcycle_first", "vcycle_step",
-                             "vcycle_residual")),
+KINDS = (("V-cycle", ("vcycle_sweep", "vcycle_first", "vcycle_step",
+                      "vcycle_residual")),
          ("spmv", ("sell_spmv",)),
          ("tile apply", ("stream_kernel", "ring_kernel")),
          ("Krylov update", ("bicgstab_p", "bicgstab_s", "bicgstab_xr",
