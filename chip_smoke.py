@@ -270,7 +270,25 @@ and checks them:
    ``vcycle.launches(n, k)`` (4 at 1 cycle, 7 at 2); fp32 times: each
    sweep in L2-cold and warm bursts beside its bound and its plain
    version (both paths at the bench point), the fused and the plain
-   (stock) V-cycle per call.
+   (stock) V-cycle per call;
+28. the block-Jacobi tile rebuild's kernels (csrc/bj_tiles.cu: the masked
+   tiles in one write, the Newton-Schulz guard's norm in one read of
+   A X0, each Newton-Schulz update in one pass, the last into the step's
+   tile buffer; their launches are counted on phases 5, 8, 14, 20, 21,
+   22 and 25 per step by kernel, each held to the step's branch, and the
+   plain versions make no CUDA call there): right after phase 20, at phase
+   5's end state (F values, mask, sigma and the static seed; 1,760 tiles of
+   256 x 256), and in phase 14's kernel model after one plain step at
+   the NACA step's 274 tiles, each kernel against its plain version bit for bit (the tiles
+   from fp32 and fp64 F values, the guard's norm, each update with its
+   strides, the last update in fp32, bf16 and fp64), the Newton-Schulz
+   rebuild against the stock PyTorch chain the port ran before (the same
+   tile inverses; the guard's norm within 1e-6 of the stock sums', the
+   same branch); each kernel's ms per call L2-cold and warm beside its
+   bound and its plain version, the update beside ``torch.baddbmm`` (the
+   record's ``library_ms``) against the GEMM and the kernel; one
+   Newton-Schulz rebuild (segments (a) and (b)) captured, the kernels'
+   graph against the stock chain's in alternating rounds.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
@@ -413,12 +431,25 @@ def per_step_launches(n_steps, by_pattern=None):
 def kry_reset():
     """Set the Krylov loops' kernel counts to 0 (csrc/krylov_update.cu's
     stages, csrc/gram_schmidt.cu's steps, csrc/vcycle.cu's V-cycle
-    sweeps)."""
-    from navierstokes_tpu_torch.kernels import (gram_schmidt, krylov_update,
-                                                vcycle)
+    sweeps) and the tile rebuild's (csrc/bj_tiles.cu)."""
+    from navierstokes_tpu_torch.kernels import (bj_tiles, gram_schmidt,
+                                                krylov_update, vcycle)
     krylov_update.COUNTS.reset()
     gram_schmidt.COUNTS.reset()
     vcycle.COUNTS.reset()
+    bj_tiles.COUNTS.reset()
+
+
+def rebuild_counts():
+    """The tile rebuild's launches since its counts were last set to 0, by
+    kernel and dtype (``rebuild:<kernel> <dtype>``), and its plain
+    versions' calls on CUDA tensors (``rebuild_plain``)."""
+    from navierstokes_tpu_torch.kernels import bj_tiles
+    c = {f"rebuild:{k} {str(dt).replace('torch.', '')}": v
+         for (k, dt), v in sorted(bj_tiles.COUNTS.by_variant.items(),
+                                  key=str)}
+    c["rebuild_plain"] = bj_tiles.COUNTS.plain_cuda_calls
+    return c
 
 
 def kry_per_step(n_steps):
@@ -428,7 +459,8 @@ def kry_per_step(n_steps):
     Gram-Schmidt calls (``gram_schmidt``; phase 26 counts each call's
     kernels in a captured call's graph), each V-cycle sweep
     (``vcycle_<pre|mid|post>``) and the V-cycle's plain stages on CUDA
-    tensors (``vcycle_plain``, 0 on every path)."""
+    tensors (``vcycle_plain``, 0 on every path), and the tile rebuild's
+    kernels (``rebuild_counts``)."""
     from navierstokes_tpu_torch.kernels import (gram_schmidt, krylov_update,
                                                 vcycle)
     c = dataclasses.asdict(krylov_update.COUNTS)
@@ -438,6 +470,7 @@ def kry_per_step(n_steps):
     c.update({f"vcycle_{kind}": getattr(vcycle.COUNTS, kind)
               for kind in vcycle.SWEEPS})
     c["vcycle_plain"] = vcycle.COUNTS.plain_cuda_calls
+    c.update(rebuild_counts())
     return {k: v / n_steps for k, v in c.items()}
 
 
@@ -463,6 +496,40 @@ def vcycle_per_step(phase, tag, kry, n_cycles, k, calls=None):
               f"[{phase}] {tag}: {solves:.2f} fused V-cycles per step, "
               f"expected {calls:.2f}")
     return solves
+
+
+def check_rebuild(phase, tag, per_step, ms, parts=1, iters=3,
+                  dtype="float32", seeds=0):
+    """The path rebuilt its tiles through csrc/bj_tiles.cu (``per_step``:
+    launches per step with ``rebuild_counts``' keys): per step and row
+    shard (``parts``) one tiles launch (and ``seeds`` more over the window
+    where it built the static seed), the guard's two kernels, and on each
+    Newton-Schulz step (``StepMetrics.exact_inverse`` False) iters - 1
+    updates and one last update into ``dtype`` tiles; no plain version on
+    CUDA tensors.  Logs the branch per step (N Newton-Schulz, E exact) and
+    returns it."""
+    n = len(ms)
+    newton = sum(not m.exact_inverse for m in ms)
+    got = {k.split(":", 1)[1]: v for k, v in per_step.items()
+           if k.startswith("rebuild:")}
+    want = {"guard float32": parts, "guard_max float32": parts}
+    if newton and iters > 1:
+        want["update float32"] = parts * (iters - 1) * newton / n
+    if newton:
+        want[f"update_last {dtype}"] = parts * newton / n
+    branch = "".join("E" if m.exact_inverse else "N" for m in ms)
+    log(f"[{phase}] {tag}: tile rebuild (csrc/bj_tiles.cu) launches per "
+        f"step {got}; tile inverses per step {branch} (N Newton-Schulz, E "
+        f"exact); plain-version CUDA calls {per_step['rebuild_plain']}")
+    tiles_ok = any(abs(got.get("tiles float32", 0.0) - parts - s / n) < 1e-9
+                   for s in {0, seeds})
+    check(per_step["rebuild_plain"] == 0 and tiles_ok
+          and set(got) == set(want) | {"tiles float32"}
+          and all(abs(got[k] - want[k]) < 1e-9 for k in want),
+          f"[{phase}] {tag}: the tile rebuild's kernels per step {got} "
+          f"for {parts} part(s), {newton} Newton-Schulz steps of {n} "
+          f"(want {want}, tiles {parts} + seeds), no plain call")
+    return branch
 
 
 def check_kry_projection(phase, kry, ms, ploop=None, k=3):
@@ -887,6 +954,7 @@ def phase_bench(ns, card):
     cg_iteration = check_kry_projection(5, kry, ms_all,
                                         ns._graphs.ws.ploop,
                                         k=cfg.schur_smooth_k)
+    branch = check_rebuild(5, "projection captured", kry, ms_all)
     log(f"[5] captured steps: {while_line(whiles, conds)} (PR 10: host "
         f"reads {PR10['proj_reads']}, masked iterations "
         f"{PR10['proj_masked']} per step, AX) on {card}")
@@ -934,7 +1002,7 @@ def phase_bench(ns, card):
                 set_condition_per_step=conds, bj=bj,
                 bj_per_step=bj_per_step(bj, n_warm + n_meas),
                 kry_per_step=kry, n_steps=n_warm + n_meas,
-                cg_iteration=cg_iteration)
+                cg_iteration=cg_iteration, branch=branch)
 
 
 # phase 21: steps of each mode from phase 5's end state, and the chunked
@@ -1027,6 +1095,8 @@ def phase_graphs(ns, bench, card):
               f"[21] {r['mode']}: set_condition launches per step "
               f"{r['set_condition']:.2f} = the eager run's "
               f"{ref['set_condition']:.2f} + loops entered {extra:.2f}")
+    for r in runs:
+        check_rebuild(21, r["mode"], r["kry"], r["metrics"])
     check(all(m.flag_reads == 1 for r in runs if r["mode"] == "captured"
               for m in r["metrics"]),
           "[21] the captured step reads the host once, for the tile guard")
@@ -1449,6 +1519,7 @@ def phase_monolithic_bench(card):
               "[8] host reads per step: the guard and the cycles' ends")
     check(plain_cuda == 0, "[8] no plain-version calls on CUDA tensors")
     check_bj_path(8, bj, bj_plain, n_warm + n_meas, torch.float32, 2)
+    branch = check_rebuild(8, "monolithic captured", kry, ms_all)
     log(f"[8] all {len(ms_all)} FGMRES solves converged (rel tol {tol:g})")
     end = {a: getattr(ns, a).clone() for a in ("_u", "_p", "_u_prev",
                                                "_phi", "_t")}
@@ -1456,7 +1527,7 @@ def phase_monolithic_bench(card):
     return dict(launches=launches, steps_per_s=sps, peak_bytes=peak,
                 setup_s=setup_s, per_step=per_step, givens=givens,
                 set_condition=nodes, n_steps=n_warm + n_meas, ns=ns,
-                kry_per_step=kry,
+                kry_per_step=kry, branch=branch,
                 end=end, capture=capture, whiles=whiles, bj=bj,
                 bj_per_step=bj_per_step(bj, n_warm + n_meas))
 
@@ -1565,6 +1636,7 @@ def phase_monolithic_graphs(mono, card):
     for r in runs:
         vcycle_per_step(22, r["mode"], r["kry"], cfg22.schur_vcycles,
                         cfg22.schur_smooth_k)
+        check_rebuild(22, r["mode"], r["kry"], r["metrics"])
     sps = {m: [r["steps_per_s"] for r in runs if r["mode"] == m]
            for m in ("captured", "eager")}
     cap = mono["capture"]
@@ -1585,7 +1657,9 @@ def phase_monolithic_graphs(mono, card):
                                          "set_condition", "bj", "kry",
                                          "peak", "pools")}
                       for r in runs],
-                peak_bytes=peak, nodes=nodes)
+                peak_bytes=peak, nodes=nodes,
+                branch="".join("E" if m.exact_inverse else "N"
+                               for m in ref["metrics"]))
 
 
 def _while_graph(whiles, fn):
@@ -2240,6 +2314,7 @@ def phase_options_bench(bench, mono, lap_div, card):
               f"[25] {tag}: no plain-version calls on CUDA tensors")
         check(ref["launches"] > 0, f"[25] {tag}: the SELL kernel launched")
         check_bj_path(25, ref["bj"], 0, OPTION_STEPS, torch.float32, 2)
+        check_rebuild(25, tag, ref["kry"], ref["metrics"])
         for m in ref["metrics"]:
             check(all(np.isfinite([m.cd, m.cl, m.residual])),
                   f"[25] {tag}: finite forces at t={m.time}")
@@ -2667,13 +2742,18 @@ def thin_airfoil_fit(angles, cl):
 def _take_counts(into):
     """Add the launch counts by pattern and the plain-version CUDA calls
     to the Counter ``into`` and set the counts to 0."""
-    from navierstokes_tpu_torch.kernels import bj_apply
+    from navierstokes_tpu_torch.kernels import bj_apply, bj_tiles
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     into.update(COUNTS.by_pattern)
-    into["plain"] += COUNTS.plain_cuda_calls + bj_apply.COUNTS.plain_cuda_calls
+    into["plain"] += (COUNTS.plain_cuda_calls
+                      + bj_apply.COUNTS.plain_cuda_calls
+                      + bj_tiles.COUNTS.plain_cuda_calls)
     into["bj"] += bj_apply.COUNTS.launches
+    for (k, _), v in bj_tiles.COUNTS.by_variant.items():
+        into[f"rebuild:{k}"] += v
     COUNTS.reset()
     bj_apply.COUNTS.reset()
+    bj_tiles.COUNTS.reset()
 
 
 def phase_naca_sweep(card):
@@ -2726,6 +2806,10 @@ def phase_naca_sweep(card):
     plain_cuda = steps_c.pop("plain") + setup_c.pop("plain")
     bj_launches = steps_c.pop("bj")
     setup_c.pop("bj")
+    rebuild = {k.split(":")[1]: steps_c.pop(k) for k in list(steps_c)
+               if isinstance(k, str) and k.startswith("rebuild:")}
+    for k in [k for k in setup_c if isinstance(k, str)]:
+        setup_c.pop(k)
     launches = sum(v for (_, dt), v in steps_c.items()
                    if dt == torch.float32)
     setup_launches = sum(v for (_, dt), v in setup_c.items()
@@ -2770,17 +2854,24 @@ def phase_naca_sweep(card):
         f"{launches} (F {f_launches}) over {n_steps} steps, and "
         f"{setup_launches} in the four setups; plain-version CUDA calls "
         f"{plain_cuda}; per step by operator {per_step}; tile-apply "
-        f"launches {bj_launches} ({bj_launches / n_steps:.2f} per step)")
+        f"launches {bj_launches} ({bj_launches / n_steps:.2f} per step); "
+        f"tile rebuild (csrc/bj_tiles.cu) launches per step "
+        f"{ {k: v / n_steps for k, v in rebuild.items()} }")
     check(ok, "[14] thin-airfoil criteria (monotone, slope 0.55-1.0 x "
           "2 pi, R^2 > 0.98, 0 < Cl(0) < 2 pi 2.5 deg)")
     check(f_launches >= n_steps, "[14] the F product launched every step")
     check(bj_launches >= n_steps, "[14] the tile apply launched every step")
+    check(rebuild.get("tiles", 0) >= n_steps
+          and rebuild.get("guard", 0) >= n_steps
+          and rebuild.get("guard_max", 0) == rebuild.get("guard", 0),
+          f"[14] the tile rebuild's kernels launched every step: {rebuild}")
     check(plain_cuda == 0, "[14] no plain-version calls on CUDA tensors")
     eager = naca_eager_angle(build, d)
     return dict(launches=launches, setup_launches=setup_launches,
                 per_step=per_step, peak_bytes=peak, runs=runs, final=final,
                 eager=eager, bj_launches=bj_launches,
-                bj_per_step=bj_launches / n_steps)
+                bj_per_step=bj_launches / n_steps,
+                rebuild_per_step={k: v / n_steps for k, v in rebuild.items()})
 
 
 # the sweep's angle run again with the plain step (phase 14)
@@ -2838,7 +2929,8 @@ def phase_kernel_naca():
     step, on the 2d-naca operators at the scenario's h (0 degrees), timed
     as in phase 3; then (phase 24) the tile-apply kernel at the exact tile
     inverses of the model's static operator (the Newton-Schulz seed).
-    Returns also the V-cycle parts of its Ap (phase 27)."""
+    Returns also the V-cycle parts of its Ap (phase 27) and phase 28's
+    rebuild kernels at the model's tiles."""
     from navierstokes_tpu_torch.scenarios.registry import build_solver
     ns = build_solver("2d-naca", config=_config(os.path.join(
         WORK, "naca_kernel"), "float32"), device="cuda").setup()
@@ -2850,7 +2942,12 @@ def phase_kernel_naca():
     tiles = tiles_of(ns, ns.a0_cell, "NACA")
     bj = check_and_time_bj("NACA", tiles, _r(ns.space.n_p2, 2,
                                               torch.float32, 2414))
-    return spmv, bj, vcycle_parts(ns, "ap")
+    del tiles
+    t28 = time.perf_counter()
+    ns.solve_time_step(_eager=True)     # the state of the sweep's step 1
+    rebuild = phase_rebuild("NACA", rebuild_inputs(ns), card_line())
+    log(f"[28] NACA part {time.perf_counter() - t28:.1f} s")
+    return spmv, bj, vcycle_parts(ns, "ap"), rebuild
 
 
 def phase_postprocess():
@@ -3433,7 +3530,7 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
     the pressure side on the home device ``cuda:0``) against the
     unsharded model ``ns`` of phase 5, bit for bit; then the small
     fixture on ``small_devices`` against one device."""
-    from navierstokes_tpu_torch.kernels import bj_apply
+    from navierstokes_tpu_torch.kernels import bj_apply, bj_tiles
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     from navierstokes_tpu_torch.ops import p1ell
     from navierstokes_tpu_torch.ops.bsr import BsrOps
@@ -3460,6 +3557,7 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
     first = bench["first"]
     COUNTS.reset()
     bj_apply.COUNTS.reset()
+    bj_tiles.COUNTS.reset()
     torch.cuda.reset_peak_memory_stats()
     ms, walls = [], []
     for _ in range(SHARD_STEPS):
@@ -3471,6 +3569,7 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
     launches, plain_cuda = COUNTS.launches, COUNTS.plain_cuda_calls
     per_step = per_step_launches(SHARD_STEPS)
     bj, bj_plain = bj_snapshot()
+    rebuild = {k: v / SHARD_STEPS for k, v in rebuild_counts().items()}
     peak = torch.cuda.max_memory_allocated()
     for k, (a, b) in enumerate(zip(ms, first["metrics"])):
         log(f"[20] step {k + 1}: its {a.f_iterations}+{a.p_iterations} "
@@ -3490,6 +3589,12 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
     check(launches > 0, "[20] kernel launched on the sharded path")
     check(plain_cuda == 0, "[20] no plain-version calls on CUDA tensors")
     check_bj_path(20, bj, bj_plain, SHARD_STEPS, torch.float32, 2)
+    # the seed's exact inverses are built in the first step, one per shard
+    branch = check_rebuild(20, f"{len(devices)} row shards", rebuild, ms,
+                           parts=len(devices), seeds=len(devices))
+    check(branch == "".join("E" if m.exact_inverse else "N"
+                            for m in first["metrics"]),
+          "[20] the guard's branch per step equals phase 5's")
     log(f"[20] kernel launches: {launches} over {SHARD_STEPS} steps; per "
         f"step by operator {per_step}")
 
@@ -3567,7 +3672,8 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
                 shard_bytes=shard_bytes, one_device_bytes=one_bytes,
                 model_bytes=model_bytes, peak_bytes=peak, ms=walls,
                 one_device_ms=first["ms"], bj=bj,
-                bj_per_step=bj_per_step(bj, SHARD_STEPS))
+                bj_per_step=bj_per_step(bj, SHARD_STEPS),
+                rebuild_per_step=rebuild)
 
 
 # phase 26: the Krylov loops' kernels at the bench point's shapes
@@ -4348,6 +4454,273 @@ def phase_vcycle(card, operators):
     return out
 
 
+# phase 28: the block-Jacobi tile rebuild (csrc/bj_tiles.cu) at phase 5's
+# end state (1,760 tiles of 256 x 256) and at the NACA step's (274)
+BJT_SOURCE = "navierstokes_tpu_torch/csrc/bj_tiles.cu"
+# no Pallas kernel: the JAX package lays the rebuild out by hand for the TPU
+# and XLA fuses its elementwise work (block_jacobi_tiles; the guard's norm
+# and the newton branch of block_jacobi_invert)
+BJT_REPLACES = {"bj_tiles": "navierstokes_tpu/ops/p1ell.py:393",
+                "bj_guard": "navierstokes_tpu/ops/p1ell.py:493",
+                "bj_ns_update": "navierstokes_tpu/ops/p1ell.py:498"}
+# rounds of the captured rebuild, the kernels' and the stock chain's
+# replays alternating (kernels, stock, stock, kernels per round)
+BJT_ROUNDS = 4
+BJT_ITERS = 3                 # the model's bj_newton
+
+
+def rebuild_inputs(ns):
+    """The tile rebuild's inputs at the state of a model that has stepped:
+    its plan, the step's F values (A0 + the convection of u), the mask,
+    sigma and the static seed X0 (the model's ``_bj_seed``)."""
+    f = ns.a0_cell + ns._ops.convection(ns.ell, ns._u)
+    mflat = ns.bc.mask[:, 0]
+    d = ns._ops.f_diag(ns.ell, f)
+    sigma = torch.sum(d * mflat) / torch.clamp(torch.sum(mflat), min=1.0)
+    return dict(plan=ns._bj_plan, f=f, mask=mflat, sigma=sigma,
+                x0=ns._bj_seed())
+
+
+def stock_guard(ax):
+    """The guard's norm as the stock chain took it (torch's row sums)."""
+    eye = torch.eye(ax.shape[-1], dtype=torch.float32, device=ax.device)
+    return (eye[None] - ax).abs().sum(-1).max()
+
+
+def stock_rebuild(inp, buf):
+    """One Newton-Schulz rebuild as the port ran it before csrc/bj_tiles.cu
+    (the stock PyTorch chain, marked as such): the tiles' chain, A X0, the
+    guard by torch's sums, three updates 2.0 * x - x (A X), the result made
+    row-major in the buffer's dtype and copied into it.  Returns the
+    norm."""
+    from navierstokes_tpu_torch.kernels import bj_tiles as BT
+    a = BT.tiles_plain(inp["plan"], inp["f"], inp["mask"], inp["sigma"])
+    x = inp["x0"].to(torch.float32)
+    ax = torch.matmul(a, x)
+    norm = stock_guard(ax)
+    for i in range(BJT_ITERS):
+        x = 2.0 * x - torch.matmul(x, ax)
+        if i + 1 < BJT_ITERS:
+            ax = torch.matmul(a, x)
+    buf.copy_(x.to(buf.dtype).contiguous())
+    return norm
+
+
+def kernel_rebuild(inp, buf):
+    """The same rebuild through ops/p1ell (the kernels of csrc/bj_tiles.cu
+    and cuBLAS's products), the last update into ``buf``: segments (a) and
+    (b) of the captured step.  Returns the norm."""
+    from navierstokes_tpu_torch.ops import p1ell
+    g = p1ell.block_jacobi_guard([(inp["plan"], inp["f"], inp["mask"],
+                                   inp["sigma"], inp["x0"])], BJT_ITERS,
+                                 buf.dtype)
+    p1ell.block_jacobi_newton(g, BJT_ITERS, out=[buf])
+    return g.norm
+
+
+def _same_bits(a, b):
+    """Equal dtype, shape and strides, NaN at the same places and the
+    same bits everywhere else."""
+    if a.dtype != b.dtype or a.shape != b.shape or a.stride() != b.stride():
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    ia, ib = (t.masked_fill(n, 0).contiguous().view(
+        {2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+        for t, n in ((a, na), (b, nb)))
+    return torch.equal(na, nb) and torch.equal(ia, ib)
+
+
+def _bjt_bound(nbytes, ops):
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_bytes=nbytes, bound_ops=ops,
+                bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def _bjt_time(rec, fn, plain):
+    """ms per call of ``fn``: L2-cold (a 128 MB read before each call) and
+    warm (back-to-back bursts), and its plain version's (launched
+    eagerly)."""
+    rec.update(ms=_time_ms(fn, cold=True, n=10),
+               warm_ms=_burst_ms([fn], reps=5),
+               plain_ms=_plain_ms(plain, n=5, reps=3))
+
+
+def _captured_ms(fns, rounds=None):
+    """Device ms of one replay of each graph of ``fns`` (name -> callable
+    captured into a graph), by events, in ``rounds`` (default BJT_ROUNDS)
+    alternating rounds (the order reversed every other round); medians
+    over the rounds."""
+    rounds = rounds or BJT_ROUNDS
+    graphs = {}
+    for name, fn in fns.items():
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            fn()
+        torch.cuda.current_stream().wait_stream(s)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        graphs[name] = g
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            g = graphs[name]
+            g.replay()
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(3):
+                g.replay()
+            b.record()
+            b.synchronize()
+            times[name].append(a.elapsed_time(b) / 3)
+    del graphs
+    return {name: statistics.median(t) for name, t in times.items()}, times
+
+
+def phase_rebuild(name, inp, card, timed=True, rounds=None):
+    """Phase 28 at one model's rebuild inputs (``rebuild_inputs``): each
+    kernel of csrc/bj_tiles.cu against its plain version on the card, bit
+    for bit (the tiles from fp32 and fp64 F values; the guard's norm; each
+    Newton-Schulz update with its strides; the last update in fp32, bf16
+    and fp64), the whole Newton-Schulz rebuild against the stock chain's
+    (the same tile inverses; the guard's norm within its summation order's
+    gap, the same branch); with ``timed``, each kernel's ms per call
+    L2-cold and warm beside its bound, its plain version and, for the
+    update, torch.baddbmm (2 x - x (A X) in one library call) against the
+    GEMM and the kernel; the captured rebuild (segments (a) and (b))
+    against the stock chain captured, in alternating rounds."""
+    from navierstokes_tpu_torch.kernels import bj_tiles as BT
+    from navierstokes_tpu_torch.ops.p1ell import GUARD_LIMIT
+    plan, f, mask, sigma = inp["plan"], inp["f"], inp["mask"], inp["sigma"]
+    SB = plan.S * plan.bu
+    n_tiles = plan.n_tiles
+    N = n_tiles * SB * SB
+    n_on, n_rows = plan.pos.numel(), n_tiles * SB
+    out = {}
+    # the tiles, from fp32 and fp64 F values
+    a = BT.tiles(plan, f, mask, sigma)
+    same = {"tiles float32": _same_bits(a, BT.tiles_plain(plan, f, mask,
+                                                          sigma))}
+    f64, m64, s64 = f.double(), mask.double(), sigma.double()
+    same["tiles float64"] = _same_bits(BT.tiles(plan, f64, m64, s64),
+                                       BT.tiles_plain(plan, f64, m64, s64))
+    # the guard, at A X0
+    x = inp["x0"].to(torch.float32)
+    ax = torch.matmul(a, x)
+    norm = BT.guard(ax)
+    same["guard"] = _same_bits(norm, BT.guard_plain(ax))
+    stock = stock_guard(ax)
+    gap = abs(float(norm) - float(stock)) / max(abs(float(stock)), 1e-30)
+    branch = bool(norm < GUARD_LIMIT)
+    check(branch == bool(stock < GUARD_LIMIT),
+          f"[28] {name}: the guard's branch equals the stock sums'")
+    # the updates, and the last one in each dtype
+    layouts = []
+    for i in range(BJT_ITERS):
+        p = torch.matmul(x, ax)
+        if i + 1 < BJT_ITERS:
+            xk = BT.update(x, p)
+            same[f"update {i + 1}"] = _same_bits(xk, BT.update_plain(x, p))
+            layouts.append("column" if BT.layout(xk) else "row")
+            x_prev, p_prev = x, p
+            x = xk
+            ax = torch.matmul(a, x)
+        else:
+            for dt in (torch.float32, torch.bfloat16, torch.float64):
+                same[f"last update {str(dt).replace('torch.', '')}"] = \
+                    _same_bits(BT.update(x, p, out_dtype=dt),
+                               BT.update_plain(x, p, out_dtype=dt))
+    # the whole rebuild against the stock chain
+    buf_k = torch.empty((n_tiles, SB, SB), device=f.device)
+    buf_s = torch.empty_like(buf_k)
+    kernel_rebuild(inp, buf_k)
+    stock_rebuild(inp, buf_s)
+    same["rebuild (Newton-Schulz) against the stock chain"] = _same_bits(
+        buf_k, buf_s)
+    torch.cuda.synchronize()
+    log(f"[28] {name}: {n_tiles} tiles of {SB} x {SB}, {n_on} on-tile "
+        f"values; bit for bit against the plain versions: {same}; the "
+        f"non-last updates' layout {layouts} (the seed's); guard norm "
+        f"{float(norm)!r} (stock sums {float(stock)!r}, gap {gap:.2e} "
+        f"relative), branch {'Newton-Schulz' if branch else 'exact'}")
+    check(all(same.values()), f"[28] {name}: every kernel gives its plain "
+          f"version's bits: {same}")
+    check(gap <= 1e-6, f"[28] {name}: the guard's norm within 1e-6 of the "
+          f"stock sums' ({gap:.2e})")
+    out.update(n_tiles=n_tiles, sb=SB, n_on=n_on, same=same, norm=float(norm),
+               stock_norm=float(stock), norm_gap=gap,
+               newton=branch, max_abs_err=0.0)
+    if not timed:
+        return out
+    fb = f.element_size()
+    recs = {}
+    # tiles: the stack written once; the on-tile values, pos, src, the row
+    # offsets and the mask read once; 4 operations a value
+    recs["bj_tiles"] = dict(use=name, **_bjt_bound(
+        4 * N + n_on * (fb + 8) + 4 * (n_rows + 1) + plan.n_p2 * fb, 4 * N))
+    _bjt_time(recs["bj_tiles"], lambda: BT.tiles(plan, f, mask, sigma),
+              lambda: BT.tiles_plain(plan, f, mask, sigma))
+    ax0 = torch.matmul(a, inp["x0"].to(torch.float32))
+    # guard: A X0 read once, 3 operations a value
+    recs["bj_guard"] = dict(use=name, kernels_per_call=2,
+                            **_bjt_bound(4 * N, 3 * N))
+    _bjt_time(recs["bj_guard"], lambda: BT.guard(ax0),
+              lambda: BT.guard_plain(ax0))
+    # update: x and p read, x' written; 2 operations a value
+    recs["bj_ns_update"] = dict(use=name, **_bjt_bound(12 * N, 2 * N))
+    _bjt_time(recs["bj_ns_update"], lambda: BT.update(x_prev, p_prev),
+              lambda: BT.update_plain(x_prev, p_prev))
+    u = recs["bj_ns_update"]
+    u["library_ms"] = _burst_ms([lambda: torch.baddbmm(
+        x_prev, x_prev, ax0, beta=2.0, alpha=-1.0)], reps=3)
+    u["gemm_and_kernel_ms"] = _burst_ms([lambda: BT.update(
+        x_prev, torch.matmul(x_prev, ax0))], reps=3)
+    u["gemm_ms"] = _burst_ms([lambda: torch.matmul(x_prev, ax0)], reps=3)
+    u["last"] = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float64):
+        key = str(dt).replace("torch.", "")
+        bound = _bjt_bound((8 + torch.empty((), dtype=dt).element_size())
+                           * N, 2 * N)
+        u["last"][key] = dict(ms=_burst_ms([lambda: BT.update(
+            x_prev, p_prev, out_dtype=dt)], reps=3), **bound)
+    recs["bj_tiles"]["library_ms"] = recs["bj_guard"]["library_ms"] = None
+    for k, r in recs.items():
+        extra = ""
+        if k == "bj_ns_update":
+            extra = (f"; library (torch.baddbmm, 2 x - x (A X) in one call) "
+                     f"{r['library_ms']:.4f} against the GEMM and the kernel "
+                     f"{r['gemm_and_kernel_ms']:.4f} (GEMM {r['gemm_ms']:.4f})"
+                     f"; last update ms " + ", ".join(
+                         f"{d} {v['ms']:.4f} (bound {v['bound_ms']:.4f})"
+                         for d, v in r["last"].items()))
+        log(f"[28] {name} {k}: ms cold {r['ms']:.4f}, warm "
+            f"{r['warm_ms']:.4f} ({r['bound_bytes'] / r['ms'] / 1e6:.0f} "
+            f"GB/s cold), bound {r['bound_ms']:.4f} ({r['bound_by']}), "
+            f"plain {r['plain_ms']:.4f}{extra} on {card}")
+    # the rebuild captured: the kernels against the stock chain
+    med, all_t = _captured_ms({
+        "kernels": lambda: kernel_rebuild(inp, buf_k),
+        "stock chain": lambda: stock_rebuild(inp, buf_s)}, rounds)
+    log(f"[28] {name}: one Newton-Schulz rebuild (segments (a) and (b)) "
+        f"captured, ms per replay: kernels {med['kernels']:.4f}, the stock "
+        f"chain {med['stock chain']:.4f} (marked as such; medians of "
+        f"{len(all_t['kernels'])} alternating rounds {all_t}) on {card}")
+    torch.cuda.synchronize()
+    check(_same_bits(buf_k, buf_s), f"[28] {name}: the captured rebuilds "
+          "agree bit for bit")
+    out.update(kernels=recs, rebuild_ms=med["kernels"],
+               stock_rebuild_ms=med["stock chain"], rounds=all_t)
+    del a, ax, ax0, x, x_prev, p_prev, buf_k, buf_s, p
+    return out
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4373,6 +4746,12 @@ def main():
     variants = phase_kernel_vs_plain(ns, (torch.bfloat16, torch.float64),
                                      "6")
     sharded = phase_sharded(ns, bench, card)
+    t28 = time.perf_counter()
+    _load_state(ns, bench["end"])
+    rb_bench = phase_rebuild("bench", rebuild_inputs(ns), card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[28] bench part {time.perf_counter() - t28:.1f} s")
     # phase 24's projection tiles, on the host until then
     proj_tiles = ns._graphs.tiles.cpu()
     # phase 27's bench operator: the outlet-pinned Laplacian and its
@@ -4411,7 +4790,7 @@ def main():
     phase_cli()
     phase_naca_small()
     naca = phase_naca_sweep(card)
-    uses_naca, bj_naca, ap_naca = phase_kernel_naca()
+    uses_naca, bj_naca, ap_naca, rb_naca = phase_kernel_naca()
     vc = phase_vcycle(card, {"bench": lap_bench, "3d1": lap_3d1,
                              "naca": ap_naca})
     del lap_bench, lap_3d1, ap_naca
@@ -4643,6 +5022,56 @@ def main():
             "vcycle": {key: rec["vcycle"] for key, rec in vc.items()},
             "launches_per_step": {p: c[f"vcycle_{kind}"]
                                   for p, c in kry_paths.items()}})
+    # the tile rebuild: launches on the main paths (phases 5, 8, 20, 25;
+    # per step also on phase 14's NACA sweep), phase 28's figures (phase
+    # 5's end state, fp32; the NACA step's tiles beside)
+    rb_paths = {"projection": bench["kry_per_step"],
+                "monolithic": mono["kry_per_step"],
+                "sharded": sharded["rebuild_per_step"],
+                "naca": {f"rebuild:{k}": v
+                         for k, v in naca["rebuild_per_step"].items()},
+                **{tag: o["kry_per_step"] for tag, o in options.items()}}
+    windows = ([(bench["kry_per_step"], bench["n_steps"]),
+                (mono["kry_per_step"], mono["n_steps"]),
+                (sharded["rebuild_per_step"], SHARD_STEPS)]
+               + [(o["kry_per_step"], OPTION_STEPS)
+                  for o in options.values()])
+
+    def rebuild_of(c, kinds):
+        return {k.split(":")[1]: v for k, v in c.items()
+                if k.startswith("rebuild:")
+                and k.split(":")[1].split()[0] in kinds}
+
+    for name, kinds in (("bj_tiles", ("tiles",)),
+                        ("bj_guard", ("guard",)),
+                        ("bj_ns_update", ("update", "update_last"))):
+        head = rb_bench["kernels"][name]
+        launched = sum(round(v * n) for c, n in windows
+                       for v in rebuild_of(c, kinds).values())
+        check(launched > 0, f"{name} launched on the main paths (phases 5, "
+              f"8, 20, 25: {launched})")
+        kernels.append({
+            "name": name, "route": "cuda", "source": BJT_SOURCE,
+            "replaces": BJT_REPLACES[name], "launches": launched,
+            "max_abs_err": 0.0,
+            **{k: head[k] for k in ("ms", "warm_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "bound_bytes",
+                                    "library_ms")},
+            "headline": f"phase 5's end state, {rb_bench['n_tiles']} tiles "
+                        f"of {rb_bench['sb']} x {rb_bench['sb']}, fp32, "
+                        "ms L2-cold",
+            "uses": {"bench": head, "naca": rb_naca["kernels"][name]},
+            "launches_per_step": {p: rebuild_of(c, kinds)
+                                  for p, c in rb_paths.items()}})
+    kernels[-3]["rebuild"] = {
+        key: {k: rb[k] for k in ("n_tiles", "rebuild_ms",
+                                 "stock_rebuild_ms", "rounds", "norm",
+                                 "stock_norm", "norm_gap", "newton")}
+        for key, rb in (("bench", rb_bench), ("naca", rb_naca))}
+    kernels[-3]["tile_inverses_per_step"] = {
+        "projection (phase 5)": bench["branch"],
+        "monolithic (phase 8)": mono["branch"],
+        "monolithic (phase 22)": mono_graphs["branch"]}
     record = {"kernels": kernels}
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

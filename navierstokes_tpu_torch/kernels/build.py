@@ -85,6 +85,15 @@ def build_info() -> dict:
     lib.nst_bj_apply_f64.restype = i
     lib.nst_bj_apply_f64_setup.argtypes = [i, i, ctypes.POINTER(i)]
     lib.nst_bj_apply_f64_setup.restype = i
+    # the tile rebuild: the masked tiles, the guard, the Newton-Schulz update
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"nst_bj_tiles_{suffix}")
+        fn.argtypes = [p] * 7 + [i, i, i, p]
+        fn.restype = i
+    lib.nst_bj_guard.argtypes = [p, p, p, i, i, i, p]
+    lib.nst_bj_guard.restype = i
+    lib.nst_bj_update.argtypes = [p, p, p] + [i] * 5 + [p]
+    lib.nst_bj_update.restype = i
     u64, i64 = ctypes.c_ulonglong, ctypes.c_longlong
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"nst_lsq_update_{suffix}")

@@ -751,19 +751,20 @@ class NavierStokes:
         exact0 = BJ_INVERSIONS["exact"]
         span = _Span(self._devices())
         inv_tiles = invert(self._bj_plan, f_cell, mflat, sigma,
-                           x0=self._bj_seed(), iters=cfg.bj_newton)
-        inv_tiles = self._tiles_dtype(inv_tiles)
+                           x0=self._bj_seed(), iters=cfg.bj_newton,
+                           out_dtype=self._tiles_dtype())
         span.stop()
         return ((lambda r: apply(self._bj_plan, inv_tiles, r)), span,
                 BJ_INVERSIONS["exact"] > exact0)
 
-    def _tiles_dtype(self, inv_tiles):
-        """The tile inverses in bf16 under ``inner_bf16`` / ``bj_bf16``
-        (fp32 runs)."""
+    def _tiles_dtype(self):
+        """The tile inverses' dtype: bf16 under ``inner_bf16`` /
+        ``bj_bf16`` (fp32 runs), else the model's; the last Newton-Schulz
+        update writes it (the exact inverse casts to it)."""
         cfg = self.config
         if self.dtype == torch.float32 and (cfg.inner_bf16 or cfg.bj_bf16):
-            return inv_tiles.to(torch.bfloat16)
-        return inv_tiles
+            return torch.bfloat16
+        return self.dtype
 
     def _forcing_term(self, t_new):
         """The forcing integral at ``t_new``; None without forcing."""

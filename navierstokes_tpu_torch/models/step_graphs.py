@@ -209,19 +209,30 @@ class _StepGraphs:
             if self.bj:
                 ws.guard = block_jacobi_guard(
                     [(ns._bj_plan, ws.f_cell, ws.mflat, ws.sigma,
-                      ns._bj_seed() if self.guarded else None)], iters)
+                      ns._bj_seed() if self.guarded else None)], iters,
+                    ns._tiles_dtype())
 
-        def tiles(inverses):
-            out = ns._tiles_dtype(inverses[0])
+        def buffer():
             if self.tiles is None:          # the warm-up: allocate
-                self.tiles = torch.empty_like(out)
-            self.tiles.copy_(out)
+                plan = ns._bj_plan
+                SB = plan.S * plan.bu
+                self.tiles = torch.empty((plan.n_tiles, SB, SB),
+                                         dtype=ns._tiles_dtype(),
+                                         device=self.device)
+            return self.tiles
+
+        def newton():
+            # the last update writes the static buffer itself
+            block_jacobi_newton(ws.guard, iters, out=[buffer()])
+
+        def exact():
+            buffer().copy_(block_jacobi_exact(ws.guard)[0])
 
         seg = {"a": a}
         if self.guarded:
-            seg["b"] = lambda: tiles(block_jacobi_newton(ws.guard, iters))
+            seg["b"] = newton
         if self.bj:
-            seg["b_exact"] = lambda: tiles(block_jacobi_exact(ws.guard))
+            seg["b_exact"] = exact
         return seg
 
     def _pre_f(self, ws):

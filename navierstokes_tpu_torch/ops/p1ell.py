@@ -9,11 +9,13 @@ on triangles and tetrahedra), in the compact SELL layout of
   (``ell_matvec``, the JAX function's name).
 * ``assemble_ap`` — the Cahouet-Chabard / PCD pressure operator
   Ap = B diag(w) B^T, host-assembled the same way.
-* Block-Jacobi — the 256x256 tile diagonals of the BC-masked F, scattered
+* Block-Jacobi — the 256x256 tile diagonals of the BC-masked F, built
   per step from the compact F values by a static plan, inverted by
   Newton-Schulz from the static-operator seed with an exact-inverse
-  fallback, applied by the tile-apply kernel (``kernels/bj_apply.py``;
-  the reference's ILU(0) stand-in, src/NavierStokes.cpp:958).
+  fallback (the tiles, the guard and the updates by the rebuild kernels of
+  ``kernels/bj_tiles.py``, the products by cuBLAS), applied by the
+  tile-apply kernel (``kernels/bj_apply.py``; the reference's ILU(0)
+  stand-in, src/NavierStokes.cpp:958).
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.nn.functional as Fn
 
+from navierstokes_tpu_torch.kernels import bj_tiles
 from navierstokes_tpu_torch.kernels.bj_apply import bj_apply
 from navierstokes_tpu_torch.kernels.sell_spmv import sell_spmv
 from navierstokes_tpu_torch.ops.sell import SellMatrix, sell_from_coo
@@ -145,13 +147,16 @@ class BlockJacobiPlan:
     """Static scatter plan: compact F values -> (n_tiles, S*bu, S*bu) tile
     diagonals.  Tile t covers the nodes [t*S*bu, (t+1)*S*bu); ``src`` lists
     the F slots of the nonzeros whose row and column share a tile and
-    ``pos`` their flat positions in the tile stack (each position once)."""
-    pos: torch.Tensor        # (n_on,) int64
-    src: torch.Tensor        # (n_on,) int64
+    ``pos`` their flat positions in the tile stack (each position once),
+    sorted by position; the pairs of row g of the stack (tile g // (S*bu))
+    are ``row_ptr[g]:row_ptr[g + 1]`` (kernels/bj_tiles.plan_arrays)."""
+    pos: torch.Tensor        # (n_on,) int32, ascending
+    src: torch.Tensor        # (n_on,) int32
     n_tiles: int
     S: int
     bu: int
     n_p2: int
+    row_ptr: torch.Tensor = None     # (n_tiles * S * bu + 1,) int32
 
 
 def build_block_jacobi_plan(f: SellMatrix, bu: int, n_p2: int, S: int,
@@ -168,23 +173,19 @@ def build_block_jacobi_plan(f: SellMatrix, bu: int, n_p2: int, S: int,
     r, c = f.nz_row, f.nz_col - col0
     on = (r // SB) == (c // SB)
     pos = (r[on] // SB) * (SB * SB) + (r[on] % SB) * SB + c[on] % SB
+    pos, src, row_ptr = bj_tiles.plan_arrays(pos, f.nz_slot[on],
+                                             n_tiles * SB, SB)
     return BlockJacobiPlan(pos=torch.as_tensor(pos, device=device),
-                           src=torch.as_tensor(f.nz_slot[on], device=device),
+                           src=torch.as_tensor(src, device=device),
+                           row_ptr=torch.as_tensor(row_ptr, device=device),
                            n_tiles=n_tiles, S=S, bu=bu, n_p2=n_p2)
 
 
 def block_jacobi_tiles(plan: BlockJacobiPlan, f_vals, mask_flat, sigma):
-    """fp32 tile diagonals of the BC-masked F: M F M + sigma (I - M)."""
-    SB = plan.S * plan.bu
-    t = f_vals.new_zeros(plan.n_tiles * SB * SB)
-    t[plan.pos] = f_vals[plan.src]
-    t = t.view(plan.n_tiles, SB, SB)
-    n = plan.n_tiles * SB
-    m = Fn.pad(mask_flat, (0, n - plan.n_p2)).reshape(plan.n_tiles, SB)
-    t = t * m[:, :, None] * m[:, None, :]
-    eye = torch.eye(SB, dtype=t.dtype, device=t.device)
-    t = t + (sigma * (1.0 - m))[:, :, None] * eye[None]
-    return t.to(torch.float32)
+    """fp32 tile diagonals of the BC-masked F: M F M + sigma (I - M), in
+    one write (kernels/bj_tiles.tiles; ``mask_flat`` in ``f_vals``'
+    dtype)."""
+    return bj_tiles.tiles(plan, f_vals, mask_flat.contiguous(), sigma)
 
 
 @contextlib.contextmanager
@@ -243,24 +244,25 @@ BJ_INVERSIONS = collections.Counter()
 
 
 def block_jacobi_invert(plan: BlockJacobiPlan, f_vals, mask_flat, sigma,
-                        x0=None, iters: int = 3):
+                        x0=None, iters: int = 3, out_dtype=None):
     """Per-step tile inverses: ``iters`` Newton-Schulz steps
     X <- X (2I - A X) from the static seed ``x0``, in fp32, with an exact
     inverse when the seed is outside the contraction region
-    (max row-sum norm of I - A X0 >= 0.9).  A deterministic function of
-    the step state, so restarts reproduce the continuous run."""
+    (max row-sum norm of I - A X0 >= 0.9), row-major in ``out_dtype``
+    (default: ``f_vals``' dtype).  A deterministic function of the step
+    state, so restarts reproduce the continuous run."""
     return block_jacobi_invert_parts([(plan, f_vals, mask_flat, sigma, x0)],
-                                     iters)[0]
+                                     iters, out_dtype)[0]
 
 
-def block_jacobi_invert_parts(parts, iters: int = 3):
+def block_jacobi_invert_parts(parts, iters: int = 3, out_dtype=None):
     """``block_jacobi_invert`` of the tile stacks of several row shards,
     ``parts`` = [(plan, f_vals, mask_flat, sigma, x0), ...] each on its own
     device.  The exact-inverse guard takes the largest norm over all
     tiles of all parts, on the first part's device, so every shard makes
     the one decision a single stack would; it is read once, before the
     branch (JAX's ``lax.cond``)."""
-    g = block_jacobi_guard(parts, iters)
+    g = block_jacobi_guard(parts, iters, out_dtype)
     if g.norm is None or not bool(g.norm < GUARD_LIMIT):
         return block_jacobi_exact(g)
     return block_jacobi_newton(g, iters)
@@ -283,23 +285,24 @@ class BjGuard:
     out_dtype: torch.dtype
 
 
-def block_jacobi_guard(parts, iters: int = 3) -> BjGuard:
+def block_jacobi_guard(parts, iters: int = 3, out_dtype=None) -> BjGuard:
     """The tiles of ``parts`` (as ``block_jacobi_invert_parts``), the seed
-    X0 in fp32, A X0 and the guard norm, all on the devices: no host
-    read."""
+    X0 in fp32, A X0 and the guard norm (kernels/bj_tiles.guard: each row
+    of I - A X0 summed as a pairwise tree, in fp32), all on the devices: no
+    host read.  ``out_dtype``: the inverses' dtype (default the first
+    part's F values')."""
     tiles = [block_jacobi_tiles(plan, f, m, s) for plan, f, m, s, _ in parts]
-    out_dtype = parts[0][1].dtype
+    out_dtype = parts[0][1].dtype if out_dtype is None else out_dtype
     x0s = [p[4] for p in parts]
     if x0s[0] is None or iters <= 0:
         return BjGuard(tiles, [], [], None, out_dtype)
     xs = [x0.to(torch.float32) for x0 in x0s]
     axs = [torch.matmul(a, x) for a, x in zip(tiles, xs)]
-    home = axs[0].device
-    norms = []
-    for ax in axs:
-        eye = torch.eye(ax.shape[-1], dtype=torch.float32, device=ax.device)
-        norms.append((eye[None] - ax).abs().sum(-1).max().to(home))
-    return BjGuard(tiles, xs, axs, torch.stack(norms).max(), out_dtype)
+    norms = [bj_tiles.guard(ax) for ax in axs]
+    home = norms[0].device
+    norm = (norms[0] if len(norms) == 1 else
+            torch.stack([n.to(home) for n in norms]).max())
+    return BjGuard(tiles, xs, axs, norm, out_dtype)
 
 
 def block_jacobi_exact(g: BjGuard):
@@ -310,18 +313,26 @@ def block_jacobi_exact(g: BjGuard):
     return [_inv_capturable(a).to(g.out_dtype).contiguous() for a in g.tiles]
 
 
-def block_jacobi_newton(g: BjGuard, iters: int):
-    """``iters`` Newton-Schulz steps X <- X (2I - A X) from the seed (the
-    guard's main branch), row-major (the seed, an exact inverse, is
-    column-major on the card, and so are the steps' sums)."""
-    out = []
-    for a, x, ax in zip(g.tiles, g.xs, g.axs):
+def block_jacobi_newton(g: BjGuard, iters: int, out=None):
+    """``iters`` Newton-Schulz steps X <- 2X - X (A X) from the seed (the
+    guard's main branch), each update one pass (kernels/bj_tiles.update)
+    beside cuBLAS's products.  The updates keep the seed's layout (an
+    exact inverse, column-major on the card), as PyTorch's elementwise ops
+    did, so the products see the same operands; the last writes row-major
+    in ``g.out_dtype``, into ``out[k]`` for part k where given (the
+    captured step's tile buffer)."""
+    res = []
+    for k, (a, x, ax) in enumerate(zip(g.tiles, g.xs, g.axs)):
         for i in range(iters):
-            x = 2.0 * x - torch.matmul(x, ax)
+            p = torch.matmul(x, ax)
             if i + 1 < iters:
+                x = bj_tiles.update(x, p)
                 ax = torch.matmul(a, x)
-        out.append(x.to(g.out_dtype).contiguous())
-    return out
+            else:
+                x = bj_tiles.update(x, p, out_dtype=g.out_dtype,
+                                    out=None if out is None else out[k])
+        res.append(x)
+    return res
 
 
 def block_jacobi_apply(plan: BlockJacobiPlan, inv_tiles, r):

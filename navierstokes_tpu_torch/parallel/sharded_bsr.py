@@ -366,12 +366,12 @@ def block_jacobi_inverse(plan: ShardedTilePlan, f_vals: ShardVals,
 
 def block_jacobi_invert(plan: ShardedTilePlan, f_vals: ShardVals, mask_flat,
                         sigma, x0: ShardVals | None = None,
-                        iters: int = 3) -> ShardVals:
+                        iters: int = 3, out_dtype=None) -> ShardVals:
     """ops/p1ell.block_jacobi_invert per shard, the guard over all."""
     parts = _parts(plan, f_vals, mask_flat, sigma)
     x0s = [None] * len(parts) if x0 is None else x0.parts
     return ShardVals(block_jacobi_invert_parts(
-        [part + (x,) for part, x in zip(parts, x0s)], iters))
+        [part + (x,) for part, x in zip(parts, x0s)], iters, out_dtype))
 
 
 def block_jacobi_apply(plan: ShardedTilePlan, inv_tiles: ShardVals, r):

@@ -2043,3 +2043,232 @@ def test_steps_run_the_fused_vcycle_on_cuda(cuda, tmp_path, scheme):
         assert c_e["mid"] == 0
     else:
         assert c_e["mid"] == (ns.config.schur_vcycles - 1) * c_e["pre"]
+
+
+# the block-Jacobi tile rebuild (kernels/bj_tiles.py, csrc/bj_tiles.cu):
+# every kernel gives its plain version's bits
+
+
+def _same_bits(a, b):
+    """Equal dtype, shape and strides, NaN at the same places, the same
+    bits everywhere else (a NaN's payload is not compared)."""
+    if a.dtype != b.dtype or a.shape != b.shape or a.stride() != b.stride():
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    ia, ib = (t.masked_fill(n, 0).contiguous().view(
+        {2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+        for t, n in ((a, na), (b, nb)))
+    return torch.equal(na, nb) and torch.equal(ia, ib)
+
+
+def _bjt_plan(dev, sb, n_tiles=3, seed=4):
+    """A plan over a seeded F pattern of n_p2 nodes with a tail tile: the
+    diagonal and couplings inside and across tiles, slots shuffled; the
+    F values with -0 and NaN among the tiles' values, a mask with about
+    15% of the rows constrained."""
+    import types
+    rng = np.random.default_rng(seed)
+    n_p2 = (n_tiles - 1) * sb + sb // 2 + 3
+    k = int(0.08 * n_p2 * sb)
+    r = rng.integers(0, n_p2, k)
+    c = np.clip(r + rng.integers(-sb, sb, k), 0, n_p2 - 1)
+    pairs = sorted({(i, i) for i in range(n_p2)} | set(zip(r.tolist(),
+                                                           c.tolist())))
+    rows, cols = map(np.array, zip(*pairs))
+    slots = rng.permutation(len(rows))
+    f = types.SimpleNamespace(nz_row=rows, nz_col=cols, nz_slot=slots)
+    plan = TP.build_block_jacobi_plan(f, 1, n_p2, sb, dev)
+    v = rng.standard_normal(len(rows))
+    on = plan.src.cpu().numpy()
+    v[rng.choice(on, 40, replace=False)] = -0.0
+    v[rng.choice(on, 6, replace=False)] = np.nan
+    mask = (rng.uniform(size=n_p2) > 0.15).astype(np.float64)
+    return plan, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sb", [64, 128, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bj_tiles_kernel_matches_plain_on_cuda(cuda, dtype, sb):
+    """The tiles kernel equals its plain version (the stock chain) bit for
+    bit, NaN and masked -0 included, in fp32 and fp64 F values; one
+    launch counted, no plain call; a repeat is bit-identical."""
+    from navierstokes_tpu_torch.kernels import bj_tiles as BT
+    plan, v, mask = _bjt_plan(cuda, sb)
+    vals = torch.as_tensor(v, dtype=dtype, device=cuda)
+    m = torch.as_tensor(mask, dtype=dtype, device=cuda)
+    sigma = torch.tensor(3.25, dtype=dtype, device=cuda)
+    BT.COUNTS.reset()
+    t = BT.tiles(plan, vals, m, sigma)
+    t2 = BT.tiles(plan, vals, m, sigma)
+    assert BT.COUNTS.by_variant == {("tiles", dtype): 2}
+    assert BT.COUNTS.plain_cuda_calls == 0
+    want = BT.tiles_plain(plan, vals, m, sigma)
+    torch.cuda.synchronize()
+    assert _same_bits(t, want) and _same_bits(t, t2)
+    assert bool(torch.isnan(t).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sb", [64, 128, 256, 512])
+@pytest.mark.parametrize("case", ["finite", "nan", "one tile"])
+def test_bj_guard_kernel_matches_plain_on_cuda(cuda, sb, case):
+    """The guard's norm from the kernels equals the plain version's tree
+    bit for bit (a NaN where A X0 holds one), as a 0-d fp32 tensor on the
+    card; two launches counted."""
+    from navierstokes_tpu_torch.kernels import bj_tiles as BT
+    rng = np.random.default_rng(sb)
+    n = 1 if case == "one tile" else 37
+    ax = torch.as_tensor(np.eye(sb)[None] + 0.01 * rng.standard_normal(
+        (n, sb, sb)), dtype=torch.float32, device=cuda)
+    if case == "nan":
+        ax[n - 2, 5, 9] = float("nan")
+    BT.COUNTS.reset()
+    norm = BT.guard(ax)
+    assert norm.shape == () and norm.device == ax.device
+    assert BT.COUNTS.by_variant == {("guard", torch.float32): 1,
+                                    ("guard_max", torch.float32): 1}
+    want = BT.guard_plain(ax)
+    torch.cuda.synchronize()
+    assert _same_bits(norm, want)
+    assert bool(torch.isnan(norm)) == (case == "nan")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sb", [64, 256, 512])
+@pytest.mark.parametrize("x_col", [False, True])
+@pytest.mark.parametrize("p_col", [False, True])
+def test_bj_update_kernel_matches_plain_on_cuda(cuda, sb, x_col, p_col):
+    """The update kernel equals 2.0 * x - p bit for bit with its strides
+    (x's layout); the last update in fp32, bf16 and fp64 equals
+    .to(dtype).contiguous(), allocated and into a given buffer."""
+    from navierstokes_tpu_torch.kernels import bj_tiles as BT
+    rng = np.random.default_rng(sb + 2 * x_col + p_col)
+
+    def stack(col):
+        t = torch.as_tensor(rng.standard_normal((5, sb, sb)),
+                            dtype=torch.float32, device=cuda)
+        return t.transpose(1, 2).contiguous().transpose(1, 2) if col else t
+
+    x, p = stack(x_col), stack(p_col)
+    BT.COUNTS.reset()
+    got = BT.update(x, p)
+    assert _same_bits(got, BT.update_plain(x, p))
+    for dt in (torch.float32, torch.bfloat16, torch.float64):
+        want = BT.update_plain(x, p, out_dtype=dt)
+        assert _same_bits(BT.update(x, p, out_dtype=dt), want)
+        buf = torch.full(x.shape, 7.0, dtype=dt, device=cuda)
+        assert BT.update(x, p, out=buf) is buf and _same_bits(buf, want)
+    assert BT.COUNTS.by_variant[("update", torch.float32)] == 1
+    assert all(BT.COUNTS.by_variant[("update_last", dt)] == 2
+               for dt in (torch.float32, torch.bfloat16, torch.float64))
+    assert BT.COUNTS.plain_cuda_calls == 4        # the plain calls above
+
+
+@pytest.mark.cuda
+def test_bj_rebuild_captured_equals_eager_on_cuda(cuda):
+    """The rebuild (tiles, A X0, guard, 3 Newton-Schulz updates into a
+    static buffer) captured in a CUDA graph equals the eager calls bit for
+    bit, and a replay adds the graph's recorded launches to the counts."""
+    from navierstokes_tpu_torch.kernels import bj_tiles as BT
+    from navierstokes_tpu_torch.kernels.launches import record_launches
+    sb = 256
+    plan, v, mask = _bjt_plan(cuda, sb, seed=9)
+    v = np.nan_to_num(v)
+    vals = torch.as_tensor(v, dtype=torch.float32, device=cuda)
+    m = torch.as_tensor(mask, dtype=torch.float32, device=cuda)
+    sigma = torch.tensor(3.25, device=cuda)
+    a0 = TP.block_jacobi_tiles(plan, vals, m, sigma)
+    x0 = torch.linalg.inv(a0)          # column-major, as the model's seed
+    vals = vals * 1.001
+    buf = torch.empty((plan.n_tiles, sb, sb), device=cuda)
+
+    def rebuild(out):
+        g = TP.block_jacobi_guard([(plan, vals, m, sigma, x0)], 3)
+        TP.block_jacobi_newton(g, 3, out=[out])
+        return g.norm
+
+    eager = torch.empty_like(buf)
+    norm_e = rebuild(eager)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        rebuild(buf)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with record_launches() as rec, torch.cuda.graph(graph):
+        norm_g = rebuild(buf)
+    buf.zero_()
+    BT.COUNTS.reset()
+    graph.replay()
+    rec.replay()
+    torch.cuda.synchronize()
+    assert float(norm_e) < TP.GUARD_LIMIT
+    assert _same_bits(norm_g, norm_e) and _same_bits(buf, eager)
+    assert BT.COUNTS.by_variant == {
+        ("tiles", torch.float32): 1, ("guard", torch.float32): 1,
+        ("guard_max", torch.float32): 1, ("update", torch.float32): 2,
+        ("update_last", torch.float32): 1}
+    assert BT.COUNTS.plain_cuda_calls == 0
+
+
+@pytest.mark.cuda
+def test_bj_rebuild_kernels_refuse_what_they_do_not_take(cuda):
+    from navierstokes_tpu_torch.kernels import bj_tiles as BT
+    plan, v, mask = _bjt_plan(cuda, 64)
+    vals = torch.as_tensor(v, dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError, match="mask"):
+        BT.tiles(plan, vals, torch.as_tensor(mask, device=cuda), 1.0)
+    ax = torch.zeros(2, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="row-major"):
+        BT.guard(ax.transpose(1, 2))
+    with pytest.raises(TypeError):
+        BT.guard(ax.double())
+    with pytest.raises(ValueError, match="no instantiation"):
+        BT.guard(torch.zeros(2, 96, 96, device=cuda))
+    wide = torch.zeros(2, 64, 128, device=cuda)[:, :, :64]
+    with pytest.raises(ValueError, match="row- or column-major"):
+        BT.update(wide, wide)
+    with pytest.raises(ValueError, match="row-major"):
+        BT.update(ax, ax, out=torch.empty_like(ax).transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields", [
+    dict(scheme="projection"), dict(scheme="projection", bj_newton=0),
+    dict(scheme="projection", bj_bf16=True),
+    dict(scheme="monolithic"), dict(scheme="monolithic", inner_bf16=True)])
+def test_steps_rebuild_tiles_through_the_kernels_on_cuda(cuda, tmp_path,
+                                                         fields):
+    """Captured and eager steps rebuild their tiles through the kernels
+    with the same launches per step: one tiles launch, and with a seed the
+    guard's two and, on each Newton-Schulz step, bj_newton - 1 updates and
+    one last update in the tiles' dtype; no plain call; equal bits and the
+    same branch per step."""
+    from navierstokes_tpu_torch.kernels import bj_tiles as BT
+    runs = []
+    for mode in ("eager", "captured"):
+        ns = _small_model(tmp_path / mode, **fields)
+        if mode == "captured":
+            ns.capture_graphs()
+        ns._bj_seed()       # the static seed (one more tiles launch), once
+        BT.COUNTS.reset()
+        ms = [ns.solve_time_step(_eager=mode == "eager") for _ in range(3)]
+        torch.cuda.synchronize()
+        runs.append((dict(BT.COUNTS.by_variant), BT.COUNTS.plain_cuda_calls,
+                     [m.exact_inverse for m in ms], ns._u.clone()))
+    (c_e, pl_e, ex_e, u_e), (c_g, pl_g, ex_g, u_g) = runs
+    assert c_e == c_g and pl_e == pl_g == 0 and ex_e == ex_g
+    assert torch.equal(u_e, u_g)
+    iters = 0 if fields.get("bj_newton") == 0 else 3
+    newton = sum(not e for e in ex_e)
+    want_dt = (torch.bfloat16 if fields.get("bj_bf16")
+               or fields.get("inner_bf16") else torch.float32)
+    want = {("tiles", torch.float32): 3}
+    if iters:
+        want.update({("guard", torch.float32): 3,
+                     ("guard_max", torch.float32): 3})
+    if newton:
+        want.update({("update", torch.float32): (iters - 1) * newton,
+                     ("update_last", want_dt): newton})
+    assert c_e == want

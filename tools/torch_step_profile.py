@@ -37,8 +37,9 @@ script uses only the port's public surface (the package's
 
 It prints, for the case:
 * steps/s over ``--steps`` timed steps after ``--warm`` warm-up steps
-  (host clock between two synchronisations), iterations per step and the
-  peak device memory;
+  (host clock between two synchronisations), iterations per step, the
+  tile inverses' branch per step (Newton-Schulz or exact) and the peak
+  device memory;
 * the per-step F rebuild (``a0_cell + convection``) in ms, from CUDA
   events, median of 30 calls, L2-cold (a 128 MB read before each call)
   and warm;
@@ -52,8 +53,9 @@ It prints, for the case:
 * a ``torch.profiler`` trace of ``--profile-steps`` further steps: the
   device time per step (kernels, copies and memsets), its share of the
   unprofiled step time, the SpMV kernels' part of it, calls and ms per
-  step by kernel kind (``KINDS``: the V-cycle's sweeps or stages, SpMV, tile
-  apply, the Krylov updates, Gram-Schmidt, dots, GEMMs, elementwise,
+  step by kernel kind (``KINDS``: the tile rebuild's kernels, the V-cycle's
+  sweeps or stages, SpMV, tile apply, the Krylov updates, Gram-Schmidt,
+  dots, GEMMs, elementwise,
   ...), and the kernels with the most time (name, calls, ms).  The trace holds no kernel launched
   inside a while node's body, so a captured step is not traced: the
   split comes from ``--profile-steps`` plain steps of the same model
@@ -167,7 +169,9 @@ def time_ms(fn, cold, n=30):
 
 # kernel kinds of the profiled split, by a part of the kernel's name (the
 # first that matches)
-KINDS = (("V-cycle", ("vcycle_sweep", "vcycle_first", "vcycle_step",
+KINDS = (("tile rebuild", ("bj_tiles_kernel", "bj_guard_rows", "bj_guard_max",
+                           "bj_update_kernel")),
+         ("V-cycle", ("vcycle_sweep", "vcycle_first", "vcycle_step",
                       "vcycle_residual")),
          ("spmv", ("sell_spmv",)),
          ("tile apply", ("stream_kernel", "ring_kernel")),
@@ -385,6 +389,10 @@ def main():
           flush=True)
     print(f"{tag} every solve converged: {all(m.converged for m in ms)}",
           flush=True)
+    branch = "".join({True: "E", False: "N", None: "-"}[
+        getattr(m, "exact_inverse", None)] for m in ms)
+    print(f"{tag} tile inverses per step (N Newton-Schulz, E exact, - none):"
+          f" {branch}", flush=True)
     print(f"{tag} steps/s {args.steps / wall:.4f} ({args.steps} steps in "
           f"{wall:.3f} s, {step_ms:.1f} ms/step), peak {peak} bytes "
           f"({peak / 2**30:.2f} GiB) on {card}", flush=True)
@@ -439,6 +447,7 @@ def main():
         "capture_s": capture_s, "memory": mem,
         "converged": all(m.converged for m in ms),
         "peak_bytes": peak, "iterations": [its(m) for m in ms],
+        "tile_inverses": branch,
         "rebuild_ms_cold": rebuild_cold, "rebuild_ms_warm": rebuild_warm,
         "graph_ms_per_step": graph_ms,
         # a trace of a captured step misses the loop bodies: null there
