@@ -431,24 +431,31 @@ def per_step_launches(n_steps, by_pattern=None):
 def kry_reset():
     """Set the Krylov loops' kernel counts to 0 (csrc/krylov_update.cu's
     stages, csrc/gram_schmidt.cu's steps, csrc/vcycle.cu's V-cycle
-    sweeps) and the tile rebuild's (csrc/bj_tiles.cu)."""
-    from navierstokes_tpu_torch.kernels import (bj_tiles, gram_schmidt,
-                                                krylov_update, vcycle)
+    sweeps) and the tile rebuild's (csrc/bj_tiles.cu, csrc/bj_inverse.cu)."""
+    from navierstokes_tpu_torch.kernels import (bj_inverse, bj_tiles,
+                                                gram_schmidt, krylov_update,
+                                                vcycle)
     krylov_update.COUNTS.reset()
     gram_schmidt.COUNTS.reset()
     vcycle.COUNTS.reset()
     bj_tiles.COUNTS.reset()
+    bj_inverse.COUNTS.reset()
 
 
 def rebuild_counts():
     """The tile rebuild's launches since its counts were last set to 0, by
-    kernel and dtype (``rebuild:<kernel> <dtype>``), and its plain
+    kernel and dtype (``rebuild:<kernel> <dtype>``; the exact inverse of
+    csrc/bj_inverse.cu as ``rebuild:inverse <out dtype>``), and its plain
     versions' calls on CUDA tensors (``rebuild_plain``)."""
-    from navierstokes_tpu_torch.kernels import bj_tiles
+    from navierstokes_tpu_torch.kernels import bj_inverse, bj_tiles
     c = {f"rebuild:{k} {str(dt).replace('torch.', '')}": v
          for (k, dt), v in sorted(bj_tiles.COUNTS.by_variant.items(),
                                   key=str)}
-    c["rebuild_plain"] = bj_tiles.COUNTS.plain_cuda_calls
+    c.update({f"rebuild:inverse {str(dt).replace('torch.', '')}": v
+              for dt, v in sorted(bj_inverse.COUNTS.by_dtype.items(),
+                                  key=str)})
+    c["rebuild_plain"] = (bj_tiles.COUNTS.plain_cuda_calls
+                          + bj_inverse.COUNTS.plain_cuda_calls)
     return c
 
 
@@ -500,16 +507,19 @@ def vcycle_per_step(phase, tag, kry, n_cycles, k, calls=None):
 
 def check_rebuild(phase, tag, per_step, ms, parts=1, iters=3,
                   dtype="float32", seeds=0):
-    """The path rebuilt its tiles through csrc/bj_tiles.cu (``per_step``:
-    launches per step with ``rebuild_counts``' keys): per step and row
-    shard (``parts``) one tiles launch (and ``seeds`` more over the window
-    where it built the static seed), the guard's two kernels, and on each
-    Newton-Schulz step (``StepMetrics.exact_inverse`` False) iters - 1
-    updates and one last update into ``dtype`` tiles; no plain version on
-    CUDA tensors.  Logs the branch per step (N Newton-Schulz, E exact) and
-    returns it."""
+    """The path rebuilt its tiles through csrc/bj_tiles.cu and
+    csrc/bj_inverse.cu (``per_step``: launches per step with
+    ``rebuild_counts``' keys): per step and row shard (``parts``) one tiles
+    launch (and ``seeds`` more over the window where it built the static
+    seed), the guard's two kernels, on each Newton-Schulz step
+    (``StepMetrics.exact_inverse`` False) iters - 1 updates and one last
+    update into ``dtype`` tiles, on each exact step one exact inverse into
+    ``dtype`` tiles; no plain version on CUDA tensors.  Logs the branch per
+    step (N Newton-Schulz, E exact) beside the exact inverse's launches
+    per step and returns it."""
     n = len(ms)
     newton = sum(not m.exact_inverse for m in ms)
+    exact = n - newton
     got = {k.split(":", 1)[1]: v for k, v in per_step.items()
            if k.startswith("rebuild:")}
     want = {"guard float32": parts, "guard_max float32": parts}
@@ -517,10 +527,15 @@ def check_rebuild(phase, tag, per_step, ms, parts=1, iters=3,
         want["update float32"] = parts * (iters - 1) * newton / n
     if newton:
         want[f"update_last {dtype}"] = parts * newton / n
+    if exact:
+        want[f"inverse {dtype}"] = parts * exact / n
     branch = "".join("E" if m.exact_inverse else "N" for m in ms)
-    log(f"[{phase}] {tag}: tile rebuild (csrc/bj_tiles.cu) launches per "
-        f"step {got}; tile inverses per step {branch} (N Newton-Schulz, E "
-        f"exact); plain-version CUDA calls {per_step['rebuild_plain']}")
+    log(f"[{phase}] {tag}: tile rebuild (csrc/bj_tiles.cu, "
+        f"csrc/bj_inverse.cu) launches per step {got}; tile inverses per "
+        f"step {branch} (N Newton-Schulz, E exact), exact-inverse launches "
+        f"per step {got.get(f'inverse {dtype}', 0.0):.2f} ({parts} a shard "
+        f"on each E step, 0 on N); plain-version CUDA calls "
+        f"{per_step['rebuild_plain']}")
     tiles_ok = any(abs(got.get("tiles float32", 0.0) - parts - s / n) < 1e-9
                    for s in {0, seeds})
     check(per_step["rebuild_plain"] == 0 and tiles_ok
@@ -2742,18 +2757,21 @@ def thin_airfoil_fit(angles, cl):
 def _take_counts(into):
     """Add the launch counts by pattern and the plain-version CUDA calls
     to the Counter ``into`` and set the counts to 0."""
-    from navierstokes_tpu_torch.kernels import bj_apply, bj_tiles
+    from navierstokes_tpu_torch.kernels import bj_apply, bj_inverse, bj_tiles
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     into.update(COUNTS.by_pattern)
     into["plain"] += (COUNTS.plain_cuda_calls
                       + bj_apply.COUNTS.plain_cuda_calls
-                      + bj_tiles.COUNTS.plain_cuda_calls)
+                      + bj_tiles.COUNTS.plain_cuda_calls
+                      + bj_inverse.COUNTS.plain_cuda_calls)
     into["bj"] += bj_apply.COUNTS.launches
     for (k, _), v in bj_tiles.COUNTS.by_variant.items():
         into[f"rebuild:{k}"] += v
+    into["rebuild:inverse"] += bj_inverse.COUNTS.launches
     COUNTS.reset()
     bj_apply.COUNTS.reset()
     bj_tiles.COUNTS.reset()
+    bj_inverse.COUNTS.reset()
 
 
 def phase_naca_sweep(card):
@@ -2855,8 +2873,8 @@ def phase_naca_sweep(card):
         f"{setup_launches} in the four setups; plain-version CUDA calls "
         f"{plain_cuda}; per step by operator {per_step}; tile-apply "
         f"launches {bj_launches} ({bj_launches / n_steps:.2f} per step); "
-        f"tile rebuild (csrc/bj_tiles.cu) launches per step "
-        f"{ {k: v / n_steps for k, v in rebuild.items()} }")
+        f"tile rebuild (csrc/bj_tiles.cu, csrc/bj_inverse.cu) launches per "
+        f"step { {k: v / n_steps for k, v in rebuild.items()} }")
     check(ok, "[14] thin-airfoil criteria (monotone, slope 0.55-1.0 x "
           "2 pi, R^2 > 0.98, 0 < Cl(0) < 2 pi 2.5 deg)")
     check(f_launches >= n_steps, "[14] the F product launched every step")
@@ -2865,6 +2883,11 @@ def phase_naca_sweep(card):
           and rebuild.get("guard", 0) >= n_steps
           and rebuild.get("guard_max", 0) == rebuild.get("guard", 0),
           f"[14] the tile rebuild's kernels launched every step: {rebuild}")
+    check(rebuild.get("inverse", 0) > 0
+          and rebuild.get("inverse", 0) + rebuild.get("update_last", 0)
+          >= rebuild["guard"],
+          f"[14] each guarded step took a branch, the exact ones through "
+          f"csrc/bj_inverse.cu: {rebuild}")
     check(plain_cuda == 0, "[14] no plain-version calls on CUDA tensors")
     eager = naca_eager_angle(build, d)
     return dict(launches=launches, setup_launches=setup_launches,
@@ -2945,8 +2968,12 @@ def phase_kernel_naca():
     del tiles
     t28 = time.perf_counter()
     ns.solve_time_step(_eager=True)     # the state of the sweep's step 1
-    rebuild = phase_rebuild("NACA", rebuild_inputs(ns), card_line())
+    inp = rebuild_inputs(ns)
+    rebuild = phase_rebuild("NACA", inp, card_line())
     log(f"[28] NACA part {time.perf_counter() - t28:.1f} s")
+    from navierstokes_tpu_torch.kernels import bj_tiles
+    rebuild["inverse"] = phase_inverse("NACA", bj_tiles.tiles(
+        inp["plan"], inp["f"], inp["mask"], inp["sigma"]), card_line())
     return spmv, bj, vcycle_parts(ns, "ap"), rebuild
 
 
@@ -3530,7 +3557,7 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
     the pressure side on the home device ``cuda:0``) against the
     unsharded model ``ns`` of phase 5, bit for bit; then the small
     fixture on ``small_devices`` against one device."""
-    from navierstokes_tpu_torch.kernels import bj_apply, bj_tiles
+    from navierstokes_tpu_torch.kernels import bj_apply, bj_inverse, bj_tiles
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     from navierstokes_tpu_torch.ops import p1ell
     from navierstokes_tpu_torch.ops.bsr import BsrOps
@@ -3558,6 +3585,7 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
     COUNTS.reset()
     bj_apply.COUNTS.reset()
     bj_tiles.COUNTS.reset()
+    bj_inverse.COUNTS.reset()
     torch.cuda.reset_peak_memory_stats()
     ms, walls = [], []
     for _ in range(SHARD_STEPS):
@@ -4721,6 +4749,200 @@ def phase_rebuild(name, inp, card, timed=True, rounds=None):
 
 
 
+# phase 29: the exact tile inverse (csrc/bj_inverse.cu) at phase 5's end
+# state (1,760 tiles of 256 x 256, a state whose steps take the exact
+# branch), at the NACA step's (274) and at the edges
+BJI_SOURCE = "navierstokes_tpu_torch/csrc/bj_inverse.cu"
+# no Pallas kernel: jnp.linalg.inv under block_jacobi_invert's lax.cond
+# (XLA's batched LU)
+BJI_REPLACES = "navierstokes_tpu/ops/p1ell.py:506"
+BJI_BATCHES = (1, 7, 132, 1760)
+BJI_SAMPLE = 64               # tiles inverted in float64 beside the gaps
+BJI_ROUNDS = 4                # rounds of the captured segment b_exact
+
+
+def _bji_seeded(sb, n, seed):
+    """Seeded tiles, diagonally dominant like F's."""
+    rng = np.random.default_rng(seed)
+    return (np.eye(sb)[None] * (2.0 + rng.uniform(size=(n, sb, 1)))
+            + rng.standard_normal((n, sb, sb)) / np.sqrt(sb))
+
+
+def _bji_edges():
+    """(label, fp32 tiles on the card): SB 64, 128 and 512 (and a one-tile
+    batch of each), and at SB 256 a tile that needs row swaps (no
+    diagonal dominance), one with a zero leading entry, one with a NaN,
+    a singular one and one of 16 x 16 Hadamard blocks (rows permuted and
+    signed: every column's candidates tie)."""
+    out = []
+    for sb, n in ((64, 37), (128, 19), (512, 5)):
+        t = _bji_seeded(sb, n, sb)
+        out += [(f"SB {sb}, {n} tiles", t), (f"SB {sb}, one tile", t[:1])]
+    rng = np.random.default_rng(29)
+    sb = 256
+    swaps = rng.standard_normal((sb, sb))
+    zero = _bji_seeded(sb, 1, 3)[0]
+    zero[0, 0] = 0.0
+    nan = _bji_seeded(sb, 1, 4)[0]
+    nan[17, 200] = np.nan
+    singular = _bji_seeded(sb, 1, 5)[0]
+    singular[:, 100] = 0.0
+    h = np.ones((1, 1))
+    while h.shape[0] < 16:
+        h = np.block([[h, h], [h, -h]])
+    ties = (np.kron(np.eye(sb // 16), h)[rng.permutation(sb)]
+            * rng.choice([-1.0, 1.0], (sb, 1)))
+    out.append(("SB 256: swaps, zero leading entry, NaN, singular, ties",
+                np.stack([swaps, zero, nan, singular, ties])))
+    return [(lab, torch.as_tensor(t, dtype=torch.float32, device="cuda"))
+            for lab, t in out]
+
+
+def _bji_residual(a, x):
+    """max over the tiles of the max row sum of |I - A X|, in float64."""
+    eye = torch.eye(a.shape[-1], dtype=torch.float64, device=a.device)
+    worst = 0.0
+    for i in range(0, a.shape[0], 256):
+        r = eye - torch.matmul(a[i:i + 256].double(), x[i:i + 256].double())
+        worst = max(worst, float(r.abs().sum(-1).amax()))
+    return worst
+
+
+def phase_inverse(name, a, card, edges=False, rounds=None):
+    """Phase 29 at one model's fp32 tiles ``a`` (the exact branch's
+    input): csrc/bj_inverse.cu's kernel against its plain version bit for
+    bit (fp32, bf16 and fp64 out, a strided slot of a larger buffer, with
+    ``edges`` the edge stacks of ``_bji_edges``), batch independence,
+    against cuSOLVER's inverse (the parent's route) and a float64 one of
+    BJI_SAMPLE sampled tiles, ms per call L2-cold and warm beside its
+    bound, the rounding rule's floor, the plain version's ms (once), the
+    library's (cuSOLVER with the parent's two copies; the default
+    torch.linalg.inv); the captured segment b_exact against the parent's
+    chain captured, in ``rounds`` (default BJI_ROUNDS) alternating
+    rounds."""
+    from navierstokes_tpu_torch.kernels import bj_inverse as BI
+    from navierstokes_tpu_torch.ops import p1ell
+    t0 = time.perf_counter()
+    n, sb = a.shape[0], a.shape[-1]
+    BI.COUNTS.reset()
+    x = BI.inverse(a)
+    t_plain = time.perf_counter()
+    plain = BI.inverse_plain(a)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t_plain
+    same = {"float32": _same_bits(x, plain)}
+    for dt in (torch.bfloat16, torch.float64):
+        same[str(dt).replace("torch.", "")] = _same_bits(
+            BI.inverse(a, out_dtype=dt), plain.to(dt))
+    m = min(n, 132)
+    big = torch.full((2, m, sb, sb + 16), 7.0, device=a.device)
+    slot = big[1, :, :, :sb]
+    BI.inverse(a[:m], out=slot)
+    same["strided slot"] = (_same_bits(slot.contiguous(), plain[:m])
+                            and bool((big[0] == 7).all())
+                            and bool((big[1, :, :, sb:] == 7).all()))
+    del big, slot
+    if edges:
+        for lab, t in _bji_edges():
+            same[lab] = _same_bits(BI.inverse(t), BI.inverse_plain(t))
+            if lab.startswith("SB 256"):
+                k = BI.inverse(t)
+                perm = BI.gauss_jordan_plain(t)[1]
+                flags = dict(
+                    swaps=bool((perm[0] != torch.arange(
+                        sb, device=t.device)).any()),
+                    zero_leading_moved=int(perm[1, 0]) != 0,
+                    nan_all=bool(torch.isnan(k[2]).all()),
+                    singular_non_finite=not bool(torch.isfinite(k[3]).all()),
+                    ties_finite=bool(torch.isfinite(k[4]).all()),
+                    others_finite=bool(torch.isfinite(k[[0, 1]]).all()))
+                log(f"[29] edge tiles: {flags}")
+                check(all(flags.values()), f"[29] the edge tiles: {flags}")
+    batch = {b: _same_bits(BI.inverse(a[:b]), x[:b])
+             for b in BJI_BATCHES if b <= n}
+    # against cuSOLVER (the parent's route) and float64
+    cus = p1ell._inv_capturable(a)
+    gap = float((x - cus).abs().max() / cus.abs().max())
+    res_k, res_c = _bji_residual(a, x), _bji_residual(a, cus)
+    idx = torch.linspace(0, n - 1, min(n, BJI_SAMPLE),
+                         device=a.device).long()
+    x64 = torch.linalg.inv(a[idx].double())
+    s64 = float(x64.abs().max())
+    gap64 = {"kernel": float((x[idx].double() - x64).abs().max()) / s64,
+             "cuSOLVER": float((cus[idx].double() - x64).abs().max()) / s64}
+    res64 = _bji_residual(a[idx], x64)
+    res_s = {"kernel": _bji_residual(a[idx], x[idx]),
+             "cuSOLVER": _bji_residual(a[idx], cus[idx])}
+    torch.cuda.synchronize()
+    log(f"[29] {name}: {n} tiles of {sb} x {sb}; bit for bit against "
+        f"inverse_plain: {same}; batch-independent (inverse(a[:b]) == "
+        f"inverse(a)[:b]): {batch}; the kernel against cuSOLVER's inverse: "
+        f"max gap {gap:.3e} of max|inv|; max tile residual |I - A X| "
+        f"kernel {res_k:.3e}, cuSOLVER {res_c:.3e}; {len(idx)} sampled "
+        f"tiles against a float64 inverse: gaps {gap64}, residuals {res_s} "
+        f"(float64 {res64:.3e}); plain version {plain_s:.2f} s")
+    check(all(same.values()), f"[29] {name}: the kernel gives "
+          f"inverse_plain's bits: {same}")
+    check(all(batch.values()), f"[29] {name}: batch-independent: {batch}")
+    check(gap < 1e-4, f"[29] {name}: within 1e-4 of cuSOLVER's inverse "
+          f"({gap:.3e})")
+    check(res_k <= 2 * res_c, f"[29] {name}: residual {res_k:.3e} at most "
+          f"2x cuSOLVER's {res_c:.3e}")
+    del plain, x64
+    # timings
+    N = n * sb * sb
+    out = torch.empty_like(a)
+    rec = dict(use=name, n_tiles=n, sb=sb, same=same, batch=batch,
+               cusolver_gap=gap, residual=res_k, cusolver_residual=res_c,
+               f64_gaps=gap64, f64_residuals=res_s, f64_residual=res64,
+               **_bjt_bound(8 * N, 2 * n * sb ** 3))
+    rec["floor_ms"] = 2 * rec["bound_ops"] / FP32_OPS_PER_S * 1e3
+    fn = lambda: BI.inverse(a, out=out)
+    rec["ms"] = _time_ms(fn, cold=True, n=10)
+    rec["warm_ms"] = _burst_ms([fn], reps=3)
+    rec["plain_ms"] = _time_ms(lambda: BI.inverse_plain(a), cold=False, n=1)
+    dt = torch.float32
+    chain = lambda: out.copy_(p1ell._inv_capturable(a).to(dt).contiguous())
+    rec["library_ms"] = _time_ms(chain, cold=True, n=5)
+    rec["cusolver_ms"] = _time_ms(lambda: p1ell._inv_capturable(a),
+                                  cold=True, n=5)
+    rec["torch_inv_ms"] = _time_ms(lambda: torch.linalg.inv(a), cold=True,
+                                   n=3)
+    rec["clusters_in_flight"] = BI.max_clusters(sb)
+    # the captured segment b_exact against the parent's chain
+    g = p1ell.BjGuard(tiles=[a], xs=[], axs=[], norm=None, out_dtype=dt)
+    buf_k, buf_p = torch.empty_like(a), torch.empty_like(a)
+    exact0 = p1ell.BJ_INVERSIONS["exact"]
+    med, all_t = _captured_ms({
+        "kernel (segment b_exact)":
+            lambda: p1ell.block_jacobi_exact(g, out=[buf_k]),
+        "parent chain (cuSOLVER, .contiguous(), copy_)":
+            lambda: buf_p.copy_(p1ell._inv_capturable(a).to(dt)
+                                .contiguous())}, rounds or BJI_ROUNDS)
+    p1ell.BJ_INVERSIONS["exact"] = exact0
+    torch.cuda.synchronize()
+    check(_same_bits(buf_k, x), f"[29] {name}: the captured segment gives "
+          "the eager kernel's bits")
+    rec.update(segment_ms=med, segment_rounds=all_t)
+    waves = n / rec["clusters_in_flight"]
+    log(f"[29] {name}: ms cold {rec['ms']:.4f}, warm {rec['warm_ms']:.4f}, "
+        f"bound {rec['bound_ms']:.4f} ({rec['bound_by']}), the rounding "
+        f"rule's floor {rec['floor_ms']:.4f} (every product and difference "
+        f"its own instruction); plain {rec['plain_ms']:.2f}; library: "
+        f"cuSOLVER with the parent's two copies {rec['library_ms']:.4f} "
+        f"(cuSOLVER alone {rec['cusolver_ms']:.4f}), torch.linalg.inv "
+        f"{rec['torch_inv_ms']:.4f}; clusters in flight "
+        f"{rec['clusters_in_flight']} ({waves:.2f} waves of {sb // 64} CTAs "
+        f"a tile); captured, ms per replay {med} (medians of "
+        f"{len(all_t['kernel (segment b_exact)'])} alternating rounds "
+        f"{all_t}) on {card}")
+    log(f"[29] {name} part {time.perf_counter() - t0:.1f} s")
+    del x, cus, out, buf_k, buf_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4748,10 +4970,15 @@ def main():
     sharded = phase_sharded(ns, bench, card)
     t28 = time.perf_counter()
     _load_state(ns, bench["end"])
-    rb_bench = phase_rebuild("bench", rebuild_inputs(ns), card)
+    inp = rebuild_inputs(ns)
+    rb_bench = phase_rebuild("bench", inp, card)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[28] bench part {time.perf_counter() - t28:.1f} s")
+    from navierstokes_tpu_torch.kernels import bj_tiles
+    inv_bench = phase_inverse("bench", bj_tiles.tiles(
+        inp["plan"], inp["f"], inp["mask"], inp["sigma"]), card, edges=True)
+    del inp
     # phase 24's projection tiles, on the host until then
     proj_tiles = ns._graphs.tiles.cpu()
     # phase 27's bench operator: the outlet-pinned Laplacian and its
@@ -5072,6 +5299,29 @@ def main():
         "projection (phase 5)": bench["branch"],
         "monolithic (phase 8)": mono["branch"],
         "monolithic (phase 22)": mono_graphs["branch"]}
+    # the exact tile inverse: launches on the main paths' exact steps
+    # (phases 5, 8, 20, 25; per step also on phase 14's NACA sweep), phase
+    # 29's figures (phase 5's end state; the NACA step's tiles beside)
+    launched = sum(round(v * n) for c, n in windows
+                   for v in rebuild_of(c, ("inverse",)).values())
+    check(launched > 0, f"bj_inverse launched on the main paths (phases 5, "
+          f"8, 20, 25: {launched})")
+    kernels.append({
+        "name": "bj_inverse", "route": "cuda", "source": BJI_SOURCE,
+        "replaces": BJI_REPLACES, "launches": launched, "max_abs_err": 0.0,
+        **{k: inv_bench[k] for k in ("ms", "warm_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "bound_bytes", "bound_ops",
+                                     "floor_ms", "library_ms", "cusolver_ms",
+                                     "torch_inv_ms", "cusolver_gap",
+                                     "residual", "cusolver_residual",
+                                     "clusters_in_flight", "segment_ms")},
+        "headline": f"phase 5's end state, {inv_bench['n_tiles']} tiles of "
+                    f"{inv_bench['sb']} x {inv_bench['sb']}, fp32 out, ms "
+                    "L2-cold; library_ms: cuSOLVER's inverse with the "
+                    "parent's two copies",
+        "uses": {"bench": inv_bench, "naca": rb_naca["inverse"]},
+        "launches_per_step": {p: rebuild_of(c, ("inverse",))
+                              for p, c in rb_paths.items()}})
     record = {"kernels": kernels}
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

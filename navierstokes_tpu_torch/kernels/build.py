@@ -94,6 +94,12 @@ def build_info() -> dict:
     lib.nst_bj_guard.restype = i
     lib.nst_bj_update.argtypes = [p, p, p] + [i] * 5 + [p]
     lib.nst_bj_update.restype = i
+    # the exact tile inverse: tiles, out, sb, n_tiles, out_kind, the out's
+    # tile and row strides, the stream; the clusters the card holds at once
+    lib.nst_bj_inverse.argtypes = [p, p, i, i, i, ctypes.c_longlong, i, p]
+    lib.nst_bj_inverse.restype = i
+    lib.nst_bj_inverse_occupancy.argtypes = [i, ctypes.POINTER(i)]
+    lib.nst_bj_inverse_occupancy.restype = i
     u64, i64 = ctypes.c_ulonglong, ctypes.c_longlong
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"nst_lsq_update_{suffix}")

@@ -226,7 +226,7 @@ class _StepGraphs:
             block_jacobi_newton(ws.guard, iters, out=[buffer()])
 
         def exact():
-            buffer().copy_(block_jacobi_exact(ws.guard)[0])
+            block_jacobi_exact(ws.guard, out=[buffer()])
 
         seg = {"a": a}
         if self.guarded:

@@ -13,9 +13,10 @@ on triangles and tetrahedra), in the compact SELL layout of
   per step from the compact F values by a static plan, inverted by
   Newton-Schulz from the static-operator seed with an exact-inverse
   fallback (the tiles, the guard and the updates by the rebuild kernels of
-  ``kernels/bj_tiles.py``, the products by cuBLAS), applied by the
-  tile-apply kernel (``kernels/bj_apply.py``; the reference's ILU(0)
-  stand-in, src/NavierStokes.cpp:958).
+  ``kernels/bj_tiles.py``, the products by cuBLAS, the fallback on the
+  card by the Gauss-Jordan kernel of ``kernels/bj_inverse.py``), applied
+  by the tile-apply kernel (``kernels/bj_apply.py``; the reference's
+  ILU(0) stand-in, src/NavierStokes.cpp:958).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from navierstokes_tpu_torch.kernels import bj_tiles
+from navierstokes_tpu_torch.kernels import bj_inverse, bj_tiles
 from navierstokes_tpu_torch.kernels.bj_apply import bj_apply
 from navierstokes_tpu_torch.kernels.sell_spmv import sell_spmv
 from navierstokes_tpu_torch.ops.sell import SellMatrix, sell_from_coo
@@ -222,10 +223,9 @@ def _inv(a):
 
 
 def _inv_capturable(a):
-    """``_inv`` that a CUDA graph can capture (a tile batch, or the Schur
-    coarse matrix): on the card through the cuSOLVER / cuBLAS backend
-    (``_cusolver``), in the captured step (models/step_graphs.py) and the
-    eager one alike."""
+    """``_inv`` that a CUDA graph can capture (the Schur coarse matrix):
+    on the card through the cuSOLVER / cuBLAS backend (``_cusolver``), in
+    the captured step (models/step_graphs.py) and the eager one alike."""
     if not a.is_cuda:
         return _inv(a)
     with _cusolver():
@@ -305,12 +305,29 @@ def block_jacobi_guard(parts, iters: int = 3, out_dtype=None) -> BjGuard:
     return BjGuard(tiles, xs, axs, norm, out_dtype)
 
 
-def block_jacobi_exact(g: BjGuard):
-    """The exact tile inverses (the guard's fallback branch), capturable
-    (``_inv_capturable``), row-major: the card's batched inverse comes out
-    column-major, and the tile-apply kernel reads rows."""
+def block_jacobi_exact(g: BjGuard, out=None):
+    """The exact tile inverses (the guard's fallback branch), row-major in
+    ``g.out_dtype``, written into ``out[k]`` for part k where given (the
+    captured step's tile buffer).  On the card Gauss-Jordan with partial
+    pivoting in fp32, one launch per part (kernels/bj_inverse.inverse,
+    csrc/bj_inverse.cu).  A part on the CPU keeps LAPACK's per-tile
+    inverse (``_inv``), the CPU model's route before the kernel:
+    chip_smoke.py holds the card's steps to CPU runs within the gap
+    between two of them in other thread counts, and with the kernel's
+    plain version (``bj_inverse.inverse_plain``, held to JAX by
+    tests/test_torch_bj_inverse.py) in their place that gap shrinks below
+    the card's at the ``projection p_out`` fixture's fifth step, a
+    step where fp32 runs scatter by 2e-4 around float64 (PERF.md)."""
     BJ_INVERSIONS["exact"] += 1
-    return [_inv_capturable(a).to(g.out_dtype).contiguous() for a in g.tiles]
+    res = []
+    for k, a in enumerate(g.tiles):
+        o = None if out is None else out[k]
+        if a.is_cuda:
+            res.append(bj_inverse.inverse(a, out_dtype=g.out_dtype, out=o))
+            continue
+        x = _inv(a).to(g.out_dtype)
+        res.append(x if o is None else o.copy_(x))
+    return res
 
 
 def block_jacobi_newton(g: BjGuard, iters: int, out=None):

@@ -2272,3 +2272,170 @@ def test_steps_rebuild_tiles_through_the_kernels_on_cuda(cuda, tmp_path,
         want.update({("update", torch.float32): (iters - 1) * newton,
                      ("update_last", want_dt): newton})
     assert c_e == want
+
+
+# the block-Jacobi exact tile inverse (kernels/bj_inverse.py,
+# csrc/bj_inverse.cu): the kernel gives its plain version's bits
+
+
+def _bji_tiles(sb, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    t = (np.eye(sb)[None] * (2.0 + rng.uniform(size=(n, sb, 1)))
+         + rng.standard_normal((n, sb, sb)) / np.sqrt(sb))
+    return torch.as_tensor(t, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sb", [64, 128, 256, 512])
+def test_bj_inverse_kernel_matches_plain_on_cuda(cuda, sb):
+    """The kernel equals inverse_plain bit for bit (a NaN tile among
+    them) in fp32, bf16 and fp64, allocated and into a slot of a larger
+    buffer; a one-tile batch equals the batch's first tile; one launch per
+    call counted by output dtype, no plain call."""
+    from navierstokes_tpu_torch.kernels import bj_inverse as BI
+    a = _bji_tiles(sb, 9, sb, cuda)
+    a[4, 3, 7] = float("nan")
+    BI.COUNTS.reset()
+    x = BI.inverse(a)
+    want = BI.inverse_plain(a)
+    assert _same_bits(x, want) and bool(torch.isnan(x[4]).all())
+    for dt in (torch.bfloat16, torch.float64):
+        assert _same_bits(BI.inverse(a, out_dtype=dt), want.to(dt))
+        big = torch.full((9, sb, sb + 8), 7.0, dtype=dt, device=cuda)
+        slot = big[:, :, :sb]
+        assert BI.inverse(a, out=slot) is slot
+        assert _same_bits(slot.contiguous(), want.to(dt))
+        assert bool((big[:, :, sb:] == 7).all())
+    assert _same_bits(BI.inverse(a[:1]), x[:1])
+    torch.cuda.synchronize()
+    assert BI.COUNTS.by_dtype == {torch.float32: 2, torch.bfloat16: 2,
+                                  torch.float64: 2}
+    assert BI.COUNTS.plain_cuda_calls == 1
+
+
+@pytest.mark.cuda
+def test_bj_inverse_edge_tiles_on_cuda(cuda):
+    """Tiles that need row swaps, a zero leading entry, a singular tile and
+    tied pivots (Hadamard blocks) give the plain version's bits; the
+    singular tile comes out non-finite, the others finite."""
+    from navierstokes_tpu_torch.kernels import bj_inverse as BI
+    rng = np.random.default_rng(22)
+    sb = 256
+    swaps = rng.standard_normal((sb, sb))
+    zero = np.eye(sb) * 3.0 + rng.standard_normal((sb, sb)) / 16
+    zero[0, 0] = 0.0
+    singular = np.eye(sb) * 3.0 + rng.standard_normal((sb, sb)) / 16
+    singular[:, 50] = 0.0
+    h = np.ones((1, 1))
+    while h.shape[0] < 16:
+        h = np.block([[h, h], [h, -h]])
+    ties = np.kron(np.eye(sb // 16), h)[rng.permutation(sb)]
+    a = torch.as_tensor(np.stack([swaps, zero, singular, ties]),
+                        dtype=torch.float32, device=cuda)
+    x = BI.inverse(a)
+    assert _same_bits(x, BI.inverse_plain(a))
+    assert not bool(torch.isfinite(x[2]).all())
+    assert bool(torch.isfinite(x[[0, 1, 3]]).all())
+    eye = torch.eye(sb, dtype=torch.float64, device=cuda)
+    assert float((eye - a[3].double() @ x[3].double()).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_bj_inverse_refuses_what_it_does_not_take(cuda):
+    from navierstokes_tpu_torch.kernels import bj_inverse as BI
+    with pytest.raises(ValueError, match="no instantiation"):
+        BI.inverse(torch.zeros(2, 96, 96, device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        BI.inverse(torch.zeros(2, 64, 64, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        BI.inverse(torch.zeros(2, 64, 64, device=cuda).transpose(1, 2))
+    with pytest.raises(ValueError, match="out"):
+        BI.inverse(torch.zeros(2, 64, 64, device=cuda),
+                   out=torch.empty(2, 64, 64))
+
+
+@pytest.mark.cuda
+def test_bj_exact_segment_captured_equals_eager_on_cuda(cuda):
+    """ops/p1ell.block_jacobi_exact into a static buffer (segment b_exact
+    of the captured step) captured in a CUDA graph equals the eager call
+    bit for bit, in fp32 and bf16 tiles, and a replay adds its one
+    launch."""
+    from navierstokes_tpu_torch.kernels import bj_inverse as BI
+    from navierstokes_tpu_torch.kernels.launches import record_launches
+    a = _bji_tiles(256, 6, 3, cuda)
+    for dt in (torch.float32, torch.bfloat16):
+        g = TP.BjGuard(tiles=[a], xs=[], axs=[], norm=None, out_dtype=dt)
+        eager = TP.block_jacobi_exact(g)[0]
+        buf = torch.empty(a.shape, dtype=dt, device=cuda)
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            TP.block_jacobi_exact(g, out=[buf])
+        torch.cuda.current_stream().wait_stream(s)
+        graph = torch.cuda.CUDAGraph()
+        with record_launches() as rec, torch.cuda.graph(graph):
+            TP.block_jacobi_exact(g, out=[buf])
+        buf.zero_()
+        BI.COUNTS.reset()
+        graph.replay()
+        rec.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(buf, eager)
+        assert BI.COUNTS.by_dtype == {dt: 1}
+        assert BI.COUNTS.plain_cuda_calls == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["projection", "monolithic"])
+def test_exact_steps_invert_through_the_kernel_on_cuda(cuda, tmp_path,
+                                                      scheme):
+    """With bj_newton=0 every step takes the exact branch: captured and
+    eager steps of the small fixture launch the inverse kernel once a step
+    and give the same bits."""
+    from navierstokes_tpu_torch.kernels import bj_inverse as BI
+    runs = []
+    for mode in ("eager", "captured"):
+        ns = _small_model(tmp_path / mode, scheme=scheme, bj_newton=0)
+        if mode == "captured":
+            ns.capture_graphs()
+        BI.COUNTS.reset()
+        ms = [ns.solve_time_step(_eager=mode == "eager") for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(m.exact_inverse for m in ms)
+        runs.append((dict(BI.COUNTS.by_dtype), BI.COUNTS.plain_cuda_calls,
+                     [(m.iterations, m.cd, m.cl) for m in ms],
+                     ns._u.clone(), ns._p.clone()))
+    (c_e, pl_e, m_e, u_e, p_e), (c_g, pl_g, m_g, u_g, p_g) = runs
+    assert c_e == c_g == {torch.float32: 3} and pl_e == pl_g == 0
+    assert m_e == m_g and torch.equal(u_e, u_g) and torch.equal(p_e, p_g)
+
+
+@pytest.mark.cuda
+def test_row_shards_equal_one_device_on_exact_steps_on_cuda(cuda, tmp_path):
+    """Two row shards on cuda:0 with bj_newton=0 (every step exact) step
+    bit for bit like one device: each shard's tiles inverted by its own
+    launch of the kernel, which a tile's batch does not move."""
+    from navierstokes_tpu_torch.kernels import bj_inverse as BI
+    from navierstokes_tpu_torch.models.navier_stokes import NavierStokes
+    runs = []
+    for k, devs in ((1, None), (2, ["cuda:0"] * 2)):
+        cfg = SolverConfig(dtype="float32", n_devices=k, bj_newton=0,
+                           output_dir=str(tmp_path / f"out{k}"),
+                           cache_dir=str(tmp_path / f"cache{k}"),
+                           csv_path=str(tmp_path / f"forces{k}.csv"))
+        ns = NavierStokes(channel_with_cylinder_2d(h=0.12), 2, 1,
+                          deltat=0.01, T=0.03, step=3, device="cuda",
+                          config=cfg, shard_devices=devs,
+                          inlet=InletConfig(kind="parabolic", u_m=0.3,
+                                            height=0.41))
+        ns.set_re_number(20)
+        ns.setup()
+        BI.COUNTS.reset()
+        ms = [ns.solve_time_step(_eager=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert BI.COUNTS.launches == 3 * k
+        assert BI.COUNTS.plain_cuda_calls == 0
+        runs.append((ns, [(m.iterations, m.cd, m.cl) for m in ms]))
+    (one, m1), (sh, m2) = runs
+    assert m1 == m2
+    assert torch.equal(sh._u, one._u) and torch.equal(sh._p, one._p)

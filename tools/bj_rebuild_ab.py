@@ -2,7 +2,7 @@
 port ran before csrc/bj_tiles.cu against the kernels, in one process.
 
     python3 tools/bj_rebuild_ab.py [--cases bench mono naca] [--rounds 8]
-        [--steps 2] [--json PATH]
+        [--steps 2] [--exact] [--json PATH]
 
 For each case it builds the model, steps it ``--steps`` times and takes
 the rebuild's inputs at that state (``chip_smoke.rebuild_inputs``: the
@@ -12,7 +12,10 @@ plan, the F values A0 + C(u), the mask, sigma and the static seed X0):
   2D-2, 1,014,414 DoF, fp32, BDF2): 1,760 tiles of 256 x 256;
 * ``mono``: the same mesh in monolithic ``cc`` (BDF1), phase 8's model;
 * ``naca``: the ``sweep-naca`` step (2d-naca at h=0.02, 0 degrees,
-  monolithic ``cc``): 274 tiles.
+  monolithic ``cc``): 274 tiles;
+* ``random`` (``--exact`` only): 1,760 seeded tiles of 256 x 256, N(0, 1)
+  / 16 + 4 I in fp32 (numpy's default_rng(1)), no model, with phase 29's
+  edge stacks.
 
 Then, at those inputs:
 
@@ -29,6 +32,16 @@ Then, at those inputs:
   captured, the kernels' graph against the stock chain's in ``--rounds``
   alternating rounds.
 
+With ``--exact`` it measures the exact branch instead, at the same tiles
+(the exact inverse's input): ``chip_smoke.phase_inverse`` (phase 29), the
+kernel of csrc/bj_inverse.cu against its plain version bit for bit, the
+output dtypes, batch independence, its gap and residual against cuSOLVER's
+inverse, its ms L2-cold and warm beside its bound, the rounding rule's
+floor, the plain version and the libraries (cuSOLVER with the parent's
+two copies, torch.linalg.inv), and segment b_exact captured, the kernel's
+graph against the parent's chain (cuSOLVER, ``.contiguous()``, ``copy_``)
+captured, in ``--rounds`` alternating rounds.
+
 It prints the card's name and power limit first, and as its last line one
 JSON object with every figure.  Imports no JAX.
 """
@@ -41,6 +54,7 @@ import os
 import statistics
 import sys
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -139,9 +153,11 @@ def stock_passes(inp):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cases", nargs="+", default=["bench", "mono", "naca"],
-                    choices=["bench", "mono", "naca"])
+                    choices=["bench", "mono", "naca", "random"])
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--exact", action="store_true",
+                    help="time the exact branch (phase 29) instead")
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -152,10 +168,32 @@ def main():
     CS.phase_build()
     out = {"card": card, "cases": {}}
     for case in args.cases:
+        if case == "random":
+            if not args.exact:
+                raise SystemExit("bj_rebuild_ab: --cases random needs "
+                                 "--exact")
+            rng = np.random.default_rng(1)
+            tiles = torch.as_tensor(
+                rng.standard_normal((1760, 256, 256)).astype(np.float32)
+                / 16 + 4 * np.eye(256, dtype=np.float32), device="cuda")
+            out["cases"][case] = CS.phase_inverse(case, tiles, card,
+                                                  edges=True,
+                                                  rounds=args.rounds)
+            del tiles
+            continue
         ns = model(case)
         for _ in range(args.steps):
             ns.solve_time_step()
         inp = CS.rebuild_inputs(ns)
+        if args.exact:
+            from navierstokes_tpu_torch.kernels import bj_tiles
+            tiles = bj_tiles.tiles(inp["plan"], inp["f"], inp["mask"],
+                                   inp["sigma"])
+            out["cases"][case] = CS.phase_inverse(case, tiles, card,
+                                                  rounds=args.rounds)
+            del ns, inp, tiles
+            torch.cuda.empty_cache()
+            continue
         passes = stock_passes(inp)
         # a Newton-Schulz rebuild runs each pass once, but the update's
         # three passes three times and A X (as A X0) twice more

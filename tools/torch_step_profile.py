@@ -53,7 +53,8 @@ It prints, for the case:
 * a ``torch.profiler`` trace of ``--profile-steps`` further steps: the
   device time per step (kernels, copies and memsets), its share of the
   unprofiled step time, the SpMV kernels' part of it, calls and ms per
-  step by kernel kind (``KINDS``: the tile rebuild's kernels, the V-cycle's
+  step by kernel kind (``KINDS``: the tile rebuild's kernels, the exact
+  tile inverse (csrc/bj_inverse.cu; a parent's cuSOLVER kernels), the V-cycle's
   sweeps or stages, SpMV, tile apply, the Krylov updates, Gram-Schmidt,
   dots, GEMMs, elementwise,
   ...), and the kernels with the most time (name, calls, ms).  The trace holds no kernel launched
@@ -171,6 +172,9 @@ def time_ms(fn, cold, n=30):
 # first that matches)
 KINDS = (("tile rebuild", ("bj_tiles_kernel", "bj_guard_rows", "bj_guard_max",
                            "bj_update_kernel")),
+         ("exact tile inverse", ("bj_inverse_kernel",)),
+         ("cuSOLVER", ("getrf", "getrs", "getri", "laswp", "trsm_",
+                       "cusolver", "magma")),
          ("V-cycle", ("vcycle_sweep", "vcycle_first", "vcycle_step",
                       "vcycle_residual")),
          ("spmv", ("sell_spmv",)),
