@@ -4936,6 +4936,14 @@ def phase_inverse(name, a, card, edges=False, rounds=None):
         f"a tile); captured, ms per replay {med} (medians of "
         f"{len(all_t['kernel (segment b_exact)'])} alternating rounds "
         f"{all_t}) on {card}")
+    check(rec["ms"] < rec["library_ms"], f"[29] {name}: the kernel "
+          f"({rec['ms']:.4f} ms L2-cold) is faster than cuSOLVER with the "
+          f"parent's two copies ({rec['library_ms']:.4f} ms)")
+    if sb == 256:
+        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+        check(rec["clusters_in_flight"] * (sb // 64) > sms,
+              f"[29] {name}: two CTAs an SM ({rec['clusters_in_flight']} "
+              f"clusters of {sb // 64} CTAs on {sms} SMs)")
     log(f"[29] {name} part {time.perf_counter() - t0:.1f} s")
     del x, cus, out, buf_k, buf_p
     gc.collect()

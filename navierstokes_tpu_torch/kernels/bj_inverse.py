@@ -31,6 +31,18 @@ in panels of PANEL columns:
 A tile with a NaN, or a zero pivot, comes out non-finite (as cuSOLVER's).
 A tile's inverse does not depend on the other tiles of the batch.
 
+The kernel's schedule (which CTA does an operation, and when, is free
+under the rounding rule above): a tile is a cluster of SB / COLUMNS CTAs,
+panel P lives in CTA P mod (SB / COLUMNS), and the owner of P + 1 applies
+P to its columns of P + 1 first, factors P + 1 and sends the panel's
+buffer to the other CTAs by bulk copies, then applies P to its other
+columns, so the trailing update of a panel runs under the next panel's
+factorisation.  At the bench point's 1,760 tiles of 256 on an H100 it
+takes 5.7-6.1 ms (the earlier blocked schedule 6.8-7.4, the bound 0.88, the
+rounding rule's floor 1.76; PERF.md section 6); the factorisation's
+columns (about 950 clocks each, on an SM shared with another tile's
+trailing update) bound it.
+
 Dispatch: CPU tensors take ``inverse_plain``; CUDA tensors launch the
 kernel or raise.  ``COUNTS`` records the launches by output dtype and any
 plain call made on CUDA tensors (which the main path must never make).
@@ -71,7 +83,7 @@ def _count(dtype):
 # the output dtype -> the entry's out_kind
 OUT_KINDS = {torch.float32: 1, torch.bfloat16: 2, torch.float64: 3}
 # the kernel's shape (csrc/bj_inverse.cu): each CTA of a tile's cluster
-# holds COLUMNS of its columns; panels of PANEL columns
+# holds COLUMNS of its columns, panels of PANEL columns taken cyclically
 COLUMNS = 64
 PANEL = 16
 

@@ -11,10 +11,13 @@ tests/test_torch_cuda.py) against the JAX package's ``jnp.linalg.inv`` in
 * the pivots: ties go to the lowest row position, the same row order as
   LAPACK's getrf on tiles whose elimination is exact; a NaN tile and a
   singular one come out non-finite, the other tiles of the batch not;
-* a CPU model of the kernel's blocked schedule (clusters of 64-column
-  CTAs, panels of 16 factored by their owner, the pivot rows through each
-  panel, the other rows' 8x8 blocks, rows left in place with their
-  positions) equals ``inverse_plain`` bit for bit;
+* a CPU model of the kernel's schedule (clusters of 64-column CTAs,
+  panels of 16 owned cyclically and factored by their owner, the next
+  panel's owner updating its columns of that panel first and factoring it
+  before its other columns, the pivot rows through each panel, the other
+  rows' blocks, rows left in place with their positions) equals
+  ``inverse_plain`` bit for bit, SB 64 to 512, with NaN, singular, tied
+  and row-swapping tiles;
 * the output dtypes (fp32, bf16, fp64 rounded once from fp32) and ``out=``
   slots of a larger buffer; what the wrapper refuses;
 * ``block_jacobi_invert`` with no Newton-Schulz steps and on the guard's
@@ -83,20 +86,32 @@ def _residual(a, x):
 
 def _kernel_model(a):
     """csrc/bj_inverse.cu's schedule on one fp32 tile (SB, SB): CTAs of
-    COLUMNS columns, panels of PANEL columns factored by their owner
-    (pivot by (key, lowest position), the row scaled by its reciprocal),
-    the panel's pivot rows taken through its steps on every other column
-    (B'), the other rows' blocks less the sum of the panel's products
-    (B), rows never moved, the result written at (pos[r], perm[g])."""
+    COLUMNS columns, panel P (PANEL columns) in CTA P mod C (cyclic, so CTA
+    c holds panels c, c + C, ...), factored by its owner (pivot by (key,
+    lowest position), the row scaled by its reciprocal) into multipliers F
+    and a header (pivot rows, reciprocals, the pivot rows' multipliers);
+    each CTA takes the panel's pivot rows through its steps on its columns
+    (B') and its other rows' blocks less the sum of the panel's products
+    (B).  Look-ahead: when panel P is out, the owner of P + 1 applies P to
+    its 16 columns of P + 1 first, factors P + 1 from them, and applies P
+    to its other columns after; every other CTA applies P to all its
+    columns.  Rows never move; the result is written at (pos[r],
+    perm[g]) through the cyclic column map."""
     SB, W, NB = a.shape[0], BI.COLUMNS, BI.PANEL
-    C = BI.cluster(SB)
-    slabs = [a[:, c * W:(c + 1) * W].clone() for c in range(C)]
+    C, NP = BI.cluster(SB), SB // NB
+    owner = lambda P: P % C                          # noqa: E731
+    lcol = lambda P: (P // C) * NB                   # noqa: E731
+    gcols = [[((lc // NB) * C + c) * NB + lc % NB for lc in range(W)]
+             for c in range(C)]
+    slabs = [a[:, g].clone() for g in gcols]
     pos = torch.arange(SB)
-    for P in range(SB // NB):
-        owner, lc0, k0 = P // (W // NB), (P % (W // NB)) * NB, P * NB
-        v = slabs[owner][:, lc0:lc0 + NB].clone()
+    hdr = {}
+
+    def factor(N):
+        s, lc0, k0 = slabs[owner(N)], lcol(N), N * NB
+        v = s[:, lc0:lc0 + NB].clone()
         F = torch.empty(NB, SB)
-        piv = []
+        piv, rd = [], []
         for m in range(NB):
             k = k0 + m
             x = v[:, m].clone()
@@ -105,9 +120,9 @@ def _kernel_model(a):
             cand = torch.nonzero(key == key.max())[:, 0]
             p = int(cand[torch.argmin(pos[cand])])
             q = int(pos[p])
-            rd = 1.0 / v[p, m]
-            u = v[p] * rd
-            u[m] = rd
+            r = 1.0 / v[p, m]
+            u = v[p] * r
+            u[m] = r
             F[m] = x
             nv = v.clone()
             nv[:, m] = 0.0
@@ -116,29 +131,49 @@ def _kernel_model(a):
             pos[pos == k] = q
             pos[p] = k
             piv.append(p)
-        slabs[owner][:, lc0:lc0 + NB] = v
+            rd.append(u[m])
+        s[:, lc0:lc0 + NB] = v
         pv = torch.tensor(piv)
-        fp = F[:, pv]
-        others = torch.tensor([i for i in range(SB) if i not in piv])
+        hdr[N] = (F, pv, torch.stack(rd), F[:, pv])
+
+    def apply(P, c, cols):
+        """Panel P's B' and B on CTA c's local columns ``cols``."""
+        if not cols:
+            return
+        F, pv, rd, fp = hdr[P]
+        cols = torch.tensor(cols)
+        others = torch.tensor([i for i in range(SB) if i not in pv.tolist()])
+        s = slabs[c]
+        r = s[pv][:, cols].clone()
+        U = torch.empty(NB, len(cols))
+        for m in range(NB):
+            u = r[m] * rd[m]
+            r[m] = u
+            U[m] = u
+            for m2 in range(NB):
+                if m2 != m:
+                    r[m2] = r[m2] - fp[m, m2] * u
+        t = F[0, others][:, None] * U[0][None, :]
+        for m in range(1, NB):
+            t = t + F[m, others][:, None] * U[m][None, :]
+        s[others[:, None], cols[None, :]] = s[others][:, cols] - t
+        s[pv[:, None], cols[None, :]] = r
+
+    factor(0)
+    for P in range(NP):
+        N = P + 1
+        skip = {c: set() for c in range(C)}
+        skip[owner(P)] |= set(range(lcol(P), lcol(P) + NB))
+        if N < NP:                      # the look-ahead
+            ahead = list(range(lcol(N), lcol(N) + NB))
+            apply(P, owner(N), ahead)
+            factor(N)
+            skip[owner(N)] |= set(ahead)
         for c in range(C):
-            cols = torch.tensor([j for j in range(W) if not (
-                c == owner and lc0 <= j < lc0 + NB)])
-            s = slabs[c]
-            r = s[pv][:, cols].clone()
-            U = torch.empty(NB, len(cols))
-            for m in range(NB):
-                u = r[m] * (1.0 / fp[m, m])
-                r[m] = u
-                U[m] = u
-                for m2 in range(NB):
-                    if m2 != m:
-                        r[m2] = r[m2] - fp[m, m2] * u
-            t = F[0, others][:, None] * U[0][None, :]
-            for m in range(1, NB):
-                t = t + F[m, others][:, None] * U[m][None, :]
-            s[others[:, None], cols[None, :]] = s[others][:, cols] - t
-            s[pv[:, None], cols[None, :]] = r
-    x = torch.cat(slabs, dim=1)
+            apply(P, c, [j for j in range(W) if j not in skip[c]])
+    x = torch.empty(SB, SB)
+    for c in range(C):
+        x[:, gcols[c]] = slabs[c]
     perm = torch.empty(SB, dtype=torch.long)
     perm[pos] = torch.arange(SB)
     out = torch.empty_like(x)
@@ -214,18 +249,33 @@ def test_nan_and_singular_tiles_are_non_finite():
 @pytest.mark.parametrize("SB, kind", [(64, "seeded"), (64, "ties"),
                                       (64, "nan"), (64, "singular"),
                                       (128, "seeded"), (128, "ties"),
-                                      (256, "seeded"), (256, "ties")])
+                                      (256, "seeded"), (256, "ties"),
+                                      (256, "nan"), (256, "singular"),
+                                      (256, "swaps"),
+                                      (512, "seeded"), (512, "ties")])
 def test_kernel_schedule_equals_plain(SB, kind):
-    """The kernel's blocked schedule (a CPU model of csrc/bj_inverse.cu)
-    gives inverse_plain's bits: blocking moves no operation's order."""
-    a = (_ties(SB, seed=SB) if kind == "ties"
-         else _tiles(SB, 1, seed=SB + 7)[0])
+    """The kernel's cyclic look-ahead schedule (a CPU model of
+    csrc/bj_inverse.cu) gives inverse_plain's bits: which CTA does an
+    operation, and when, moves no operation's order.  ``swaps`` is a tile
+    with no diagonal dominance (N(0, 1) entries), whose pivots lie in rows
+    that the look-ahead has just updated."""
+    if kind == "ties":
+        a = _ties(SB, seed=SB)
+    elif kind == "swaps":
+        a = np.random.default_rng(29).standard_normal(
+            (SB, SB)).astype(np.float32)
+    else:
+        a = _tiles(SB, 1, seed=SB + 7)[0]
     if kind == "nan":
         a[9, 40] = np.nan
     if kind == "singular":
         a[:, 17] = 0.0
     t = torch.as_tensor(a)
-    assert _same_bits(_kernel_model(t), BI.inverse_plain(t[None])[0])
+    want = BI.inverse_plain(t[None])[0]
+    assert _same_bits(_kernel_model(t), want)
+    if kind == "swaps":               # pivots off the diagonal
+        assert (BI.gauss_jordan_plain(t[None])[1][0]
+                != torch.arange(SB)).any()
 
 
 def test_out_dtypes_and_slots():

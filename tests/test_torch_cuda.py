@@ -2341,6 +2341,25 @@ def test_bj_inverse_edge_tiles_on_cuda(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sb", [128, 256, 512])
+def test_bj_inverse_look_ahead_pivots_on_cuda(cuda, sb):
+    """Tiles with no diagonal dominance (N(0, 1) entries): panels' first
+    columns pivot on rows other than their own, rows whose columns of that
+    panel the look-ahead has just updated; the kernel gives the plain
+    version's bits, in a batch of 7 and for one tile alone."""
+    from navierstokes_tpu_torch.kernels import bj_inverse as BI
+    rng = np.random.default_rng(sb + 23)
+    a = torch.as_tensor(rng.standard_normal((7, sb, sb)),
+                        dtype=torch.float32, device=cuda)
+    x = BI.inverse(a)
+    want, perm = BI.gauss_jordan_plain(a)
+    assert _same_bits(x, want)
+    firsts = torch.arange(16, sb, 16, device=cuda)
+    assert bool((perm[:, firsts] != firsts).any(dim=1).all())
+    assert _same_bits(BI.inverse(a[3:4]), x[3:4])
+
+
+@pytest.mark.cuda
 def test_bj_inverse_refuses_what_it_does_not_take(cuda):
     from navierstokes_tpu_torch.kernels import bj_inverse as BI
     with pytest.raises(ValueError, match="no instantiation"):
