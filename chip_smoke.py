@@ -272,23 +272,34 @@ and checks them:
    version (both paths at the bench point), the fused and the plain
    (stock) V-cycle per call;
 28. the block-Jacobi tile rebuild's kernels (csrc/bj_tiles.cu: the masked
-   tiles in one write, the Newton-Schulz guard's norm in one read of
-   A X0, each Newton-Schulz update in one pass, the last into the step's
-   tile buffer; their launches are counted on phases 5, 8, 14, 20, 21,
-   22 and 25 per step by kernel, each held to the step's branch, and the
-   plain versions make no CUDA call there): right after phase 20, at phase
-   5's end state (F values, mask, sigma and the static seed; 1,760 tiles of
-   256 x 256), and in phase 14's kernel model after one plain step at
-   the NACA step's 274 tiles, each kernel against its plain version bit for bit (the tiles
-   from fp32 and fp64 F values, the guard's norm, each update with its
-   strides, the last update in fp32, bf16 and fp64), the Newton-Schulz
-   rebuild against the stock PyTorch chain the port ran before (the same
-   tile inverses; the guard's norm within 1e-6 of the stock sums', the
-   same branch); each kernel's ms per call L2-cold and warm beside its
-   bound and its plain version, the update beside ``torch.baddbmm`` (the
-   record's ``library_ms``) against the GEMM and the kernel; one
+   tiles in one write, the max of the guard's partials; the guard's row
+   sums and each Newton-Schulz update are epilogues of csrc/bj_gemm.cu,
+   phase 30; the launches of both are counted on phases
+   5, 8, 14, 20, 21, 22 and 25 per step by kernel and epilogue, each held
+   to the step's branch, and the plain versions (cuBLAS's products among
+   them) make no CUDA call there): right after phase 20, at phase 5's end
+   state (F values, mask, sigma and the static seed; 1,760 tiles of 256 x
+   256), and in phase 14's kernel model after one plain step at the NACA
+   step's 274 tiles, each kernel against its plain version bit for bit
+   (the tiles from fp32 and fp64 F values, the guard's A X0 and norm, each
+   update and the product after it, the last update in fp32, bf16 and
+   fp64), the Newton-Schulz rebuild against the stock PyTorch chain the
+   port ran before (the same tile inverses; the guard's norm within 1e-6
+   of the stock sums', the same branch); the tiles kernel's ms per call
+   L2-cold and warm beside its bound and its plain version; one
    Newton-Schulz rebuild (segments (a) and (b)) captured, the kernels'
-   graph against the stock chain's in alternating rounds.
+   graph against the stock chain's in alternating rounds;
+29. the exact tile inverse (csrc/bj_inverse.cu; see its section below);
+30. the Newton-Schulz products (csrc/bj_gemm.cu: one batched fp32 GEMM,
+   k ascending in one accumulator as cuBLAS's batched kernel sums, with
+   the guard's row sums, the update 2 X - X (A X) or nothing in its
+   epilogue): right after phase 28 at phase 5's end state and after phase
+   28's NACA part, each epilogue at the operands the step gives it against
+   its plain version (torch.matmul, then the plain pass) bit for bit; ms
+   per call L2-cold and warm beside the bound (operations), the plain
+   version and torch.matmul alone (the record's ``library_ms``), a line
+   where the bare product is the slower; CTAs an SM; one eager rebuild
+   under torch.profiler: the GEMM's kernel and no library GEMM.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Any failed check raises, so the exit code is not 0.
@@ -431,30 +442,42 @@ def per_step_launches(n_steps, by_pattern=None):
 def kry_reset():
     """Set the Krylov loops' kernel counts to 0 (csrc/krylov_update.cu's
     stages, csrc/gram_schmidt.cu's steps, csrc/vcycle.cu's V-cycle
-    sweeps) and the tile rebuild's (csrc/bj_tiles.cu, csrc/bj_inverse.cu)."""
-    from navierstokes_tpu_torch.kernels import (bj_inverse, bj_tiles,
-                                                gram_schmidt, krylov_update,
+    sweeps) and the tile rebuild's (csrc/bj_tiles.cu, csrc/bj_gemm.cu,
+    csrc/bj_inverse.cu)."""
+    from navierstokes_tpu_torch.kernels import (gram_schmidt, krylov_update,
                                                 vcycle)
     krylov_update.COUNTS.reset()
     gram_schmidt.COUNTS.reset()
     vcycle.COUNTS.reset()
+    rebuild_reset()
+
+
+def rebuild_reset():
+    """Set the tile rebuild's kernel counts to 0."""
+    from navierstokes_tpu_torch.kernels import bj_gemm, bj_inverse, bj_tiles
     bj_tiles.COUNTS.reset()
+    bj_gemm.COUNTS.reset()
     bj_inverse.COUNTS.reset()
 
 
 def rebuild_counts():
     """The tile rebuild's launches since its counts were last set to 0, by
-    kernel and dtype (``rebuild:<kernel> <dtype>``; the exact inverse of
+    kernel and dtype (``rebuild:<kernel> <dtype>``: csrc/bj_tiles.cu's
+    ``tiles`` and ``guard_max``, csrc/bj_gemm.cu's epilogues ``guard``,
+    ``product``, ``update`` and ``update_last``, the exact inverse of
     csrc/bj_inverse.cu as ``rebuild:inverse <out dtype>``), and its plain
-    versions' calls on CUDA tensors (``rebuild_plain``)."""
-    from navierstokes_tpu_torch.kernels import bj_inverse, bj_tiles
+    versions' calls on CUDA tensors (``rebuild_plain``; the GEMM's plain
+    versions are cuBLAS's products, so 0 means no cuBLAS GEMM from the
+    rebuild)."""
+    from navierstokes_tpu_torch.kernels import bj_gemm, bj_inverse, bj_tiles
+    variants = {**bj_tiles.COUNTS.by_variant, **bj_gemm.COUNTS.by_variant}
     c = {f"rebuild:{k} {str(dt).replace('torch.', '')}": v
-         for (k, dt), v in sorted(bj_tiles.COUNTS.by_variant.items(),
-                                  key=str)}
+         for (k, dt), v in sorted(variants.items(), key=str)}
     c.update({f"rebuild:inverse {str(dt).replace('torch.', '')}": v
               for dt, v in sorted(bj_inverse.COUNTS.by_dtype.items(),
                                   key=str)})
     c["rebuild_plain"] = (bj_tiles.COUNTS.plain_cuda_calls
+                          + bj_gemm.COUNTS.plain_cuda_calls
                           + bj_inverse.COUNTS.plain_cuda_calls)
     return c
 
@@ -507,16 +530,17 @@ def vcycle_per_step(phase, tag, kry, n_cycles, k, calls=None):
 
 def check_rebuild(phase, tag, per_step, ms, parts=1, iters=3,
                   dtype="float32", seeds=0):
-    """The path rebuilt its tiles through csrc/bj_tiles.cu and
-    csrc/bj_inverse.cu (``per_step``: launches per step with
+    """The path rebuilt its tiles through csrc/bj_tiles.cu, csrc/bj_gemm.cu
+    and csrc/bj_inverse.cu (``per_step``: launches per step with
     ``rebuild_counts``' keys): per step and row shard (``parts``) one tiles
     launch (and ``seeds`` more over the window where it built the static
-    seed), the guard's two kernels, on each Newton-Schulz step
-    (``StepMetrics.exact_inverse`` False) iters - 1 updates and one last
-    update into ``dtype`` tiles, on each exact step one exact inverse into
-    ``dtype`` tiles; no plain version on CUDA tensors.  Logs the branch per
-    step (N Newton-Schulz, E exact) beside the exact inverse's launches
-    per step and returns it."""
+    seed), the GEMM's guard epilogue and the max of its partials, on each
+    Newton-Schulz step (``StepMetrics.exact_inverse`` False) iters - 1
+    update and as many product epilogues and one last update into
+    ``dtype`` tiles, on each exact step one exact inverse into ``dtype``
+    tiles; no plain version on CUDA tensors (so no cuBLAS GEMM).  Logs the
+    branch per step (N Newton-Schulz, E exact) beside the exact inverse's
+    launches per step and returns it."""
     n = len(ms)
     newton = sum(not m.exact_inverse for m in ms)
     exact = n - newton
@@ -525,12 +549,13 @@ def check_rebuild(phase, tag, per_step, ms, parts=1, iters=3,
     want = {"guard float32": parts, "guard_max float32": parts}
     if newton and iters > 1:
         want["update float32"] = parts * (iters - 1) * newton / n
+        want["product float32"] = parts * (iters - 1) * newton / n
     if newton:
         want[f"update_last {dtype}"] = parts * newton / n
     if exact:
         want[f"inverse {dtype}"] = parts * exact / n
     branch = "".join("E" if m.exact_inverse else "N" for m in ms)
-    log(f"[{phase}] {tag}: tile rebuild (csrc/bj_tiles.cu, "
+    log(f"[{phase}] {tag}: tile rebuild (csrc/bj_tiles.cu, csrc/bj_gemm.cu, "
         f"csrc/bj_inverse.cu) launches per step {got}; tile inverses per "
         f"step {branch} (N Newton-Schulz, E exact), exact-inverse launches "
         f"per step {got.get(f'inverse {dtype}', 0.0):.2f} ({parts} a shard "
@@ -2757,21 +2782,23 @@ def thin_airfoil_fit(angles, cl):
 def _take_counts(into):
     """Add the launch counts by pattern and the plain-version CUDA calls
     to the Counter ``into`` and set the counts to 0."""
-    from navierstokes_tpu_torch.kernels import bj_apply, bj_inverse, bj_tiles
+    from navierstokes_tpu_torch.kernels import (bj_apply, bj_gemm, bj_inverse,
+                                                bj_tiles)
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     into.update(COUNTS.by_pattern)
     into["plain"] += (COUNTS.plain_cuda_calls
                       + bj_apply.COUNTS.plain_cuda_calls
                       + bj_tiles.COUNTS.plain_cuda_calls
+                      + bj_gemm.COUNTS.plain_cuda_calls
                       + bj_inverse.COUNTS.plain_cuda_calls)
     into["bj"] += bj_apply.COUNTS.launches
-    for (k, _), v in bj_tiles.COUNTS.by_variant.items():
+    for (k, _), v in {**bj_tiles.COUNTS.by_variant,
+                      **bj_gemm.COUNTS.by_variant}.items():
         into[f"rebuild:{k}"] += v
     into["rebuild:inverse"] += bj_inverse.COUNTS.launches
     COUNTS.reset()
     bj_apply.COUNTS.reset()
-    bj_tiles.COUNTS.reset()
-    bj_inverse.COUNTS.reset()
+    rebuild_reset()
 
 
 def phase_naca_sweep(card):
@@ -2873,8 +2900,9 @@ def phase_naca_sweep(card):
         f"{setup_launches} in the four setups; plain-version CUDA calls "
         f"{plain_cuda}; per step by operator {per_step}; tile-apply "
         f"launches {bj_launches} ({bj_launches / n_steps:.2f} per step); "
-        f"tile rebuild (csrc/bj_tiles.cu, csrc/bj_inverse.cu) launches per "
-        f"step { {k: v / n_steps for k, v in rebuild.items()} }")
+        f"tile rebuild (csrc/bj_tiles.cu, csrc/bj_gemm.cu, "
+        f"csrc/bj_inverse.cu) launches per step "
+        f"{ {k: v / n_steps for k, v in rebuild.items()} }")
     check(ok, "[14] thin-airfoil criteria (monotone, slope 0.55-1.0 x "
           "2 pi, R^2 > 0.98, 0 < Cl(0) < 2 pi 2.5 deg)")
     check(f_launches >= n_steps, "[14] the F product launched every step")
@@ -2971,6 +2999,7 @@ def phase_kernel_naca():
     inp = rebuild_inputs(ns)
     rebuild = phase_rebuild("NACA", inp, card_line())
     log(f"[28] NACA part {time.perf_counter() - t28:.1f} s")
+    rebuild["products"] = phase_products("NACA", inp, card_line())
     from navierstokes_tpu_torch.kernels import bj_tiles
     rebuild["inverse"] = phase_inverse("NACA", bj_tiles.tiles(
         inp["plan"], inp["f"], inp["mask"], inp["sigma"]), card_line())
@@ -3557,7 +3586,7 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
     the pressure side on the home device ``cuda:0``) against the
     unsharded model ``ns`` of phase 5, bit for bit; then the small
     fixture on ``small_devices`` against one device."""
-    from navierstokes_tpu_torch.kernels import bj_apply, bj_inverse, bj_tiles
+    from navierstokes_tpu_torch.kernels import bj_apply
     from navierstokes_tpu_torch.kernels.sell_spmv import COUNTS
     from navierstokes_tpu_torch.ops import p1ell
     from navierstokes_tpu_torch.ops.bsr import BsrOps
@@ -3584,8 +3613,7 @@ def phase_sharded(ns, bench, card, devices=("cuda:0", "cuda:0"),
     first = bench["first"]
     COUNTS.reset()
     bj_apply.COUNTS.reset()
-    bj_tiles.COUNTS.reset()
-    bj_inverse.COUNTS.reset()
+    rebuild_reset()
     torch.cuda.reset_peak_memory_stats()
     ms, walls = [], []
     for _ in range(SHARD_STEPS):
@@ -4488,9 +4516,7 @@ BJT_SOURCE = "navierstokes_tpu_torch/csrc/bj_tiles.cu"
 # no Pallas kernel: the JAX package lays the rebuild out by hand for the TPU
 # and XLA fuses its elementwise work (block_jacobi_tiles; the guard's norm
 # and the newton branch of block_jacobi_invert)
-BJT_REPLACES = {"bj_tiles": "navierstokes_tpu/ops/p1ell.py:393",
-                "bj_guard": "navierstokes_tpu/ops/p1ell.py:493",
-                "bj_ns_update": "navierstokes_tpu/ops/p1ell.py:498"}
+BJT_REPLACES = {"bj_tiles": "navierstokes_tpu/ops/p1ell.py:393"}
 # rounds of the captured rebuild, the kernels' and the stock chain's
 # replays alternating (kernels, stock, stock, kernels per round)
 BJT_ROUNDS = 4
@@ -4534,14 +4560,15 @@ def stock_rebuild(inp, buf):
     return norm
 
 
-def kernel_rebuild(inp, buf):
-    """The same rebuild through ops/p1ell (the kernels of csrc/bj_tiles.cu
-    and cuBLAS's products), the last update into ``buf``: segments (a) and
-    (b) of the captured step.  Returns the norm."""
+def kernel_rebuild(inp, buf, partials=None):
+    """The same rebuild through ops/p1ell (the tiles kernel of
+    csrc/bj_tiles.cu, the products with the guard and the updates in their
+    epilogues by csrc/bj_gemm.cu), the last update into ``buf``: segments
+    (a) and (b) of the captured step.  Returns the norm."""
     from navierstokes_tpu_torch.ops import p1ell
     g = p1ell.block_jacobi_guard([(inp["plan"], inp["f"], inp["mask"],
                                    inp["sigma"], inp["x0"])], BJT_ITERS,
-                                 buf.dtype)
+                                 buf.dtype, partials=partials)
     p1ell.block_jacobi_newton(g, BJT_ITERS, out=[buf])
     return g.norm
 
@@ -4612,17 +4639,20 @@ def _captured_ms(fns, rounds=None):
 
 
 def phase_rebuild(name, inp, card, timed=True, rounds=None):
-    """Phase 28 at one model's rebuild inputs (``rebuild_inputs``): each
+    """Phase 28 at one model's rebuild inputs (``rebuild_inputs``): the tiles
     kernel of csrc/bj_tiles.cu against its plain version on the card, bit
-    for bit (the tiles from fp32 and fp64 F values; the guard's norm; each
-    Newton-Schulz update with its strides; the last update in fp32, bf16
-    and fp64), the whole Newton-Schulz rebuild against the stock chain's
-    (the same tile inverses; the guard's norm within its summation order's
-    gap, the same branch); with ``timed``, each kernel's ms per call
-    L2-cold and warm beside its bound, its plain version and, for the
-    update, torch.baddbmm (2 x - x (A X) in one library call) against the
-    GEMM and the kernel; the captured rebuild (segments (a) and (b))
-    against the stock chain captured, in alternating rounds."""
+    for bit (from fp32 and fp64 F values); the guard's norm and each
+    Newton-Schulz update, the epilogues of csrc/bj_gemm.cu,
+    against their plain versions bit for bit (A X0 and the norm; each
+    update with its strides and the product after it; the last update in
+    fp32, bf16 and fp64); the whole Newton-Schulz rebuild against the
+    stock chain's (the same tile inverses; the guard's norm within its
+    summation order's gap, the same branch); with ``timed``, the tiles
+    kernel's ms per call L2-cold and warm beside its bound and its plain
+    version, and the captured rebuild (segments (a) and (b)) against the
+    stock chain captured, in alternating rounds.  Phase 30 times the
+    GEMM's epilogues."""
+    from navierstokes_tpu_torch.kernels import bj_gemm as BG
     from navierstokes_tpu_torch.kernels import bj_tiles as BT
     from navierstokes_tpu_torch.ops.p1ell import GUARD_LIMIT
     plan, f, mask, sigma = inp["plan"], inp["f"], inp["mask"], inp["sigma"]
@@ -4640,30 +4670,33 @@ def phase_rebuild(name, inp, card, timed=True, rounds=None):
                                        BT.tiles_plain(plan, f64, m64, s64))
     # the guard, at A X0
     x = inp["x0"].to(torch.float32)
-    ax = torch.matmul(a, x)
-    norm = BT.guard(ax)
-    same["guard"] = _same_bits(norm, BT.guard_plain(ax))
+    ax, norm = BG.guard(a, x)
+    want_ax, want_norm = BG.guard_product_plain(a, x)
+    same["guard A X0"] = _same_bits(ax, want_ax)
+    same["guard"] = _same_bits(norm, want_norm)
     stock = stock_guard(ax)
     gap = abs(float(norm) - float(stock)) / max(abs(float(stock)), 1e-30)
     branch = bool(norm < GUARD_LIMIT)
     check(branch == bool(stock < GUARD_LIMIT),
           f"[28] {name}: the guard's branch equals the stock sums'")
-    # the updates, and the last one in each dtype
+    # the updates and the products between them, the last in each dtype
     layouts = []
     for i in range(BJT_ITERS):
-        p = torch.matmul(x, ax)
         if i + 1 < BJT_ITERS:
-            xk = BT.update(x, p)
-            same[f"update {i + 1}"] = _same_bits(xk, BT.update_plain(x, p))
+            xk = BG.update(x, ax)
+            same[f"update {i + 1}"] = _same_bits(
+                xk, BG.update_product_plain(x, ax))
             layouts.append("column" if BT.layout(xk) else "row")
-            x_prev, p_prev = x, p
             x = xk
-            ax = torch.matmul(a, x)
+            axk = BG.product(a, x)
+            same[f"product {i + 1}"] = _same_bits(axk,
+                                                  BG.product_plain(a, x))
+            ax = axk
         else:
             for dt in (torch.float32, torch.bfloat16, torch.float64):
                 same[f"last update {str(dt).replace('torch.', '')}"] = \
-                    _same_bits(BT.update(x, p, out_dtype=dt),
-                               BT.update_plain(x, p, out_dtype=dt))
+                    _same_bits(BG.update(x, ax, out_dtype=dt),
+                               BG.update_product_plain(x, ax, out_dtype=dt))
     # the whole rebuild against the stock chain
     buf_k = torch.empty((n_tiles, SB, SB), device=f.device)
     buf_s = torch.empty_like(buf_k)
@@ -4684,56 +4717,25 @@ def phase_rebuild(name, inp, card, timed=True, rounds=None):
     out.update(n_tiles=n_tiles, sb=SB, n_on=n_on, same=same, norm=float(norm),
                stock_norm=float(stock), norm_gap=gap,
                newton=branch, max_abs_err=0.0)
+    del ax, x, xk, axk, want_ax
     if not timed:
         return out
     fb = f.element_size()
-    recs = {}
     # tiles: the stack written once; the on-tile values, pos, src, the row
     # offsets and the mask read once; 4 operations a value
-    recs["bj_tiles"] = dict(use=name, **_bjt_bound(
+    rec = dict(use=name, **_bjt_bound(
         4 * N + n_on * (fb + 8) + 4 * (n_rows + 1) + plan.n_p2 * fb, 4 * N))
-    _bjt_time(recs["bj_tiles"], lambda: BT.tiles(plan, f, mask, sigma),
+    _bjt_time(rec, lambda: BT.tiles(plan, f, mask, sigma),
               lambda: BT.tiles_plain(plan, f, mask, sigma))
-    ax0 = torch.matmul(a, inp["x0"].to(torch.float32))
-    # guard: A X0 read once, 3 operations a value
-    recs["bj_guard"] = dict(use=name, kernels_per_call=2,
-                            **_bjt_bound(4 * N, 3 * N))
-    _bjt_time(recs["bj_guard"], lambda: BT.guard(ax0),
-              lambda: BT.guard_plain(ax0))
-    # update: x and p read, x' written; 2 operations a value
-    recs["bj_ns_update"] = dict(use=name, **_bjt_bound(12 * N, 2 * N))
-    _bjt_time(recs["bj_ns_update"], lambda: BT.update(x_prev, p_prev),
-              lambda: BT.update_plain(x_prev, p_prev))
-    u = recs["bj_ns_update"]
-    u["library_ms"] = _burst_ms([lambda: torch.baddbmm(
-        x_prev, x_prev, ax0, beta=2.0, alpha=-1.0)], reps=3)
-    u["gemm_and_kernel_ms"] = _burst_ms([lambda: BT.update(
-        x_prev, torch.matmul(x_prev, ax0))], reps=3)
-    u["gemm_ms"] = _burst_ms([lambda: torch.matmul(x_prev, ax0)], reps=3)
-    u["last"] = {}
-    for dt in (torch.float32, torch.bfloat16, torch.float64):
-        key = str(dt).replace("torch.", "")
-        bound = _bjt_bound((8 + torch.empty((), dtype=dt).element_size())
-                           * N, 2 * N)
-        u["last"][key] = dict(ms=_burst_ms([lambda: BT.update(
-            x_prev, p_prev, out_dtype=dt)], reps=3), **bound)
-    recs["bj_tiles"]["library_ms"] = recs["bj_guard"]["library_ms"] = None
-    for k, r in recs.items():
-        extra = ""
-        if k == "bj_ns_update":
-            extra = (f"; library (torch.baddbmm, 2 x - x (A X) in one call) "
-                     f"{r['library_ms']:.4f} against the GEMM and the kernel "
-                     f"{r['gemm_and_kernel_ms']:.4f} (GEMM {r['gemm_ms']:.4f})"
-                     f"; last update ms " + ", ".join(
-                         f"{d} {v['ms']:.4f} (bound {v['bound_ms']:.4f})"
-                         for d, v in r["last"].items()))
-        log(f"[28] {name} {k}: ms cold {r['ms']:.4f}, warm "
-            f"{r['warm_ms']:.4f} ({r['bound_bytes'] / r['ms'] / 1e6:.0f} "
-            f"GB/s cold), bound {r['bound_ms']:.4f} ({r['bound_by']}), "
-            f"plain {r['plain_ms']:.4f}{extra} on {card}")
+    rec["library_ms"] = None
+    log(f"[28] {name} bj_tiles: ms cold {rec['ms']:.4f}, warm "
+        f"{rec['warm_ms']:.4f} ({rec['bound_bytes'] / rec['ms'] / 1e6:.0f} "
+        f"GB/s cold), bound {rec['bound_ms']:.4f} ({rec['bound_by']}), "
+        f"plain {rec['plain_ms']:.4f} on {card}")
     # the rebuild captured: the kernels against the stock chain
+    parts = BG.guard_partials(n_tiles, SB, f.device)
     med, all_t = _captured_ms({
-        "kernels": lambda: kernel_rebuild(inp, buf_k),
+        "kernels": lambda: kernel_rebuild(inp, buf_k, [parts]),
         "stock chain": lambda: stock_rebuild(inp, buf_s)}, rounds)
     log(f"[28] {name}: one Newton-Schulz rebuild (segments (a) and (b)) "
         f"captured, ms per replay: kernels {med['kernels']:.4f}, the stock "
@@ -4742,11 +4744,158 @@ def phase_rebuild(name, inp, card, timed=True, rounds=None):
     torch.cuda.synchronize()
     check(_same_bits(buf_k, buf_s), f"[28] {name}: the captured rebuilds "
           "agree bit for bit")
-    out.update(kernels=recs, rebuild_ms=med["kernels"],
+    out.update(kernels={"bj_tiles": rec}, rebuild_ms=med["kernels"],
                stock_rebuild_ms=med["stock chain"], rounds=all_t)
-    del a, ax, ax0, x, x_prev, p_prev, buf_k, buf_s, p
+    del a, buf_k, buf_s
     return out
 
+
+# phase 30: the Newton-Schulz products (csrc/bj_gemm.cu) at phase 5's end
+# state (1,760 tiles of 256 x 256) and at the NACA step's (274)
+BJG_SOURCE = "navierstokes_tpu_torch/csrc/bj_gemm.cu"
+# no Pallas kernel: block_jacobi_invert's batched jnp.matmul (A X0 at :491,
+# X (A X) at :498, A X at :501), with the guard and the update that XLA
+# fuses around them
+BJG_REPLACES = {"bj_gemm": "navierstokes_tpu/ops/p1ell.py:501",
+                "bj_gemm_guard": "navierstokes_tpu/ops/p1ell.py:491",
+                "bj_gemm_update": "navierstokes_tpu/ops/p1ell.py:498"}
+# parts of a kernel name that mark a library GEMM in a profiler trace
+LIBRARY_GEMM = ("gemm", "xmma", "cutlass", "kernel2", "splitk")
+
+
+def _bjg_time(name, fn, plain, library, nbytes, ops):
+    """One epilogue's record: ms per call L2-cold and warm, its bound, its
+    plain version's ms (torch.matmul and the plain pass, eagerly) and
+    ``library``'s (torch.matmul alone on the same operands, in bursts)."""
+    rec = dict(use=name, **_bjt_bound(nbytes, ops))
+    rec.update(ms=_time_ms(fn, cold=True, n=10),
+               warm_ms=_burst_ms([fn], reps=3),
+               plain_ms=_plain_ms(plain, n=3, reps=3),
+               library_ms=_burst_ms([library], reps=3))
+    return rec
+
+
+def rebuild_kernel_names(inp, parts):
+    """The device kernels of one eager Newton-Schulz rebuild through
+    ops/p1ell, from a torch.profiler trace (empty where the profiler sees
+    no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    plan = inp["plan"]
+    SB = plan.S * plan.bu
+    buf = torch.empty((plan.n_tiles, SB, SB), device="cuda")
+    kernel_rebuild(inp, buf, [parts])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kernel_rebuild(inp, buf, [parts])
+        torch.cuda.synchronize()
+    names = set()
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+        if t > 0:
+            names.add(e.key)
+    return sorted(names)
+
+
+def phase_products(name, inp, card):
+    """Phase 30 at one model's rebuild inputs: each epilogue of
+    csrc/bj_gemm.cu at the operands the step gives it (the guard at A and
+    the seed X0, the update at X0 and A X0, the product at A and the first
+    update, the last update into the tiles' dtype) against its plain
+    version bit for bit; ms per call L2-cold and warm beside the bound,
+    the plain version (torch.matmul and the plain pass) and torch.matmul
+    alone (``library_ms``), a line where the bare product is the slower;
+    each epilogue's CTAs per SM; one eager rebuild profiled: the GEMM's
+    kernel and no library GEMM."""
+    from navierstokes_tpu_torch.kernels import bj_gemm as BG
+    from navierstokes_tpu_torch.kernels import bj_tiles as BT
+    t0 = time.perf_counter()
+    plan = inp["plan"]
+    SB, n = plan.S * plan.bu, plan.n_tiles
+    N, ops = n * SB * SB, 2 * n * SB ** 3
+    a = BT.tiles(plan, inp["f"], inp["mask"], inp["sigma"])
+    x0 = inp["x0"].to(torch.float32)
+    parts = BG.guard_partials(n, SB, a.device)
+    ax0, norm = BG.guard(a, x0, parts)
+    x1 = BG.update(x0, ax0)
+    ax1 = BG.product(a, x1)
+    want_ax, want_norm = BG.guard_product_plain(a, x0)
+    same = {"guard": _same_bits(ax0, want_ax)
+            and _same_bits(norm, want_norm),
+            "update": _same_bits(x1, BG.update_product_plain(x0, ax0)),
+            "product": _same_bits(ax1, BG.product_plain(a, x1))}
+    for dt in (torch.float32, torch.bfloat16):
+        same[f"last update {str(dt).replace('torch.', '')}"] = _same_bits(
+            BG.update(x1, ax1, out_dtype=dt),
+            BG.update_product_plain(x1, ax1, out_dtype=dt))
+    del want_ax
+    lay = {k: "column" if BT.layout(t) else "row"
+           for k, t in (("A", a), ("X0", x0), ("A X0", ax0), ("X", x1))}
+    log(f"[30] {name}: {n} tiles of {SB} x {SB}, operands {lay}; each "
+        f"epilogue bit for bit against its plain version: {same}")
+    check(all(same.values()), f"[30] {name}: every epilogue gives its "
+          f"plain version's bits: {same}")
+    recs = {
+        "bj_gemm": _bjg_time(name, lambda: BG.product(a, x1),
+                             lambda: BG.product_plain(a, x1),
+                             lambda: torch.matmul(a, x1), 12 * N, ops),
+        "bj_gemm_guard": _bjg_time(name, lambda: BG.guard(a, x0, parts),
+                                   lambda: BG.guard_product_plain(a, x0),
+                                   lambda: torch.matmul(a, x0),
+                                   12 * N + 8 * parts.numel(), ops),
+        "bj_gemm_update": _bjg_time(name, lambda: BG.update(x0, ax0),
+                                    lambda: BG.update_product_plain(x0, ax0),
+                                    lambda: torch.matmul(x0, ax0), 12 * N,
+                                    ops)}
+    recs["bj_gemm_guard"]["kernels_per_call"] = 2
+    u = recs["bj_gemm_update"]
+    u["baddbmm_ms"] = _burst_ms([lambda: torch.baddbmm(
+        x0, x0, ax0, beta=2.0, alpha=-1.0)], reps=3)
+    u["last"] = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float64):
+        buf = torch.empty((n, SB, SB), dtype=dt, device=a.device)
+        u["last"][str(dt).replace("torch.", "")] = dict(
+            ms=_burst_ms([lambda: BG.update(x1, ax1, out=buf)], reps=3),
+            **_bjt_bound((8 + buf.element_size()) * N, ops))
+        del buf
+    occupancy = {e: BG.occupancy(SB, e) for e in BG.EPILOGUES}
+    for k, r in recs.items():
+        r["ctas_per_sm"] = occupancy[{"bj_gemm": "product",
+                                      "bj_gemm_guard": "guard",
+                                      "bj_gemm_update": "update"}[k]]
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        extra = ""
+        if k == "bj_gemm_update":
+            extra = ("; torch.baddbmm (2 X - X (A X) in one call) "
+                     f"{r['baddbmm_ms']:.4f}; last update ms " + ", ".join(
+                         f"{d} {v['ms']:.4f}" for d, v in r["last"].items()))
+        log(f"[30] {name} {k}: ms cold {r['ms']:.4f}, warm "
+            f"{r['warm_ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}, {r['share_of_bound']:.0%} of it cold), plain "
+            f"{r['plain_ms']:.4f}, torch.matmul {r['library_ms']:.4f}, "
+            f"{r['ctas_per_sm']} CTAs an SM{extra} on {card}")
+    p = recs["bj_gemm"]
+    if p["warm_ms"] > p["library_ms"]:
+        log(f"[30] {name}: the bare product ({p['warm_ms']:.4f} ms warm) is "
+            f"slower than torch.matmul ({p['library_ms']:.4f} ms) at these "
+            f"tiles")
+    names = rebuild_kernel_names(inp, parts)
+    library = [k for k in names if "bj_gemm_kernel" not in k
+               and any(w in k.lower() for w in LIBRARY_GEMM)]
+    log(f"[30] {name}: one eager Newton-Schulz rebuild's device kernels "
+        f"(torch.profiler): {names}")
+    if names:
+        check(not library and any("bj_gemm_kernel" in k for k in names),
+              f"[30] {name}: the rebuild runs csrc/bj_gemm.cu and no "
+              f"library GEMM ({library})")
+    else:
+        log(f"[30] {name}: the profiler saw no device kernels; the launch "
+            f"counts stand alone")
+    seconds = time.perf_counter() - t0
+    log(f"[30] {name} part {seconds:.1f} s")
+    del a, x0, x1, ax0, ax1
+    return dict(n_tiles=n, sb=SB, same=same, layouts=lay, kernels=recs,
+                profiled_kernels=names, seconds=seconds)
 
 
 # phase 29: the exact tile inverse (csrc/bj_inverse.cu) at phase 5's end
@@ -4983,6 +5132,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[28] bench part {time.perf_counter() - t28:.1f} s")
+    gemm_bench = phase_products("bench", inp, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     from navierstokes_tpu_torch.kernels import bj_tiles
     inv_bench = phase_inverse("bench", bj_tiles.tiles(
         inp["plan"], inp["f"], inp["mask"], inp["sigma"]), card, edges=True)
@@ -5277,36 +5429,51 @@ def main():
                 if k.startswith("rebuild:")
                 and k.split(":")[1].split()[0] in kinds}
 
-    for name, kinds in (("bj_tiles", ("tiles",)),
-                        ("bj_guard", ("guard",)),
-                        ("bj_ns_update", ("update", "update_last"))):
-        head = rb_bench["kernels"][name]
+    rb_recs = {"bj_tiles": (BJT_SOURCE, BJT_REPLACES["bj_tiles"],
+                            ("tiles",), rb_bench["kernels"]["bj_tiles"],
+                            rb_naca["kernels"]["bj_tiles"]),
+               **{k: (BJG_SOURCE, BJG_REPLACES[k], kinds,
+                      gemm_bench["kernels"][k],
+                      rb_naca["products"]["kernels"][k])
+                  for k, kinds in (("bj_gemm", ("product",)),
+                                   ("bj_gemm_guard", ("guard",)),
+                                   ("bj_gemm_update", ("update",
+                                                       "update_last")))}}
+    for name, (source, replaces, kinds, head, naca_rec) in rb_recs.items():
         launched = sum(round(v * n) for c, n in windows
                        for v in rebuild_of(c, kinds).values())
         check(launched > 0, f"{name} launched on the main paths (phases 5, "
               f"8, 20, 25: {launched})")
         kernels.append({
-            "name": name, "route": "cuda", "source": BJT_SOURCE,
-            "replaces": BJT_REPLACES[name], "launches": launched,
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launched,
             "max_abs_err": 0.0,
             **{k: head[k] for k in ("ms", "warm_ms", "plain_ms", "bound_ms",
                                     "bound_by", "bound_bytes",
                                     "library_ms")},
             "headline": f"phase 5's end state, {rb_bench['n_tiles']} tiles "
                         f"of {rb_bench['sb']} x {rb_bench['sb']}, fp32, "
-                        "ms L2-cold",
-            "uses": {"bench": head, "naca": rb_naca["kernels"][name]},
+                        "ms L2-cold"
+                        + ("" if name == "bj_tiles" else
+                           "; library_ms: torch.matmul of the same "
+                           "operands"),
+            "uses": {"bench": head, "naca": naca_rec},
             "launches_per_step": {p: rebuild_of(c, kinds)
                                   for p, c in rb_paths.items()}})
-    kernels[-3]["rebuild"] = {
+        if name == "bj_tiles":
+            tiles_entry = kernels[-1]
+    tiles_entry["rebuild"] = {
         key: {k: rb[k] for k in ("n_tiles", "rebuild_ms",
                                  "stock_rebuild_ms", "rounds", "norm",
                                  "stock_norm", "norm_gap", "newton")}
         for key, rb in (("bench", rb_bench), ("naca", rb_naca))}
-    kernels[-3]["tile_inverses_per_step"] = {
+    tiles_entry["tile_inverses_per_step"] = {
         "projection (phase 5)": bench["branch"],
         "monolithic (phase 8)": mono["branch"],
         "monolithic (phase 22)": mono_graphs["branch"]}
+    next(k for k in kernels if k["name"] == "bj_gemm")["profiled_kernels"] = {
+        "bench": gemm_bench["profiled_kernels"],
+        "naca": rb_naca["products"]["profiled_kernels"]}
     # the exact tile inverse: launches on the main paths' exact steps
     # (phases 5, 8, 20, 25; per step also on phase 14's NACA sweep), phase
     # 29's figures (phase 5's end state; the NACA step's tiles beside)

@@ -4,24 +4,24 @@ versions.
 Each step rebuilds the F preconditioner's tile inverses
 (``ops/p1ell.block_jacobi_invert``): the tile diagonals of the BC-masked
 F, the Newton-Schulz guard, and ``iters`` Newton-Schulz updates from the
-static seed X0 (or, past the guard, cuSOLVER's exact inverse).  Three
-kernels of csrc/bj_tiles.cu do the rebuild's elementwise work, each in one
-pass over the tile stack; the products A X0, X (A X) and A X stay cuBLAS
-GEMMs in fp32 (``torch.matmul``):
+static seed X0 (or, past the guard, the exact inverse of
+``kernels/bj_inverse.py``).  The products A X0, X (A X) and A X are the
+batched GEMM of ``kernels/bj_gemm.py`` (csrc/bj_gemm.cu), whose epilogues
+carry the guard's row sums and the updates.  This module holds the rest:
 
 * ``tiles``: t = ((f * m_i) * m_j) + (sigma (1 - m_i)) * I, in f's dtype
   (fp32, or fp64 in float64 runs), rounded to fp32; f is scattered from
   the compact F values by the plan's (pos, src) pairs, sorted by pos, int32,
   with an offset per tile row (``plan_arrays``);
-* ``guard``: the max over every row of every tile of the row sum of
-  |I - A X0| in fp32, each row summed as a pairwise tree over its columns
-  in order (``guard_plain`` repeats the tree with strided adds), NaN
-  propagated, into a 0-d tensor on the device: two launches, the rows' sums
-  with each CTA's max, then the max of those;
-* ``update``: X <- 2 X - P for P = X (A X) from cuBLAS, fp32, in X's
-  layout (PyTorch's elementwise op keeps the seed's column-major layout, so
-  the GEMMs that follow see the operands they saw before); the last update
-  writes row-major in the tiles' dtype (fp32, bf16 under ``inner_bf16`` /
+* ``guard_max``: the max of the GEMM's guard partials (each CTA's max of
+  its rows' sums) into the 0-d norm on the device, NaN propagated;
+* ``guard_plain`` / ``update_plain``: the plain halves of the GEMM's guard
+  and update epilogues: the max over every row of every tile of the row
+  sum of |I - A X0| in fp32, each row summed as a pairwise tree over its
+  columns in order, NaN propagated; X <- 2 X - P in fp32 in X's layout
+  (PyTorch's elementwise op keeps the seed's column-major layout, so the
+  products that follow see the operands they saw before), the last update
+  row-major in the tiles' dtype (fp32, bf16 under ``inner_bf16`` /
   ``bj_bf16``, fp64 in float64 runs), into a given buffer where there is
   one (the captured step's tile inverses).
 
@@ -45,7 +45,6 @@ every replay (models/step_graphs.py).
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -58,8 +57,8 @@ from navierstokes_tpu_torch.kernels.launches import count
 class Counts:
     launches: int = 0            # kernel launches, all kernels
     plain_cuda_calls: int = 0    # plain versions called on CUDA tensors
-    # launches by (kernel, dtype): ("tiles", f's dtype), ("guard", fp32),
-    # ("guard_max", fp32), ("update", fp32), ("update_last", tiles' dtype)
+    # launches by (kernel, dtype): ("tiles", f's dtype), ("guard_max",
+    # fp32)
     by_variant: dict = dataclasses.field(default_factory=dict)
 
     def reset(self):
@@ -77,13 +76,6 @@ def _count(variant):
 
 # the tile sizes SB with an instantiation in csrc/bj_tiles.cu
 TILE_SIZES = (64, 128, 256, 512)
-# rows of tiles a CTA of the guard sums (8 warps, a row each at a time), and
-# its CTAs per SM at most
-GUARD_ROWS = 8
-GUARD_CTAS_PER_SM = 8
-# the last update's output dtype -> the entry's out_kind
-OUT_KINDS = {torch.float32: 1, torch.bfloat16: 2, torch.float64: 3}
-ALIGN = 16
 
 
 def plan_arrays(pos: np.ndarray, src: np.ndarray, n_rows: int, sb: int):
@@ -250,97 +242,21 @@ def tiles(plan, f_vals, mask_flat, sigma):
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device_index):
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def guard_grid(n_tiles, sb, device_index):
-    """The guard's CTAs: one per GUARD_ROWS rows, at most
-    GUARD_CTAS_PER_SM per SM."""
-    return max(1, min(-(-n_tiles * sb // GUARD_ROWS),
-                      GUARD_CTAS_PER_SM * _sms(device_index)))
-
-
-def guard(ax):
-    """The guard's norm of A X0 (see the module docstring), a 0-d fp32
-    tensor on ``ax``'s device: ``guard_plain`` on the CPU, csrc/bj_tiles.cu's
-    ``guard`` kernels on CUDA tensors."""
-    if not _is_device("bj_guard", ax):
-        return guard_plain(ax)
-    dev = ax.device
-    if ax.dtype != torch.float32:
-        raise TypeError(f"bj_guard: A X0 must be float32 (got {ax.dtype})")
-    if ax.dim() != 3 or ax.shape[0] == 0 or layout(ax) is not False:
-        raise ValueError(f"bj_guard: A X0 must be a non-empty row-major "
-                         f"stack of square tiles, got {tuple(ax.shape)} "
-                         f"strides {ax.stride()}")
-    n_tiles, sb = ax.shape[0], ax.shape[-1]
-    _sb_ok("bj_guard", sb)
-    if ax.data_ptr() % ALIGN:
-        raise ValueError("bj_guard: A X0 must be 16-byte aligned (the "
-                         "kernel's vector loads)")
-    grid = guard_grid(n_tiles, sb, dev.index)
-    partial = torch.empty(grid, dtype=torch.float32, device=dev)
-    norm = torch.empty((), dtype=torch.float32, device=dev)
-    _launch("bj_guard", "nst_bj_guard", dev,
-            [ax.data_ptr(), partial.data_ptr(), norm.data_ptr(), sb,
-             n_tiles, grid])
-    count(_count, ("guard", torch.float32))
+def guard_max(partials):
+    """The max of the fp32 ``partials`` (csrc/bj_gemm.cu's guard epilogue,
+    one per CTA) into a 0-d fp32 tensor on their device, NaN kept:
+    ``partials.max()`` on the CPU, csrc/bj_tiles.cu's ``bj_guard_max`` on
+    CUDA tensors."""
+    if not _is_device("bj_guard_max", partials):
+        _plain_call(partials)
+        return partials.max()
+    if (partials.dtype != torch.float32 or partials.dim() != 1
+            or partials.numel() == 0 or not partials.is_contiguous()):
+        raise ValueError(f"bj_guard_max: partials must be a non-empty "
+                         f"contiguous float32 vector (got "
+                         f"{tuple(partials.shape)} {partials.dtype})")
+    norm = torch.empty((), dtype=torch.float32, device=partials.device)
+    _launch("bj_guard_max", "nst_bj_guard_max", partials.device,
+            [partials.data_ptr(), partials.numel(), norm.data_ptr()])
     count(_count, ("guard_max", torch.float32))
     return norm
-
-
-def update(x, p, *, out_dtype=None, out=None):
-    """One Newton-Schulz update 2 x - p (see the module docstring):
-    ``update_plain`` on the CPU, csrc/bj_tiles.cu's ``update`` kernel on
-    CUDA tensors.  Without ``out_dtype`` and ``out``: fp32 in x's layout;
-    with either (the last update): row-major in that dtype, into ``out``
-    where given."""
-    if not _is_device("bj_update", x):
-        return update_plain(x, p, out_dtype=out_dtype, out=out)
-    dev = x.device
-    _check_cuda("bj_update", dev, (("p", p),) + ((("out", out),)
-                                                if out is not None else ()))
-    if x.dtype != torch.float32 or p.dtype != torch.float32:
-        raise TypeError(f"bj_update: x and p must be float32 (got {x.dtype}"
-                        f", {p.dtype})")
-    if x.shape != p.shape or x.dim() != 3 or x.shape[1] != x.shape[2]:
-        raise ValueError(f"bj_update: x {tuple(x.shape)} and p "
-                         f"{tuple(p.shape)} must be equal stacks of square "
-                         "tiles")
-    n_tiles, sb = x.shape[0], x.shape[-1]
-    _sb_ok("bj_update", sb)
-    x_col, p_col = layout(x), layout(p)
-    if x_col is None or p_col is None:
-        raise ValueError(f"bj_update: x and p must be row- or column-major "
-                         f"stacks of tiles (strides {x.stride()}, "
-                         f"{p.stride()})")
-    last = out is not None or out_dtype is not None
-    if out is not None:
-        if out_dtype is not None and out.dtype != out_dtype:
-            raise TypeError(f"bj_update: out is {out.dtype}, not "
-                            f"{out_dtype}")
-        if out.shape != x.shape or layout(out) is not False:
-            raise ValueError(f"bj_update: out must be a row-major "
-                             f"{tuple(x.shape)} stack (got "
-                             f"{tuple(out.shape)}, strides {out.stride()})")
-        if out.data_ptr() in (x.data_ptr(), p.data_ptr()):
-            raise ValueError("bj_update: out must not be x or p")
-    elif last:
-        out = torch.empty(x.shape, dtype=out_dtype, device=dev)
-    else:
-        out = torch.empty_strided(x.shape, x.stride(), dtype=torch.float32,
-                                  device=dev)
-    if last and out.dtype not in OUT_KINDS:
-        raise TypeError(f"bj_update: no last update into {out.dtype} "
-                        f"(float32, bfloat16 or float64)")
-    if n_tiles == 0:
-        return out
-    kind = OUT_KINDS[out.dtype] if last else 0
-    _launch("bj_update", "nst_bj_update", dev,
-            [x.data_ptr(), p.data_ptr(), out.data_ptr(), sb, n_tiles,
-             int(x_col), int(p_col), kind])
-    count(_count, ("update_last", out.dtype) if last
-          else ("update", torch.float32))
-    return out

@@ -85,15 +85,27 @@ def build_info() -> dict:
     lib.nst_bj_apply_f64.restype = i
     lib.nst_bj_apply_f64_setup.argtypes = [i, i, ctypes.POINTER(i)]
     lib.nst_bj_apply_f64_setup.restype = i
-    # the tile rebuild: the masked tiles, the guard, the Newton-Schulz update
+    # the tile rebuild: the masked tiles, the guard's max of its partials
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"nst_bj_tiles_{suffix}")
         fn.argtypes = [p] * 7 + [i, i, i, p]
         fn.restype = i
-    lib.nst_bj_guard.argtypes = [p, p, p, i, i, i, p]
-    lib.nst_bj_guard.restype = i
-    lib.nst_bj_update.argtypes = [p, p, p] + [i] * 5 + [p]
-    lib.nst_bj_update.restype = i
+    lib.nst_bj_guard_max.argtypes = [p, i, p, p]
+    lib.nst_bj_guard_max.restype = i
+    # the Newton-Schulz products: operands, output (partials), sb, n_tiles,
+    # the operands' layouts (update: out_kind, the out's tile and row
+    # strides), the stream
+    lib.nst_bj_gemm_product.argtypes = [p, p, p, i, i, i, i, p]
+    lib.nst_bj_gemm_product.restype = i
+    lib.nst_bj_gemm_guard.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.nst_bj_gemm_guard.restype = i
+    i64 = ctypes.c_longlong
+    lib.nst_bj_gemm_update.argtypes = [p, p, p, i, i, i, i, i, i64, i64, p]
+    lib.nst_bj_gemm_update.restype = i
+    lib.nst_bj_gemm_ctas.argtypes = [i, i]
+    lib.nst_bj_gemm_ctas.restype = i
+    lib.nst_bj_gemm_occupancy.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.nst_bj_gemm_occupancy.restype = i
     # the exact tile inverse: tiles, out, sb, n_tiles, out_kind, the out's
     # tile and row strides, the stream; the clusters the card holds at once
     lib.nst_bj_inverse.argtypes = [p, p, i, i, i, ctypes.c_longlong, i, p]

@@ -13,9 +13,11 @@ share segments (a) and (b):
 
     (a)  t_new, the F rebuild A0 + C(u_adv), sigma and the diagonal
          scaling, and under ``f_precond="bj"`` the tiles, A X0 and the
-         guard norm;
-    (b)  the Newton-Schulz tile inverses, or (b') the exact ones: the
-         guard, read once on the host after (a), picks one.
+         guard norm (the GEMM of kernels/bj_gemm.py with the guard in its
+         epilogue, its partials allocated at the warm-up);
+    (b)  the Newton-Schulz tile inverses (the GEMM's update and product
+         epilogues), or (b') the exact ones: the guard, read once on the
+         host after (a), picks one.
 
 ``ProjectionGraphs`` (``scheme="projection"``, plain version
 ``NavierStokes._step_projection``):
@@ -89,6 +91,7 @@ import time
 
 import torch
 
+from navierstokes_tpu_torch.kernels import bj_gemm
 from navierstokes_tpu_torch.kernels.launches import record_launches
 from navierstokes_tpu_torch.models.navier_stokes import (_ROW, _Span,
                                                          _StepInfo,
@@ -146,6 +149,7 @@ class _StepGraphs:
                                             else tally.numel()),
                                dtype=torch.float64, device=self.device)
         self.tiles = None
+        self.partials = None     # the guard's scratch (kernels/bj_gemm)
         self.graphs = {}
         self.replays = collections.Counter()
         self.ws = _Workspace()
@@ -210,7 +214,14 @@ class _StepGraphs:
                 ws.guard = block_jacobi_guard(
                     [(ns._bj_plan, ws.f_cell, ws.mflat, ws.sigma,
                       ns._bj_seed() if self.guarded else None)], iters,
-                    ns._tiles_dtype())
+                    ns._tiles_dtype(), partials=[partials()])
+
+        def partials():
+            if self.partials is None:       # the warm-up: allocate
+                plan = ns._bj_plan
+                self.partials = bj_gemm.guard_partials(
+                    plan.n_tiles, plan.S * plan.bu, self.device)
+            return self.partials
 
         def buffer():
             if self.tiles is None:          # the warm-up: allocate

@@ -12,9 +12,10 @@ on triangles and tetrahedra), in the compact SELL layout of
 * Block-Jacobi — the 256x256 tile diagonals of the BC-masked F, built
   per step from the compact F values by a static plan, inverted by
   Newton-Schulz from the static-operator seed with an exact-inverse
-  fallback (the tiles, the guard and the updates by the rebuild kernels of
-  ``kernels/bj_tiles.py``, the products by cuBLAS, the fallback on the
-  card by the Gauss-Jordan kernel of ``kernels/bj_inverse.py``), applied
+  fallback (the tiles by the rebuild kernel of ``kernels/bj_tiles.py``,
+  the products with the guard and the updates in their epilogues by the
+  GEMM of ``kernels/bj_gemm.py``, the fallback on the card by the
+  Gauss-Jordan kernel of ``kernels/bj_inverse.py``), applied
   by the tile-apply kernel (``kernels/bj_apply.py``; the reference's
   ILU(0) stand-in, src/NavierStokes.cpp:958).
 """
@@ -28,7 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from navierstokes_tpu_torch.kernels import bj_inverse, bj_tiles
+from navierstokes_tpu_torch.kernels import bj_gemm, bj_inverse, bj_tiles
 from navierstokes_tpu_torch.kernels.bj_apply import bj_apply
 from navierstokes_tpu_torch.kernels.sell_spmv import sell_spmv
 from navierstokes_tpu_torch.ops.sell import SellMatrix, sell_from_coo
@@ -233,9 +234,14 @@ def _inv_capturable(a):
 
 
 def block_jacobi_inverse(plan: BlockJacobiPlan, f_vals, mask_flat, sigma):
-    """Exact tile inverses (the Newton seed of block_jacobi_invert)."""
+    """Exact tile inverses (the Newton seed of block_jacobi_invert).  On the
+    card the seed is stored row-major (one copy, once per model), so that
+    the GEMM of kernels/bj_gemm.py reads the right operand of every
+    Newton-Schulz product along its rows; a product's bits do not depend
+    on its operands' layouts."""
     a = block_jacobi_tiles(plan, f_vals, mask_flat, sigma)
-    return _inv(a).to(f_vals.dtype)
+    x = _inv(a).to(f_vals.dtype)
+    return x.contiguous() if x.is_cuda else x
 
 
 # Exact tile inversions (``BJ_INVERSIONS["exact"]``): the model flags the
@@ -285,20 +291,28 @@ class BjGuard:
     out_dtype: torch.dtype
 
 
-def block_jacobi_guard(parts, iters: int = 3, out_dtype=None) -> BjGuard:
+def block_jacobi_guard(parts, iters: int = 3, out_dtype=None,
+                       partials=None) -> BjGuard:
     """The tiles of ``parts`` (as ``block_jacobi_invert_parts``), the seed
-    X0 in fp32, A X0 and the guard norm (kernels/bj_tiles.guard: each row
-    of I - A X0 summed as a pairwise tree, in fp32), all on the devices: no
-    host read.  ``out_dtype``: the inverses' dtype (default the first
-    part's F values')."""
+    X0 in fp32, A X0 and the guard norm (each row of I - A X0 summed as a
+    pairwise tree, in fp32), all on the devices: no host read.  On the card
+    A X0 and the norm are one launch of the GEMM's guard epilogue
+    (kernels/bj_gemm.guard) and the max of its partials; on the CPU
+    ``torch.matmul`` and ``bj_tiles.guard_plain``, the same bits as before
+    the GEMM.  ``out_dtype``: the inverses' dtype (default the first
+    part's F values'); ``partials``: the guard's scratch per part
+    (``bj_gemm.guard_partials``, the captured step's, allocated outside
+    the capture), allocated per call when None."""
     tiles = [block_jacobi_tiles(plan, f, m, s) for plan, f, m, s, _ in parts]
     out_dtype = parts[0][1].dtype if out_dtype is None else out_dtype
     x0s = [p[4] for p in parts]
     if x0s[0] is None or iters <= 0:
         return BjGuard(tiles, [], [], None, out_dtype)
     xs = [x0.to(torch.float32) for x0 in x0s]
-    axs = [torch.matmul(a, x) for a, x in zip(tiles, xs)]
-    norms = [bj_tiles.guard(ax) for ax in axs]
+    res = [bj_gemm.guard(a, x, None if partials is None else partials[k])
+           for k, (a, x) in enumerate(zip(tiles, xs))]
+    axs = [ax for ax, _ in res]
+    norms = [n for _, n in res]
     home = norms[0].device
     norm = (norms[0] if len(norms) == 1 else
             torch.stack([n.to(home) for n in norms]).max())
@@ -332,22 +346,23 @@ def block_jacobi_exact(g: BjGuard, out=None):
 
 def block_jacobi_newton(g: BjGuard, iters: int, out=None):
     """``iters`` Newton-Schulz steps X <- 2X - X (A X) from the seed (the
-    guard's main branch), each update one pass (kernels/bj_tiles.update)
-    beside cuBLAS's products.  The updates keep the seed's layout (an
-    exact inverse, column-major on the card), as PyTorch's elementwise ops
-    did, so the products see the same operands; the last writes row-major
-    in ``g.out_dtype``, into ``out[k]`` for part k where given (the
-    captured step's tile buffer)."""
+    guard's main branch).  On the card each step is one launch of the
+    GEMM's update epilogue (kernels/bj_gemm.update: X (A X) and 2X minus
+    it) and, between steps, one of its product epilogue (A X); on the CPU
+    ``torch.matmul`` and ``bj_tiles.update_plain``, the same bits as before
+    the GEMM.  The updates keep the seed's layout (row-major on the card,
+    ``block_jacobi_inverse``), as PyTorch's elementwise ops do; the last
+    writes row-major in ``g.out_dtype``, into ``out[k]`` for part k where
+    given (the captured step's tile buffer)."""
     res = []
     for k, (a, x, ax) in enumerate(zip(g.tiles, g.xs, g.axs)):
         for i in range(iters):
-            p = torch.matmul(x, ax)
             if i + 1 < iters:
-                x = bj_tiles.update(x, p)
-                ax = torch.matmul(a, x)
+                x = bj_gemm.update(x, ax)
+                ax = bj_gemm.product(a, x)
             else:
-                x = bj_tiles.update(x, p, out_dtype=g.out_dtype,
-                                    out=None if out is None else out[k])
+                x = bj_gemm.update(x, ax, out_dtype=g.out_dtype,
+                                   out=None if out is None else out[k])
         res.append(x)
     return res
 

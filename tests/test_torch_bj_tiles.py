@@ -1,5 +1,7 @@
 """The block-Jacobi tile rebuild of the port (``kernels/bj_tiles.py``; its
-CUDA kernels csrc/bj_tiles.cu run only on the card, see
+CUDA kernels csrc/bj_tiles.cu and the Newton-Schulz GEMM csrc/bj_gemm.cu,
+whose epilogue halves are ``guard_plain`` and ``update_plain``, run only on
+the card, see
 tests/test_torch_cuda.py) against the stock PyTorch chain it replaces and
 against the JAX package's ``navierstokes_tpu/ops/p1ell.py``
 ``block_jacobi_tiles`` / ``block_jacobi_invert``, on the CPU, at tiles of
@@ -274,20 +276,21 @@ def _stack(rng, n, SB, col):
 @pytest.mark.parametrize("x_col", [False, True])
 @pytest.mark.parametrize("p_col", [False, True])
 def test_update_equals_torch(SB, x_col, p_col):
-    """update(x, p) equals 2.0 * x - p bit for bit with its strides (x's
-    layout); the last update in fp32, bf16 and fp64 equals
+    """update_plain(x, p), the plain half of the GEMM's update epilogue
+    (kernels/bj_gemm.py), equals 2.0 * x - p bit for bit with its strides
+    (x's layout); the last update in fp32, bf16 and fp64 equals
     .to(dtype).contiguous(), allocated and into a given buffer."""
     rng = np.random.default_rng(SB + 2 * x_col + p_col)
     x, p = _stack(rng, 3, SB, x_col), _stack(rng, 3, SB, p_col)
     assert BT.layout(x) is x_col and BT.layout(p) is p_col
     want = 2.0 * x - p
-    got = BT.update(x, p)
+    got = BT.update_plain(x, p)
     assert _same_bits(got, want) and BT.layout(got) is x_col
     for dt in (torch.float32, torch.bfloat16, torch.float64):
         last = want.to(dt).contiguous()
-        assert _same_bits(BT.update(x, p, out_dtype=dt), last)
+        assert _same_bits(BT.update_plain(x, p, out_dtype=dt), last)
         buf = torch.full(x.shape, 7.0, dtype=dt)
-        out = BT.update(x, p, out_dtype=dt, out=buf)
+        out = BT.update_plain(x, p, out_dtype=dt, out=buf)
         assert out is buf and _same_bits(buf, last)
 
 

@@ -28,7 +28,9 @@ nested, no synchronising replay) and their predicate kernel against its
 plain version; the V-cycle's smoothing sweeps (csrc/vcycle.cu) against
 their plain versions bit for bit on both operator paths, the fused
 V-cycle against the plain one (also captured), and the steps that run
-it.
+it; the Newton-Schulz GEMM's epilogues (csrc/bj_gemm.cu) against their
+plain versions bit for bit, zero signs, NaN and batch independence
+included.
 Fixtures: the h=0.12 cylinder channel of tests/test_pallas_matvec.py;
 in 3D the h=0.15 square-column duct of tests/test_torch_3d.py.
 """
@@ -2109,67 +2111,154 @@ def test_bj_tiles_kernel_matches_plain_on_cuda(cuda, dtype, sb):
     assert bool(torch.isnan(t).any())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("sb", [64, 128, 256, 512])
-@pytest.mark.parametrize("case", ["finite", "nan", "one tile"])
-def test_bj_guard_kernel_matches_plain_on_cuda(cuda, sb, case):
-    """The guard's norm from the kernels equals the plain version's tree
-    bit for bit (a NaN where A X0 holds one), as a 0-d fp32 tensor on the
-    card; two launches counted."""
-    from navierstokes_tpu_torch.kernels import bj_tiles as BT
-    rng = np.random.default_rng(sb)
-    n = 1 if case == "one tile" else 37
-    ax = torch.as_tensor(np.eye(sb)[None] + 0.01 * rng.standard_normal(
-        (n, sb, sb)), dtype=torch.float32, device=cuda)
-    if case == "nan":
-        ax[n - 2, 5, 9] = float("nan")
-    BT.COUNTS.reset()
-    norm = BT.guard(ax)
-    assert norm.shape == () and norm.device == ax.device
-    assert BT.COUNTS.by_variant == {("guard", torch.float32): 1,
-                                    ("guard_max", torch.float32): 1}
-    want = BT.guard_plain(ax)
-    torch.cuda.synchronize()
-    assert _same_bits(norm, want)
-    assert bool(torch.isnan(norm)) == (case == "nan")
+def _bjg_stacks(sb, n, seed, dev, a_col=False, b_col=True):
+    """Seeded operand stacks as the rebuild gives them: A near a scaled
+    identity plus N(0, 1) / sqrt(SB), B an approximate inverse (fp32), each
+    in the layout asked (True: column-major tiles)."""
+    rng = np.random.default_rng(seed)
+    a = (np.eye(sb)[None] * (4.0 + rng.uniform(size=(n, sb, 1)))
+         + rng.standard_normal((n, sb, sb)) / np.sqrt(sb))
+    b = np.linalg.inv(a) + 1e-3 * rng.standard_normal((n, sb, sb))
 
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("sb", [64, 256, 512])
-@pytest.mark.parametrize("x_col", [False, True])
-@pytest.mark.parametrize("p_col", [False, True])
-def test_bj_update_kernel_matches_plain_on_cuda(cuda, sb, x_col, p_col):
-    """The update kernel equals 2.0 * x - p bit for bit with its strides
-    (x's layout); the last update in fp32, bf16 and fp64 equals
-    .to(dtype).contiguous(), allocated and into a given buffer."""
-    from navierstokes_tpu_torch.kernels import bj_tiles as BT
-    rng = np.random.default_rng(sb + 2 * x_col + p_col)
-
-    def stack(col):
-        t = torch.as_tensor(rng.standard_normal((5, sb, sb)),
-                            dtype=torch.float32, device=cuda)
+    def put(v, col):
+        t = torch.as_tensor(v, dtype=torch.float32, device=dev)
         return t.transpose(1, 2).contiguous().transpose(1, 2) if col else t
 
-    x, p = stack(x_col), stack(p_col)
+    return put(a, a_col), put(b, b_col)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sb", [64, 128, 256, 512])
+@pytest.mark.parametrize("n", [1, 7])
+@pytest.mark.parametrize("a_col", [False, True])
+@pytest.mark.parametrize("b_col", [False, True])
+def test_bj_gemm_epilogues_match_plain_on_cuda(cuda, sb, n, a_col, b_col):
+    """Every epilogue of csrc/bj_gemm.cu equals its plain version
+    (torch.matmul, then bj_tiles.guard_plain / update_plain) bit for bit,
+    for both layouts of both operands: the product; A X0 and the guard's
+    norm; the update in X's layout; the last update in fp32, bf16 and fp64,
+    allocated and into a slot of a larger buffer (strided tiles and rows).
+    The plain version runs on a batch of 7 tiles: at one tile cuBLAS takes
+    a split-K kernel whose sums differ from its own batched kernel's, which
+    the rebuild's stacks get (and the GEMM gives at every batch).  One
+    launch a call counted by epilogue, no plain call from the wrappers."""
+    from navierstokes_tpu_torch.kernels import bj_gemm as BG
+    from navierstokes_tpu_torch.kernels import bj_tiles as BT
+    a7, b7 = _bjg_stacks(sb, 7, sb + 2 * a_col + b_col, cuda, a_col, b_col)
+    a, b = a7[:n], b7[:n]
+    BG.COUNTS.reset()
     BT.COUNTS.reset()
-    got = BT.update(x, p)
-    assert _same_bits(got, BT.update_plain(x, p))
-    for dt in (torch.float32, torch.bfloat16, torch.float64):
-        want = BT.update_plain(x, p, out_dtype=dt)
-        assert _same_bits(BT.update(x, p, out_dtype=dt), want)
-        buf = torch.full(x.shape, 7.0, dtype=dt, device=cuda)
-        assert BT.update(x, p, out=buf) is buf and _same_bits(buf, want)
-    assert BT.COUNTS.by_variant[("update", torch.float32)] == 1
-    assert all(BT.COUNTS.by_variant[("update_last", dt)] == 2
-               for dt in (torch.float32, torch.bfloat16, torch.float64))
-    assert BT.COUNTS.plain_cuda_calls == 4        # the plain calls above
+    c = BG.product(a, b)
+    ax, norm = BG.guard(a, b)
+    y = BG.update(a, b)
+    lasts = {dt: BG.update(a, b, out_dtype=dt)
+             for dt in (torch.float32, torch.bfloat16, torch.float64)}
+    slots = {}
+    for dt in lasts:
+        big = torch.full((n, sb + 4, sb + 8), 7.0, dtype=dt, device=cuda)
+        slot = big[:, 2:2 + sb, :sb]
+        assert BG.update(a, b, out=slot) is slot
+        slots[dt] = big
+    assert BG.COUNTS.by_variant == {
+        ("product", torch.float32): 1, ("guard", torch.float32): 1,
+        ("update", torch.float32): 1, ("update_last", torch.float32): 2,
+        ("update_last", torch.bfloat16): 2, ("update_last", torch.float64): 2}
+    assert BG.COUNTS.plain_cuda_calls == 0
+    assert BT.COUNTS.by_variant == {("guard_max", torch.float32): 1}
+    want_ax = BG.product_plain(a7, b7)[:n]
+    assert _same_bits(c, want_ax) and _same_bits(ax, want_ax)
+    assert norm.shape == () and _same_bits(norm, BT.guard_plain(want_ax))
+    assert _same_bits(y, BG.update_product_plain(a7, b7)[:n])
+    assert BT.layout(y) is a_col
+    p7 = torch.matmul(a7, b7)
+    for dt, got in lasts.items():
+        want = BT.update_plain(a, p7[:n], out_dtype=dt)
+        assert _same_bits(got, want)
+        big = slots[dt]
+        assert _same_bits(big[:, 2:2 + sb, :sb].contiguous(), want)
+        rest = big.clone()
+        rest[:, 2:2 + sb, :sb] = 7.0
+        assert bool((rest == 7.0).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 132, 1760])
+def test_bj_gemm_batch_independent_on_cuda(cuda, n):
+    """At the bench tiles (256) a tile's product does not depend on the
+    batch: the first tile alone equals the batch's first, in every
+    epilogue; from 7 tiles on (cuBLAS's batched kernel) each epilogue
+    equals its plain version bit for bit."""
+    from navierstokes_tpu_torch.kernels import bj_gemm as BG
+    a, x = _bjg_stacks(256, n, n, cuda)
+    c = BG.product(a, x)
+    ax, norm = BG.guard(a, x)
+    y = BG.update(x, ax)
+    if n >= 7:
+        assert _same_bits(c, BG.product_plain(a, x))
+        assert _same_bits(norm, BG.guard_product_plain(a, x)[1])
+        assert _same_bits(y, BG.update_product_plain(x, ax))
+    assert _same_bits(BG.product(a[:1], x[:1]), c[:1])
+    assert _same_bits(BG.guard(a[:1], x[:1])[0], ax[:1])
+    assert _same_bits(BG.update(x[:1], ax[:1]), y[:1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sb", [64, 256])
+def test_bj_gemm_zero_sums_on_cuda(cuda, sb):
+    """Sums whose products are all zeros, -0 among them (a zero row of A
+    against a negative X, a -0 column of X), and sums whose every product
+    underflows below the smallest denormal on the negative side (a row of
+    1e-30 against a column of -1e-30) come out +0, as cuBLAS's do: the
+    GEMM adds a +0 to every sum at the end.  Every epilogue keeps its
+    plain version's bits, the sign of zero included."""
+    from navierstokes_tpu_torch.kernels import bj_gemm as BG
+    a, x = _bjg_stacks(sb, 7, 5 * sb, cuda, False, False)
+    a[:, 3, :] = 0.0
+    a[:, 9, : sb // 2] = -0.0
+    x[:, :, 5] = -x[:, :, 5].abs()
+    x[:, :, 11] = -0.0
+    a[:, 13, :] = 1e-30
+    x[:, :, 7] = -1e-30
+    c = BG.product(a, x)
+    want = BG.product_plain(a, x)
+    torch.cuda.synchronize()
+    assert _same_bits(c, want)
+    assert float(c[0, 13, 7]) == 0.0
+    assert not bool(torch.signbit(c[:, 3, 5]).any())
+    assert not bool(torch.signbit(c[:, 13, 7]).any())
+    assert _same_bits(BG.update(x, c), BG.update_product_plain(x, c))
+    assert _same_bits(BG.guard(a, x)[0], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sb", [64, 128, 256, 512])
+def test_bj_gemm_guard_propagates_nan_on_cuda(cuda, sb):
+    """A NaN in one tile of A makes the guard's norm NaN, as its plain
+    version's, whichever CTA holds it; the partials given are reused, one
+    a CTA of the kernel's grid (the wrapper's mirror of its tiling)."""
+    from navierstokes_tpu_torch.kernels import bj_gemm as BG
+    from navierstokes_tpu_torch.kernels.build import library
+    assert BG.ctas(7, sb) == library().nst_bj_gemm_ctas(sb, 7)
+    a, x = _bjg_stacks(sb, 7, 3 * sb, cuda)
+    parts = BG.guard_partials(7, sb, cuda)
+    clean = BG.guard(a, x, parts)[1]
+    a[3, sb - 1, 2] = float("nan")
+    ax, norm = BG.guard(a, x, parts)
+    want_ax, want = BG.guard_product_plain(a, x)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(clean)) and bool(torch.isnan(norm))
+    assert _same_bits(norm, want) and _same_bits(ax, want_ax)
 
 
 @pytest.mark.cuda
 def test_bj_rebuild_captured_equals_eager_on_cuda(cuda):
-    """The rebuild (tiles, A X0, guard, 3 Newton-Schulz updates into a
-    static buffer) captured in a CUDA graph equals the eager calls bit for
-    bit, and a replay adds the graph's recorded launches to the counts."""
+    """The rebuild (tiles, A X0 and the guard, 3 Newton-Schulz updates with
+    the products between them, the last into a static buffer) captured in
+    a CUDA graph equals the eager calls bit for bit, and a replay adds the
+    graph's recorded launches to the counts."""
+    from navierstokes_tpu_torch.kernels import bj_gemm as BG
     from navierstokes_tpu_torch.kernels import bj_tiles as BT
     from navierstokes_tpu_torch.kernels.launches import record_launches
     sb = 256
@@ -2200,37 +2289,45 @@ def test_bj_rebuild_captured_equals_eager_on_cuda(cuda):
         norm_g = rebuild(buf)
     buf.zero_()
     BT.COUNTS.reset()
+    BG.COUNTS.reset()
     graph.replay()
     rec.replay()
     torch.cuda.synchronize()
     assert float(norm_e) < TP.GUARD_LIMIT
     assert _same_bits(norm_g, norm_e) and _same_bits(buf, eager)
-    assert BT.COUNTS.by_variant == {
-        ("tiles", torch.float32): 1, ("guard", torch.float32): 1,
-        ("guard_max", torch.float32): 1, ("update", torch.float32): 2,
-        ("update_last", torch.float32): 1}
-    assert BT.COUNTS.plain_cuda_calls == 0
+    assert BT.COUNTS.by_variant == {("tiles", torch.float32): 1,
+                                    ("guard_max", torch.float32): 1}
+    assert BG.COUNTS.by_variant == {
+        ("guard", torch.float32): 1, ("update", torch.float32): 2,
+        ("product", torch.float32): 2, ("update_last", torch.float32): 1}
+    assert BT.COUNTS.plain_cuda_calls == BG.COUNTS.plain_cuda_calls == 0
 
 
 @pytest.mark.cuda
 def test_bj_rebuild_kernels_refuse_what_they_do_not_take(cuda):
+    from navierstokes_tpu_torch.kernels import bj_gemm as BG
     from navierstokes_tpu_torch.kernels import bj_tiles as BT
     plan, v, mask = _bjt_plan(cuda, 64)
     vals = torch.as_tensor(v, dtype=torch.float32, device=cuda)
     with pytest.raises(TypeError, match="mask"):
         BT.tiles(plan, vals, torch.as_tensor(mask, device=cuda), 1.0)
     ax = torch.zeros(2, 64, 64, device=cuda)
-    with pytest.raises(ValueError, match="row-major"):
-        BT.guard(ax.transpose(1, 2))
-    with pytest.raises(TypeError):
-        BT.guard(ax.double())
+    with pytest.raises(TypeError, match="float32"):
+        BG.guard(ax.double(), ax.double())
+    big = torch.zeros(2, 96, 96, device=cuda)
     with pytest.raises(ValueError, match="no instantiation"):
-        BT.guard(torch.zeros(2, 96, 96, device=cuda))
+        BG.product(big, big)
     wide = torch.zeros(2, 64, 128, device=cuda)[:, :, :64]
     with pytest.raises(ValueError, match="row- or column-major"):
-        BT.update(wide, wide)
+        BG.update(wide, wide)
     with pytest.raises(ValueError, match="row-major"):
-        BT.update(ax, ax, out=torch.empty_like(ax).transpose(1, 2))
+        BG.update(ax, ax, out=torch.empty_like(ax).transpose(1, 2))
+    with pytest.raises(ValueError, match="operands on"):
+        BG.product(ax, ax.cpu())
+    with pytest.raises(ValueError, match="partials"):
+        BG.guard(ax, ax, torch.empty(1, device=cuda))
+    with pytest.raises(ValueError, match="partials"):
+        BT.guard_max(torch.empty(0, device=cuda))
 
 
 @pytest.mark.cuda
@@ -2242,9 +2339,11 @@ def test_steps_rebuild_tiles_through_the_kernels_on_cuda(cuda, tmp_path,
                                                          fields):
     """Captured and eager steps rebuild their tiles through the kernels
     with the same launches per step: one tiles launch, and with a seed the
-    guard's two and, on each Newton-Schulz step, bj_newton - 1 updates and
-    one last update in the tiles' dtype; no plain call; equal bits and the
-    same branch per step."""
+    GEMM's guard epilogue and its max and, on each Newton-Schulz step,
+    bj_newton - 1 updates and as many products and one last update in the
+    tiles' dtype; no plain call; equal bits and the same branch per
+    step."""
+    from navierstokes_tpu_torch.kernels import bj_gemm as BG
     from navierstokes_tpu_torch.kernels import bj_tiles as BT
     runs = []
     for mode in ("eager", "captured"):
@@ -2253,9 +2352,11 @@ def test_steps_rebuild_tiles_through_the_kernels_on_cuda(cuda, tmp_path,
             ns.capture_graphs()
         ns._bj_seed()       # the static seed (one more tiles launch), once
         BT.COUNTS.reset()
+        BG.COUNTS.reset()
         ms = [ns.solve_time_step(_eager=mode == "eager") for _ in range(3)]
         torch.cuda.synchronize()
-        runs.append((dict(BT.COUNTS.by_variant), BT.COUNTS.plain_cuda_calls,
+        runs.append(({**BT.COUNTS.by_variant, **BG.COUNTS.by_variant},
+                     BT.COUNTS.plain_cuda_calls + BG.COUNTS.plain_cuda_calls,
                      [m.exact_inverse for m in ms], ns._u.clone()))
     (c_e, pl_e, ex_e, u_e), (c_g, pl_g, ex_g, u_g) = runs
     assert c_e == c_g and pl_e == pl_g == 0 and ex_e == ex_g
@@ -2270,6 +2371,7 @@ def test_steps_rebuild_tiles_through_the_kernels_on_cuda(cuda, tmp_path,
                      ("guard_max", torch.float32): 3})
     if newton:
         want.update({("update", torch.float32): (iters - 1) * newton,
+                     ("product", torch.float32): (iters - 1) * newton,
                      ("update_last", want_dt): newton})
     assert c_e == want
 

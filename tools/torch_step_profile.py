@@ -53,7 +53,9 @@ It prints, for the case:
 * a ``torch.profiler`` trace of ``--profile-steps`` further steps: the
   device time per step (kernels, copies and memsets), its share of the
   unprofiled step time, the SpMV kernels' part of it, calls and ms per
-  step by kernel kind (``KINDS``: the tile rebuild's kernels, the exact
+  step by kernel kind (``KINDS``: the Newton-Schulz GEMM of
+  csrc/bj_gemm.cu ahead of the library GEMMs, the tile rebuild's other
+  kernels, the exact
   tile inverse (csrc/bj_inverse.cu; a parent's cuSOLVER kernels), the V-cycle's
   sweeps or stages, SpMV, tile apply, the Krylov updates, Gram-Schmidt,
   dots, GEMMs, elementwise,
@@ -170,7 +172,9 @@ def time_ms(fn, cold, n=30):
 
 # kernel kinds of the profiled split, by a part of the kernel's name (the
 # first that matches)
-KINDS = (("tile rebuild", ("bj_tiles_kernel", "bj_guard_rows", "bj_guard_max",
+KINDS = (("Newton-Schulz GEMM", ("bj_gemm_kernel",)),
+         # bj_guard_rows, bj_update_kernel: a parent tree's standalone passes
+         ("tile rebuild", ("bj_tiles_kernel", "bj_guard_rows", "bj_guard_max",
                            "bj_update_kernel")),
          ("exact tile inverse", ("bj_inverse_kernel",)),
          ("cuSOLVER", ("getrf", "getrs", "getri", "laswp", "trsm_",
